@@ -1,14 +1,18 @@
-"""Model building and the serving shell.
+"""Model building and the model shell.
 
 Port of ``antmmf_tpu/models/base_model.py:61-190``: ``build_model`` resolves
 ``model_attributes.<name>`` through the registry, builds the module on its
-device and wraps it in a ``ModelShell``. The serving shell runs the forward
-under ``torch.inference_mode``; losses and metrics belong to later slices.
+device and wraps it in a ``ModelShell``. ``apply`` is the online-serving
+forward (under ``torch.inference_mode``, losses dropped); ``loss_fn`` is the
+training surface: the total is the sum of the means of the model's losses,
+with ``losses/*`` and ``total_loss`` scalars. Config-declared losses (the
+registry's ``Losses``) raise until they are ported; config metrics belong
+to the trainer (slice 3) and are not read here.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -29,7 +33,7 @@ def resolve_device(device: Optional[str] = None) -> torch.device:
 
 
 class ModelShell:
-    """A built model on its device, with the serving forward."""
+    """A built model on its device, with the serving forward and the loss."""
 
     def __init__(self, module: nn.Module, device: torch.device):
         self.module = module.eval()
@@ -39,11 +43,29 @@ class ModelShell:
         """Seeded random weights (flax's default initializers)."""
         init_weights(self.module, torch.Generator().manual_seed(seed))
 
+    def to_device(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+        """A batch of arrays (numpy or tensors) as tensors on the device."""
+        return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+
     def apply(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-        """Forward on a batch of arrays (numpy or tensors), moved to the device."""
-        tensors = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+        """Serving forward on a batch moved to the device; as the JAX online-
+        serving shell, the model's losses are dropped."""
         with torch.inference_mode():
-            return dict(self.module(tensors))
+            out = dict(self.module(self.to_device(batch)))
+        out.pop("losses", None)
+        return out
+
+    def loss_fn(self, batch: Mapping[str, Any], deterministic: bool = False
+                ) -> Tuple[torch.Tensor, Tuple[Dict[str, Any], Dict[str, torch.Tensor]]]:
+        """(total, (output, scalars)) with gradients enabled: total is the sum
+        of the means of ``output["losses"]``."""
+        output = dict(self.module(self.to_device(batch), deterministic=deterministic))
+        losses = output.get("losses", {})
+        total = (sum(v.mean() for v in losses.values()) if losses
+                 else torch.zeros((), device=self.device))
+        scalars = {f"losses/{k}": v.detach().mean() for k, v in losses.items()}
+        scalars["total_loss"] = total.detach()
+        return total, (output, scalars)
 
 
 def build_model(config: Mapping[str, Any], model_name: Optional[str] = None,
@@ -61,6 +83,9 @@ def build_model(config: Mapping[str, Any], model_name: Optional[str] = None,
                 f"model_name required when model_attributes has {len(names)} entries")
         model_name = names[0]
     model_config = attributes.get(model_name, {}).to_dict()
+    if model_config.get("losses"):
+        raise NotImplementedError("config-declared losses are not ported yet; the model's "
+                                  "own losses are")
     # training_parameters.dtype_policy.compute is the default compute dtype
     # when the model config pins none
     policy_dtype = config.get_dotted("training_parameters.dtype_policy.compute")

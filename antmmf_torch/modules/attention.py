@@ -1,15 +1,20 @@
-"""Multi-head attention with its core routed to the hand-written kernel.
+"""Multi-head attention with its core routed to the hand-written kernels.
 
 Port of ``antmmf_tpu/modules/attention.py`` (``xla_attention_core``,
 ``attention_core`` and ``MultiHeadAttention`` on the plain self-attention
-branch). Routing is by the bias's structure alone: with no bias or a
-key-padding bias [B, 1, 1, Lk], attention goes to ``ops.small_attention``
-(the CUDA kernel on the card, its plain version on the CPU), which raises on
-a dtype, head width or length it does not take (L > 256, e.g. ViT-L/14 at
-224², waits for a kernel; see ROADMAP). Query- or head-dependent biases use
-the einsum core, as the JAX router sends such biases to its XLA core. Decode
-caches, ``cached_kv``, sequence parallelism and ``sow_attention`` are not
-ported.
+branch). Routing is by structure alone:
+
+* no bias or a key-padding bias [B, 1, 1, Lk], self-attention at L <= 256:
+  ``ops.small_attention`` (kernel K1);
+* the same biases past 256 tokens, or Lq ≠ Lk: ``ops.flash_attention`` (the
+  flash forward, dQ and dK/dV kernels);
+* query- or head-dependent biases: the einsum core, as the JAX router sends
+  such biases to its XLA core.
+
+Both kernel ops are autograd Functions. On the CPU they compute their plain
+versions; on the card a dtype or head width a kernel does not take raises
+and never falls back to the einsum core. Decode caches, ``cached_kv``,
+sequence parallelism and ``sow_attention`` are not ported.
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from antmmf_torch.ops.small_attention import einsum_attention, small_attention
+from antmmf_torch.ops.flash_attention import flash_attention
+from antmmf_torch.ops.small_attention import MAX_L, einsum_attention, small_attention
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -27,7 +33,9 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: Optional[float] = None) -> torch.Tensor:
     if bias is not None and bias.dim() == 4 and (bias.shape[1] > 1 or bias.shape[2] > 1):
         return einsum_attention(q, k, v, bias=bias, scale=scale)
-    return small_attention(q, k, v, bias=bias, scale=scale)
+    if q.shape[2] == k.shape[2] <= MAX_L:
+        return small_attention(q, k, v, bias=bias, scale=scale)
+    return flash_attention(q, k, v, bias=bias, scale=scale)
 
 
 class MultiHeadAttention(nn.Module):
@@ -51,7 +59,7 @@ class MultiHeadAttention(nn.Module):
         H = self.num_heads
 
         def heads(t: torch.Tensor) -> torch.Tensor:
-            # a strided [B, H, L, D] view of [B, L, H, D]: the kernel reads it
+            # a strided [B, H, L, D] view of [B, L, H, D]: the kernels read it
             # in place, without a transposed copy
             return t.view(B, L, H, C // H).transpose(1, 2)
 

@@ -42,13 +42,15 @@ class TransformerLayer(nn.Module):
 
 class TransformerEncoder(nn.Module):
     """``num_layers`` layers named ``layer_{i}``; a final LayerNorm in pre-LN
-    style; with ``token_merge_r`` > 0, ToMe merges r tokens after every layer
-    but the last."""
+    style unless ``final_norm`` is off (post-LN stacks never have one); with
+    ``token_merge_r`` > 0, ToMe merges r tokens after every layer but the
+    last."""
 
     def __init__(self, dim: int, num_layers: int, num_heads: int,
                  mlp_ratio: float = 4.0, activation: str = "gelu",
                  norm_style: str = "pre", layer_norm_eps: float = 1e-5,
-                 token_merge_r: int = 0, dtype=torch.bfloat16, device=None):
+                 token_merge_r: int = 0, final_norm: bool = True,
+                 dtype=torch.bfloat16, device=None):
         super().__init__()
         self.num_layers = num_layers
         self.token_merge_r = token_merge_r
@@ -57,7 +59,7 @@ class TransformerEncoder(nn.Module):
                 dim, num_heads, mlp_ratio, activation, norm_style, layer_norm_eps,
                 dtype, device))
         self.final_norm = (LayerNorm(dim, layer_norm_eps, dtype, device)
-                           if norm_style == "pre" else None)
+                           if final_norm and norm_style == "pre" else None)
 
     def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.token_merge_r > 0:

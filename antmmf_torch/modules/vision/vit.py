@@ -34,7 +34,7 @@ class VisionTransformer(nn.Module):
         self.pre_norm = LayerNorm(embed_dim, 1e-5, dtype, device)
         self.encoder = TransformerEncoder(
             embed_dim, num_layers, num_heads, 4.0, "quick_gelu", "pre", 1e-5,
-            token_merge_r, dtype, device)
+            token_merge_r, dtype=dtype, device=device)
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """images float[B, H, W, 3] → dict(sequence [B, N, C], pooled [B, C])."""

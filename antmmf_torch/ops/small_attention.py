@@ -12,9 +12,12 @@ row whose keys are all masked with ``finfo(float32).min`` averages uniformly.
 (The Pallas kernel pads L to a multiple of 8 and gives the padded keys bias 0
 when ``bias`` is None; the port does not copy that.)
 
-``small_attention`` launches the kernel for CUDA tensors and raises on what it
-does not take; for CPU tensors it computes ``plain_small_attention``, the plain
-PyTorch version the tests and ``chip_smoke.py`` hold the kernel against.
+``small_attention`` is a ``torch.autograd.Function``, as the JAX op is a
+``custom_vjp``: its forward launches the kernel for CUDA tensors (and raises
+on what the kernel does not take) or computes ``plain_small_attention`` for
+CPU tensors; its backward is the JAX package's own, plain fp32 tensor ops
+that recompute the probabilities (``small_attention.py:81-95`` there), on
+both devices, since the JAX package has no kernel for it.
 """
 
 from __future__ import annotations
@@ -27,14 +30,15 @@ MAX_L = 256
 HEAD_DIMS = (32, 64, 128)
 
 
-def _key_bias(bias: Optional[torch.Tensor], B: int, L: int) -> Optional[torch.Tensor]:
+def key_bias(bias: Optional[torch.Tensor], B: int, L: int,
+             op: str = "small_attention") -> Optional[torch.Tensor]:
     """[B, 1, 1, L] or [B, L] additive key bias → [B, L]; anything else raises."""
     if bias is None:
         return None
     if bias.dim() == 4 and bias.shape[1:3] == (1, 1):
         bias = bias.reshape(bias.shape[0], bias.shape[3])
     if bias.dim() != 2 or tuple(bias.shape) != (B, L):
-        raise ValueError(f"small_attention takes a key bias [B, 1, 1, L] or [B, L] "
+        raise ValueError(f"{op} takes a key bias [B, 1, 1, L] or [B, L] "
                          f"with B={B}, L={L}; got {tuple(bias.shape)}")
     return bias
 
@@ -59,7 +63,7 @@ def plain_small_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Plain version of the kernel: its key-bias contract, ``einsum_attention``'s
     arithmetic."""
     B, H, L, D = q.shape
-    kb = _key_bias(bias, B, L)
+    kb = key_bias(bias, B, L)
     return einsum_attention(q, k, v, None if kb is None else kb[:, None, None, :], scale)
 
 
@@ -101,26 +105,13 @@ def _check_cuda(q, k, v, kb) -> None:
                          "float32 tensor on q's device")
 
 
-def small_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    bias: Optional[torch.Tensor] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """softmax(q·kᵀ·scale + key bias)·v over q/k/v [B, H, L, D].
-
-    Shapes and dtypes outside the kernel's contract raise on every device.
-    CPU tensors then take ``plain_small_attention``; CUDA tensors launch the
-    kernel on the current stream, or raise. The kernel also refuses, with
-    CUDA's invalid-argument error, a head whose K and V do not fit in one
-    block's shared memory (float32 at D=128 and L near MAX_L); the CUDA
-    source owns that layout. Inputs may be strided views (the [B, L, H, D] → [B, H, L, D]
-    transpose of a projection); the output has the same layout as ``q``.
-    ``small_attention.launches`` counts the kernel's launches."""
-    _check_contract(q, k, v)
-    B, H, L, D = q.shape
-    kb = _key_bias(bias, B, L)
+def _forward(q, k, v, kb, scale: float) -> torch.Tensor:
+    """The kernel for CUDA tensors (counted in ``small_attention.launches``),
+    ``plain_small_attention`` for CPU tensors."""
     if q.device.type == "cpu":
-        return plain_small_attention(q, k, v, bias, scale)
+        return plain_small_attention(q, k, v, kb, scale)
     _check_cuda(q, k, v, kb)
-    scale = scale if scale is not None else D ** -0.5
+    B, H, L, D = q.shape
     out = torch.empty_like(q)  # keeps q's stride layout
     from antmmf_torch.ops import _build
 
@@ -136,6 +127,59 @@ def small_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"({lib.antmmf_cuda_error_string(rc).decode()})")
     small_attention.launches += 1
     return out
+
+
+def small_attention_backward(q, k, v, kb, g, scale: float):
+    """The JAX op's backward (``_vjp_bwd``): fp32 scores recomputed from
+    q, k and the key bias, softmax, then dq, dk, dv in fp32, cast back to the
+    inputs' dtypes. The bias gets no gradient."""
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    s = torch.einsum("bhld,bhmd->bhlm", qf, kf) * scale
+    if kb is not None:
+        s = s + kb[:, None, None, :]
+    p = torch.softmax(s, dim=-1)
+    dv = torch.einsum("bhlm,bhld->bhmd", p, gf)
+    dp = torch.einsum("bhld,bhmd->bhlm", gf, vf)
+    tmp = (dp - (dp * p).sum(dim=-1, keepdim=True)) * p
+    dq = torch.einsum("bhlm,bhmd->bhld", tmp, kf) * scale
+    dk = torch.einsum("bhlm,bhld->bhmd", tmp, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class SmallAttention(torch.autograd.Function):
+    """Forward through the kernel (or its plain version on the CPU),
+    backward as the JAX op's ``custom_vjp``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kb, scale):
+        ctx.save_for_backward(q, k, v, kb)
+        ctx.scale = scale
+        return _forward(q, k, v, kb, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kb = ctx.saved_tensors
+        return (*small_attention_backward(q, k, v, kb, g, ctx.scale), None, None)
+
+
+def small_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """softmax(q·kᵀ·scale + key bias)·v over q/k/v [B, H, L, D], differentiable
+    in q, k and v.
+
+    Shapes and dtypes outside the kernel's contract raise on every device.
+    CPU tensors then take ``plain_small_attention``; CUDA tensors launch the
+    kernel on the current stream, or raise. The kernel also refuses, with
+    CUDA's invalid-argument error, a head whose K and V do not fit in one
+    block's shared memory (float32 at D=128 and L near MAX_L); the CUDA
+    source owns that layout. Inputs may be strided views (the [B, L, H, D] → [B, H, L, D]
+    transpose of a projection); the output has the same layout as ``q``.
+    ``small_attention.launches`` counts the kernel's launches."""
+    _check_contract(q, k, v)
+    B, H, L, D = q.shape
+    kb = key_bias(bias, B, L)
+    return SmallAttention.apply(q, k, v, kb, scale if scale is not None else D ** -0.5)
 
 
 small_attention.launches = 0

@@ -12,7 +12,11 @@ layer_0.attention.q_proj``), so the carry is a name map plus transposes:
 
 A missing or unused key, or a shape mismatch, raises. ``params.npz`` files
 hold the flax leaves under ``/``-joined paths; they are the port's
-``model_dir`` format.
+``model_dir`` format. ``flax_to_masters`` gives the same carry as fp32
+tensors by parameter name, the master parameters a ``TrainState`` trains
+(the JAX package keeps fp32 params and casts at use); ``flax_paths`` is the
+inverse name map, which the optimizer's weight-decay and lr-multiplier
+patterns match against.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from antmmf_torch.modules.layers import LayerNorm
 
 
 def flatten_flax(params: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -51,10 +57,24 @@ def _to_torch_layout(flax_path: str, value: np.ndarray) -> np.ndarray:
     return value
 
 
-def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> None:
-    """Copy flax ``variables["params"]`` (nested dict, or flat ``/``-joined
-    keys) into ``model``'s parameters, casting to each parameter's dtype and
-    device."""
+def flax_paths(model: nn.Module) -> Dict[str, str]:
+    """Each parameter's name → its flax path (``a/b/kernel``)."""
+    leaves = {nn.Linear: {"weight": "kernel", "bias": "bias"},
+              nn.Embedding: {"weight": "embedding"},
+              LayerNorm: {"weight": "LayerNorm_0/scale", "bias": "LayerNorm_0/bias"}}
+    paths = {}
+    for mod_name, mod in model.named_modules():
+        rename = leaves.get(type(mod), {})
+        for pname, _ in mod.named_parameters(recurse=False):
+            name = f"{mod_name}.{pname}" if mod_name else pname
+            paths[name] = "/".join(filter(None, [mod_name.replace(".", "/"),
+                                                 rename.get(pname, pname)]))
+    return paths
+
+
+def flax_to_masters(model: nn.Module, params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``variables["params"]`` (nested dict, or flat ``/``-joined keys)
+    → fp32 CPU tensors by ``model``'s parameter names, in its layouts."""
     flat = flatten_flax(params)
     targets = dict(model.named_parameters())
     mapped = {_torch_name(path): path for path in flat}
@@ -63,14 +83,24 @@ def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> None:
     if unused or missing:
         raise KeyError(f"flax params do not match the model: unused {unused[:8]}, "
                        f"missing {missing[:8]}")
+    masters = {}
+    for name, param in targets.items():
+        path = mapped[name]
+        value = _to_torch_layout(path, flat[path])
+        if tuple(value.shape) != tuple(param.shape):
+            raise ValueError(f"{path}: shape {value.shape} does not fit {name} "
+                             f"{tuple(param.shape)}")
+        masters[name] = torch.from_numpy(np.array(value, dtype=np.float32))
+    return masters
+
+
+def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> None:
+    """Copy flax ``variables["params"]`` into ``model``'s parameters, casting
+    to each parameter's dtype and device."""
+    masters = flax_to_masters(model, params)
     with torch.no_grad():
-        for name, param in targets.items():
-            path = mapped[name]
-            value = _to_torch_layout(path, flat[path])
-            if tuple(value.shape) != tuple(param.shape):
-                raise ValueError(f"{path}: shape {value.shape} does not fit {name} "
-                                 f"{tuple(param.shape)}")
-            param.copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
+        for name, param in model.named_parameters():
+            param.copy_(masters[name])
 
 
 def load_params_npz(model: nn.Module, path: str) -> None:

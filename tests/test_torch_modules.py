@@ -147,19 +147,20 @@ def test_query_dependent_bias_takes_the_einsum_core():
 @pytest.mark.parametrize("L,D,dtype,bias_kind", [
     (50, 64, torch.float16, None),
     (30, 48, torch.float32, "pad"),
-    (257, 64, torch.bfloat16, None),
+    (257, 48, torch.bfloat16, None),
+    (300, 64, torch.float16, "pad"),
 ])
 def test_key_bias_attention_never_takes_the_einsum_core(L, D, dtype, bias_kind, monkeypatch):
-    """A shape or dtype the kernel does not take reaches the kernel's wrapper,
-    which refuses it; the einsum core is kept for query- or head-dependent
-    biases only."""
+    """A shape or dtype the kernels do not take reaches a kernel's wrapper
+    (small attention to L = 256, flash beyond), which refuses it; the einsum
+    core is kept for query- or head-dependent biases only."""
     def einsum_attention(*args, **kwargs):
         raise AssertionError("a key-bias attention took the einsum core")
 
     monkeypatch.setattr(t_attention, "einsum_attention", einsum_attention)
     q = torch.zeros(2, 2, L, D, dtype=dtype)
     bias = _bias(bias_kind, 2, L, np.random.default_rng(8))
-    with pytest.raises(ValueError, match="small_attention takes"):
+    with pytest.raises(ValueError, match="(small|flash)_attention takes"):
         t_attention.attention_core(q, q, q, None if bias is None else torch.from_numpy(bias))
 
 

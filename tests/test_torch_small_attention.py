@@ -131,3 +131,67 @@ def test_query_or_head_biases_are_refused(bias_shape):
     q = torch.zeros(2, 3, 50, 32)
     with pytest.raises(ValueError, match="key bias"):
         port.small_attention(q, q, q, torch.zeros(bias_shape))
+
+
+def _grads(fn, q, k, v, w):
+    """Output and q/k/v gradients of sum(fn(q, k, v) * w) in JAX."""
+    import jax
+
+    def loss(q, k, v):
+        out = fn(q, k, v)
+        return jnp.sum(out * w), out
+
+    (_, out), grads = jax.jit(jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True))(
+        *(jnp.asarray(x) for x in (q, k, v)))
+    return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+@pytest.mark.parametrize("bias_kind", ["pad", "tome"])
+@pytest.mark.parametrize("L", [50, 13])
+def test_function_gradients_match_jax(L, bias_kind, monkeypatch):
+    """The autograd Function (plain forward on the CPU, the JAX op's own
+    backward) against ``jax.grad`` of the Pallas ``small_attention`` in
+    interpret mode and of ``xla_attention_core``, at atol 3e-4 on the
+    gradients (the bound of tests/test_flash_attention.py). An explicit key
+    bias keeps the Pallas kernel's padding masked (see ROADMAP's reference
+    defects for ``bias=None``)."""
+    from jax.experimental import pallas as pl
+
+    import antmmf_tpu.ops.pallas.small_attention as sa
+
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+    q, k, v, bias = _inputs(L, bias_kind, seed=5)
+    w = np.random.default_rng(6).standard_normal(q.shape).astype(np.float32)
+    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    out = port.small_attention(tq, tk, tv, torch.from_numpy(bias))
+    assert out.grad_fn is not None
+    (out * torch.from_numpy(w)).sum().backward()
+    for fn in (lambda q, k, v: sa.small_attention(q, k, v, bias=jnp.asarray(bias)),
+               lambda q, k, v: xla_attention_core(q, k, v, jnp.asarray(bias))):
+        ref_out, ref_grads = _grads(fn, q, k, v, w)
+        np.testing.assert_allclose(out.detach().numpy(), ref_out, atol=ATOL)
+        for t, g, name in zip((tq, tk, tv), ref_grads, "qkv"):
+            np.testing.assert_allclose(t.grad.numpy(), g, atol=3e-4, err_msg=f"d{name}")
+
+
+def test_backward_is_the_jax_formula_in_bf16():
+    """In bf16 the backward computes in fp32 from the bf16 inputs and casts
+    each gradient back, as the JAX ``_vjp_bwd`` does (atol 2e-2: one bf16
+    rounding of each gradient)."""
+    q, k, v, bias = _inputs(30, "pad", seed=7)
+    w = np.random.default_rng(8).standard_normal(q.shape).astype(np.float32)
+    leaves = [torch.from_numpy(x).to(torch.bfloat16).requires_grad_() for x in (q, k, v)]
+    out = port.small_attention(*leaves, torch.from_numpy(bias))
+    out.backward(torch.from_numpy(w).to(torch.bfloat16))
+    ref = port.small_attention_backward(*(x.detach() for x in leaves),
+                                        torch.from_numpy(bias)[:, 0, 0],
+                                        torch.from_numpy(w).to(torch.bfloat16), 32 ** -0.5)
+    for t, g in zip(leaves, ref):
+        assert t.grad.dtype == torch.bfloat16
+        np.testing.assert_array_equal(t.grad.float().numpy(), g.float().numpy())
+    ref_out, ref_grads = _grads(
+        lambda q, k, v: xla_attention_core(q, k, v, jnp.asarray(bias)),
+        *(x.detach().float().numpy() for x in leaves),
+        np.asarray(torch.from_numpy(w).to(torch.bfloat16).float()))
+    for t, g in zip(leaves, ref_grads):
+        np.testing.assert_allclose(t.grad.float().numpy(), g, atol=2e-2)
