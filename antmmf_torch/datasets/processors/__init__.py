@@ -1,2 +1,2 @@
-# importing text_processors registers the processors
-from antmmf_torch.datasets.processors import text_processors  # noqa: F401
+# importing the processor modules registers the processors
+from antmmf_torch.datasets.processors import image_processors, text_processors  # noqa: F401

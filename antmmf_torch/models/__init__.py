@@ -1,2 +1,2 @@
-# importing univl registers the models
-from antmmf_torch.models import univl  # noqa: F401
+# importing the model modules registers the models
+from antmmf_torch.models import pink, univl  # noqa: F401

@@ -1,9 +1,10 @@
 """Vision Transformer backbone (CLIP-style pre-LN ViT).
 
 Port of ``antmmf_tpu/modules/vision/vit.py``: NHWC images → patch embeddings
-→ ``pre_norm`` → pre-LN encoder (quick-GELU, final LayerNorm) → CLS pooling.
-The JAX module's output projection and its final-norm and activation
-switches are not used by UniVL and are not ported.
+→ ``pre_norm`` → pre-LN encoder (quick-GELU, final LayerNorm unless
+``final_norm`` is off) → CLS pooling. A tower read at an inner layer (Pink's
+``clip_select_layer``) is built with fewer layers and no final norm. The JAX
+module's output projection and activation switch are not ported.
 """
 
 from __future__ import annotations
@@ -28,13 +29,14 @@ PRESETS = {
 class VisionTransformer(nn.Module):
     def __init__(self, image_size: int = 224, patch_size: int = 32,
                  embed_dim: int = 768, num_layers: int = 12, num_heads: int = 12,
-                 token_merge_r: int = 0, dtype=torch.bfloat16, device=None):
+                 token_merge_r: int = 0, final_norm: bool = True, dtype=torch.bfloat16,
+                 device=None):
         super().__init__()
         self.embeddings = VisualEmbeddings(image_size, patch_size, embed_dim, dtype, device)
         self.pre_norm = LayerNorm(embed_dim, 1e-5, dtype, device)
         self.encoder = TransformerEncoder(
             embed_dim, num_layers, num_heads, 4.0, "quick_gelu", "pre", 1e-5,
-            token_merge_r, dtype=dtype, device=device)
+            token_merge_r, final_norm, dtype=dtype, device=device)
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """images float[B, H, W, 3] → dict(sequence [B, N, C], pooled [B, C])."""

@@ -1,2 +1,2 @@
-# importing base_predictor registers the predictors
-from antmmf_torch.predictors import base_predictor  # noqa: F401
+# importing the predictor modules registers the predictors
+from antmmf_torch.predictors import base_predictor, generation_predictor  # noqa: F401

@@ -149,6 +149,7 @@ class BertTokenizer:
 
     def __init__(self, vocab_file: str, do_lower_case: bool = True):
         self.vocab = load_vocab(vocab_file)
+        self.inv_vocab = {i: t for t, i in self.vocab.items()}
         self.basic = BasicTokenizer(do_lower_case)
         self.wordpiece = WordpieceTokenizer(self.vocab)
 
@@ -161,3 +162,6 @@ class BertTokenizer:
     def convert_tokens_to_ids(self, tokens: List[str]) -> List[int]:
         unk = self.vocab[UNK_TOKEN]
         return [self.vocab.get(t, unk) for t in tokens]
+
+    def convert_ids_to_tokens(self, ids: List[int]) -> List[str]:
+        return [self.inv_vocab.get(i, UNK_TOKEN) for i in ids]

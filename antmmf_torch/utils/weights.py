@@ -8,7 +8,15 @@ layer_0.attention.q_proj``), so the carry is a name map plus transposes:
 * ``LayerNorm_0/scale`` and ``LayerNorm_0/bias`` → ``weight`` and ``bias``;
 * ``Embed`` ``embedding`` → ``weight``;
 * everything else (``pos_embedding``, ``cls_token``, the ``logit_scale``
-  scalar) as is.
+  scalar, ``RMSNorm``'s ``scale``, the ``lora_a``/``lora_b`` matrices of
+  ``LoRADense`` and the ``q_lora_a``-style adapters inside attention) as is.
+
+``QuantDense`` carries like the ``Linear`` it is; ``LoRADense`` keeps flax's
+``base`` scope. Decode records (``{"q4", "scale"}`` and ``{"q", "scale"}``
+dicts in place of a kernel) count as leaves of a tree:
+``predictors/quantization.load_decode_records`` loads those.
+``export_flax_params`` is the way back, a module's parameters as a flax-layout
+tree of fp32 arrays, which ``quantize_for_decode`` takes.
 
 A missing or unused key, or a shape mismatch, raises. ``params.npz`` files
 hold the flax leaves under ``/``-joined paths; they are the port's
@@ -27,18 +35,27 @@ import numpy as np
 import torch
 from torch import nn
 
+from antmmf_torch.modules.embeddings import PatchEmbed
 from antmmf_torch.modules.layers import LayerNorm
+from antmmf_torch.modules.qdense import QuantDense
 
 
-def flatten_flax(params: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
-    """Nested flax params → {"a/b/kernel": array}."""
-    flat: Dict[str, np.ndarray] = {}
+def is_record(node: Any) -> bool:
+    """A decode record in place of a kernel: ``{"q4", "scale"}`` (packed int4)
+    or ``{"q", "scale"}`` (int8 per output channel)."""
+    return isinstance(node, Mapping) and set(node) in ({"q4", "scale"}, {"q", "scale"})
+
+
+def flatten_flax(params: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """Nested flax params → {"a/b/kernel": array}; a decode record stays one
+    leaf (its dict)."""
+    flat: Dict[str, Any] = {}
     for key, val in params.items():
         path = f"{prefix}/{key}" if prefix else str(key)
-        if isinstance(val, Mapping):
+        if isinstance(val, Mapping) and not is_record(val):
             flat.update(flatten_flax(val, path))
         else:
-            flat[path] = np.asarray(val)
+            flat[path] = val if isinstance(val, Mapping) else np.asarray(val)
     return flat
 
 
@@ -52,7 +69,7 @@ def _torch_name(flax_path: str) -> str:
 
 
 def _to_torch_layout(flax_path: str, value: np.ndarray) -> np.ndarray:
-    if flax_path.endswith("/kernel"):
+    if flax_path.split("/")[-1] == "kernel":
         return value.reshape(-1, value.shape[-1]).T  # Dense [in,out] or Conv HWIO
     return value
 
@@ -60,6 +77,7 @@ def _to_torch_layout(flax_path: str, value: np.ndarray) -> np.ndarray:
 def flax_paths(model: nn.Module) -> Dict[str, str]:
     """Each parameter's name → its flax path (``a/b/kernel``)."""
     leaves = {nn.Linear: {"weight": "kernel", "bias": "bias"},
+              QuantDense: {"weight": "kernel"},
               nn.Embedding: {"weight": "embedding"},
               LayerNorm: {"weight": "LayerNorm_0/scale", "bias": "LayerNorm_0/bias"}}
     paths = {}
@@ -92,6 +110,28 @@ def flax_to_masters(model: nn.Module, params: Mapping[str, Any]) -> Dict[str, to
                              f"{tuple(param.shape)}")
         masters[name] = torch.from_numpy(np.array(value, dtype=np.float32))
     return masters
+
+
+def export_flax_params(model: nn.Module) -> Dict[str, Any]:
+    """``model``'s parameters as a nested flax-layout tree of fp32 arrays
+    (Dense kernels [in, out], the patch convolution HWIO), the inverse of
+    ``load_flax_params``."""
+    patch = {f"{name}.proj.weight": mod.patch_size
+             for name, mod in model.named_modules() if isinstance(mod, PatchEmbed)}
+    tree: Dict[str, Any] = {}
+    paths = flax_paths(model)
+    for name, param in model.named_parameters():
+        value = param.detach().float().cpu().numpy()
+        if paths[name].split("/")[-1] == "kernel":
+            value = value.T
+            if name in patch:
+                value = value.reshape(patch[name], patch[name], -1, value.shape[-1])
+        node = tree
+        *scopes, leaf = paths[name].split("/")
+        for scope in scopes:
+            node = node.setdefault(scope, {})
+        node[leaf] = np.ascontiguousarray(value)
+    return tree
 
 
 def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> None:

@@ -16,7 +16,11 @@ non-zero code and no result line:
    on the same inputs (the cross-encoder's [64, 12, 430, 64] with ragged key
    masks, Lq ≠ Lk, causal, a fully masked row, D 32 and 128), and the
    ``flash_attention`` Function against fp32 autograd of
-   ``plain_flash_attention``;
+   ``plain_flash_attention``; ``int4_gemv`` against ``plain_int4_gemv`` and
+   against ``unpack_int4`` + matmul in fp32 on the decode path's five weight
+   shapes (2048→2048, 2048→512, 2048→5504, the row-padded 5632→2048 at group
+   88 with x of 5504 columns, 2048→151,936) at 1, 8 and 32 rows of bf16 and
+   fp32 x, and two refusals (33 rows; an x too wide for shared memory);
 3. serving: ``projects/base_vtp/configs/serving.yml`` at full width (ViT-B/32
    at 8x224², BERT-base at L=30, bf16, seeded random weights) through the
    port's CLI and predictor code: one ``predict`` and one ``predict_batch`` of
@@ -44,9 +48,28 @@ non-zero code and no result line:
 8. trace: ``torch.profiler`` over full encodes at B=32: device-busy time per
    forward against the untraced wall time (the device's idle share), device
    operations (kernels and copies) per forward and those that take the most
-   device time.
+   device time;
+9. Pink int4 decode serving: ``GenerationPredictor`` through the CLI code at
+   the full width of ``lm_preset: omni_1b`` (hidden 2048, 22 layers, 16 heads
+   of 128, 4 kv heads, vocabulary 151,936, SwiGLU 5504) behind ViT-B/32 at
+   224², bf16, ``decode_quant: int4``, prompt of 64 tokens, 24 new tokens,
+   seeded random weights. Each request must launch ``small_attention`` 11
+   times (ViT), ``flash_fwd`` 22 times (the causal prefill of 113 tokens) and
+   ``int4_gemv`` 1 + 23·155 times (``lm_head`` on the last prompt token,
+   then 7 projections in each of 22 layers plus ``lm_head`` per decode step);
+   greedy tokens with the cache must equal re-encoding for 4 new tokens;
+   prefill time, decode time per token, tokens/s, peak memory and the
+   device's idle share over profiled decode steps;
+10. card vs CPU (Pink): one set of int4 records loaded into the card's bf16
+   model and an fp32 CPU model: the logits at prefill and at the first
+   decode step (teacher-forced), held to the bound that ``--calibrate``
+   reads from sound seeds and planted faults;
+11. ``int4_gemv`` timed on the served model's own records, cycling through
+   copies so that no launch finds its weights in the L2 cache, beside its
+   bound, its plain version and bf16 ``torch.matmul`` on the dequantised
+   weight.
 
-Each path (serving, each training leg) runs with the kernels' launch counts
+Each path (serving, each training leg, each Pink request) runs with the kernels' launch counts
 set to 0 just before it and read just after; launches made to compare a
 kernel with its plain version or to time it are not counted. The line
 before the last holds the kernel table, the last line the result. Without
@@ -72,6 +95,7 @@ from antmmf_torch.models.base_model import build_model  # noqa: E402
 from antmmf_torch.modules.layers import make_attention_mask  # noqa: E402
 from antmmf_torch.ops import _build  # noqa: E402
 from antmmf_torch.ops import flash_attention as fa  # noqa: E402
+from antmmf_torch.ops import int4_matmul as i4  # noqa: E402
 from antmmf_torch.ops import small_attention as sa  # noqa: E402
 from antmmf_torch.ops.flash_attention import (  # noqa: E402
     flash_attention,
@@ -83,6 +107,11 @@ from antmmf_torch.ops.flash_attention import (  # noqa: E402
     plain_flash_dq,
     plain_flash_fwd,
 )
+from antmmf_torch.ops.int4_matmul import (  # noqa: E402
+    int4_gemv,
+    plain_int4_gemv,
+    unpack_int4,
+)
 from antmmf_torch.ops.small_attention import (  # noqa: E402
     key_bias,
     plain_small_attention,
@@ -90,8 +119,12 @@ from antmmf_torch.ops.small_attention import (  # noqa: E402
 )
 from antmmf_torch.optimizer.build import build_optimizer  # noqa: E402
 from antmmf_torch.predictors.cli import build_predictor  # noqa: E402
+from antmmf_torch.predictors.quantization import (  # noqa: E402
+    load_decode_records,
+    quantize_for_decode,
+)
 from antmmf_torch.trainers.train_state import TrainState, make_train_step  # noqa: E402
-from antmmf_torch.utils.weights import flax_paths  # noqa: E402
+from antmmf_torch.utils.weights import export_flax_params, flax_paths  # noqa: E402
 
 CONFIG = "projects/base_vtp/configs/serving.yml"
 FRAMES, SIZE, SEED = 8, 224, 0
@@ -120,10 +153,43 @@ TRAIN_LEGS = {"flagship": ({}, 32), "cross_mined": (CROSS, 16)}
 # backward is plain tensor ops, as in the JAX package); the cross-encoder's
 # two layers run the flash forward, dQ and dK/dV once each
 STEP_LAUNCHES = {
-    "flagship": {"small_attention": 24, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0},
-    "cross_mined": {"small_attention": 24, "flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2},
+    "flagship": {"small_attention": 24, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+                 "int4_gemv": 0},
+    "cross_mined": {"small_attention": 24, "flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2,
+                    "int4_gemv": 0},
 }
-KERNELS = (small_attention, flash_fwd, flash_dq, flash_dkv)
+KERNELS = (small_attention, flash_fwd, flash_dq, flash_dkv, int4_gemv)
+
+# Pink int4 decode serving at full width: the tiny config's file with the
+# full-width model and the serving parameters on top
+PINK_CONFIG = "projects/pink/configs/pink_tiny.local.yml"
+PINK_MODEL = {"lm_preset": "omni_1b", "visual_tower": "vit", "vit_preset": "vit_base_patch32",
+              "image_size": SIZE, "lora_rank": 8, "lora_decoder": "true"}
+PINK_PROMPT_LEN, PINK_NEW_TOKENS, PINK_VOCAB = 64, 24, 151936
+PINK_LAYERS, PINK_VIT_LAYERS, PINK_PATCHES = 22, 11, (SIZE // 32) ** 2
+GEMVS_PER_STEP = 7 * PINK_LAYERS + 1  # q, k, v, o, gate, up, down per layer, and lm_head
+PINK_LAUNCHES = {"small_attention": PINK_VIT_LAYERS, "flash_fwd": PINK_LAYERS, "flash_dq": 0,
+                 "flash_dkv": 0,
+                 # lm_head on the last prompt token, then every decode step
+                 "int4_gemv": 1 + (PINK_NEW_TOKENS - 1) * GEMVS_PER_STEP}
+# the decode path's weight shapes: (x columns, record rows, out, group)
+INT4_SHAPES = {"attn_q_o": (2048, 2048, 2048, 128), "attn_k_v": (2048, 2048, 512, 128),
+               "mlp_gate_up": (2048, 2048, 5504, 128), "mlp_down": (5504, 5632, 2048, 88),
+               "lm_head": (2048, 2048, PINK_VOCAB, 128)}
+# int4_gemv against its plain version and against unpack + matmul, all fp32
+# sums of exact products in another order over up to 5632 terms, held to
+# INT4_TOL times the output's largest magnitude (7 to 17 with these random
+# records): readings on an H100 stay below 7.7e-6 against the plain version
+# and 2.3e-5 against unpack + matmul, a tenth of the bound
+INT4_TOL = 2e-5
+# card bf16 vs CPU fp32 on the same int4 records, logits at prefill and at
+# the first decode step (``--calibrate`` reads the gap): the cosine, and the
+# largest |Δlogit| over the CPU logits' spread. Sound runs over three seeds
+# stay above cos 0.99981 and below 0.089; the two halves' scales swapped, the
+# mildest planted fault, reads 0.29 at prefill and cos 0.989, 0.71 at the
+# decode step; the down_proj padding dropped cos 0.765; the high nibble read
+# unsigned cos 0 (H100 readings)
+PINK_COS_MIN, PINK_DLOGIT_MAX = 0.999, 0.25
 
 
 def zero_counts() -> None:
@@ -351,6 +417,63 @@ def phase_flash() -> dict:
     emit(phase="flash_check", case="fp16_refused", refusal=refusal)
     check(refusal is not None, "flash_attention took a dtype its kernels do not take")
     return main
+
+
+# -------------------------------------------------------- phase 2: int4 GEMV
+def random_record(gen, fin_w: int, fout: int, group: int):
+    """Random packed bytes and positive scales, made on the card."""
+    packed = torch.randint(0, 256, (fin_w // 2, fout), generator=gen, device="cuda",
+                           dtype=torch.uint8)
+    scale = torch.rand(fin_w // group, fout, generator=gen, device="cuda") * 0.01 + 0.005
+    return packed, scale
+
+
+def phase_int4() -> float:
+    """``int4_gemv`` against ``plain_int4_gemv`` and against ``unpack_int4`` +
+    matmul in fp32, at the decode path's shapes. Returns the worst error
+    against the plain version at one row of bf16 x, the main path's case."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    failed, worst_main = [], 0.0
+    for name, (fin_x, fin_w, fout, group) in INT4_SHAPES.items():
+        packed, scale = random_record(gen, fin_w, fout, group)
+        dense = unpack_int4(packed, scale, torch.float32)
+        for rows in (1, 8, 32):
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn(rows, fin_x, generator=gen, device="cuda").to(dtype)
+                y = int4_gemv(x, packed, scale)
+                ref = plain_int4_gemv(x, packed, scale)
+                ref_dense = F.pad(x.float(), (0, fin_w - fin_x)) @ dense
+                torch.cuda.synchronize()
+                e_plain, e_dense = max_err(y, ref), max_err(y, ref_dense)
+                tol = INT4_TOL * max(ref.abs().max().item(), 1.0)
+                ok = bool(torch.isfinite(y).all().item()) and y.dtype == torch.float32 \
+                    and e_plain <= tol and e_dense <= tol
+                emit(phase="int4_check", case=name, x=[rows, fin_x], record=[fin_w, fout],
+                     group=group, dtype=str(dtype), vs_plain=e_plain, vs_unpack_matmul=e_dense,
+                     tol=tol, ok=ok)
+                if rows == 1 and dtype == torch.bfloat16:
+                    worst_main = max(worst_main, e_plain)
+                if not ok:
+                    failed.append(f"{name}_{rows}_{dtype}")
+        del dense
+    check(not failed, f"int4_gemv disagrees with its plain version: {failed}")
+    # more rows than the kernel takes raise in the wrapper; an x too wide to
+    # stage in shared memory is refused by the CUDA entry point
+    packed, scale = random_record(gen, 2048, 512, 128)
+    refusals = {}
+    for case, x, rec, error in (
+            ("33_rows", torch.zeros(33, 2048, device="cuda"), (packed, scale), ValueError),
+            ("x_of_131072_columns", torch.zeros(1, 131072, device="cuda"),
+             random_record(gen, 131072, 8, 128), RuntimeError)):
+        try:
+            int4_gemv(x, *rec)
+            refusals[case] = None
+        except error as e:
+            refusals[case] = str(e)
+    emit(phase="int4_check", case="refusals", refusals=refusals)
+    check(all(refusals.values()) and "CUDA error" in refusals["x_of_131072_columns"],
+          "int4_gemv took an input its kernel does not take")
+    return worst_main
 
 
 # ------------------------------------------------------------------ phase 3
@@ -889,6 +1012,327 @@ def phase_trace(walls, gpu, iters=5):
              device_ops_per_forward=n_ops, top_device_ops_ms=top)
 
 
+# ------------------------------------------------------------------ phase 9
+def pink_predictor(device: str = "cuda", dtype: str = "bfloat16", quant: bool = True):
+    """``GenerationPredictor`` on the full-width Pink model through the CLI's
+    ``build_predictor``; seeded random weights."""
+    opts = ["model_attributes.pink.dtype_str", dtype,
+            "predictor_parameters.max_prompt_len", str(PINK_PROMPT_LEN),
+            "predictor_parameters.max_new_tokens", str(PINK_NEW_TOKENS),
+            "predictor_parameters.num_beams", "1"]
+    for key, value in PINK_MODEL.items():
+        opts += [f"model_attributes.pink.{key}", str(value)]
+    if quant:
+        opts += ["predictor_parameters.decode_quant", "int4"]
+    predictor, _ = build_predictor(["--config", PINK_CONFIG, "--predictor",
+                                    "generation_predictor", "--no_ckpt", "--device", device,
+                                    *opts])
+    return predictor
+
+
+def pink_request(rng, text="what is the person in the picture doing?"):
+    return {"text": text, "image": rng.random((SIZE, SIZE, 3), dtype=np.float32)}
+
+
+def decode_walk(pred, arrays, steps: int, sync: bool = True):
+    """Prefill, then ``steps`` greedy decode steps through the model's cached
+    entry points. Returns (prefill ms, per-step ms, tokens); with ``sync``
+    the device is waited for after each, as a streaming server would."""
+    module = pred.shell.module
+    batch = pred.shell.to_device(arrays)
+    wait = torch.cuda.synchronize if sync else (lambda: None)
+    with torch.inference_mode():
+        lens = batch["input_mask"].sum(dim=-1)
+        Lv = module.num_vision_tokens(batch)
+        cache = module.decoder.make_cache(1, Lv + PINK_PROMPT_LEN + steps + 1, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = module.prefill(batch, cache, lens)
+        wait()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        step_ms, tokens = [], []
+        for t in range(steps):
+            t0 = time.perf_counter()
+            tok = logits.argmax(dim=-1)
+            logits, cache = module.decode_step(tok, Lv + lens + t, cache)
+            wait()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            tokens.append(tok)
+        torch.cuda.synchronize()
+    return prefill_ms, step_ms, [int(t) for t in tokens]
+
+
+def phase_pink(rng, gpu):
+    """Serve three requests, counting launches per request; then the timings.
+    Returns the predictor and the launches of the three requests."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pred = pink_predictor()
+    load_s = time.perf_counter() - t0
+    module = pred.shell.module
+    packed = [m for m in module.modules() if getattr(m, "kernel_q4", None) is not None]
+    weight_bytes = sum(m.kernel_q4.numel() + m.kernel_scale.numel() * 4 for m in packed)
+    check(len(packed) == GEMVS_PER_STEP, f"{len(packed)} packed projections; expected "
+          f"{GEMVS_PER_STEP}")
+    emit(phase="pink_load", gpu=gpu, load_s=load_s, packed_projections=len(packed),
+         packed_weight_bytes=weight_bytes,
+         decode_step_bytes_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+         mem_after_load_gb=torch.cuda.memory_allocated() / 1e9)
+    totals = dict.fromkeys(PINK_LAUNCHES, 0)
+    texts = ["what is the person in the picture doing?", "describe the image in detail.",
+             "where is the dog [0.10,0.20,0.55,0.90]?"]
+    for i, text in enumerate(texts):
+        req = pink_request(rng, text)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pred.predict(req)
+        torch.cuda.synchronize()
+        request_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        for name, n in counts.items():
+            totals[name] += n
+        ids = np.asarray(out["generated_ids"])
+        n_prompt = int(pred.build_sample(req).arrays()["input_mask"].sum())
+        new = ids[0, n_prompt: n_prompt + PINK_NEW_TOKENS]
+        emit(phase="pink_serving", request=i, gpu=gpu, request_ms=request_ms,
+             new_tokens_per_s=PINK_NEW_TOKENS * 1e3 / request_ms, launches=counts,
+             prompt_tokens=n_prompt, new_tokens=new.tolist(), text=out["generated_text"])
+        check(counts == PINK_LAUNCHES, f"launches per request {counts}; expected {PINK_LAUNCHES}")
+        check(ids.shape == (1, PINK_PROMPT_LEN + PINK_NEW_TOKENS) and
+              isinstance(out["generated_text"], str), "generate's output shape")
+        check(bool(((new >= 0) & (new < PINK_VOCAB)).all()), "a token outside the vocabulary")
+
+    # greedy with the cache against re-encoding the whole prefix per token
+    batch = pred.shell.to_device(pred.build_sample(req).arrays())
+    cached, lens = module.generate(batch, eos_id=pred.eos_id, max_length=4)
+    anchor, _ = module.generate(batch, eos_id=pred.eos_id, max_length=4, use_cache=False)
+    same = bool((cached == anchor).all().item())
+    n = int(lens[0])
+    emit(phase="pink_cached_vs_reencode", new_tokens=4, cached=cached[0, n:n + 4].tolist(),
+         reencoded=anchor[0, n:n + 4].tolist(), ok=same)
+    check(same, "cached greedy tokens differ from re-encoding")
+
+    # timings: prefill and per-token decode (the device waited for after each
+    # step), whole requests without waiting, and the device's share of a step
+    arrays = pred.build_sample(req).arrays()
+    decode_walk(pred, arrays, 3)  # warm-up
+    prefill, steps = [], []
+    for _ in range(3):
+        pre, st, _ = decode_walk(pred, arrays, PINK_NEW_TOKENS - 1)
+        prefill.append(pre)
+        steps += st
+    lat = host_ms(lambda: pred.predict(req), 5, warmup=1)
+    # the device's share of one prefill and four steps launched without waiting
+    walk_ms = float(np.median(host_ms(lambda: decode_walk(pred, arrays, 4, sync=False), 3,
+                                      warmup=1)))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        decode_walk(pred, arrays, 4, sync=False)
+    busy, n_ops, top = device_busy(prof, 1)
+    step_p50 = float(np.percentile(steps, 50))
+    emit(phase="pink_times", gpu=gpu, prefill_ms=pct(prefill), decode_step_ms=pct(steps),
+         decode_tokens_per_s=1e3 / step_p50, request_ms=pct(lat),
+         request_new_tokens_per_s=PINK_NEW_TOKENS * 1e3 / float(np.mean(lat)),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         profiled="one prefill and four decode steps", untraced_wall_ms=walk_ms,
+         device_busy_ms=busy if n_ops else "not measured",
+         device_idle_share=1 - busy / walk_ms if n_ops else "not measured",
+         device_ops=n_ops, top_device_ops_ms=top)
+    return pred, totals
+
+
+# ----------------------------------------------------------------- phase 10
+def pink_logits(pred, arrays, token=None):
+    """fp32 logits at prefill and at the first decode step, which is fed
+    ``token`` (default: this model's own greedy token)."""
+    module = pred.shell.module
+    batch = pred.shell.to_device(arrays)
+    with torch.inference_mode():
+        lens = batch["input_mask"].sum(dim=-1)
+        Lv = module.num_vision_tokens(batch)
+        cache = module.decoder.make_cache(1, Lv + PINK_PROMPT_LEN + 1, device=pred.shell.device)
+        first, cache = module.prefill(batch, cache, lens)
+        token = first.argmax(dim=-1) if token is None else token.to(first.device)
+        second, _ = module.decode_step(token, Lv + lens, cache)
+    return first[0].float().cpu(), second[0].float().cpu(), token.cpu()
+
+
+def compare_logits(card, cpu) -> dict:
+    """Card logits against CPU logits of one position: cosine, the largest
+    |Δ| in units of the CPU logits' spread, and where the CPU's greedy token
+    ranks on the card."""
+    cos = torch.nn.functional.cosine_similarity(card.double(), cpu.double(), dim=0).item()
+    top = int(cpu.argmax())
+    return dict(cos=cos, max_abs_d_over_std=((card - cpu).abs().max() / cpu.std()).item(),
+                cpu_top_rank_on_card=int((card > card[top]).sum()))
+
+
+def pink_within_bound(res) -> bool:
+    return all(r["cos"] >= PINK_COS_MIN and r["max_abs_d_over_std"] <= PINK_DLOGIT_MAX
+               for r in (res["prefill"], res["decode_step"]))
+
+
+def pink_twins(card, seed: int):
+    """An fp32 CPU model with weights of ``seed``, its int4 records loaded
+    into it and into the card's bf16 model."""
+    cpu = pink_predictor("cpu", "float32", quant=False)
+    cpu.shell.init(seed)
+    records = quantize_for_decode({"params": export_flax_params(cpu.shell.module)})
+    load_decode_records(cpu.shell.module, records, torch.float32)
+    load_decode_records(card.shell.module, records, torch.bfloat16)
+    return cpu
+
+
+def pink_compare(card, cpu, arrays, ref=None):
+    ref = ref or pink_logits(cpu, arrays)
+    first, second, _ = pink_logits(card, arrays, ref[2])
+    return dict(prefill=compare_logits(first, ref[0]),
+                decode_step=compare_logits(second, ref[1])), ref
+
+
+def phase_pink_card_vs_cpu(card, rng):
+    t0 = time.perf_counter()
+    cpu = pink_twins(card, SEED)
+    arrays = card.build_sample(pink_request(rng)).arrays()
+    res, _ = pink_compare(card, cpu, arrays)
+    ok = pink_within_bound(res)
+    emit(phase="pink_card_vs_cpu", **res, cos_min=PINK_COS_MIN, dlogit_max=PINK_DLOGIT_MAX,
+         seconds=time.perf_counter() - t0, ok=ok)
+    check(ok, "Pink's logits on the card and on the CPU disagree beyond the stated bound")
+
+
+def pink_faults():
+    """Faults planted on the card's decode path only (the CPU holds the
+    sound answer), each undone after its reading: (name, plant, undo). Each
+    wraps the real kernel, or stands in for it with tensor ops, at the one
+    place ``int4_apply`` looks it up."""
+    real = i4.int4_gemv
+
+    def high_nibble_unsigned(x, packed, scale):
+        fin, fout = packed.shape[0] * 2, packed.shape[1]
+        q = torch.cat([(packed & 0x0F).float() - 8, (packed >> 4).float()], dim=0)
+        xg = F.pad(x.float(), (0, fin - x.shape[1])).reshape(x.shape[0], scale.shape[0], -1)
+        part = torch.einsum("ngr,gro->ngo", xg, q.reshape(scale.shape[0], -1, fout))
+        return (part * scale[None]).sum(dim=1)
+
+    def halves_scales_swapped(x, packed, scale):
+        return real(x, packed, torch.roll(scale, scale.shape[0] // 2, dims=0).contiguous())
+
+    def padding_dropped(x, packed, scale):
+        fin = packed.shape[0] * 2
+        if fin == x.shape[1]:
+            return real(x, packed, scale)
+        # the high half read as if the record had x's rows: it starts 64 rows early
+        moved = torch.zeros(x.shape[0], fin, dtype=x.dtype, device=x.device)
+        half_x = x.shape[1] // 2
+        moved[:, :half_x] = x[:, :half_x]
+        moved[:, fin // 2: fin // 2 + half_x] = x[:, half_x:]
+        return real(moved, packed, scale)
+
+    def setter(fn):
+        return lambda: setattr(i4, "int4_gemv", fn)
+
+    faults = (high_nibble_unsigned, halves_scales_swapped, padding_dropped)
+    for fn in faults:  # the wrapper counts its launches on whatever its module name holds
+        fn.launches = 0
+    return [(fn.__name__, setter(fn), setter(real)) for fn in faults]
+
+
+def calibrate_pink(seeds=3) -> None:
+    """Phase 10's readings: sound seeds, then planted faults at the last."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(SEED)
+    card = pink_predictor()
+    sound = []
+    for seed in range(seeds):
+        cpu = pink_twins(card, seed)
+        arrays = card.build_sample(pink_request(rng)).arrays()
+        res, ref = pink_compare(card, cpu, arrays)
+        sound.append(res)
+        emit(phase="calibrate_pink", kind="sound", seed=seed, **res,
+             within_bound=pink_within_bound(res))
+        del cpu
+    for name, plant, undo in pink_faults():
+        plant()
+        try:
+            res, _ = pink_compare(card, None, arrays, ref)
+        finally:
+            undo()
+        emit(phase="calibrate_pink", kind="fault", fault=name, seed=seeds - 1, **res,
+             within_bound=pink_within_bound(res))
+    emit(phase="calibrate_pink", kind="sound_worst", seeds=seeds,
+         min_cos=min(r[k]["cos"] for r in sound for k in r),
+         max_abs_d_over_std=max(r[k]["max_abs_d_over_std"] for r in sound for k in r),
+         cos_min=PINK_COS_MIN, dlogit_max=PINK_DLOGIT_MAX)
+
+
+# ----------------------------------------------------------------- phase 11
+def graph_ms(launch, copies: int, replays: int = 5) -> float:
+    """Device time per launch: ``launch(i)`` for i in range(copies) captured
+    in one CUDA graph and replayed, so the host's launch cost is out of the
+    reading and each launch meets weights the L2 cache does not hold."""
+    launch(0)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(copies):
+            launch(i)
+    return cuda_ms(graph.replay, iters=replays, warmup=2) / copies
+
+
+def phase_int4_times(pred, gpu) -> dict:
+    """``int4_gemv`` at one row of bf16 x on the served model's records, one
+    of each of the path's five shapes. Bound: packed bytes, scales, x and y
+    once over the memory rate, against 2·in·out operations at the bf16
+    tensor rate. Returns the readings summed over a decode step's launches
+    (each shape's time times its launches per step)."""
+    decoder = pred.shell.module.decoder.layer_0
+    modules = {"attn_q_o": (decoder.attention.q_proj, 2 * PINK_LAYERS),
+               "attn_k_v": (decoder.attention.k_proj, 2 * PINK_LAYERS),
+               "mlp_gate_up": (decoder.mlp.gate_proj, 2 * PINK_LAYERS),
+               "mlp_down": (decoder.mlp.down_proj, PINK_LAYERS),
+               "lm_head": (pred.shell.module.lm_head, 1)}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    saved = read_counts()
+    step = dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes=0)
+    for name, (mod, per_step) in modules.items():
+        packed, scale = mod.kernel_q4, mod.kernel_scale
+        fin_x, fin_w, fout, group = INT4_SHAPES[name]
+        check(tuple(packed.shape) == (fin_w // 2, fout) and scale.shape[0] == fin_w // group
+              and mod.in_features == fin_x, f"{name}: the served record is not {INT4_SHAPES[name]}")
+        x = torch.randn(1, fin_x, generator=gen, device="cuda").to(torch.bfloat16)
+        nbytes = packed.numel() + scale.numel() * 4 + x.numel() * 2 + fout * 4
+        copies = max(2, min(512, -(-256 * 2 ** 20 // nbytes)))  # 256 MB of records in turn
+        records = [(packed.clone(), scale.clone()) for _ in range(copies)]
+        ms = graph_ms(lambda i: int4_gemv(x, *records[i]), copies)
+        eager_ms = cuda_ms(lambda: int4_gemv(x, packed, scale))
+        plain_ms = cuda_ms(lambda: plain_int4_gemv(x, packed, scale), iters=3, warmup=1)
+        del records
+        dense = unpack_int4(packed, scale, torch.bfloat16)[:fin_x]
+        dense = [dense.clone() for _ in range(max(2, copies // 4))]
+        library_ms = graph_ms(lambda i: torch.matmul(x, dense[i]), len(dense))
+        del dense
+        timing = dict(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, library_ms=library_ms,
+                      **bound(nbytes, 2 * fin_w * fout))
+        emit(phase="times", exp="int4_gemv", case=name, x=[1, fin_x], record=[fin_w, fout],
+             group=group, dtype="bf16", gpu=gpu, launches_per_decode_step=per_step,
+             bytes=nbytes, copies_in_turn=copies, **timing,
+             bound_share=timing["bound_ms"] / ms)
+        for key in ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms"):
+            step[key] += per_step * timing[key]
+        step["bytes"] += per_step * nbytes
+    for fn in KERNELS:  # timing launches are not path launches
+        fn.launches = saved[fn.__name__]
+    emit(phase="times", exp="int4_gemv_per_decode_step", launches=GEMVS_PER_STEP, gpu=gpu,
+         **step, bound_share=step["bound_ms"] / step["ms"])
+    return dict(ms=step["ms"] / GEMVS_PER_STEP, plain_ms=step["plain_ms"] / GEMVS_PER_STEP,
+                library_ms=step["library_ms"] / GEMVS_PER_STEP,
+                bound_ms=step["bound_ms"] / GEMVS_PER_STEP, bound_by="bytes")
+
+
 SOURCES = {
     "small_attention": ("antmmf_torch/ops/csrc/small_attention.cu",
                         "antmmf_tpu/ops/pallas/small_attention.py:62"),
@@ -898,6 +1342,8 @@ SOURCES = {
                  "antmmf_tpu/ops/pallas/flash_attention.py:434"),
     "flash_dkv": ("antmmf_torch/ops/csrc/flash_attention.cu",
                   "antmmf_tpu/ops/pallas/flash_attention.py:460"),
+    "int4_gemv": ("antmmf_torch/ops/csrc/int4_gemv.cu",
+                  "antmmf_tpu/ops/pallas/int4_matmul.py:240"),
 }
 
 
@@ -910,11 +1356,12 @@ def main() -> None:
     lib = _build.build()
     emit(phase="build", library=lib, seconds=time.perf_counter() - t0)
 
-    errs = {"small_attention": phase_kernels(), **phase_flash()}
+    errs = {"small_attention": phase_kernels(), **phase_flash(), "int4_gemv": phase_int4()}
     rng = np.random.default_rng(SEED)
     zero_counts()
     predictors, serving = phase_serving(rng)
-    check(not any(flash.launches for flash in KERNELS[1:]), "serving launched a flash kernel")
+    check(not any(fn.launches for fn in KERNELS[1:]),
+          "UniVL serving launched a kernel it has no use for")
     check(serving > 0, "the serving path never launched the kernel")
     phase_card_vs_cpu(predictors[0], rng)
     launches, pair_bias = phase_training(gpu)
@@ -923,6 +1370,12 @@ def main() -> None:
     walls, timing = phase_times(predictors, rng, gpu)
     timing = {"small_attention": timing, **phase_flash_times(pair_bias, gpu)}
     phase_trace(walls, gpu)
+    del predictors, walls
+    pink, pink_launches = phase_pink(rng, gpu)
+    for name, n in pink_launches.items():
+        launches[name] += n
+    phase_pink_card_vs_cpu(pink, rng)
+    timing["int4_gemv"] = phase_int4_times(pink, gpu)
 
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -938,6 +1391,7 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--calibrate"]:
         calibrate()
         calibrate_training()
+        calibrate_pink()
     elif sys.argv[1:]:
         sys.exit("usage: python3 chip_smoke.py [--calibrate]")
     else:

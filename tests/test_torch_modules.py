@@ -206,6 +206,10 @@ def test_port_imports_no_jax():
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert "antmmf_torch.predictors.cli" in mods and "antmmf_torch.ops._build" in mods
+    for new in ("ops.int4_matmul", "modules.qdense", "modules.lora", "modules.llm", "models.pink",
+                "predictors.quantization", "predictors.generation_predictor",
+                "utils.conversation", "datasets.processors.image_processors"):
+        assert f"antmmf_torch.{new}" in mods, new
 
     tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
