@@ -3,8 +3,9 @@
 Every ``antmmf_torch/ops/csrc/*.cu`` file compiles (all at once, one ``nvcc``
 each) for ``sm_90a`` into an object file, and the objects link into one shared
 library with a plain C interface, loaded with ``ctypes``. The library's name
-carries a hash of the sources and flags, so an edited source never loads a
-stale build. Output goes to ``build/antmmf_torch_kernels/`` at the repository
+carries a hash of the flags and of every file under ``csrc/`` (the ``.cuh``
+headers the sources include too), so an edited file never loads a stale
+build. Output goes to ``build/antmmf_torch_kernels/`` at the repository
 root, which git ignores. ``nvcc`` is found on ``PATH`` or under
 ``$CUDA_HOME/bin`` (default ``/usr/local/cuda``).
 """
@@ -57,16 +58,25 @@ def _run_all(cmds, log):
         raise RuntimeError(f"nvcc failed: {' '.join(failed[0])}\n{failed[1]}")
 
 
+def source_digest(csrc: str = CSRC) -> str:
+    """A hash of the compiler flags and of the name and bytes of every file
+    under ``csrc`` (sources and the headers they include)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for root, dirs, files in os.walk(csrc):
+        dirs.sort()
+        for name in sorted(files):
+            path = os.path.join(root, name)
+            with open(path, "rb") as f:
+                digest.update(os.path.relpath(path, csrc).encode() + b"\0" + f.read())
+    return digest.hexdigest()[:16]
+
+
 def build() -> str:
     """Compile and link the kernels unless this exact build exists; return
     the library's path. The compiler's report (registers, shared memory,
     spills) is kept beside it as ``<library>.log``."""
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        with open(src, "rb") as f:
-            digest.update(os.path.basename(src).encode() + f.read())
-    lib_path = os.path.join(BUILD_DIR, f"libantmmf_torch_kernels-{digest.hexdigest()[:16]}.so")
+    lib_path = os.path.join(BUILD_DIR, f"libantmmf_torch_kernels-{source_digest()}.so")
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -25,27 +25,38 @@
 // dK/dV kernel, launched after it on the same stream) and recomputes
 // P = exp((s - m) - log l) blockwise. The bias gets no gradient.
 //
-// What bounds it on an H100: at the cross-encoder's [64, 12, 430, 64] the
-// forward does 4·B·H·Lq·Lk·D = 36.4 GFLOP (37 us at 989 TFLOP/s bf16) and
-// moves 85 MB (25 us at 3.35 TB/s): tensor-core operations bound it, and the
-// backward (2.5x the products) likewise. The design is FA2 on mma.sync:
-//   * m16n8k16 bf16 tensor-core products with fp32 accumulators; one block of
-//     four warps per 64 query rows (forward, dQ) or 64 keys (dK/dV), 16 rows
-//     per warp, the warp's own operand kept in registers as A fragments;
-//   * the other operand streams through shared memory in 64-row tiles
-//     (rows padded by 16 bytes, so fragment loads hit 32 distinct banks);
-//   * the score tile stays in registers: the accumulator layout of S is
-//     reused as the A fragment of P·V (and of dS·K, dSᵀ·Q), so no [L, L]
-//     tensor is written anywhere;
+// What bounds it on an H100: at the cross-encoder's [64, 12, 430, 64] q, k, v
+// and the output are 42.3 MB each, 172 MB with the bias and the statistics
+// (51.3 us at 3.35 TB/s), against 4·B·H·Lq·Lk·D = 36.4 GFLOP (36.8 us at 989
+// TFLOP/s bf16): device-memory bytes bound the forward at D = 64, and the
+// backward kernels likewise (231 and 258 MB). All three are flash attention
+// with the score tile kept in registers:
+//   * bf16 tensor-core products with fp32 accumulators; a block of four warps
+//     owns 64 rows of its own operand (query rows in the forward and dQ, keys
+//     in dK/dV) and the other operand streams through shared memory in
+//     64-row tiles;
+//   * the accumulator layout of S is reused as the A operand of P·V (and of
+//     dS·K, dSᵀ·Q), so no [L, L] tensor is written anywhere;
 //   * causal blocks above the diagonal are skipped by the loop bounds.
-// Single-buffered, synchronous tile loads: no cp.async, TMA or wgmma yet;
-// those are the next steps for speed.
+// The forward is built for this card. K/V tiles arrive in a ring of two
+// shared-memory stages by 16-byte asynchronous copies (cp.async) whose
+// addressing is done once a thread, so tile kt + 1 loads while tile kt
+// multiplies, with one block barrier a tile; the next tile's key biases are
+// fetched into a register meanwhile. Scores are kept in log2 units, so a
+// probability is one FMA and one ex2 (attention_common.cuh). Q is fetched
+// once by cp.async and the output leaves through its shared-memory rows as
+// 16-byte stores. At D = 64, the cross-encoder's width, the products are
+// wgmma: the four warps are one warpgroup and the tensor cores read Q, K and V
+// tiles straight from swizzled shared memory (see that kernel's comment for
+// its limit). At D = 32 and 128 they are mma.sync m16n8k16 fed by ldmatrix.x4
+// (K) and ldmatrix.x4.trans (V), one shared-memory load for two
+// products; Pink's causal prefill at D = 128 is 32 blocks of two tiles, a
+// matter of latency, where wgmma has nothing to add.
+// The dQ and dK/dV kernels still load their tiles synchronously, single
+// buffered, with scalar fragment loads on mma.sync.
 // P is rounded to bf16 before P·V and dS before dS·K, as the JAX kernels do.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 // Mirrored by antmmf_torch/ops/flash_attention.py (_FlashArgs).
 struct FlashArgs {
@@ -67,49 +78,19 @@ struct FlashArgs {
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using namespace attn;
 
 constexpr int kThreads = 128;  // four warps
 constexpr int kRows = 64;      // query rows (forward, dQ) or keys (dK/dV) per block
-constexpr int kTile = 64;      // keys per streamed tile (forward, dQ)
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // two bf16 from two addresses into one register, the first in the low half
 __device__ __forceinline__ uint32_t pack_pair(const bf16* lo, const bf16* hi) {
   return (uint32_t)*reinterpret_cast<const uint16_t*>(lo) |
          ((uint32_t)*reinterpret_cast<const uint16_t*>(hi) << 16);
-}
-
-__device__ __forceinline__ float2 unpack(uint32_t x) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
-}
-
-// c += a·b on the tensor cores: A 16x16 (row), B 16x8 (col), fp32 accumulators
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // A fragments of a warp's 16 rows (r0 = row g, r1 = row g + 8) from device
@@ -195,98 +176,384 @@ __device__ __forceinline__ T* at(const void* base, const long long (&s)[3], int 
 }
 
 // ------------------------------------------------------------------ forward
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashArgs a) {
-  constexpr int SD = D + 8, KD = D / 16, ND = D / 8, NT = kTile / 8;
-  __shared__ __align__(16) bf16 sK[kTile * SD];
-  __shared__ __align__(16) bf16 sV[kTile * SD];
-  __shared__ float sB[kTile];
-  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = blockIdx.x * kRows + warp * 16 + g, r1 = r0 + 8;
-  const bf16* k = at<const bf16>(a.k, a.k_s, b, h);
-  const bf16* v = at<const bf16>(a.v, a.v_s, b, h);
-  const float* bias = a.bias ? a.bias + (long long)b * a.Lk : nullptr;
+// One thread's share of the asynchronous copies that bring 64-row tiles of a
+// [L, D] operand into shared memory: the same rows and 16-byte chunk of every
+// tile, so all addressing but the tile's offset is done once. SWZ selects the
+// shared-memory layout: rows of D + 8 (padded, for ldmatrix) or, at D = 64,
+// 128-byte rows whose 16-byte chunks are XORed with the row's low three bits
+// (the 128-byte swizzle that wgmma descriptors name).
+template <int D, bool SWZ>
+struct TileCopier {
+  static constexpr int CH = D / 8, RSTEP = kThreads / CH, N = kTile / RSTEP;
+  static constexpr int PITCH = (SWZ ? D : D + 8) * (int)sizeof(bf16);
+  const bf16* base;  // row 0 of the operand, read for nothing when a row is past L
+  const bf16* src;   // this thread's chunk of its first row
+  long long sl, step;
+  int r0;
+  uint32_t off;  // this thread's byte offset in a shared-memory tile
 
-  uint32_t qf[KD][4];
-  load_a<KD>(qf, at<const bf16>(a.q, a.q_s, b, h), a.q_s[2], r0, r1, a.Lq, t);
-  float o[ND][4];
-#pragma unroll
-  for (int nt = 0; nt < ND; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-  int nkt = (a.Lk + kTile - 1) / kTile;
-  if (a.causal) nkt = min(nkt, (min((int)blockIdx.x * kRows + kRows, a.Lq) - 1) / kTile + 1);
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int key0 = kt * kTile;
-    __syncthreads();  // the previous tile is consumed
-    load_tile<D, kTile>(sK, k, a.k_s[2], key0, a.Lk);
-    load_tile<D, kTile>(sV, v, a.v_s[2], key0, a.Lk);
-    for (int j = threadIdx.x; j < kTile; j += kThreads)
-      sB[j] = key0 + j < a.Lk ? (bias ? bias[key0 + j] : 0.f) : -INFINITY;
-    __syncthreads();
-
-    float s[NT][4];
-    dot_tile<KD, NT, SD>(s, qf, sK, g, t);
-    mask_rows<NT>(s, sB, a.scale, a.causal, key0, r0, r1, t);
-    float x0 = -INFINITY, x1 = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      x0 = fmaxf(x0, fmaxf(s[nt][0], s[nt][1]));
-      x1 = fmaxf(x1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    const float n0 = fmaxf(m0, quad_max(x0)), n1 = fmaxf(m1, quad_max(x1));
-    // a row with no live key yet keeps max -inf; exponents then use 0
-    const float u0 = n0 == -INFINITY ? 0.f : n0, u1 = n1 == -INFINITY ? 0.f : n1;
-    const float al0 = expf(m0 - u0), al1 = expf(m1 - u1);
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = expf(s[nt][0] - u0);
-      s[nt][1] = expf(s[nt][1] - u0);
-      s[nt][2] = expf(s[nt][2] - u1);
-      s[nt][3] = expf(s[nt][3] - u1);
-      rs0 += s[nt][0] + s[nt][1];
-      rs1 += s[nt][2] + s[nt][3];
-    }
-    l0 = l0 * al0 + rs0;  // per-thread partial sums; the quad reduces at the end
-    l1 = l1 * al1 + rs1;
-    m0 = n0;
-    m1 = n1;
-#pragma unroll
-    for (int nt = 0; nt < ND; ++nt) {
-      o[nt][0] *= al0;
-      o[nt][1] *= al0;
-      o[nt][2] *= al1;
-      o[nt][3] *= al1;
-    }
-    acc_tile<NT / 2, ND, SD>(o, s, sV, g, t);
+  __device__ __forceinline__ TileCopier(const bf16* p, long long row_stride)
+      : base(p), sl(row_stride), step(RSTEP * row_stride), r0(threadIdx.x / CH) {
+    const int part = threadIdx.x % CH;
+    src = p + r0 * sl + part * 8;
+    off = r0 * PITCH + ((SWZ ? part ^ (r0 & 7) : part) << 4);
   }
 
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  bf16* out = at<bf16>(a.o, a.o_s, b, h);
-  const long long ol = a.o_s[2];
-  const float i0 = l0 > 0.f ? l0 : 1.f, i1 = l1 > 0.f ? l1 : 1.f;
+  // rows [row0, row0 + 64) to the tile at shared address `tile`; rows at or
+  // past L are zero-filled
+  __device__ __forceinline__ void start(uint32_t tile, int row0, int L) const {
+    const bf16* p = src + row0 * sl;
+    const uint32_t dst = tile + off;
+    if (row0 + kTile <= L) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) cp_async16(dst + i * RSTEP * PITCH, p + i * step);
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const bool live = row0 + r0 + i * RSTEP < L;
+        cp_async16(dst + i * RSTEP * PITCH, live ? p + i * step : base, live);
+      }
+    }
+  }
+};
+
+// -inf above the diagonal, for the tile's keys key0.. and a warp's 16 rows wrow..
+__device__ __forceinline__ void causal_mask(float (&s)[kTile / 8][4], int key0, int wrow, int g,
+                                            int t) {
+#pragma unroll
+  for (int nt = 0; nt < kTile / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (key0 + nt * 8 + 2 * t + (e & 1) > wrow + g + (e >> 1) * 8) s[nt][e] = -INFINITY;
+}
+
+// One tile's step of the online softmax, scores in log2 units: the running
+// max m and (per-thread partial) sum l of rows g and g + 8 move on, s becomes
+// the unnormalised probabilities and the accumulator o is rescaled to the new
+// max.
+template <int ND>
+__device__ __forceinline__ void softmax_step(float (&s)[kTile / 8][4], float (&o)[ND][4],
+                                             float (&m)[2], float (&l)[2]) {
+  constexpr int NT = kTile / 8;
+  float x0 = -INFINITY, x1 = -INFINITY;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    x0 = fmaxf(x0, fmaxf(s[nt][0], s[nt][1]));
+    x1 = fmaxf(x1, fmaxf(s[nt][2], s[nt][3]));
+  }
+  const float n0 = fmaxf(m[0], quad_max(x0)), n1 = fmaxf(m[1], quad_max(x1));
+  // a row with no live key yet keeps max -inf; exponents then use 0
+  const float u0 = n0 == -INFINITY ? 0.f : n0, u1 = n1 == -INFINITY ? 0.f : n1;
+  const float al0 = ex2(m[0] - u0), al1 = ex2(m[1] - u1);
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    s[nt][0] = ex2(s[nt][0] - u0);
+    s[nt][1] = ex2(s[nt][1] - u0);
+    s[nt][2] = ex2(s[nt][2] - u1);
+    s[nt][3] = ex2(s[nt][3] - u1);
+    rs0 += s[nt][0] + s[nt][1];
+    rs1 += s[nt][2] + s[nt][3];
+  }
+  l[0] = l[0] * al0 + rs0;  // the quad reduces its partial sums at the end
+  l[1] = l[1] * al1 + rs1;
+  m[0] = n0;
+  m[1] = n1;
 #pragma unroll
   for (int nt = 0; nt < ND; ++nt) {
-    const int c = nt * 8 + 2 * t;
-    if (r0 < a.Lq)
-      *reinterpret_cast<uint32_t*>(out + r0 * ol + c) = pack(o[nt][0] / i0, o[nt][1] / i0);
-    if (r1 < a.Lq)
-      *reinterpret_cast<uint32_t*>(out + r1 * ol + c) = pack(o[nt][2] / i1, o[nt][3] / i1);
+    o[nt][0] *= al0;
+    o[nt][1] *= al0;
+    o[nt][2] *= al1;
+    o[nt][3] *= al1;
   }
-  if (t == 0) {
-    const long long row = (long long)bh * a.Lq, plane = (long long)a.B * a.H * a.Lq;
-    if (r0 < a.Lq) {
-      a.stats[row + r0] = m0 == -INFINITY ? 0.f : m0;
-      a.stats[plane + row + r0] = l0 > 0.f ? logf(l0) : 0.f;
-    }
-    if (r1 < a.Lq) {
-      a.stats[row + r1] = m1 == -INFINITY ? 0.f : m1;
-      a.stats[plane + row + r1] = l1 > 0.f ? logf(l1) : 0.f;
-    }
+}
+
+// The statistics of rows r and r + 8 (lanes with t = 0 write): m in
+// natural-log units and log l apart. The clamped bias of a fully masked row
+// goes out as finfo.min, which the backward's recomputed scores will equal.
+__device__ __forceinline__ void store_stats(const FlashArgs& a, int bh, int r, const float (&m)[2],
+                                            float l0, float l1) {
+  const long long row = (long long)bh * a.Lq, plane = (long long)a.B * a.H * a.Lq;
+  if (r < a.Lq) {
+    a.stats[row + r] = m[0] == -INFINITY ? 0.f : (m[0] == -FLT_MAX ? m[0] : m[0] * kLn2);
+    a.stats[plane + row + r] = l0 > 0.f ? logf(l0) : 0.f;
   }
+  if (r + 8 < a.Lq) {
+    a.stats[row + r + 8] = m[1] == -INFINITY ? 0.f : (m[1] == -FLT_MAX ? m[1] : m[1] * kLn2);
+    a.stats[plane + row + r + 8] = l1 > 0.f ? logf(l1) : 0.f;
+  }
+}
+
+// What the two forward kernels share: a block of four warps owns 64 query
+// rows, 16 a warp, and walks the keys in 64-key tiles through a ring of two
+// shared-memory stages (a K tile followed by a V tile), each with the tile's
+// 64 key biases in log2 units (fp32, -inf for keys past Lk).
+struct FwdBlock {
+  const FlashArgs& a;
+  int bh, b, h, warp, lane, g, t, row0, wrow, nkt;
+  const float* bias;
+  float c;  // scale in log2 units
+
+  __device__ __forceinline__ explicit FwdBlock(const FlashArgs& args) : a(args) {
+    bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+    warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    row0 = blockIdx.x * kRows, wrow = row0 + warp * 16;
+    bias = a.bias ? a.bias + (long long)b * a.Lk : nullptr;
+    c = a.scale * kLog2e;
+    nkt = (a.Lk + kTile - 1) / kTile;
+    if (a.causal) nkt = min(nkt, (min(row0 + kRows, a.Lq) - 1) / kTile + 1);
+  }
+
+  __device__ __forceinline__ float key_bias(int j) const {
+    return j < a.Lk ? (bias ? bias_log2(bias[j]) : 0.f) : -INFINITY;
+  }
+};
+
+// D = 32 and 128: mma.sync. Shared memory, in order: Q [64][D + 8]; the two
+// stages, tiles of [64][D + 8]; the two stages' biases.
+template <int D>
+constexpr size_t fwd_smem_bytes() {
+  return (size_t)(kRows + 4 * kTile) * (D + 8) * sizeof(bf16) + 2 * kTile * sizeof(float);
+}
+
+// at D = 32 four blocks an SM hold the registers to 128 a thread
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 32 ? 4 : 1) flash_fwd_kernel(const FlashArgs a) {
+  constexpr int SD = D + 8, KD = D / 16, ND = D / 8, NT = kTile / 8, TILE = kTile * SD;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sKV = sQ + kRows * SD;
+  float* sB = reinterpret_cast<float*>(sKV + 4 * TILE);
+  const FwdBlock f(a);
+  const TileCopier<D, false> copy_k(at<const bf16>(a.k, a.k_s, f.b, f.h), a.k_s[2]);
+  const TileCopier<D, false> copy_v(at<const bf16>(a.v, a.v_s, f.b, f.h), a.v_s[2]);
+  const uint32_t ring = smem_addr(sKV);
+  auto copy_kv = [&](int kt) {
+    const uint32_t stage = ring + (kt & 1) * 2 * TILE * (int)sizeof(bf16);
+    copy_k.start(stage, kt * kTile, a.Lk);
+    copy_v.start(stage + TILE * (int)sizeof(bf16), kt * kTile, a.Lk);
+    cp_async_commit();
+  };
+
+  copy_rows_async<D>(sQ, at<const bf16>(a.q, a.q_s, f.b, f.h), a.q_s[2], f.row0, kRows, a.Lq,
+                     kThreads);
+  copy_kv(0);
+  if (threadIdx.x < kTile) sB[threadIdx.x] = f.key_bias(threadIdx.x);
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[KD][4];
+  load_q_frags<D>(qf, sQ + f.warp * 16 * SD, f.lane);
+
+  float o[ND][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < ND; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+
+  for (int kt = 0; kt < f.nkt; ++kt) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt has landed for every thread; tile kt - 1 is consumed
+    const bool more = kt + 1 < f.nkt;
+    float next_bias = 0.f;
+    if (more) {  // the next tile loads while this one multiplies
+      copy_kv(kt + 1);
+      if (threadIdx.x < kTile) next_bias = f.key_bias((kt + 1) * kTile + threadIdx.x);
+    }
+    const bf16* sK = sKV + (kt & 1) * 2 * TILE;
+    const int key0 = kt * kTile;
+
+    float s[NT][4];
+    score_tile<D>(s, qf, sK, NT, f.lane);
+    scale_bias(s, sB + (kt & 1) * kTile, f.c, f.t);
+    // only a tile that crosses this warp's diagonal needs the mask
+    if (a.causal && key0 + kTile - 1 > f.wrow) causal_mask(s, key0, f.wrow, f.g, f.t);
+    softmax_step<ND>(s, o, m, l);
+    pv_tile<D>(o, s, sK + TILE, NT / 2, f.lane);
+    // that stage's biases were last read in iteration kt - 1
+    if (more && threadIdx.x < kTile) sB[((kt + 1) & 1) * kTile + threadIdx.x] = next_bias;
+  }
+
+  const float l0 = quad_sum(l[0]), l1 = quad_sum(l[1]);
+  store_tile<D>(o, l0 > 0.f ? 1.f / l0 : 1.f, l1 > 0.f ? 1.f / l1 : 1.f, sQ + f.warp * 16 * SD,
+                at<bf16>(a.o, a.o_s, f.b, f.h), a.o_s[2], f.wrow, a.Lq, f.lane);
+  if (f.t == 0) store_stats(a, f.bh, f.wrow + f.g, m, l0, l1);
+}
+
+// ------------------------------------------------------- forward, D = 64, wgmma
+// The same loop with the products on Hopper's warpgroup matrix multiply (wgmma):
+// the block's four warps are one warpgroup and start S = Q·Kᵀ as four
+// wgmma.m64n64k16 (A: the Q tile, B: the K tile, both read by the tensor
+// cores straight from shared memory, K-major) and O += P·V as four more (A: P
+// in registers, the accumulator layout of S; B: the V tile, MN-major, hence
+// transposed by wgmma itself). No ldmatrix and no per-warp copy of K/V
+// fragments: the tensor cores read each tile once a block, and the warps'
+// scheduler slots go to the softmax. Tiles are stored with the 128-byte swizzle
+// and named by matrix descriptors; a row of D = 64 bf16 is exactly one
+// 128-byte swizzle row. Inside a block nothing overlaps: it waits for S, runs
+// the softmax, waits for P·V. The overlap comes from the blocks that share an
+// SM, so the kernel's speed follows their number: 96 registers a thread let
+// five of them in. Every block re-reads its head's K and V from the L2 (677
+// MB at the cross-encoder's shape, 3.9 times the bytes of the bound).
+// (Q fragments kept in registers across the loop as the A operand did not
+// survive the compiler, which reused their registers for P: hence Q by
+// descriptor.)
+constexpr int kWgTile = kTile * 64 * (int)sizeof(bf16);  // bytes of a [64][64] tile
+constexpr int kWgMinBlocks = 5;
+
+// byte offset of 16-byte chunk `part` of row `r` in a swizzled tile
+__device__ __forceinline__ uint32_t swz(int r, int part) { return r * 128 + ((part ^ (r & 7)) << 4); }
+
+// descriptor of a 128-byte-swizzled tile at a 1024-byte aligned shared
+// address (plus an offset along K): 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t tile_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+
+// commits the products started so far and waits for them
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving uses of an accumulator across the wait
+__device__ __forceinline__ void fence_regs(float (&d)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
+}
+
+#define ANTMMF_WGMMA_ACC(d)                                                                      \
+  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),     \
+      "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), \
+      "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), \
+      "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), \
+      "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), \
+      "+f"(d[7][2]), "+f"(d[7][3])
+#define ANTMMF_WGMMA_M64N64K16                                                         \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "            \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+
+// d = a·b (or d += a·b): a warpgroup's m64n64k16 with both operands by
+// descriptor, K-major. d[nt][e] is the mma.sync accumulator layout of key
+// block nt, each warp its 16 rows.
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" ANTMMF_WGMMA_M64N64K16
+               "%32, %33, p, 1, 1, 0, 0;\n}\n"
+               : ANTMMF_WGMMA_ACC(d)
+               : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += a·b with A from registers (each warp its 16 rows, the mma.sync A
+// layout) and B MN-major, transposed by wgmma itself
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[8][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" ANTMMF_WGMMA_M64N64K16
+               "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+               : ANTMMF_WGMMA_ACC(d)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Shared memory from a 1024-byte aligned base, in order: Q [64][64], the two
+// stages, tiles of [64][64] (all swizzled); the two stages' biases. One KB
+// more pays for the alignment.
+constexpr size_t kWgSmemBytes = 1024 + 5 * kWgTile + 2 * kTile * sizeof(float);
+
+__global__ void __launch_bounds__(kThreads, kWgMinBlocks) flash_fwd_wgmma_kernel(const FlashArgs a) {
+  constexpr int D = 64, KD = D / 16, ND = D / 8, NT = kTile / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t sQ = (smem_addr(smem) + 1023) & ~1023u;
+  const uint32_t ring = sQ + kWgTile;
+  unsigned char* aligned = smem + (sQ - smem_addr(smem));
+  float* sB = reinterpret_cast<float*>(aligned + 5 * kWgTile);
+  const FwdBlock f(a);
+  const TileCopier<D, true> copy_k(at<const bf16>(a.k, a.k_s, f.b, f.h), a.k_s[2]);
+  const TileCopier<D, true> copy_v(at<const bf16>(a.v, a.v_s, f.b, f.h), a.v_s[2]);
+  auto copy_kv = [&](int kt) {
+    const uint32_t stage = ring + (kt & 1) * 2 * kWgTile;
+    copy_k.start(stage, kt * kTile, a.Lk);
+    copy_v.start(stage + kWgTile, kt * kTile, a.Lk);
+    cp_async_commit();
+  };
+
+  TileCopier<D, true>(at<const bf16>(a.q, a.q_s, f.b, f.h), a.q_s[2])
+      .start(sQ, f.row0, a.Lq);
+  copy_kv(0);
+  if (threadIdx.x < kTile) sB[threadIdx.x] = f.key_bias(threadIdx.x);
+  const uint64_t qd = tile_desc(sQ);
+
+  float o[ND][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < ND; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+
+  for (int kt = 0; kt < f.nkt; ++kt) {
+    cp_async_wait<0>();
+    // the copies wrote through the generic proxy; the tensor cores read
+    // shared memory through the asynchronous one
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // tile kt has landed for every thread; tile kt - 1 is consumed
+    const bool more = kt + 1 < f.nkt;
+    float next_bias = 0.f;
+    if (more) {  // the next tile loads while this one multiplies
+      copy_kv(kt + 1);
+      if (threadIdx.x < kTile) next_bias = f.key_bias((kt + 1) * kTile + threadIdx.x);
+    }
+    const uint64_t kd = tile_desc(ring + (kt & 1) * 2 * kWgTile), vd = kd + (kWgTile >> 4);
+    const int key0 = kt * kTile;
+
+    float s[NT][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)  // 16 of D a step: 32 bytes along the swizzled rows
+      wgmma_ss(s, qd + 2 * kk, kd + 2 * kk, kk > 0);
+    wgmma_commit_wait();
+    fence_regs(s);
+
+    scale_bias(s, sB + (kt & 1) * kTile, f.c, f.t);
+    if (a.causal && key0 + kTile - 1 > f.wrow) causal_mask(s, key0, f.wrow, f.g, f.t);
+    softmax_step<ND>(s, o, m, l);
+
+    uint32_t pa[NT / 2][4];
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) pack_p(pa[kk], s, kk);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk)  // 16 keys a step: two 8-row groups of the V tile
+      wgmma_rs_tb(o, pa[kk], vd + kk * (2048 >> 4));
+    wgmma_commit_wait();
+    fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk)  // P's registers stay P's until the products are done
+      asm volatile("" ::"r"(pa[kk][0]), "r"(pa[kk][1]), "r"(pa[kk][2]), "r"(pa[kk][3]));
+    // that stage's biases were last read in iteration kt - 1
+    if (more && threadIdx.x < kTile) sB[((kt + 1) & 1) * kTile + threadIdx.x] = next_bias;
+  }
+
+  // the output leaves through the warp's own 16 Q rows, swizzled alike, once
+  // no product reads the Q tile any more
+  __syncthreads();
+  const float l0 = quad_sum(l[0]), l1 = quad_sum(l[1]);
+  const float i0 = l0 > 0.f ? 1.f / l0 : 1.f, i1 = l1 > 0.f ? 1.f / l1 : 1.f;
+  bf16* out = at<bf16>(a.o, a.o_s, f.b, f.h);
+  const int wr = f.warp * 16, g = f.g, t = f.t;
+#pragma unroll
+  for (int nt = 0; nt < ND; ++nt) {
+    *reinterpret_cast<uint32_t*>(aligned + swz(wr + g, nt) + 4 * t) =
+        pack(o[nt][0] * i0, o[nt][1] * i0);
+    *reinterpret_cast<uint32_t*>(aligned + swz(wr + g + 8, nt) + 4 * t) =
+        pack(o[nt][2] * i1, o[nt][3] * i1);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = i * 4 + (f.lane >> 3), part = f.lane & 7;
+    if (f.wrow + r < a.Lq)
+      *reinterpret_cast<uint4*>(out + (long long)(f.wrow + r) * a.o_s[2] + part * 8) =
+          *reinterpret_cast<const uint4*>(aligned + swz(wr + r, part));
+  }
+  if (t == 0) store_stats(a, f.bh, f.wrow + g, m, l0, l1);
 }
 
 // ----------------------------------------------------------------------- dQ
@@ -458,13 +725,24 @@ bool takes(const FlashArgs* a) {
   return a->B >= 1 && a->H >= 1 && a->Lq >= 1 && a->Lk >= 1 && (long long)a->B * a->H <= 65535;
 }
 
+template <typename Kernel>
+int launch_fwd(Kernel kernel, size_t smem, const FlashArgs& a, cudaStream_t s) {
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.Lq + kRows - 1) / kRows, a.B * a.H);
+  kernel<<<grid, kThreads, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch(int which, const FlashArgs& a, cudaStream_t s) {
+  if (which == 0) {
+    if constexpr (D == 64) return launch_fwd(flash_fwd_wgmma_kernel, kWgSmemBytes, a, s);
+    else return launch_fwd(flash_fwd_kernel<D>, fwd_smem_bytes<D>(), a, s);
+  }
   const int L = which == 2 ? a.Lk : a.Lq;
   const dim3 grid((L + kRows - 1) / kRows, a.B * a.H);
-  if (which == 0)
-    flash_fwd_kernel<D><<<grid, kThreads, 0, s>>>(a);
-  else if (which == 1)
+  if (which == 1)
     flash_dq_kernel<D><<<grid, kThreads, 0, s>>>(a);
   else
     flash_dkv_kernel<D, D == 128 ? 32 : 64><<<grid, kThreads, 0, s>>>(a);

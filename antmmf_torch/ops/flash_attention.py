@@ -60,7 +60,10 @@ def _probs(q, k, kb, stats, scale: float, causal: bool) -> torch.Tensor:
 
 def plain_flash_fwd(q, k, v, kb, scale: float, causal: bool):
     """``flash_fwd``'s algorithm: unnormalised P (rounded to v's dtype) times
-    V in fp32, divided by the row sum; stats = (m, log l)."""
+    V in fp32, divided by the row sum; stats = (m, log l), in natural-log
+    units. (The kernel works in log2 units, one ``ex2`` a score, and converts
+    m on the way out; a fully masked row's m is ``finfo(float32).min`` in
+    both.)"""
     s = _logits(q, k, kb, scale, causal)
     m = s.amax(dim=-1)
     m = torch.where(m == float("-inf"), torch.zeros_like(m), m)

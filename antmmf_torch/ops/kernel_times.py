@@ -1,0 +1,127 @@
+"""Times the attention kernels of one source tree on the card, at the main
+paths' shapes, beside ``scaled_dot_product_attention`` on the same inputs.
+
+    python3 antmmf_torch/ops/kernel_times.py [--tree DIR] [--label NAME] [--rounds N]
+                                             [--kernels small_attention,flash_fwd,...]
+
+``--tree`` is the directory whose ``antmmf_torch`` package is imported
+(default: the one this file belongs to), so two trees (a parent commit
+unpacked with ``git archive`` beside the working tree, or copies that differ
+in one tiling constant) can be timed in turns on one card: run the script
+once per tree and round inside one shell command. Every tree builds its own
+kernels under its own ``build/``.
+
+Each reading is device time per launch: 20 launches captured in a CUDA graph
+and replayed, timed with CUDA events, so the host's launch cost stays out of
+it (it would swamp the one-sample shapes). One JSON line per kernel and
+shape, with the card's name and power limit as ``nvidia-smi`` gives them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+
+def graph_ms(fn, launches: int = 20, replays: int = 10) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    for _ in range(2):
+        graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * launches)
+
+
+def cases(torch, sa, fa):
+    """(kernel, shape name, port call, library call or None)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    fmin = torch.finfo(torch.float32).min
+
+    def proj(B, L, H, D):  # the [B, L, H, D] projection layout seen as [B, H, L, D]
+        return torch.randn(B, L, H, D, generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
+
+    def pad_bias(B, L, lo, live_tail=0):
+        lens = torch.randint(lo, L + 1, (B,), generator=gen, device="cuda")
+        live = torch.arange(L, device="cuda")[None] < lens[:, None]
+        live = torch.cat([live, torch.ones(B, live_tail, dtype=torch.bool, device="cuda")], 1)
+        return torch.where(live, 0.0, fmin).float().contiguous(), live[:, None, None, :]
+
+    def small(name, B, H, L, D, bias):
+        q, k, v = (proj(B, L, H, D) for _ in range(3))
+        kb, mask = pad_bias(B, L, 5) if bias else (None, None)
+        return ("small_attention", name,
+                lambda: sa.small_attention(q, k, v, kb),
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+
+    yield small("vit_256x12x50x64", 256, 12, 50, 64, False)
+    yield small("bert_32x12x30x64_pad", 32, 12, 30, 64, True)
+    yield small("pink_vit_1x12x50x64", 1, 12, 50, 64, False)
+
+    # the cross-encoder's pairs: up to 30 text tokens (ragged) then 400 live frame tokens
+    q, k, v = (proj(64, 430, 12, 64) for _ in range(3))
+    dout = torch.randn(64, 12, 430, 64, generator=gen, device="cuda").to(torch.bfloat16)
+    kb, mask = pad_bias(64, 30, 8, live_tail=400)
+    scale = 64 ** -0.5
+    out, stats = fa.flash_fwd(q, k, v, kb, scale, False)
+    _, delta = fa.flash_dq(q, k, v, kb, out, stats, dout, scale, False)
+    name = "cross_64x12x430x64_ragged"
+    yield ("flash_fwd", name, lambda: fa.flash_fwd(q, k, v, kb, scale, False),
+           lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+    yield ("flash_dq", name,
+           lambda: fa.flash_dq(q, k, v, kb, out, stats, dout, scale, False), None)
+    yield ("flash_dkv", name,
+           lambda: fa.flash_dkv(q, k, v, kb, stats, dout, delta, scale, False), None)
+    pq, pk, pv = (proj(1, 113, 16, 128) for _ in range(3))
+    yield ("flash_fwd", "pink_prefill_1x16x113x128_causal",
+           lambda: fa.flash_fwd(pq, pk, pv, None, 128 ** -0.5, True),
+           lambda: F.scaled_dot_product_attention(pq, pk, pv, is_causal=True))
+
+
+def main() -> None:
+    here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--tree", default=here)
+    ap.add_argument("--label", default="tree")
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--kernels", default="", help="comma-separated; default all")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.tree))
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("kernel_times.py needs a CUDA device")
+    from antmmf_torch.ops import flash_attention as fa
+    from antmmf_torch.ops import small_attention as sa
+
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    only = set(filter(None, args.kernels.split(",")))
+    for kernel, shape, port, library in list(cases(torch, sa, fa)):
+        if only and kernel not in only:
+            continue
+        ms = [graph_ms(port) for _ in range(args.rounds)]
+        lib = [graph_ms(library) for _ in range(args.rounds)] if library else None
+        print(json.dumps({"tree": args.label, "kernel": kernel, "shape": shape, "gpu": gpu,
+                          "us": [round(x * 1e3, 2) for x in ms],
+                          "sdpa_us": lib and [round(x * 1e3, 2) for x in lib]}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

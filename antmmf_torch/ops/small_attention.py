@@ -1,8 +1,9 @@
 """Fused attention for short self-attention sequences (L <= 256).
 
-Port of ``antmmf_tpu/ops/pallas/small_attention.py``. The CUDA kernel
-(``csrc/small_attention.cu``, whose head comment says what bounds it on an
-H100 and how its design answers that) computes
+Port of ``antmmf_tpu/ops/pallas/small_attention.py``. The CUDA kernels
+(``csrc/small_attention.cu``, whose head comment says what bounds them on an
+H100 and how the design answers that: bfloat16 on the tensor cores, float32
+in full precision on the CUDA cores) compute
 
     out[b, h, i] = sum_j softmax_j(q[b,h,i]·k[b,h,j]·scale + bias[b, j]) v[b,h,j]
 
@@ -61,7 +62,10 @@ def plain_small_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
                           scale: Optional[float] = None) -> torch.Tensor:
     """Plain version of the kernel: its key-bias contract, ``einsum_attention``'s
-    arithmetic."""
+    arithmetic. The bfloat16 kernel follows it on both of its branches (one
+    pass for L <= 64; two sweeps over 64-key tiles of the head's K beyond):
+    fp32 scores, max and sum, and P rounded to the input type after it is
+    normalised, just before P·V."""
     B, H, L, D = q.shape
     kb = key_bias(bias, B, L)
     return einsum_attention(q, k, v, None if kb is None else kb[:, None, None, :], scale)

@@ -10,11 +10,14 @@ non-zero code and no result line:
    kernels built from ``antmmf_torch/ops/csrc`` with ``nvcc``; TF32 is turned
    off so fp32 checks are exact;
 2. kernel vs plain: ``small_attention`` against ``plain_small_attention`` on
-   the same inputs at the serving path's shapes, bf16 and fp32, and its
+   the same inputs at the serving path's shapes and at the edges of the bf16
+   kernel's tiles (L 15 to 256, D 32 to 128, strided and biased, fully masked
+   rows on both of its branches), bf16 and fp32, and its
    autograd Function's gradients against fp32 autograd of the plain version;
    ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` against their plain versions
    on the same inputs (the cross-encoder's [64, 12, 430, 64] with ragged key
-   masks, Lq ≠ Lk, causal, a fully masked row, D 32 and 128), and the
+   masks, Lq ≠ Lk, causal, a fully masked row, D 32 and 128, key counts
+   around the forward's tile ring, Pink's causal prefill shape), and the
    ``flash_attention`` Function against fp32 autograd of
    ``plain_flash_attention``; ``int4_gemv`` against ``plain_int4_gemv`` and
    against ``unpack_int4`` + matmul in fp32 on the decode path's five weight
@@ -43,8 +46,10 @@ non-zero code and no result line:
    step's loss and each parameter's gradient cosine, held to the bound that
    ``--calibrate`` reads;
 7. times: text-query and full-encode latency, each kernel's time beside its
-   bound, its plain version and the library call at the path's shapes, with
-   the GPU's name and power limit;
+   bound, its plain version and the library call at the paths' shapes (the
+   ViT, BERT and Pink's ViT for ``small_attention``; the cross-encoder and
+   Pink's causal prefill for ``flash_fwd``), kernel and library as device
+   time per launch from a CUDA graph, with the GPU's name and power limit;
 8. trace: ``torch.profiler`` over full encodes at B=32: device-busy time per
    forward against the untraced wall time (the device's idle share), device
    operations (kernels and copies) per forward and those that take the most
@@ -249,10 +254,20 @@ def kernel_cases(gen):
         yield f"d32_L50_pad_{tag}", *qkv(64, 8, 50, 32, dtype), pad_bias(64, 50, 1)
         yield f"d128_L50_{tag}", *qkv(64, 6, 50, 128, dtype), None
         yield f"L256_pad_{tag}", *qkv(8, 12, 256, 64, dtype), pad_bias(8, 256, 1)
-        q, k, v = qkv(2, 3, 50, 64, dtype)
-        masked = torch.zeros(2, 1, 1, 50, device=dev)
-        masked[0] = fmin  # every key of sample 0 masked
-        yield f"fully_masked_{tag}", q, k, v, masked
+        # the edges of the bf16 kernel's tiles: 16 query rows a warp, 8-key
+        # blocks, 64-key tiles, 128 query rows a block
+        for L in (15, 16, 17, 63, 64, 65, 128, 255):
+            yield f"edge_L{L}_pad_{tag}", *qkv(16, 12, L, 64, dtype), pad_bias(16, L, 1)
+        yield f"d32_L200_pad_{tag}", *qkv(8, 8, 200, 32, dtype), pad_bias(8, 200, 1)
+        if dtype == torch.bfloat16:  # fp32 at D=128 stops at L=215 and its stage is larger
+            yield f"d128_L200_pad_{tag}", *qkv(8, 6, 200, 128, dtype), pad_bias(8, 200, 1)
+        yield (f"L256_strided_pad_{tag}", *qkv(8, 12, 256, 64, dtype, strided=True),
+               pad_bias(8, 256, 1))
+        for L in (50, 130):
+            q, k, v = qkv(2, 3, L, 64, dtype)
+            masked = torch.zeros(2, 1, 1, L, device=dev)
+            masked[0] = fmin  # every key of sample 0 masked
+            yield f"fully_masked_L{L}_{tag}", q, k, v, masked
 
 
 def phase_kernels() -> float:
@@ -269,7 +284,7 @@ def phase_kernels() -> float:
                else BF16_ULPS * torch.finfo(torch.bfloat16).eps * max(scale, 1.0))
         ok = bool(torch.isfinite(out).all().item()) and err <= tol
         if name.startswith("fully_masked"):
-            uniform = v[0].float().mean(dim=1, keepdim=True).expand(-1, 50, -1)
+            uniform = v[0].float().mean(dim=1, keepdim=True).expand(-1, q.shape[2], -1)
             uerr = (out[0].float() - uniform).abs().max().item()
             ok = ok and uerr <= tol
         emit(phase="kernel_check", case=name, shape=list(q.shape), dtype=str(q.dtype),
@@ -350,6 +365,17 @@ def flash_cases(gen):
         ragged(4, 290, 1), False
     yield "d128_L270_causal", proj(4, 270, 6, 128), proj(4, 270, 6, 128), \
         proj(4, 270, 6, 128), ragged(4, 270, 1), True
+    # the forward's two-stage ring: one tile, exactly one, a one-key last
+    # tile, an odd count of tiles
+    for Lk in (63, 64, 65, 129):
+        yield f"lq200_lk{Lk}_ragged", proj(4, 200, 12, 64), proj(4, Lk, 12, 64), \
+            proj(4, Lk, 12, 64), ragged(4, Lk, 1), False
+    yield "causal_lq200_lk330", proj(4, 200, 12, 64), proj(4, 330, 12, 64), \
+        proj(4, 330, 12, 64), ragged(4, 330, 1), True
+    yield "causal_lq330_lk200", proj(4, 330, 12, 64), proj(4, 200, 12, 64), \
+        proj(4, 200, 12, 64), None, True
+    yield "pink_prefill_L113_d128_causal", proj(1, 113, 16, 128), proj(1, 113, 16, 128), \
+        proj(1, 113, 16, 128), None, True
 
 
 def phase_flash() -> dict:
@@ -857,6 +883,20 @@ def cuda_ms(fn, iters=100, warmup=10):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(launch, copies: int, replays: int = 5) -> float:
+    """Device time per launch: ``launch(i)`` for i in range(copies) captured
+    in one CUDA graph and replayed, so the host's launch cost is out of the
+    reading (and a launch that indexes its operands by ``i`` meets operands
+    the L2 cache does not hold)."""
+    launch(0)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(copies):
+            launch(i)
+    return cuda_ms(graph.replay, iters=replays, warmup=2) / copies
+
+
 def host_ms(fn, iters, warmup=5):
     for _ in range(warmup):
         fn()
@@ -905,26 +945,38 @@ def phase_times(predictors, rng, gpu):
             emit(phase="times", exp=f"full_encode_b{b}", token_merge_r=r, gpu=gpu,
                  **pct(lat), clips_per_s=b * 1e3 / float(np.mean(lat)))
 
-    # the kernel at the ViT shape [256, 12, 50, 64] bf16, q/k/v as the
-    # projections lay them out
+    # the kernel at the main paths' shapes, bf16, q/k/v as the projections
+    # lay them out: the ViT at B=32 (the row that goes into the kernel
+    # table), BERT at B=32 with its padding bias, Pink's ViT at one image.
+    # Device time per launch from a CUDA graph: launched eagerly, the
+    # wrapper's host cost would hide a kernel this short
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    B, H, L, D = 256, 12, 50, 64
-    q, k, v = (torch.randn(B, L, H, D, generator=gen, device="cuda")
-               .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
-    saved = small_attention.launches
-    ms = cuda_ms(lambda: small_attention(q, k, v))
-    small_attention.launches = saved  # timing launches are not path launches
-    plain_ms = cuda_ms(lambda: plain_small_attention(q, k, v), iters=20)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-    nbytes = 4 * B * H * L * D * 2
-    flops = 4 * B * H * L * L * D
-    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    emit(phase="times", exp="small_attention_kernel", shape=[B, H, L, D], dtype="bf16",
-         gpu=gpu, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-         bytes=nbytes, flops=flops, bound_share=bound_ms / ms)
-    return walls, dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                       bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    saved = read_counts()
+    main = None
+    for name, (B, H, L, D), biased in (("vit_b32", (256, 12, 50, 64), False),
+                                       ("bert_b32_pad", (32, 12, TEXT_LEN, 64), True),
+                                       ("pink_vit_b1", (1, 12, 50, 64), False)):
+        q, k, v = (torch.randn(B, L, H, D, generator=gen, device="cuda")
+                   .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+        bias = mask = None
+        if biased:
+            lens = torch.randint(8, L + 1, (B,), generator=gen, device="cuda")
+            mask = (torch.arange(L, device="cuda")[None] < lens[:, None])[:, None, None, :]
+            bias = make_attention_mask(mask[:, 0, 0].long())
+        row = dict(
+            ms=graph_ms(lambda i: small_attention(q, k, v, bias), 20),
+            eager_ms=cuda_ms(lambda: small_attention(q, k, v, bias)),
+            plain_ms=cuda_ms(lambda: plain_small_attention(q, k, v, bias), iters=20),
+            library_ms=graph_ms(lambda i: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                                20),
+            **bound(4 * B * H * L * D * 2 + (B * L * 4 if biased else 0), 4 * B * H * L * L * D))
+        emit(phase="times", exp="small_attention_kernel", case=name, shape=[B, H, L, D],
+             dtype="bf16", gpu=gpu, **row, bound_share=row["bound_ms"] / row["ms"])
+        main = main or row
+    for fn in KERNELS:  # timing launches are not path launches
+        fn.launches = saved[fn.__name__]
+    main.pop("eager_ms")
+    return walls, main
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -956,23 +1008,35 @@ def phase_flash_times(pair_bias, gpu) -> dict:
     mask = pair_bias > torch.finfo(torch.float32).min / 2  # SDPA's boolean form
     timing = {
         "flash_fwd": dict(
-            ms=cuda_ms(lambda: flash_fwd(q, k, v, kb, scale, False)),
+            ms=graph_ms(lambda i: flash_fwd(q, k, v, kb, scale, False), 20),
             plain_ms=cuda_ms(lambda: plain_flash_fwd(q, k, v, kb, scale, False), iters=10),
-            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)),
+            library_ms=graph_ms(
+                lambda i: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 20),
             **bound(4 * tensor + bias_b + 2 * rows, 4 * D * pairs)),
         "flash_dq": dict(
-            ms=cuda_ms(lambda: flash_dq(q, k, v, kb, out, stats, dout, scale, False)),
+            ms=graph_ms(lambda i: flash_dq(q, k, v, kb, out, stats, dout, scale, False), 20),
             plain_ms=cuda_ms(lambda: plain_flash_dq(q, k, v, kb, out, stats, dout, scale,
                                                     False), iters=10),
             library_ms=None,
             **bound(6 * tensor + bias_b + 3 * rows, 6 * D * pairs)),
         "flash_dkv": dict(
-            ms=cuda_ms(lambda: flash_dkv(q, k, v, kb, stats, dout, delta, scale, False)),
+            ms=graph_ms(lambda i: flash_dkv(q, k, v, kb, stats, dout, delta, scale, False), 20),
             plain_ms=cuda_ms(lambda: plain_flash_dkv(q, k, v, kb, stats, dout, delta, scale,
                                                      False), iters=10),
             library_ms=None,
             **bound(6 * tensor + bias_b + 3 * rows, 8 * D * pairs)),
     }
+    # the causal prefill of a Pink request: 113 tokens, 16 heads of 128
+    pq, pk, pv = (torch.randn(1, 113, 16, 128, generator=gen, device="cuda")
+                  .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+    prefill = dict(
+        ms=graph_ms(lambda i: flash_fwd(pq, pk, pv, None, 128 ** -0.5, True), 20),
+        plain_ms=cuda_ms(lambda: plain_flash_fwd(pq, pk, pv, None, 128 ** -0.5, True), iters=10),
+        library_ms=graph_ms(
+            lambda i: F.scaled_dot_product_attention(pq, pk, pv, is_causal=True), 20),
+        **bound(4 * pq.numel() * 2 + 2 * 16 * 113 * 4, 4 * 128 * 16 * 113 * 114 // 2))
+    emit(phase="times", exp="flash_fwd", case="pink_prefill_causal", shape=[1, 16, 113, 128],
+         dtype="bf16", gpu=gpu, **prefill, bound_share=prefill["bound_ms"] / prefill["ms"])
     # SDPA forward and backward together, the yardstick for the three kernels
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
 
@@ -988,7 +1052,8 @@ def phase_flash_times(pair_bias, gpu) -> dict:
     for fn in KERNELS:  # timing launches are not path launches
         fn.launches = saved[fn.__name__]
     for name, t in timing.items():
-        emit(phase="times", exp=name, shape=[P, H, L, D], dtype="bf16", gpu=gpu, live_keys=live,
+        emit(phase="times", exp=name, case="cross_encoder", shape=[P, H, L, D], dtype="bf16",
+             gpu=gpu, live_keys=live,
              **t, bound_share=t["bound_ms"] / t["ms"])
     emit(phase="times", exp="flash_fwd_dq_dkv_vs_sdpa_fwd_bwd", shape=[P, H, L, D], gpu=gpu,
          flash_ms=family_ms, sdpa_ms=sdpa_ms)
@@ -1270,19 +1335,6 @@ def calibrate_pink(seeds=3) -> None:
 
 
 # ----------------------------------------------------------------- phase 11
-def graph_ms(launch, copies: int, replays: int = 5) -> float:
-    """Device time per launch: ``launch(i)`` for i in range(copies) captured
-    in one CUDA graph and replayed, so the host's launch cost is out of the
-    reading and each launch meets weights the L2 cache does not hold."""
-    launch(0)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(copies):
-            launch(i)
-    return cuda_ms(graph.replay, iters=replays, warmup=2) / copies
-
-
 def phase_int4_times(pred, gpu) -> dict:
     """``int4_gemv`` at one row of bf16 x on the served model's records, one
     of each of the path's five shapes. Bound: packed bytes, scales, x and y

@@ -85,6 +85,22 @@ def test_matches_xla_core(Lq, Lk, causal, bias_rank):
     _close(_port(q, k, v, None if bias_rank is None else bias, w, causal, bias_rank or 2), ref)
 
 
+# key counts around the forward kernel's 64-key tiles and its ring of two
+# stages (one tile, exactly one, a one-key last tile, an odd count of tiles),
+# and causal masking with Lq != Lk across tiles
+@pytest.mark.parametrize("Lq,Lk,causal", [
+    (40, 63, False), (40, 64, False), (40, 65, False), (40, 129, False),
+    (70, 130, True), (130, 70, True)])
+def test_matches_xla_core_at_tile_edges(Lq, Lk, causal):
+    q, k, v, bias, w = _inputs(Lq, Lk, seed=5 * Lq + Lk)
+    mask = np.zeros((1, 1, Lq, Lk), np.float32)
+    if causal:
+        mask = np.where(np.tril(np.ones((Lq, Lk), bool)), 0.0, -np.inf)[None, None]
+    ref = _jax(lambda q, k, v: xla_attention_core(
+        q, k, v, bias=jnp.asarray(mask + bias[:, None, None, :])), q, k, v, w)
+    _close(_port(q, k, v, bias, w, causal), ref)
+
+
 @pytest.mark.parametrize("Lk", [40, 64])
 def test_fully_masked_row_is_uniform_average(Lk):
     """A sample whose keys all carry finfo.min attends uniformly, as in

@@ -55,6 +55,18 @@ def test_plain_matches_xla_core(L, bias_kind):
     np.testing.assert_allclose(_port(q, k, v, bias), np.asarray(ref), atol=ATOL)
 
 
+# the edges of the bf16 kernel's tiles (16 query rows a warp, 8-key blocks,
+# 64-key tiles, 128 query rows a block), whose arithmetic the plain version
+# states; fp32 here, where only the summation order differs (atol 2e-6)
+@pytest.mark.parametrize("bias_kind", [None, "pad"])
+@pytest.mark.parametrize("L", [15, 16, 17, 63, 64, 65, 128, 255, 256])
+def test_plain_matches_xla_core_at_tile_edges(L, bias_kind):
+    q, k, v, bias = _inputs(L, bias_kind, seed=L)
+    ref = xla_attention_core(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             None if bias is None else jnp.asarray(bias))
+    np.testing.assert_allclose(_port(q, k, v, bias), np.asarray(ref), atol=2e-6)
+
+
 @pytest.mark.parametrize("bias_kind", ["pad", "tome"])
 @pytest.mark.parametrize("L", [50, 13])
 def test_plain_matches_pallas_interpret(L, bias_kind, monkeypatch):
@@ -69,9 +81,10 @@ def test_plain_matches_pallas_interpret(L, bias_kind, monkeypatch):
     np.testing.assert_allclose(_port(q, k, v, bias), np.asarray(ref), atol=ATOL)
 
 
-def test_fully_masked_row_is_uniform_average():
-    q, k, v, _ = _inputs(50, None, seed=2)
-    bias = np.zeros((B, 1, 1, 50), np.float32)
+@pytest.mark.parametrize("L", [50, 130])  # one key tile of the bf16 kernel, and three
+def test_fully_masked_row_is_uniform_average(L):
+    q, k, v, _ = _inputs(L, None, seed=2)
+    bias = np.zeros((B, 1, 1, L), np.float32)
     bias[0] = np.finfo(np.float32).min
     out = _port(q, k, v, bias)
     ref = xla_attention_core(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bias))
