@@ -28,8 +28,10 @@
 // What bounds it on an H100: at the cross-encoder's [64, 12, 430, 64] q, k, v
 // and the output are 42.3 MB each, 172 MB with the bias and the statistics
 // (51.3 us at 3.35 TB/s), against 4·B·H·Lq·Lk·D = 36.4 GFLOP (36.8 us at 989
-// TFLOP/s bf16): device-memory bytes bound the forward at D = 64, and the
-// backward kernels likewise (231 and 258 MB). All three are flash attention
+// TFLOP/s bf16): device-memory bytes bound the forward at D = 64. The backward
+// kernels each move six such tensors plus the rows, about 258 MB (76.9 us),
+// against 6 and 8·B·H·Lq·Lk·D operations (55 and 73.5 us): close to
+// balanced, so loads and products have to overlap. All three are flash attention
 // with the score tile kept in registers:
 //   * bf16 tensor-core products with fp32 accumulators; a block of four warps
 //     owns 64 rows of its own operand (query rows in the forward and dQ, keys
@@ -52,8 +54,10 @@
 // (K) and ldmatrix.x4.trans (V), one shared-memory load for two
 // products; Pink's causal prefill at D = 128 is 32 blocks of two tiles, a
 // matter of latency, where wgmma has nothing to add.
-// The dQ and dK/dV kernels still load their tiles synchronously, single
-// buffered, with scalar fragment loads on mma.sync.
+// At D = 64 the dQ and dK/dV kernels share that design (ring, wgmma, ex2; see
+// "backward, D = 64"). At D = 32 and 128, which no path trains at, they still
+// load their tiles synchronously, single buffered, with scalar fragment loads
+// on mma.sync.
 // P is rounded to bf16 before P·V and dS before dS·K, as the JAX kernels do.
 
 #include "attention_common.cuh"
@@ -284,10 +288,10 @@ __device__ __forceinline__ void store_stats(const FlashArgs& a, int bh, int r, c
   }
 }
 
-// What the two forward kernels share: a block of four warps owns 64 query
-// rows, 16 a warp, and walks the keys in 64-key tiles through a ring of two
-// shared-memory stages (a K tile followed by a V tile), each with the tile's
-// 64 key biases in log2 units (fp32, -inf for keys past Lk).
+// What the two forward kernels and dQ at D = 64 share: a block of four warps
+// owns 64 query rows, 16 a warp, and walks the keys in 64-key tiles through a
+// ring of two shared-memory stages (a K tile followed by a V tile), each with
+// the tile's 64 key biases in log2 units (fp32, -inf for keys past Lk).
 struct FwdBlock {
   const FlashArgs& a;
   int bh, b, h, warp, lane, g, t, row0, wrow, nkt;
@@ -455,6 +459,31 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[8][4], const uint32_t (&a
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// The warpgroup's 64-row accumulator tile d, rows g and g + 8 scaled by i0
+// and i1, rounded to bf16 into a swizzled [64][64] shared-memory tile (each
+// warp its own 16 rows, so only the warp syncs) and from there to device
+// memory rows row0.. by 16-byte stores; rows at or past L are skipped. No
+// product may still read `tile`.
+__device__ __forceinline__ void store_acc(const float (&d)[8][4], float i0, float i1,
+                                          unsigned char* tile, bf16* out, long long ol, int row0,
+                                          int L) {
+  const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5) * 16, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    *reinterpret_cast<uint32_t*>(tile + swz(wr + g, nt) + 4 * t) = pack(d[nt][0] * i0, d[nt][1] * i0);
+    *reinterpret_cast<uint32_t*>(tile + swz(wr + g + 8, nt) + 4 * t) =
+        pack(d[nt][2] * i1, d[nt][3] * i1);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = wr + i * 4 + (lane >> 3), part = lane & 7;
+    if (row0 + r < L)
+      *reinterpret_cast<uint4*>(out + (long long)(row0 + r) * ol + part * 8) =
+          *reinterpret_cast<const uint4*>(tile + swz(r, part));
+  }
+}
+
 // Shared memory from a 1024-byte aligned base, in order: Q [64][64], the two
 // stages, tiles of [64][64] (all swizzled); the two stages' biases. One KB
 // more pays for the alignment.
@@ -535,25 +564,9 @@ __global__ void __launch_bounds__(kThreads, kWgMinBlocks) flash_fwd_wgmma_kernel
   // no product reads the Q tile any more
   __syncthreads();
   const float l0 = quad_sum(l[0]), l1 = quad_sum(l[1]);
-  const float i0 = l0 > 0.f ? 1.f / l0 : 1.f, i1 = l1 > 0.f ? 1.f / l1 : 1.f;
-  bf16* out = at<bf16>(a.o, a.o_s, f.b, f.h);
-  const int wr = f.warp * 16, g = f.g, t = f.t;
-#pragma unroll
-  for (int nt = 0; nt < ND; ++nt) {
-    *reinterpret_cast<uint32_t*>(aligned + swz(wr + g, nt) + 4 * t) =
-        pack(o[nt][0] * i0, o[nt][1] * i0);
-    *reinterpret_cast<uint32_t*>(aligned + swz(wr + g + 8, nt) + 4 * t) =
-        pack(o[nt][2] * i1, o[nt][3] * i1);
-  }
-  __syncwarp();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = i * 4 + (f.lane >> 3), part = f.lane & 7;
-    if (f.wrow + r < a.Lq)
-      *reinterpret_cast<uint4*>(out + (long long)(f.wrow + r) * a.o_s[2] + part * 8) =
-          *reinterpret_cast<const uint4*>(aligned + swz(wr + r, part));
-  }
-  if (t == 0) store_stats(a, f.bh, f.wrow + g, m, l0, l1);
+  store_acc(o, l0 > 0.f ? 1.f / l0 : 1.f, l1 > 0.f ? 1.f / l1 : 1.f, aligned,
+            at<bf16>(a.o, a.o_s, f.b, f.h), a.o_s[2], f.row0, a.Lq);
+  if (f.t == 0) store_stats(a, f.bh, f.wrow + f.g, m, l0, l1);
 }
 
 // ----------------------------------------------------------------------- dQ
@@ -721,32 +734,330 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const FlashArgs a) 
   }
 }
 
+// ------------------------------------------------------ backward, D = 64, wgmma
+// Both kernels take the forward's design: one warpgroup a block owns 64 rows
+// of its own operand, resident in swizzled shared memory, and the other
+// operand streams through a ring of two cp.async stages with one block
+// barrier a tile, so tile i + 1 loads while tile i multiplies. Every product
+// is one of the forward's two wgmma forms: by descriptor with both tiles
+// K-major (wgmma_ss), or A from registers (the accumulator layout of the
+// scores, rounded to bf16) with B MN-major (wgmma_rs_tb). One swizzled copy of
+// a [64][64] tile serves both forms. The two products that read only tiles
+// start together; the register-A products start 16 deep at a time, as soon
+// as their fragments are packed, so the tensor cores work while the next
+// fragments are computed; two waits a tile. P is recomputed
+// in log2 units, one FMA and one ex2 a score, from the row statistics m and
+// log l kept apart (a fully masked row's m is finfo.min: its scaled term is
+// clamped at -FLT_MAX as the bias is, so x - m is 0 and the row stays
+// uniform; log l then divides). P and dS are rounded to bf16 as the A
+// operands, where the JAX kernels round them.
+// What holds them back on an H100 (knock-outs at [64, 12, 430, 64]): no
+// single pipe. Inside a block the products, the P/dS arithmetic and the
+// products that read it run in turn, and only the blocks an SM holds (4 for
+// dQ at 128 registers, 3 for dK/dV at about 165) overlap them; the copies
+// and barriers alone take about 130 us of L2 traffic (every block re-reads
+// its head's other operand, 592 MB). A third ring stage was slower: shared
+// memory then caps dQ at 3 blocks an SM, and dK/dV gained nothing.
+
+// m and log l of a query row in log2 units; a row past Lq gets log l = +inf,
+// hence P = 0
+__device__ __forceinline__ float2 row_terms(const FlashArgs& a, long long row, long long plane,
+                                            int r) {
+  if (r >= a.Lq) return make_float2(0.f, INFINITY);
+  return make_float2(fmaxf(a.stats[row + r] * kLog2e, -FLT_MAX), a.stats[plane + row + r] * kLog2e);
+}
+
+// keeps A fragments in their registers until the products that read them are
+// waited for (see the forward)
+__device__ __forceinline__ void pin(const uint32_t (&f)[kTile / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk)
+    asm volatile("" ::"r"(f[kk][0]), "r"(f[kk][1]), "r"(f[kk][2]), "r"(f[kk][3]));
+}
+
+constexpr int kDqMinBlocks = 4, kDkvMinBlocks = 3;  // blocks an SM, by registers
+
+// dQ: 64 query rows a block; Q and dO resident, K/V tiles (with their key
+// biases) through the ring. Shared memory from a 1024-byte aligned base: Q,
+// dO, the two stages of K and V tiles, the two stages' biases.
+constexpr size_t kDqSmemBytes = 1024 + 6 * kWgTile + 2 * kTile * sizeof(float);
+
+__global__ void __launch_bounds__(kThreads, kDqMinBlocks) flash_dq_wgmma_kernel(const FlashArgs a) {
+  constexpr int NT = kTile / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t sQ = (smem_addr(smem) + 1023) & ~1023u;
+  const uint32_t sDo = sQ + kWgTile, ring = sQ + 2 * kWgTile;
+  unsigned char* aligned = smem + (sQ - smem_addr(smem));
+  float* sB = reinterpret_cast<float*>(aligned + 6 * kWgTile);
+  const FwdBlock f(a);
+  const TileCopier<64, true> copy_k(at<const bf16>(a.k, a.k_s, f.b, f.h), a.k_s[2]);
+  const TileCopier<64, true> copy_v(at<const bf16>(a.v, a.v_s, f.b, f.h), a.v_s[2]);
+  auto copy_kv = [&](int kt) {
+    const uint32_t stage = ring + (kt & 1) * 2 * kWgTile;
+    copy_k.start(stage, kt * kTile, a.Lk);
+    copy_v.start(stage + kWgTile, kt * kTile, a.Lk);
+    cp_async_commit();
+  };
+  const bf16* dout = at<const bf16>(a.dout, a.do_s, f.b, f.h);
+  TileCopier<64, true>(at<const bf16>(a.q, a.q_s, f.b, f.h), a.q_s[2]).start(sQ, f.row0, a.Lq);
+  TileCopier<64, true>(dout, a.do_s[2]).start(sDo, f.row0, a.Lq);
+  copy_kv(0);
+  if (threadIdx.x < kTile) sB[threadIdx.x] = f.key_bias(threadIdx.x);
+
+  // delta = rowsum(dO∘O) in fp32 for this thread's rows r0 = wrow + g and
+  // r1 = r0 + 8 (the accumulator's), written out for the dK/dV kernel: a
+  // quad's lanes take 16 columns each, read from device memory while the
+  // tiles are in flight
+  const int r0 = f.wrow + f.g, r1 = r0 + 8;
+  float d[2];
+  {
+    const bf16* o = at<const bf16>(a.o, a.o_s, f.b, f.h);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = i ? r1 : r0;
+      float acc = 0.f;
+      if (r < a.Lq) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const uint4 x = *reinterpret_cast<const uint4*>(dout + r * a.do_s[2] + f.t * 16 + c * 8);
+          const uint4 y = *reinterpret_cast<const uint4*>(o + r * a.o_s[2] + f.t * 16 + c * 8);
+          const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 u = unpack(xs[e]), w = unpack(ys[e]);
+            acc += u.x * w.x + u.y * w.y;
+          }
+        }
+      }
+      d[i] = quad_sum(acc);
+    }
+  }
+  const long long row = (long long)f.bh * a.Lq, plane = (long long)a.B * a.H * a.Lq;
+  if (f.t == 0) {
+    if (r0 < a.Lq) a.delta[row + r0] = d[0];
+    if (r1 < a.Lq) a.delta[row + r1] = d[1];
+  }
+  const float2 st0 = row_terms(a, row, plane, r0), st1 = row_terms(a, row, plane, r1);
+  const float ds[2] = {d[0] * a.scale, d[1] * a.scale};  // delta·scale
+  const uint64_t qd = tile_desc(sQ), dod = tile_desc(sDo);
+
+  float dq[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) dq[nt][0] = dq[nt][1] = dq[nt][2] = dq[nt][3] = 0.f;
+
+  for (int kt = 0; kt < f.nkt; ++kt) {
+    cp_async_wait<0>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // tile kt has landed for every thread; tile kt - 1 is consumed
+    const bool more = kt + 1 < f.nkt;
+    float next_bias = 0.f;
+    if (more) {
+      copy_kv(kt + 1);
+      if (threadIdx.x < kTile) next_bias = f.key_bias((kt + 1) * kTile + threadIdx.x);
+    }
+    const int stage = kt & 1;
+    const uint64_t kd = tile_desc(ring + stage * 2 * kWgTile), vd = kd + (kWgTile >> 4);
+    const int key0 = kt * kTile;
+
+    float s[NT][4], dp[NT][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(s, qd + 2 * kk, kd + 2 * kk, kk > 0);  // S = Q·Kᵀ
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(dp, dod + 2 * kk, vd + 2 * kk, kk > 0);  // dP = dO·Vᵀ
+    wgmma_commit_wait();
+    fence_regs(s);
+    fence_regs(dp);
+
+    scale_bias(s, sB + stage * kTile, f.c, f.t);
+    if (a.causal && key0 + kTile - 1 > f.wrow) causal_mask(s, key0, f.wrow, f.g, f.t);
+    uint32_t dsa[NT / 2][4];
+    fence_regs(dq);
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {  // 16 keys a step; their product starts at once
+#pragma unroll
+      for (int nt = 2 * kk; nt < 2 * kk + 2; ++nt)  // dS = P∘(dP - delta)·scale, over dP
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 st = e < 2 ? st0 : st1;
+          dp[nt][e] = ex2((s[nt][e] - st.x) - st.y) * fmaf(dp[nt][e], a.scale, -ds[e >> 1]);
+        }
+      pack_p(dsa[kk], dp, kk);
+      wgmma_fence();
+      wgmma_rs_tb(dq, dsa[kk], kd + kk * (2048 >> 4));  // dQ += dS·K, K MN-major
+    }
+    wgmma_commit_wait();
+    fence_regs(dq);
+    pin(dsa);
+    // that stage's biases were last read in iteration kt - 1
+    if (more && threadIdx.x < kTile) sB[(stage ^ 1) * kTile + threadIdx.x] = next_bias;
+  }
+
+  __syncthreads();  // no product reads the Q tile any more
+  store_acc(dq, 1.f, 1.f, aligned, at<bf16>(a.dq, a.dq_s, f.b, f.h), a.dq_s[2], f.row0, a.Lq);
+}
+
+// dK/dV: 64 keys a block; K and V resident, Q and dO tiles through the ring,
+// each stage with its 64 query rows' m, log l (log2 units) and delta·scale. The
+// products are transposed: the block computes Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, whose
+// accumulator rows are its keys, so Pᵀ and dSᵀ are already the A operands of
+// dV += Pᵀ·dO and dK += dSᵀ·Q, and the Q and dO tiles serve K-major in the
+// first two and MN-major in the last two. Shared memory from a 1024-byte
+// aligned base: K, V, the two stages of Q and dO tiles, the two stages' rows.
+constexpr size_t kDkvSmemBytes = 1024 + 6 * kWgTile + 2 * 3 * kTile * sizeof(float);
+
+__global__ void __launch_bounds__(kThreads, kDkvMinBlocks) flash_dkv_wgmma_kernel(const FlashArgs a) {
+  constexpr int NT = kTile / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t sK = (smem_addr(smem) + 1023) & ~1023u;
+  const uint32_t sV = sK + kWgTile, ring = sK + 2 * kWgTile;
+  unsigned char* aligned = smem + (sK - smem_addr(smem));
+  // [stage][m, log l, delta·scale][64]
+  float* sRow = reinterpret_cast<float*>(aligned + 6 * kWgTile);
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int key0 = blockIdx.x * kRows, k0 = key0 + (threadIdx.x >> 5) * 16 + g, k1 = k0 + 8;
+  const float* bias = a.bias ? a.bias + (long long)b * a.Lk : nullptr;
+  auto key_bias = [&](int j) { return j < a.Lk ? (bias ? bias_log2(bias[j]) : 0.f) : -INFINITY; };
+  const float bz0 = key_bias(k0), bz1 = key_bias(k1), c = a.scale * kLog2e;
+  const long long row = (long long)bh * a.Lq, plane = (long long)a.B * a.H * a.Lq;
+
+  const TileCopier<64, true> copy_q(at<const bf16>(a.q, a.q_s, b, h), a.q_s[2]);
+  const TileCopier<64, true> copy_do(at<const bf16>(a.dout, a.do_s, b, h), a.do_s[2]);
+  auto copy_qdo = [&](int qt) {
+    const uint32_t stage = ring + (qt & 1) * 2 * kWgTile;
+    copy_q.start(stage, qt * kTile, a.Lq);
+    copy_do.start(stage + kWgTile, qt * kTile, a.Lq);
+    cp_async_commit();
+  };
+  // a stage's rows: threads 0..63 fetch m and log l of one row, 64..127 its
+  // delta·scale
+  const int rj = threadIdx.x & (kTile - 1);
+  auto fetch_rows = [&](int qt) {
+    const int r = qt * kTile + rj;
+    if (threadIdx.x < kTile) return row_terms(a, row, plane, r);
+    return make_float2(r < a.Lq ? a.delta[row + r] * a.scale : 0.f, 0.f);
+  };
+  auto put_rows = [&](int qt, float2 x) {
+    float* st = sRow + (qt & 1) * 3 * kTile;
+    if (threadIdx.x < kTile) {
+      st[rj] = x.x;
+      st[kTile + rj] = x.y;
+    } else {
+      st[2 * kTile + rj] = x.x;
+    }
+  };
+
+  const int nqt = (a.Lq + kTile - 1) / kTile;
+  // causal: query rows below this block's first key see none of its keys
+  const int qt0 = a.causal ? key0 / kTile : 0;
+  TileCopier<64, true>(at<const bf16>(a.k, a.k_s, b, h), a.k_s[2]).start(sK, key0, a.Lk);
+  TileCopier<64, true>(at<const bf16>(a.v, a.v_s, b, h), a.v_s[2]).start(sV, key0, a.Lk);
+  copy_qdo(qt0);
+  if (qt0 < nqt) put_rows(qt0, fetch_rows(qt0));
+  const uint64_t kd = tile_desc(sK), vd = tile_desc(sV);
+
+  float dk[8][4], dv[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[nt][e] = dv[nt][e] = 0.f;
+
+  for (int qt = qt0; qt < nqt; ++qt) {
+    cp_async_wait<0>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // tile qt has landed for every thread; tile qt - 1 is consumed
+    const bool more = qt + 1 < nqt;
+    float2 next_rows = make_float2(0.f, 0.f);
+    if (more) {
+      copy_qdo(qt + 1);
+      next_rows = fetch_rows(qt + 1);
+    }
+    const int stage = qt & 1;
+    const uint64_t qd = tile_desc(ring + stage * 2 * kWgTile), dod = qd + (kWgTile >> 4);
+    const float* st = sRow + stage * 3 * kTile;
+    const int q0 = qt * kTile;
+
+    float s[NT][4], dp[NT][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(s, kd + 2 * kk, qd + 2 * kk, kk > 0);  // Sᵀ = K·Qᵀ
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(dp, vd + 2 * kk, dod + 2 * kk, kk > 0);  // dPᵀ = V·dOᵀ
+    wgmma_commit_wait();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // only a tile that crosses this warp's diagonal needs the causal mask
+    const bool mask = a.causal && k0 - g + 15 > q0;
+    uint32_t pa[NT / 2][4], dsa[NT / 2][4];
+    fence_regs(dv);
+    fence_regs(dk);
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {  // 16 queries a step; their products start at once
+#pragma unroll
+      for (int nt = 2 * kk; nt < 2 * kk + 2; ++nt) {
+        const int col = nt * 8 + 2 * t;  // this thread's query columns col, col + 1
+        const float2 m = *reinterpret_cast<const float2*>(st + col);
+        const float2 lg = *reinterpret_cast<const float2*>(st + kTile + col);
+        const float2 dl = *reinterpret_cast<const float2*>(st + 2 * kTile + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = e & 1;
+          float x = fmaf(s[nt][e], c, e < 2 ? bz0 : bz1);
+          if (mask && (e < 2 ? k0 : k1) > q0 + col + j) x = -INFINITY;
+          const float p = ex2((x - (j ? m.y : m.x)) - (j ? lg.y : lg.x));
+          s[nt][e] = p;
+          dp[nt][e] = p * fmaf(dp[nt][e], a.scale, -(j ? dl.y : dl.x));  // dSᵀ
+        }
+      }
+      pack_p(pa[kk], s, kk);
+      pack_p(dsa[kk], dp, kk);
+      wgmma_fence();
+      wgmma_rs_tb(dv, pa[kk], dod + kk * (2048 >> 4));  // dV += Pᵀ·dO, dO MN-major
+      wgmma_rs_tb(dk, dsa[kk], qd + kk * (2048 >> 4));   // dK += dSᵀ·Q, Q MN-major
+    }
+    wgmma_commit_wait();
+    fence_regs(dv);
+    fence_regs(dk);
+    pin(pa);
+    pin(dsa);
+    // that stage's rows were last read in iteration qt - 1
+    if (more) put_rows(qt + 1, next_rows);
+  }
+
+  cp_async_wait<0>();  // with no query tile to walk the copies were never waited for
+  __syncthreads();     // no product reads the K and V tiles any more
+  store_acc(dk, 1.f, 1.f, aligned, at<bf16>(a.dk, a.dk_s, b, h), a.dk_s[2], key0, a.Lk);
+  store_acc(dv, 1.f, 1.f, aligned + kWgTile, at<bf16>(a.dv, a.dv_s, b, h), a.dv_s[2], key0, a.Lk);
+}
+
 bool takes(const FlashArgs* a) {
   return a->B >= 1 && a->H >= 1 && a->Lq >= 1 && a->Lk >= 1 && (long long)a->B * a->H <= 65535;
 }
 
+// one block for each 64 rows of L (query rows, or keys for dK/dV) and head
 template <typename Kernel>
-int launch_fwd(Kernel kernel, size_t smem, const FlashArgs& a, cudaStream_t s) {
+int launch_rows(Kernel kernel, size_t smem, int L, const FlashArgs& a, cudaStream_t s) {
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.Lq + kRows - 1) / kRows, a.B * a.H);
+  const dim3 grid((L + kRows - 1) / kRows, a.B * a.H);
   kernel<<<grid, kThreads, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
+// D = 64 takes the wgmma kernels, D = 32 and 128 the mma.sync ones
 template <int D>
 int launch(int which, const FlashArgs& a, cudaStream_t s) {
-  if (which == 0) {
-    if constexpr (D == 64) return launch_fwd(flash_fwd_wgmma_kernel, kWgSmemBytes, a, s);
-    else return launch_fwd(flash_fwd_kernel<D>, fwd_smem_bytes<D>(), a, s);
+  if constexpr (D == 64) {
+    if (which == 0) return launch_rows(flash_fwd_wgmma_kernel, kWgSmemBytes, a.Lq, a, s);
+    if (which == 1) return launch_rows(flash_dq_wgmma_kernel, kDqSmemBytes, a.Lq, a, s);
+    return launch_rows(flash_dkv_wgmma_kernel, kDkvSmemBytes, a.Lk, a, s);
+  } else {
+    if (which == 0) return launch_rows(flash_fwd_kernel<D>, fwd_smem_bytes<D>(), a.Lq, a, s);
+    if (which == 1) return launch_rows(flash_dq_kernel<D>, 0, a.Lq, a, s);
+    return launch_rows(flash_dkv_kernel<D, D == 128 ? 32 : 64>, 0, a.Lk, a, s);
   }
-  const int L = which == 2 ? a.Lk : a.Lq;
-  const dim3 grid((L + kRows - 1) / kRows, a.B * a.H);
-  if (which == 1)
-    flash_dq_kernel<D><<<grid, kThreads, 0, s>>>(a);
-  else
-    flash_dkv_kernel<D, D == 128 ? 32 : 64><<<grid, kThreads, 0, s>>>(a);
-  return (int)cudaGetLastError();
 }
 
 int dispatch(int which, const FlashArgs* a, void* stream) {

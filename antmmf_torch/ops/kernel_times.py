@@ -15,6 +15,9 @@ Each reading is device time per launch: 20 launches captured in a CUDA graph
 and replayed, timed with CUDA events, so the host's launch cost stays out of
 it (it would swamp the one-sample shapes). One JSON line per kernel and
 shape, with the card's name and power limit as ``nvidia-smi`` gives them.
+The backward pair is also timed as one row, ``flash_dq+flash_dkv``, against
+SDPA's backward alone (``sdpa_bwd``: the forward run once outside the graph,
+``torch.autograd.grad`` captured), with the SDPA kernels that ran.
 """
 
 from __future__ import annotations
@@ -26,13 +29,13 @@ import subprocess
 import sys
 
 
-def graph_ms(fn, launches: int = 20, replays: int = 10) -> float:
+def graph_ms(fn, launches: int = 20, replays: int = 10, stream=None) -> float:
     import torch
 
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(launches):
             fn()
     for _ in range(2):
@@ -47,8 +50,72 @@ def graph_ms(fn, launches: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (replays * launches)
 
 
+def events_ms(fn, launches: int = 20) -> float:
+    """Device time per call of ``launches`` back-to-back calls, CUDA events."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def sdpa_backward_ms(q, k, v, mask, dout, with_forward: bool = False):
+    """(ms, method): SDPA's backward alone (or, ``with_forward``, forward and
+    backward) on q/k/v with the boolean ``attn_mask`` and cotangent ``dout``,
+    device time per call. Autograd runs each backward op on the stream of its
+    forward, so the forward runs on the stream the graph is captured on;
+    ``torch.autograd.grad`` is captured, and the grads go nowhere but the
+    graph's pool. Where capture fails, 20 back-to-back calls are timed with
+    CUDA events instead, and ``method`` says so."""
+    import torch
+    import torch.nn.functional as F
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+
+        def call():
+            o = F.scaled_dot_product_attention(*leaves, attn_mask=mask) if with_forward else out
+            return torch.autograd.grad(o, leaves, dout, retain_graph=not with_forward)
+
+        try:
+            return graph_ms(call, stream=stream), "cuda_graph"
+        except RuntimeError as e:  # capture refused on this torch
+            torch.cuda.synchronize()
+            return events_ms(call), f"cuda_events ({str(e).splitlines()[0][:120]})"
+
+
+def sdpa_kernels(q, k, v, mask, dout) -> list:
+    """The device kernels of one SDPA forward and backward, by device time:
+    the names say which backend ran."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        torch.autograd.grad(out, leaves, dout)
+        torch.cuda.synchronize()
+    times: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            times[e.name] = times.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return [[name[:100], us] for name, us in sorted(times.items(), key=lambda kv: -kv[1])[:6]]
+
+
 def cases(torch, sa, fa):
-    """(kernel, shape name, port call, library call or None)."""
+    """(kernel, shape name, port call, library): the library call timed the
+    same way, or None, or for the backward pair the SDPA inputs (q, k, v,
+    mask, dout) whose backward ``sdpa_backward_ms`` times alone."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -88,6 +155,12 @@ def cases(torch, sa, fa):
            lambda: fa.flash_dq(q, k, v, kb, out, stats, dout, scale, False), None)
     yield ("flash_dkv", name,
            lambda: fa.flash_dkv(q, k, v, kb, stats, dout, delta, scale, False), None)
+
+    def backward():
+        _, dl = fa.flash_dq(q, k, v, kb, out, stats, dout, scale, False)
+        fa.flash_dkv(q, k, v, kb, stats, dout, dl, scale, False)
+
+    yield ("flash_dq+flash_dkv", name, backward, (q, k, v, mask, dout))
     pq, pk, pv = (proj(1, 113, 16, 128) for _ in range(3))
     yield ("flash_fwd", "pink_prefill_1x16x113x128_causal",
            lambda: fa.flash_fwd(pq, pk, pv, None, 128 ** -0.5, True),
@@ -117,10 +190,20 @@ def main() -> None:
         if only and kernel not in only:
             continue
         ms = [graph_ms(port) for _ in range(args.rounds)]
-        lib = [graph_ms(library) for _ in range(args.rounds)] if library else None
+        extra = {}
+        if isinstance(library, tuple):  # SDPA's backward, alone and with its forward
+            bwd = [sdpa_backward_ms(*library) for _ in range(args.rounds)]
+            both = [sdpa_backward_ms(*library, with_forward=True) for _ in range(args.rounds)]
+            lib = [x for x, _ in bwd]
+            extra = {"library": "sdpa_bwd", "sdpa_method": bwd[0][1],
+                     "sdpa_fwd_bwd_us": [round(x * 1e3, 2) for x, _ in both],
+                     "sdpa_kernels_us": sdpa_kernels(*library)}
+        else:
+            lib = [graph_ms(library) for _ in range(args.rounds)] if library else None
         print(json.dumps({"tree": args.label, "kernel": kernel, "shape": shape, "gpu": gpu,
                           "us": [round(x * 1e3, 2) for x in ms],
-                          "sdpa_us": lib and [round(x * 1e3, 2) for x in lib]}), flush=True)
+                          "sdpa_us": lib and [round(x * 1e3, 2) for x in lib],
+                          **extra}), flush=True)
 
 
 if __name__ == "__main__":

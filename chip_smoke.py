@@ -17,7 +17,8 @@ non-zero code and no result line:
    ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` against their plain versions
    on the same inputs (the cross-encoder's [64, 12, 430, 64] with ragged key
    masks, Lq ≠ Lk, causal, a fully masked row, D 32 and 128, key counts
-   around the forward's tile ring, Pink's causal prefill shape), and the
+   around the forward's tile ring, query counts around the backward's,
+   causal with a key bias, Pink's causal prefill shape), and the
    ``flash_attention`` Function against fp32 autograd of
    ``plain_flash_attention``; ``int4_gemv`` against ``plain_int4_gemv`` and
    against ``unpack_int4`` + matmul in fp32 on the decode path's five weight
@@ -48,8 +49,10 @@ non-zero code and no result line:
 7. times: text-query and full-encode latency, each kernel's time beside its
    bound, its plain version and the library call at the paths' shapes (the
    ViT, BERT and Pink's ViT for ``small_attention``; the cross-encoder and
-   Pink's causal prefill for ``flash_fwd``), kernel and library as device
-   time per launch from a CUDA graph, with the GPU's name and power limit;
+   Pink's causal prefill for ``flash_fwd``; SDPA's backward alone, with the
+   kernels that ran it, for ``flash_dq`` and ``flash_dkv``), kernel and
+   library as device time per launch from a CUDA graph, with the GPU's name
+   and power limit;
 8. trace: ``torch.profiler`` over full encodes at B=32: device-busy time per
    forward against the untraced wall time (the device's idle share), device
    operations (kernels and copies) per forward and those that take the most
@@ -117,6 +120,7 @@ from antmmf_torch.ops.int4_matmul import (  # noqa: E402
     plain_int4_gemv,
     unpack_int4,
 )
+from antmmf_torch.ops.kernel_times import sdpa_backward_ms, sdpa_kernels  # noqa: E402
 from antmmf_torch.ops.small_attention import (  # noqa: E402
     key_bias,
     plain_small_attention,
@@ -374,6 +378,14 @@ def flash_cases(gen):
         proj(4, 330, 12, 64), ragged(4, 330, 1), True
     yield "causal_lq330_lk200", proj(4, 330, 12, 64), proj(4, 200, 12, 64), \
         proj(4, 200, 12, 64), None, True
+    # the backward's 64-row query tiles and its two-stage ring over them: one
+    # tile, exactly one, a one-row last tile, an odd count of tiles; and the
+    # dK/dV causal start tile crossed with a key bias present
+    for Lq in (63, 64, 65, 129):
+        yield f"lq{Lq}_lk200_ragged", proj(4, Lq, 12, 64), proj(4, 200, 12, 64), \
+            proj(4, 200, 12, 64), ragged(4, 200, 1), False
+    yield "causal_lq330_lk200_ragged", proj(4, 330, 12, 64), proj(4, 200, 12, 64), \
+        proj(4, 200, 12, 64), ragged(4, 200, 1), True
     yield "pink_prefill_L113_d128_causal", proj(1, 113, 16, 128), proj(1, 113, 16, 128), \
         proj(1, 113, 16, 128), None, True
 
@@ -1006,6 +1018,9 @@ def phase_flash_times(pair_bias, gpu) -> dict:
     tensor, rows = P * H * L * D * 2, P * H * L * 4  # one bf16 [P, H, L, D]; one fp32 row stat
     bias_b = P * L * 4
     mask = pair_bias > torch.finfo(torch.float32).min / 2  # SDPA's boolean form
+    # SDPA's backward alone, device time per call, the library time of both
+    # backward kernels (together they compute what it computes)
+    sdpa_bwd_ms, sdpa_method = sdpa_backward_ms(q, k, v, mask, dout)
     timing = {
         "flash_fwd": dict(
             ms=graph_ms(lambda i: flash_fwd(q, k, v, kb, scale, False), 20),
@@ -1017,13 +1032,13 @@ def phase_flash_times(pair_bias, gpu) -> dict:
             ms=graph_ms(lambda i: flash_dq(q, k, v, kb, out, stats, dout, scale, False), 20),
             plain_ms=cuda_ms(lambda: plain_flash_dq(q, k, v, kb, out, stats, dout, scale,
                                                     False), iters=10),
-            library_ms=None,
+            library_ms=sdpa_bwd_ms,
             **bound(6 * tensor + bias_b + 3 * rows, 6 * D * pairs)),
         "flash_dkv": dict(
             ms=graph_ms(lambda i: flash_dkv(q, k, v, kb, stats, dout, delta, scale, False), 20),
             plain_ms=cuda_ms(lambda: plain_flash_dkv(q, k, v, kb, stats, dout, delta, scale,
                                                      False), iters=10),
-            library_ms=None,
+            library_ms=sdpa_bwd_ms,
             **bound(6 * tensor + bias_b + 3 * rows, 8 * D * pairs)),
     }
     # the causal prefill of a Pink request: 113 tokens, 16 heads of 128
@@ -1048,7 +1063,14 @@ def phase_flash_times(pair_bias, gpu) -> dict:
         _, dl = flash_dq(q, k, v, kb, o, st, dout, scale, False)
         flash_dkv(q, k, v, kb, st, dout, dl, scale, False)
 
+    def flash_bwd(i):
+        _, dl = flash_dq(q, k, v, kb, out, stats, dout, scale, False)
+        flash_dkv(q, k, v, kb, stats, dout, dl, scale, False)
+
     sdpa_ms, family_ms = cuda_ms(sdpa_fwd_bwd, iters=20), cuda_ms(flash_fwd_bwd, iters=20)
+    bwd_ms = graph_ms(flash_bwd, 20)
+    sdpa_both_ms, both_method = sdpa_backward_ms(q, k, v, mask, dout, with_forward=True)
+    backend = sdpa_kernels(q, k, v, mask, dout)
     for fn in KERNELS:  # timing launches are not path launches
         fn.launches = saved[fn.__name__]
     for name, t in timing.items():
@@ -1056,7 +1078,11 @@ def phase_flash_times(pair_bias, gpu) -> dict:
              gpu=gpu, live_keys=live,
              **t, bound_share=t["bound_ms"] / t["ms"])
     emit(phase="times", exp="flash_fwd_dq_dkv_vs_sdpa_fwd_bwd", shape=[P, H, L, D], gpu=gpu,
-         flash_ms=family_ms, sdpa_ms=sdpa_ms)
+         flash_ms=family_ms, sdpa_ms=sdpa_ms, timed="eager, CUDA events, .backward into .grad")
+    emit(phase="times", exp="flash_dq_dkv_vs_sdpa_bwd", shape=[P, H, L, D], gpu=gpu,
+         flash_bwd_ms=bwd_ms, sdpa_bwd_ms=sdpa_bwd_ms, sdpa_bwd_timed=sdpa_method,
+         sdpa_fwd_bwd_ms=sdpa_both_ms, sdpa_fwd_bwd_timed=both_method,
+         sdpa_kernels_us=backend)
     return timing
 
 

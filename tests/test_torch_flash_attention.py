@@ -64,7 +64,8 @@ def _close(got, ref):
         np.testing.assert_allclose(a, b, atol=GRAD_ATOL, rtol=0, err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("Lq,Lk,causal", [(24, 70, False), (70, 70, True), (50, 30, True)])
+@pytest.mark.parametrize("Lq,Lk,causal", [(24, 70, False), (70, 70, True), (50, 30, True),
+                                           (65, 70, False)])
 def test_matches_pallas_interpret(Lq, Lk, causal):
     q, k, v, bias, w = _inputs(Lq, Lk, seed=Lq + Lk)
     ref = _jax(lambda q, k, v: j_flash(q, k, v, bias=jnp.asarray(bias), causal=causal,
@@ -87,10 +88,12 @@ def test_matches_xla_core(Lq, Lk, causal, bias_rank):
 
 # key counts around the forward kernel's 64-key tiles and its ring of two
 # stages (one tile, exactly one, a one-key last tile, an odd count of tiles),
-# and causal masking with Lq != Lk across tiles
+# query counts around the backward kernels' 64-row query tiles alike, and
+# causal masking with Lq != Lk across tiles
 @pytest.mark.parametrize("Lq,Lk,causal", [
     (40, 63, False), (40, 64, False), (40, 65, False), (40, 129, False),
-    (70, 130, True), (130, 70, True)])
+    (70, 130, True), (130, 70, True),
+    (63, 40, False), (64, 40, False), (65, 40, False), (129, 40, False), (129, 70, True)])
 def test_matches_xla_core_at_tile_edges(Lq, Lk, causal):
     q, k, v, bias, w = _inputs(Lq, Lk, seed=5 * Lq + Lk)
     mask = np.zeros((1, 1, Lq, Lk), np.float32)
