@@ -11,216 +11,372 @@
 // group's partial sum, never a single weight. Columns of x past in_x (records
 // padded with zero rows) read as 0.
 //
-// What bounds it on an H100: bytes. A decode step reads every packed weight
-// once (in*out/2 bytes plus the scales) and does 2 flops per weight; at
-// N <= 32 that is far below the 295 flop/byte at which the tensor cores
-// would matter, so the design is about streaming the packed bytes once and
-// unpacking them in registers between the load and the FMA.
+// What bounds it on an H100: bytes, and at decode sizes the latency of
+// fetching them. A decode step reads every packed weight once (in*out/2 bytes
+// plus the scales) and does 2 flops per weight; at N <= 32 that is far below
+// the 295 flop/byte at which the tensor cores would matter, so the kernel
+// runs on the CUDA cores. Most of a step's weights come in 0.5-6 MB records,
+// which the card reads in well under a microsecond if every byte is asked
+// for at once: the design is about the geometry that does so, and about
+// keeping the work after the last byte arrives short.
 //
-// Design (a first, simple version):
-//  * A block of 512 threads owns a tile of 4*LPR output columns and all of K.
-//    LPR lanes of a warp sit side by side on one packed row, each loading 4
-//    bytes (4 columns), so a warp reads 32/LPR rows of 4*LPR contiguous bytes
-//    per load. The entry point picks the widest LPR of {32, 16, 8, 4} that
-//    still gives at least one block per SM.
-//  * The 16 warps split the packed rows into contiguous slabs ("slots"), and
-//    each thread keeps 8 independent 4-byte loads in flight.
-//  * Nibbles are unpacked with shifts and masks and turned into floats by the
-//    2^23 bit trick (no int-to-float conversion); the low nibble's +8 and the
-//    high nibble's sign are folded into one subtraction.
-//  * x is staged once per block in shared memory as fp32; every lane of a
-//    row reads the same word (a broadcast).
+// Design:
+//  * Full sectors. A lane loads VEC = 16 bytes (16 columns) of a packed row
+//    with one vector load; LPR lanes side by side read a stretch of LPR*VEC
+//    contiguous bytes of a row (128, narrowed to 64 or 32 where the grid
+//    would leave SMs idle: never less than a 32-byte sector), so a warp
+//    reads 32/LPR rows of a column tile per load. VEC drops to 8 or 4 bytes
+//    only where fout (or the pointer) is not aligned to 16, or where more
+//    rows of x a block need the registers. Columns past fout are masked in
+//    the kernel.
+//  * K split over a cluster. The packed rows are cut into S <= 8 chunks, one
+//    block of a thread-block cluster each, until the grid has two blocks an
+//    SM; every decode record but lm_head takes S = 8 at N = 1. Inside a block
+//    the 4 warps' row lanes ("slots") split the chunk again into contiguous
+//    slabs of rows.
+//  * Weights in flight first. Every lane issues its first batch of 8 packed
+//    rows; then the block stages its chunk's scale rows for the tile (each
+//    element once) and its chunk's rows of x (both halves, as fp32) in
+//    shared memory, up to 8 loads a thread in flight.
+//  * Nibbles are unpacked in registers by the 2^23 bit trick: a byte
+//    permute moves each nibble under the exponent of 2^23, and one
+//    subtraction takes away 2^23 and the low nibble's +8 (the high nibble is
+//    flipped to offset form before).
 //  * Group partial sums live in registers and are flushed into the
-//    accumulator with the group's scale whenever a slab crosses a group
+//    accumulator with the group's scale where a slab crosses a group
 //    boundary; the low and high halves track their own boundaries, so any
 //    group that divides `in` works, also one that does not divide in/2.
-//  * Slots are reduced through shared memory in a fixed order: the result is
-//    deterministic, and no atomics or second pass are needed.
-//  * Rows of x are handled NB (1, 2 or 4) at a time; the blocks that share a
-//    column tile are neighbours in the grid, so the tile's weights are
-//    re-read from the L2 and not from device memory.
+//  * A fixed summation order, no float atomics: the slots of a warp by a
+//    shuffle butterfly, the 4 warps of a block through shared memory in
+//    order, then each block writes its partial into the shared memory of
+//    the cluster block that owns that share of the columns; after one
+//    cluster barrier the owner sums the S partials in rank order and writes
+//    y once. The result is bit-identical from run to run.
+//  * Rows of x are handled NB (1, 2 or 4) at a time: every weight loaded is
+//    applied to NB rows; further row batches are blocks of their own that
+//    read the same weights again from the L2.
+//
+// Tried on an H100 and dropped (PERF.md §6): 8 warps a block, 16 rows in
+// flight a lane, S <= 4, two blocks an SM by narrow tiles, a cluster
+// scheduling preference, the batch processed in runs between group
+// boundaries (the compiler hoisted every row's unpack: 254 registers).
 //
 // Plain C interface for ctypes; launches on the given stream, allocates and
 // synchronises nothing, returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 8;
+constexpr int kWarps = 4;               // warps a block
+constexpr int kMaxVec = 16;             // bytes a lane loads from a packed row
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBatch = 8;               // packed rows a lane has in flight
+constexpr int kStage = 8;               // loads a thread has in flight staging x and scales
+constexpr int kMaxChunks = 8;           // blocks of a cluster (the K split)
+constexpr int kSplitBlocksPerSm = 2;    // K is split until the grid has this many blocks an SM
+constexpr int kFillBlocksPerSm = 1;     // the tile narrows while the grid has fewer blocks an SM
+constexpr int kTileBytes = 128;         // widest stretch of a packed row a tile reads
+constexpr int kMinTileBytes = 32;       // one full sector
+constexpr int kMinChunkRows = 64;       // packed rows a chunk keeps at least
 constexpr int kMaxRows = 32;            // GEMV_MAX_ROWS of the Python wrapper
-constexpr int kSmemMax = 200 * 1024;    // of the 227 KB a block may use
+constexpr int kSmemMax = 200 * 1024;    // for x: one row of all of `in`, as before
+constexpr int kScaleSmemMax = 16 * 1024;  // staged scale rows; more are read in place
+
+struct Gemv {
+  const void* x;
+  long long x_stride;
+  const uint8_t* packed;
+  const float* scale;
+  float* y;
+  int N, fin_x, half, fout, group;
+  int lpr;             // lanes side by side on a packed row
+  int chunks;          // S: blocks of a cluster, each a chunk of the rows
+  int rows_per_chunk;
+  int stage_scales;    // 1: a chunk's scale rows are staged in shared memory; 0: read in place
+};
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// 4 packed bytes -> the 4 low-nibble weights (q + 8 stored; q returned) and
-// the 4 signed high-nibble weights, as floats. 0x4B000000 is 2^23: OR-ing a
-// small integer into its mantissa and subtracting 2^23 converts exactly.
-__device__ __forceinline__ void unpack4(uint32_t w, float lo[4], float hi[4]) {
-  constexpr float kBias = 8388608.0f + 8.0f;  // 2^23 + 8, exact in fp32
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint32_t b = w >> (8 * j);
-    lo[j] = __uint_as_float(0x4B000000u | (b & 0xFu)) - kBias;
-    // signed nibble s = ((u ^ 8) - 8) for the stored two's-complement u
-    hi[j] = __uint_as_float(0x4B000000u | (((b >> 4) & 0xFu) ^ 8u)) - kBias;
+// VEC bytes of read-only data, not kept in L1 (every byte is read once).
+// Volatile, so that the loads issued before staging x stay before it.
+template <int VEC>
+__device__ __forceinline__ void load_nc(uint32_t (&w)[VEC / 4], const void* p) {
+  if constexpr (VEC == 16) {
+    asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3]) : "l"(p));
+  } else if constexpr (VEC == 8) {
+    asm volatile("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];"
+                 : "=r"(w[0]), "=r"(w[1]) : "l"(p));
+  } else {
+    asm volatile("ld.global.nc.L1::no_allocate.u32 %0, [%1];" : "=r"(w[0]) : "l"(p));
   }
 }
 
-template <int LPR, int NB, typename XT>
-__global__ void __launch_bounds__(kThreads)
-int4_gemv_kernel(const XT* __restrict__ x, long long x_stride,
-                 const uint8_t* __restrict__ packed, const float* __restrict__ scale,
-                 float* __restrict__ y, int N, int fin_x, int half, int fout, int group,
-                 int row_blocks) {
-  constexpr int kSlotsPerWarp = 32 / LPR;
-  constexpr int kSlots = kWarps * kSlotsPerWarp;
-  constexpr int kTileCols = 4 * LPR;
-  extern __shared__ float smem[];  // x as fp32 [NB, 2*half]; later the slot partials
-
-  const int fin = 2 * half;
-  const int tile = blockIdx.x / row_blocks;
-  const int n0 = (blockIdx.x - tile * row_blocks) * NB;
-  for (int i = threadIdx.x; i < NB * fin; i += kThreads) {
-    const int n = i / fin, r = i - n * fin;
-    float v = 0.0f;
-    if (n0 + n < N && r < fin_x) v = to_float(x[(long long)(n0 + n) * x_stride + r]);
-    smem[i] = v;
+// 4 packed bytes -> the 4 low-nibble weights (q + 8 stored; q returned) and
+// the 4 signed high-nibble weights, as floats. 0x4B000000 is 2^23: a byte
+// permute puts each nibble under that exponent, and subtracting 2^23 + 8
+// converts exactly. The high nibble s (two's complement) is stored as u;
+// u ^ 8 = s + 8, so both halves take the same subtraction.
+__device__ __forceinline__ void unpack4(uint32_t w, float lo[4], float hi[4]) {
+  constexpr float kBias = 8388608.0f + 8.0f;  // 2^23 + 8, exact in fp32
+  const uint32_t l = w & 0x0F0F0F0Fu;
+  const uint32_t h = ((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    lo[j] = __uint_as_float(__byte_perm(l, 0x4B000000u, 0x7540u + j)) - kBias;
+    hi[j] = __uint_as_float(__byte_perm(h, 0x4B000000u, 0x7540u + j)) - kBias;
   }
+}
+
+// Element i < n of a block-wide copy into shared memory: load(i) for up to
+// kStage elements a thread, all in flight, then store(i, value) for each.
+template <typename Load, typename Store>
+__device__ __forceinline__ void stage(int n, Load load, Store store) {
+  for (int i0 = threadIdx.x; i0 < n; i0 += kStage * kThreads) {
+    decltype(load(0)) v[kStage];
+#pragma unroll
+    for (int u = 0; u < kStage; ++u)
+      if (i0 + u * kThreads < n) v[u] = load(i0 + u * kThreads);
+#pragma unroll
+    for (int u = 0; u < kStage; ++u)
+      if (i0 + u * kThreads < n) store(i0 + u * kThreads, v[u]);
+  }
+}
+
+template <int VEC, int NB, typename XT>
+__global__ void __launch_bounds__(kThreads) int4_gemv_kernel(const Gemv a) {
+  constexpr int kWords = VEC / 4;
+  extern __shared__ float smem[];
+  const int tile_cols = a.lpr * VEC;
+  const int rows_per_warp = 32 / a.lpr;
+  const int slots = kWarps * rows_per_warp;
+  const int rpc = a.rows_per_chunk;
+  float* xs = smem;                             // x [NB][2][rpc]: the chunk's rows, both halves
+  float* red = xs + ((NB * 2 * rpc + 3) & ~3);  // warp partials [kWarps][NB][tile_cols]
+  float* part = red + kWarps * NB * tile_cols;  // the ranks' partials of this block's share
+  float* ss = part + NB * tile_cols + kMaxChunks;  // scale rows [groups][tile_cols]
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int chunk = (int)cluster.block_rank();  // blockIdx.x % chunks: the K chunk
+  const int tile = blockIdx.x / a.chunks;
+  const int n0 = blockIdx.y * NB;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = (lane % a.lpr) * VEC;           // first column of the lane in the tile
+  const long long col = (long long)tile * tile_cols + c;
+  const int c0 = chunk * rpc, c1 = min(a.half, c0 + rpc);
+  const int rows_per_slot = (rpc + slots - 1) / slots;
+  const int r0 = c0 + (warp * rows_per_warp + lane / a.lpr) * rows_per_slot;
+  const int r1 = min(c1, r0 + rows_per_slot);
+  const bool active = col < a.fout && r0 < r1;
+  const uint8_t* wp = a.packed + col;
+
+  // the cluster's blocks mark that they have started (the partials below
+  // are written into other blocks' shared memory)
+  if (a.chunks > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+
+  // the first weights in flight before anything else
+  uint32_t w[kBatch][kWords];
+  auto load_batch = [&](int rb) {
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (rb + u < r1) {
+        load_nc<VEC>(w[u], wp + (long long)(rb + u) * a.fout);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kWords; ++k) w[u][k] = 0u;
+      }
+    }
+  };
+  if (active) load_batch(r0);
+
+  // then the chunk's scale rows for the tile (low groups, then high ones),
+  // each element once a block, and the chunk's rows of x
+  const int glo0 = c0 / a.group, ghi0 = (c0 + a.half) / a.group;
+  const int n_lo = c0 < c1 ? (c1 - 1) / a.group - glo0 + 1 : 0;
+  const int n_hi = c0 < c1 ? (c1 - 1 + a.half) / a.group - ghi0 + 1 : 0;
+  if (a.stage_scales) {
+    const int qs = __ffs(tile_cols / 4) - 1;  // log2 of the float4s a scale row of the tile holds
+    stage((n_lo + n_hi) << qs, [&](int i) {
+      const int k = i >> qs, q = i - (k << qs);
+      const int g = k < n_lo ? glo0 + k : ghi0 + k - n_lo;
+      const long long o = (long long)tile * tile_cols + 4 * q;
+      return o < a.fout ? __ldg(reinterpret_cast<const float4*>(a.scale + (long long)g * a.fout + o))
+                        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }, [&](int i, float4 v) { reinterpret_cast<float4*>(ss)[i] = v; });
+  }
+  // the VEC scales of group g of the low (hi = 0) or high half at the lane's columns
+  auto scales = [&](int g, int hi) {
+    return a.stage_scales ? ss + (hi ? n_lo + g - ghi0 : g - glo0) * tile_cols + c
+                           : a.scale + (long long)g * a.fout + col;
+  };
+  const XT* x = static_cast<const XT*>(a.x);
+  stage(NB * 2 * rpc, [&](int i) {
+    const int n = NB == 1 ? 0 : i / (2 * rpc), k = i - n * 2 * rpc;
+    const int h = k >= rpc, rr = k - h * rpc;
+    const int xc = c0 + rr + h * a.half;
+    return n0 + n < a.N && c0 + rr < c1 && xc < a.fin_x
+        ? to_float(__ldg(x + (long long)(n0 + n) * a.x_stride + xc)) : 0.0f;
+  }, [&](int i, float v) { xs[i] = v; });
   __syncthreads();
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int slot = warp * kSlotsPerWarp + lane / LPR;
-  const int tile_col = (lane % LPR) * 4;
-  const long long col = (long long)tile * kTileCols + tile_col;
-  const int rows_per_slot = (half + kSlots - 1) / kSlots;
-  const int r0 = slot * rows_per_slot;
-  const int r1 = min(half, r0 + rows_per_slot);
-
-  float acc[NB][4];
+  float acc[NB][VEC], plo[NB][VEC], phi[NB][VEC];
 #pragma unroll
   for (int n = 0; n < NB; ++n)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[n][j] = 0.0f;
+    for (int j = 0; j < VEC; ++j) acc[n][j] = plo[n][j] = phi[n][j] = 0.0f;
+  auto flush = [&](float (&p)[NB][VEC], const float* sp) {
+#pragma unroll
+    for (int q = 0; q < VEC / 4; ++q) {
+      const float4 s4 = *reinterpret_cast<const float4*>(sp + 4 * q);
+      const float s[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[n][4 * q + j] = fmaf(s[j], p[n][4 * q + j], acc[n][4 * q + j]);
+          p[n][4 * q + j] = 0.0f;
+        }
+    }
+  };
 
-  if (col < fout && r0 < r1) {
-    float plo[NB][4], phi[NB][4];
+  if (active) {
+    int g_lo = r0 / a.group, g_hi = (r0 + a.half) / a.group;
+    int next_lo = (g_lo + 1) * a.group;           // packed row where the low group changes
+    int next_hi = (g_hi + 1) * a.group - a.half;  // ... and the high one
+    for (int rb = r0; rb < r1; rb += kBatch) {
+      if (rb != r0) load_batch(rb);
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int r = rb + u;
+        if (r < r1) {
+          if (r == next_lo) {
+            flush(plo, scales(g_lo++, 0));
+            next_lo += a.group;
+          }
+          if (r == next_hi) {
+            flush(phi, scales(g_hi++, 1));
+            next_hi += a.group;
+          }
+          float xl[NB], xh[NB];
+#pragma unroll
+          for (int n = 0; n < NB; ++n) {
+            xl[n] = xs[n * 2 * rpc + r - c0];
+            xh[n] = xs[n * 2 * rpc + rpc + r - c0];
+          }
+#pragma unroll
+          for (int k = 0; k < kWords; ++k) {
+            float lo[4], hi[4];
+            unpack4(w[u][k], lo, hi);
+#pragma unroll
+            for (int n = 0; n < NB; ++n)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                plo[n][4 * k + j] = fmaf(xl[n], lo[j], plo[n][4 * k + j]);
+                phi[n][4 * k + j] = fmaf(xh[n], hi[j], phi[n][4 * k + j]);
+              }
+          }
+        }
+      }
+    }
+    flush(plo, scales(g_lo, 0));
+    flush(phi, scales(g_hi, 1));
+  }
+
+  // the slots of a warp (lanes LPR apart share columns): a butterfly
+  for (int off = a.lpr; off < 32; off <<= 1)
 #pragma unroll
     for (int n = 0; n < NB; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) plo[n][j] = phi[n][j] = 0.0f;
+      for (int j = 0; j < VEC; ++j) acc[n][j] += __shfl_xor_sync(0xffffffffu, acc[n][j], off);
+  if (lane < a.lpr)
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) red[(warp * NB + n) * tile_cols + c + j] = acc[n][j];
+  __syncthreads();
 
-    // scale rows of the two halves, and the packed row at which each changes
-    int g_lo = r0 / group, g_hi = (r0 + half) / group;
-    int next_lo = (g_lo + 1) * group, next_hi = (g_hi + 1) * group - half;
-    const uint8_t* wp = packed + col;
-
-    auto flush = [&](float (&part)[NB][4], int g) {
-      const float4 s = __ldg(reinterpret_cast<const float4*>(scale + (long long)g * fout + col));
+  auto store = [&](int i, float v) {
+    const int n = i / tile_cols;
+    const long long o = (long long)tile * tile_cols + (i - n * tile_cols);
+    if (n0 + n < a.N && o < a.fout) a.y[(long long)(n0 + n) * a.fout + o] = v;
+  };
+  // the warps of the block, in order; with a K split, each block's partial
+  // goes to the cluster block that owns its share of the columns
+  const int per = (NB * tile_cols + a.chunks - 1) / a.chunks;
+  if (a.chunks > 1) asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  for (int i = threadIdx.x; i < NB * tile_cols; i += kThreads) {
+    float v = red[i];
 #pragma unroll
-      for (int n = 0; n < NB; ++n) {
-        acc[n][0] += s.x * part[n][0];
-        acc[n][1] += s.y * part[n][1];
-        acc[n][2] += s.z * part[n][2];
-        acc[n][3] += s.w * part[n][3];
-        part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.0f;
-      }
-    };
-    auto row = [&](uint32_t w, int r) {
-      float lo[4], hi[4];
-      unpack4(w, lo, hi);
-#pragma unroll
-      for (int n = 0; n < NB; ++n) {
-        const float xl = smem[n * fin + r], xh = smem[n * fin + half + r];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          plo[n][j] += xl * lo[j];
-          phi[n][j] += xh * hi[j];
-        }
-      }
-    };
-
-    int r = r0;
-    while (r < r1) {
-      if (r == next_lo) { flush(plo, g_lo); ++g_lo; next_lo += group; }
-      if (r == next_hi) { flush(phi, g_hi); ++g_hi; next_hi += group; }
-      const int end = min(r1, min(next_lo, next_hi));  // rows of one group pair
-      for (; r + kUnroll <= end; r += kUnroll) {
-        uint32_t w[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u)
-          w[u] = __ldg(reinterpret_cast<const uint32_t*>(wp + (long long)(r + u) * fout));
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) row(w[u], r + u);
-      }
-      for (; r < end; ++r)
-        row(__ldg(reinterpret_cast<const uint32_t*>(wp + (long long)r * fout)), r);
+    for (int k = 1; k < kWarps; ++k) v += red[k * NB * tile_cols + i];
+    if (a.chunks == 1) {
+      store(i, v);
+    } else {
+      const int owner = i / per;
+      cluster.map_shared_rank(part, owner)[chunk * per + i - owner * per] = v;
     }
-    flush(plo, g_lo);
-    flush(phi, g_hi);
   }
-
-  // slot partials -> shared memory (x is no longer needed), summed in slot order
-  __syncthreads();
-#pragma unroll
-  for (int n = 0; n < NB; ++n)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      smem[(slot * NB + n) * kTileCols + tile_col + j] = acc[n][j];
-  __syncthreads();
-  for (int i = threadIdx.x; i < NB * kTileCols; i += kThreads) {
-    const int n = i / kTileCols, c = i - n * kTileCols;
-    const long long o = (long long)tile * kTileCols + c;
-    if (n0 + n >= N || o >= fout) continue;
-    float sum = 0.0f;
-    for (int s = 0; s < kSlots; ++s) sum += smem[(s * NB + n) * kTileCols + c];
-    y[(long long)(n0 + n) * fout + o] = sum;
+  if (a.chunks > 1) {
+    // a cluster barrier (the writes above are released, the owner acquires
+    // them), then each block sums its share over the ranks, in rank order
+    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+    const int end = min(NB * tile_cols - chunk * per, per);
+    for (int j = threadIdx.x; j < end; j += kThreads) {
+      float v = part[j];
+      for (int k = 1; k < a.chunks; ++k) v += part[k * per + j];
+      store(chunk * per + j, v);
+    }
   }
 }
 
-template <int LPR, int NB, typename XT>
-int launch(const void* x, long long x_stride, const void* packed, const void* scale, void* y,
-           int N, int fin_x, int half, int fout, int group, size_t smem, cudaStream_t stream) {
-  auto kernel = int4_gemv_kernel<LPR, NB, XT>;
+template <int VEC, int NB, typename XT>
+int launch(const Gemv& a, unsigned tiles, unsigned row_batches, size_t smem,
+           cudaStream_t stream) {
+  auto kernel = int4_gemv_kernel<VEC, NB, XT>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int row_blocks = (N + NB - 1) / NB;
-  const unsigned grid = (unsigned)((fout + 4 * LPR - 1) / (4 * LPR)) * row_blocks;
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const XT*>(x), x_stride, static_cast<const uint8_t*>(packed),
-      static_cast<const float*>(scale), static_cast<float*>(y), N, fin_x, half, fout, group,
-      row_blocks);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * a.chunks, row_batches, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.chunks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <int LPR, typename XT>
-int launch_nb(int nb, const void* x, long long x_stride, const void* packed, const void* scale,
-              void* y, int N, int fin_x, int half, int fout, int group, size_t smem,
-              cudaStream_t stream) {
-  switch (nb) {
-    case 1: return launch<LPR, 1, XT>(x, x_stride, packed, scale, y, N, fin_x, half, fout, group, smem, stream);
-    case 2: return launch<LPR, 2, XT>(x, x_stride, packed, scale, y, N, fin_x, half, fout, group, smem, stream);
-    default: return launch<LPR, 4, XT>(x, x_stride, packed, scale, y, N, fin_x, half, fout, group, smem, stream);
-  }
-}
-
 template <typename XT>
-int launch_lpr(int lpr, int nb, const void* x, long long x_stride, const void* packed,
-               const void* scale, void* y, int N, int fin_x, int half, int fout, int group,
-               size_t smem, cudaStream_t stream) {
-  switch (lpr) {
-    case 32: return launch_nb<32, XT>(nb, x, x_stride, packed, scale, y, N, fin_x, half, fout, group, smem, stream);
-    case 16: return launch_nb<16, XT>(nb, x, x_stride, packed, scale, y, N, fin_x, half, fout, group, smem, stream);
-    case 8: return launch_nb<8, XT>(nb, x, x_stride, packed, scale, y, N, fin_x, half, fout, group, smem, stream);
-    default: return launch_nb<4, XT>(nb, x, x_stride, packed, scale, y, N, fin_x, half, fout, group, smem, stream);
+int launch_vec(int vec, int nb, const Gemv& a, unsigned tiles, unsigned row_batches,
+               size_t smem, cudaStream_t s) {
+  switch (vec) {
+    case 16:
+      return nb == 1 ? launch<16, 1, XT>(a, tiles, row_batches, smem, s)
+                     : launch<16, 2, XT>(a, tiles, row_batches, smem, s);
+    case 8:
+      return nb == 1 ? launch<8, 1, XT>(a, tiles, row_batches, smem, s)
+           : nb == 2 ? launch<8, 2, XT>(a, tiles, row_batches, smem, s)
+                     : launch<8, 4, XT>(a, tiles, row_batches, smem, s);
+    default:
+      return nb == 1 ? launch<4, 1, XT>(a, tiles, row_batches, smem, s)
+           : nb == 2 ? launch<4, 2, XT>(a, tiles, row_batches, smem, s)
+                     : launch<4, 4, XT>(a, tiles, row_batches, smem, s);
   }
 }
 
@@ -230,15 +386,16 @@ int launch_lpr(int lpr, int nb, const void* x, long long x_stride, const void* p
 // x_stride elements between rows), packed [half, fout] uint8, scale
 // [2*half/group, fout] fp32, y [N, fout] fp32 (contiguous). Refuses, with
 // cudaErrorInvalidValue and without launching: N outside 1..32, fout not a
-// multiple of 4 (the 4-byte loads), a group that does not divide 2*half,
-// fin_x past 2*half, misaligned packed/scale pointers, and an x too wide to
-// stage one row in shared memory.
+// multiple of 4, a group that does not divide 2*half, fin_x past 2*half,
+// misaligned packed/scale pointers, and an x too wide to stage one row of
+// it in shared memory (2*half past 51,200).
 extern "C" int antmmf_int4_gemv(const void* x, long long x_stride, const void* packed,
                                 const void* scale, void* y, int N, int fin_x, int half,
                                 int fout, int group, int x_is_bf16, void* stream) {
+  const uintptr_t pa = reinterpret_cast<uintptr_t>(packed);
   if (N < 1 || N > kMaxRows || half < 1 || fout < 4 || fout % 4 || group < 1 ||
-      (2 * half) % group || fin_x < 1 || fin_x > 2 * half ||
-      reinterpret_cast<uintptr_t>(packed) % 4 || reinterpret_cast<uintptr_t>(scale) % 16)
+      (2 * half) % group || fin_x < 1 || fin_x > 2 * half || pa % 4 ||
+      reinterpret_cast<uintptr_t>(scale) % 16 || (size_t)2 * half * sizeof(float) > kSmemMax)
     return (int)cudaErrorInvalidValue;
   static int sms = 0;
   if (sms == 0) {
@@ -247,21 +404,39 @@ extern "C" int antmmf_int4_gemv(const void* x, long long x_stride, const void* p
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
   }
-  // rows of x per block: as many as fit in shared memory, at most 4
+  // rows of x a block, and the widest load fout and the pointer allow; the
+  // registers hold VEC * NB <= 32 columns-by-rows a lane
   int nb = N >= 3 ? 4 : N;
-  const size_t row_bytes = (size_t)2 * half * sizeof(float);
-  while (nb > 1 && nb * row_bytes > kSmemMax) nb /= 2;
-  if (nb * row_bytes > kSmemMax) return (int)cudaErrorInvalidValue;
-  // the slot partials reuse the same buffer: kWarps * 128 * nb floats
-  size_t smem = nb * row_bytes;
-  const size_t red = (size_t)kWarps * 128 * nb * sizeof(float);
-  if (red > smem) smem = red;
-  // the widest tile that still gives every SM a block
-  const int row_blocks = (N + nb - 1) / nb;
-  int lpr = 32;
-  while (lpr > 4 && (long long)((fout + 4 * lpr - 1) / (4 * lpr)) * row_blocks < sms) lpr /= 2;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return x_is_bf16
-      ? launch_lpr<__nv_bfloat16>(lpr, nb, x, x_stride, packed, scale, y, N, fin_x, half, fout, group, smem, s)
-      : launch_lpr<float>(lpr, nb, x, x_stride, packed, scale, y, N, fin_x, half, fout, group, smem, s);
+  int vec = kMaxVec;
+  while (fout % vec || pa % vec || vec * nb > 32) vec /= 2;
+  Gemv a{x, x_stride, static_cast<const uint8_t*>(packed), static_cast<const float*>(scale),
+         static_cast<float*>(y), N, fin_x, half, fout, group, 0, 0, 0, 0};
+  for (;;) {
+    // split K, then narrow the tile, until the grid has about two blocks an SM
+    const unsigned row_batches = (unsigned)((N + nb - 1) / nb);
+    a.lpr = kTileBytes / vec;
+    a.chunks = 1;
+    auto tiles = [&] { return (unsigned)((fout + a.lpr * vec - 1) / (a.lpr * vec)); };
+    auto blocks = [&] { return (long long)tiles() * a.chunks * row_batches; };
+    while (blocks() < (long long)kSplitBlocksPerSm * sms && a.chunks < kMaxChunks &&
+           half / (2 * a.chunks) >= kMinChunkRows)
+      a.chunks *= 2;
+    while (blocks() < (long long)kFillBlocksPerSm * sms && a.lpr * vec > kMinTileBytes)
+      a.lpr /= 2;
+    a.rows_per_chunk = (half + a.chunks - 1) / a.chunks;
+    const size_t tile_cols = (size_t)a.lpr * vec;
+    // the scale rows a chunk can touch: both halves, a group boundary each
+    const size_t groups = 2 * (size_t)((a.rows_per_chunk + group - 2) / group + 1);
+    a.stage_scales = groups * tile_cols * sizeof(float) <= kScaleSmemMax;
+    const size_t smem = sizeof(float) * (((size_t)nb * 2 * a.rows_per_chunk + 3) / 4 * 4 +
+                                         (size_t)(kWarps + 1) * nb * tile_cols + kMaxChunks +
+                                         (a.stage_scales ? groups * tile_cols : 0));
+    if (smem > kSmemMax + 24 * 1024 && nb > 1) {  // x of fewer rows, then
+      nb /= 2;
+      continue;
+    }
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return x_is_bf16 ? launch_vec<__nv_bfloat16>(vec, nb, a, tiles(), row_batches, smem, s)
+                     : launch_vec<float>(vec, nb, a, tiles(), row_batches, smem, s);
+  }
 }

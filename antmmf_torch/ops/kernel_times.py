@@ -1,8 +1,9 @@
-"""Times the attention kernels of one source tree on the card, at the main
-paths' shapes, beside ``scaled_dot_product_attention`` on the same inputs.
+"""Times the kernels of one source tree on the card, at the main paths'
+shapes, beside the library call that computes the same function.
 
     python3 antmmf_torch/ops/kernel_times.py [--tree DIR] [--label NAME] [--rounds N]
                                              [--kernels small_attention,flash_fwd,...]
+                                             [--rows 1,8,32]
 
 ``--tree`` is the directory whose ``antmmf_torch`` package is imported
 (default: the one this file belongs to), so two trees (a parent commit
@@ -18,15 +19,35 @@ shape, with the card's name and power limit as ``nvidia-smi`` gives them.
 The backward pair is also timed as one row, ``flash_dq+flash_dkv``, against
 SDPA's backward alone (``sdpa_bwd``: the forward run once outside the graph,
 ``torch.autograd.grad`` captured), with the SDPA kernels that ran.
+
+``int4_gemv`` (K8) is timed on random records of the Pink decode path's five
+weight shapes (seeded; no model needed) at 1, 8 and 32 rows of bf16 x,
+beside bf16 ``torch.matmul`` on the dequantised weight (``library_us``). Its
+graph cycles through copies of the record (about 256 MB of them), so that no
+launch finds its weights in the 50 MB L2 cache, as a decode step finds them.
+Then an ``int4_gemv_step`` row for each row count sums each shape's time
+times its launches in a decode step (155 launches).
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import subprocess
 import sys
+
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
+# the Pink decode path's int4 records: (x columns, record rows, out, group,
+# launches a decode step); down_proj is stored row-padded at group 88
+INT4_SHAPES = {"attn_q_o": (2048, 2048, 2048, 128, 44),
+               "attn_k_v": (2048, 2048, 512, 128, 44),
+               "mlp_gate_up": (2048, 2048, 5504, 128, 44),
+               "mlp_down": (5504, 5632, 2048, 88, 22),
+               "lm_head": (2048, 2048, 151936, 128, 1)}
+INT4_ROWS = (1, 8, 32)
 
 
 def graph_ms(fn, launches: int = 20, replays: int = 10, stream=None) -> float:
@@ -112,6 +133,43 @@ def sdpa_kernels(q, k, v, mask, dout) -> list:
     return [[name[:100], us] for name, us in sorted(times.items(), key=lambda kv: -kv[1])[:6]]
 
 
+def cycled(call, copies: int, **meta):
+    """A call that takes the next of ``copies`` operand sets each time, so a
+    graph of ``copies`` launches (``fn.launches``) meets cold operands."""
+    turn = itertools.count()
+
+    def fn():
+        return call(next(turn) % copies)
+
+    fn.launches, fn.meta = copies, meta
+    return fn
+
+
+def int4_cases(torch, i4, row_counts=INT4_ROWS):
+    """K8 rows: for each of the decode path's record shapes, seeded random
+    packed bytes and scales, copied until the copies pass 256 MB; x of 1, 8
+    and 32 rows. The library call is bf16 ``torch.matmul`` on the
+    dequantised weight, cycled the same way."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for name, (fin_x, fin_w, fout, group, per_step) in INT4_SHAPES.items():
+        packed = torch.randint(0, 256, (fin_w // 2, fout), generator=gen, device="cuda",
+                               dtype=torch.uint8)
+        scale = torch.rand(fin_w // group, fout, generator=gen, device="cuda") * 0.01 + 0.005
+        nbytes = packed.numel() + scale.numel() * 4
+        copies = max(2, min(512, -(-256 * 2 ** 20 // nbytes)))
+        records = [(packed.clone(), scale.clone()) for _ in range(copies)]
+        dense = i4.unpack_int4(packed, scale, torch.bfloat16)[:fin_x]
+        dense = [dense.clone() for _ in range(max(2, copies // 4))]
+        for rows in row_counts:
+            x = torch.randn(rows, fin_x, generator=gen, device="cuda").to(torch.bfloat16)
+            moved = nbytes + x.numel() * 2 + rows * fout * 4
+            meta = dict(rows=rows, launches_per_step=per_step,  # bound: bytes once
+                        bound_us=moved / HBM_BYTES_PER_S * 1e6)
+            yield ("int4_gemv", f"{name}_{rows}x{fin_x}_to_{fout}",
+                   cycled(lambda i, x=x: i4.int4_gemv(x, *records[i]), copies, **meta),
+                   cycled(lambda i, x=x: torch.matmul(x, dense[i]), len(dense)))
+
+
 def cases(torch, sa, fa):
     """(kernel, shape name, port call, library): the library call timed the
     same way, or None, or for the backward pair the SDPA inputs (q, k, v,
@@ -167,25 +225,7 @@ def cases(torch, sa, fa):
            lambda: F.scaled_dot_product_attention(pq, pk, pv, is_causal=True))
 
 
-def main() -> None:
-    here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--tree", default=here)
-    ap.add_argument("--label", default="tree")
-    ap.add_argument("--rounds", type=int, default=3)
-    ap.add_argument("--kernels", default="", help="comma-separated; default all")
-    args = ap.parse_args()
-    sys.path.insert(0, os.path.abspath(args.tree))
-    import torch
-
-    if not torch.cuda.is_available():
-        sys.exit("kernel_times.py needs a CUDA device")
-    from antmmf_torch.ops import flash_attention as fa
-    from antmmf_torch.ops import small_attention as sa
-
-    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    only = set(filter(None, args.kernels.split(",")))
+def time_attention(args, gpu, torch, sa, fa, only) -> None:
     for kernel, shape, port, library in list(cases(torch, sa, fa)):
         if only and kernel not in only:
             continue
@@ -204,6 +244,60 @@ def main() -> None:
                           "us": [round(x * 1e3, 2) for x in ms],
                           "sdpa_us": lib and [round(x * 1e3, 2) for x in lib],
                           **extra}), flush=True)
+
+
+def time_int4(args, gpu, torch, i4) -> None:
+    """A row per K8 shape and row count, then per row count the sums over a
+    decode step's launches, round by round."""
+    steps: dict = {}
+    row_counts = [int(r) for r in args.rows.split(",")]
+    for kernel, shape, port, library in int4_cases(torch, i4, row_counts):
+        ms = [graph_ms(port, port.launches) for _ in range(args.rounds)]
+        lib = [graph_ms(library, library.launches) for _ in range(args.rounds)]
+        meta = port.meta
+        print(json.dumps({"tree": args.label, "kernel": kernel, "shape": shape, "gpu": gpu,
+                          "us": [round(x * 1e3, 3) for x in ms], "library": "bf16_matmul",
+                          "library_us": [round(x * 1e3, 3) for x in lib],
+                          "copies_in_turn": port.launches, **meta}), flush=True)
+        step = steps.setdefault(meta["rows"], dict(us=[0.0] * args.rounds,
+                                                   library_us=[0.0] * args.rounds,
+                                                   bound_us=0.0, launches=0))
+        n = meta["launches_per_step"]
+        step["us"] = [s + n * x * 1e3 for s, x in zip(step["us"], ms)]
+        step["library_us"] = [s + n * x * 1e3 for s, x in zip(step["library_us"], lib)]
+        step["bound_us"] += n * meta["bound_us"]
+        step["launches"] += n
+    for rows, step in steps.items():
+        print(json.dumps({"tree": args.label, "kernel": "int4_gemv_step", "rows": rows,
+                          "gpu": gpu, **step}), flush=True)
+
+
+def main() -> None:
+    here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--tree", default=here)
+    ap.add_argument("--label", default="tree")
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--kernels", default="", help="comma-separated; default all")
+    ap.add_argument("--rows", default=",".join(map(str, INT4_ROWS)),
+                    help="int4_gemv: rows of x, comma-separated")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.tree))
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("kernel_times.py needs a CUDA device")
+    from antmmf_torch.ops import flash_attention as fa
+    from antmmf_torch.ops import int4_matmul as i4
+    from antmmf_torch.ops import small_attention as sa
+
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    only = set(filter(None, args.kernels.split(",")))
+    if not only or only - {"int4_gemv"}:
+        time_attention(args, gpu, torch, sa, fa, only)
+    if not only or "int4_gemv" in only:
+        time_int4(args, gpu, torch, i4)
 
 
 if __name__ == "__main__":

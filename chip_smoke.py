@@ -24,7 +24,11 @@ non-zero code and no result line:
    against ``unpack_int4`` + matmul in fp32 on the decode path's five weight
    shapes (2048→2048, 2048→512, 2048→5504, the row-padded 5632→2048 at group
    88 with x of 5504 columns, 2048→151,936) at 1, 8 and 32 rows of bf16 and
-   fp32 x, and two refusals (33 rows; an x too wide for shared memory);
+   fp32 x, at the edges of its geometry (3, 5 and 31 rows, outs of 516 and
+   2052, groups whose boundaries fall inside a K chunk or a half, a
+   row-padded record, x with a wider row stride, the smallest record), one
+   CUDA graph of it replayed twice bit for bit, and two refusals (33 rows;
+   an x too wide for shared memory);
 3. serving: ``projects/base_vtp/configs/serving.yml`` at full width (ViT-B/32
    at 8x224², BERT-base at L=30, bf16, seeded random weights) through the
    port's CLI and predictor code: one ``predict`` and one ``predict_batch`` of
@@ -72,10 +76,11 @@ non-zero code and no result line:
    model and an fp32 CPU model: the logits at prefill and at the first
    decode step (teacher-forced), held to the bound that ``--calibrate``
    reads from sound seeds and planted faults;
-11. ``int4_gemv`` timed on the served model's own records, cycling through
-   copies so that no launch finds its weights in the L2 cache, beside its
-   bound, its plain version and bf16 ``torch.matmul`` on the dequantised
-   weight.
+11. ``int4_gemv`` timed on the served model's own records at 1, 8 and 32
+   rows of bf16 x, cycling through copies so that no launch finds its
+   weights in the L2 cache, beside its bound, its plain version (1 row) and
+   bf16 ``torch.matmul`` on the dequantised weight, and summed over a decode
+   step's 155 launches for each row count.
 
 Each path (serving, each training leg, each Pink request) runs with the kernels' launch counts
 set to 0 just before it and read just after; launches made to compare a
@@ -191,6 +196,21 @@ INT4_SHAPES = {"attn_q_o": (2048, 2048, 2048, 128), "attn_k_v": (2048, 2048, 512
 # records): readings on an H100 stay below 7.7e-6 against the plain version
 # and 2.3e-5 against unpack + matmul, a tenth of the bound
 INT4_TOL = 2e-5
+# where the kernel's geometry can go wrong: (case, rows, x columns, record
+# rows, out, group, x row stride). Rows left over after the batches of 4;
+# outs that are multiples of 4 but not of the column tile; K chunk and slab
+# boundaries inside a group (group 96, and group 256, which does not divide
+# in/2); a row-padded record; x with a wider row stride; the smallest record
+INT4_EDGES = [("rows_3", 3, 2048, 2048, 512, 128, 2048),
+              ("rows_5_down", 5, 5504, 5632, 2048, 88, 5504),
+              ("rows_31", 31, 2048, 2048, 2048, 128, 2048),
+              ("out_516", 1, 2048, 2048, 516, 128, 2048),
+              ("out_2052_rows_8", 8, 2048, 2048, 2052, 128, 2048),
+              ("group_96_in_2304", 1, 2304, 2304, 1024, 96, 2304),
+              ("group_256_in_2304", 2, 2304, 2304, 1024, 256, 2304),
+              ("x_2000_of_2048_rows", 1, 2000, 2048, 1024, 128, 2000),
+              ("x_row_stride_3000", 3, 2048, 2048, 2048, 128, 3000),
+              ("out_4_in_64", 1, 64, 64, 4, 32, 64)]
 # card bf16 vs CPU fp32 on the same int4 records, logits at prefill and at
 # the first decode step (``--calibrate`` reads the gap): the cosine, and the
 # largest |Δlogit| over the CPU logits' spread. Sound runs over three seeds
@@ -466,10 +486,30 @@ def random_record(gen, fin_w: int, fout: int, group: int):
     return packed, scale
 
 
+def int4_agrees(case: str, x, packed, scale, dense, **info):
+    """One ``int4_gemv`` call against ``plain_int4_gemv`` and against
+    ``unpack_int4`` + matmul in fp32 (``dense``). Returns (ok, error
+    against the plain version)."""
+    y = int4_gemv(x, packed, scale)
+    ref = plain_int4_gemv(x, packed, scale)
+    ref_dense = F.pad(x.float(), (0, dense.shape[0] - x.shape[1])) @ dense
+    torch.cuda.synchronize()
+    e_plain, e_dense = max_err(y, ref), max_err(y, ref_dense)
+    tol = INT4_TOL * max(ref.abs().max().item(), 1.0)
+    ok = bool(torch.isfinite(y).all().item()) and y.dtype == torch.float32 \
+        and tuple(y.shape) == (x.shape[0], packed.shape[1]) and e_plain <= tol and e_dense <= tol
+    emit(phase="int4_check", case=case, x=list(x.shape), x_row_stride=x.stride(0),
+         record=[dense.shape[0], packed.shape[1]], dtype=str(x.dtype), vs_plain=e_plain,
+         vs_unpack_matmul=e_dense, tol=tol, ok=ok, **info)
+    return ok, e_plain
+
+
 def phase_int4() -> float:
     """``int4_gemv`` against ``plain_int4_gemv`` and against ``unpack_int4`` +
-    matmul in fp32, at the decode path's shapes. Returns the worst error
-    against the plain version at one row of bf16 x, the main path's case."""
+    matmul in fp32, at the decode path's shapes and at the edges of the
+    kernel's geometry (``INT4_EDGES``); two replays of one graph bit for bit;
+    two refusals. Returns the worst error against the plain version at one
+    row of bf16 x, the main path's case."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     failed, worst_main = [], 0.0
     for name, (fin_x, fin_w, fout, group) in INT4_SHAPES.items():
@@ -478,23 +518,38 @@ def phase_int4() -> float:
         for rows in (1, 8, 32):
             for dtype in (torch.bfloat16, torch.float32):
                 x = torch.randn(rows, fin_x, generator=gen, device="cuda").to(dtype)
-                y = int4_gemv(x, packed, scale)
-                ref = plain_int4_gemv(x, packed, scale)
-                ref_dense = F.pad(x.float(), (0, fin_w - fin_x)) @ dense
-                torch.cuda.synchronize()
-                e_plain, e_dense = max_err(y, ref), max_err(y, ref_dense)
-                tol = INT4_TOL * max(ref.abs().max().item(), 1.0)
-                ok = bool(torch.isfinite(y).all().item()) and y.dtype == torch.float32 \
-                    and e_plain <= tol and e_dense <= tol
-                emit(phase="int4_check", case=name, x=[rows, fin_x], record=[fin_w, fout],
-                     group=group, dtype=str(dtype), vs_plain=e_plain, vs_unpack_matmul=e_dense,
-                     tol=tol, ok=ok)
+                ok, err = int4_agrees(name, x, packed, scale, dense, group=group)
                 if rows == 1 and dtype == torch.bfloat16:
-                    worst_main = max(worst_main, e_plain)
+                    worst_main = max(worst_main, err)
                 if not ok:
                     failed.append(f"{name}_{rows}_{dtype}")
         del dense
+    for name, rows, fin_x, fin_w, fout, group, stride in INT4_EDGES:
+        packed, scale = random_record(gen, fin_w, fout, group)
+        dense = unpack_int4(packed, scale, torch.float32)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(rows, stride, generator=gen, device="cuda").to(dtype)[:, :fin_x]
+            if not int4_agrees(name, x, packed, scale, dense, group=group)[0]:
+                failed.append(f"{name}_{dtype}")
     check(not failed, f"int4_gemv disagrees with its plain version: {failed}")
+    # determinism: one graph of K8 launches replayed twice, bit for bit (the
+    # K split summed across a cluster in rank order, no atomics)
+    for name, rows in (("attn_q_o", 1), ("mlp_down", 8)):
+        fin_x, fin_w, fout, group = INT4_SHAPES[name]
+        packed, scale = random_record(gen, fin_w, fout, group)
+        x = torch.randn(rows, fin_x, generator=gen, device="cuda").to(torch.bfloat16)
+        int4_gemv(x, packed, scale)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y = int4_gemv(x, packed, scale)
+        graph.replay()
+        first = y.clone()
+        graph.replay()
+        torch.cuda.synchronize()
+        same = bool(torch.equal(first, y))
+        emit(phase="int4_check", case=f"graph_replays_{name}_{rows}_rows", bitwise_equal=same)
+        check(same, f"int4_gemv gave two answers to one input ({name}, {rows} rows)")
     # more rows than the kernel takes raise in the wrapper; an x too wide to
     # stage in shared memory is refused by the CUDA entry point
     packed, scale = random_record(gen, 2048, 512, 128)
@@ -1362,11 +1417,12 @@ def calibrate_pink(seeds=3) -> None:
 
 # ----------------------------------------------------------------- phase 11
 def phase_int4_times(pred, gpu) -> dict:
-    """``int4_gemv`` at one row of bf16 x on the served model's records, one
-    of each of the path's five shapes. Bound: packed bytes, scales, x and y
-    once over the memory rate, against 2·in·out operations at the bf16
-    tensor rate. Returns the readings summed over a decode step's launches
-    (each shape's time times its launches per step)."""
+    """``int4_gemv`` on the served model's records, one of each of the path's
+    five shapes, at 1 row of bf16 x (the decode path) and at 8 and 32 rows.
+    Bound: packed bytes, scales, x and y once over the memory rate, against
+    2·rows·in·out operations at the bf16 tensor rate. Prints the readings
+    summed over a decode step's launches (each shape's time times its
+    launches a step) for each row count; returns those of one row."""
     decoder = pred.shell.module.decoder.layer_0
     modules = {"attn_q_o": (decoder.attention.q_proj, 2 * PINK_LAYERS),
                "attn_k_v": (decoder.attention.k_proj, 2 * PINK_LAYERS),
@@ -1375,37 +1431,43 @@ def phase_int4_times(pred, gpu) -> dict:
                "lm_head": (pred.shell.module.lm_head, 1)}
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     saved = read_counts()
-    step = dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes=0)
+    steps = {rows: dict(ms=0.0, library_ms=0.0, bound_ms=0.0, bytes=0)
+             for rows in (1, 8, 32)}
+    steps[1].update(eager_ms=0.0, plain_ms=0.0)
     for name, (mod, per_step) in modules.items():
         packed, scale = mod.kernel_q4, mod.kernel_scale
         fin_x, fin_w, fout, group = INT4_SHAPES[name]
         check(tuple(packed.shape) == (fin_w // 2, fout) and scale.shape[0] == fin_w // group
               and mod.in_features == fin_x, f"{name}: the served record is not {INT4_SHAPES[name]}")
-        x = torch.randn(1, fin_x, generator=gen, device="cuda").to(torch.bfloat16)
-        nbytes = packed.numel() + scale.numel() * 4 + x.numel() * 2 + fout * 4
-        copies = max(2, min(512, -(-256 * 2 ** 20 // nbytes)))  # 256 MB of records in turn
+        record_bytes = packed.numel() + scale.numel() * 4
+        copies = max(2, min(512, -(-256 * 2 ** 20 // record_bytes)))  # 256 MB in turn
         records = [(packed.clone(), scale.clone()) for _ in range(copies)]
-        ms = graph_ms(lambda i: int4_gemv(x, *records[i]), copies)
-        eager_ms = cuda_ms(lambda: int4_gemv(x, packed, scale))
-        plain_ms = cuda_ms(lambda: plain_int4_gemv(x, packed, scale), iters=3, warmup=1)
-        del records
         dense = unpack_int4(packed, scale, torch.bfloat16)[:fin_x]
         dense = [dense.clone() for _ in range(max(2, copies // 4))]
-        library_ms = graph_ms(lambda i: torch.matmul(x, dense[i]), len(dense))
-        del dense
-        timing = dict(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, library_ms=library_ms,
-                      **bound(nbytes, 2 * fin_w * fout))
-        emit(phase="times", exp="int4_gemv", case=name, x=[1, fin_x], record=[fin_w, fout],
-             group=group, dtype="bf16", gpu=gpu, launches_per_decode_step=per_step,
-             bytes=nbytes, copies_in_turn=copies, **timing,
-             bound_share=timing["bound_ms"] / ms)
-        for key in ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms"):
-            step[key] += per_step * timing[key]
-        step["bytes"] += per_step * nbytes
+        for rows, step in steps.items():
+            x = torch.randn(rows, fin_x, generator=gen, device="cuda").to(torch.bfloat16)
+            nbytes = record_bytes + x.numel() * 2 + rows * fout * 4
+            timing = dict(ms=graph_ms(lambda i: int4_gemv(x, *records[i]), copies),
+                          library_ms=graph_ms(lambda i: torch.matmul(x, dense[i]), len(dense)))
+            if rows == 1:
+                timing["eager_ms"] = cuda_ms(lambda: int4_gemv(x, packed, scale))
+                timing["plain_ms"] = cuda_ms(lambda: plain_int4_gemv(x, packed, scale),
+                                             iters=3, warmup=1)
+            timing.update(bound(nbytes, 2 * rows * fin_w * fout))
+            emit(phase="times", exp="int4_gemv", case=name, x=[rows, fin_x],
+                 record=[fin_w, fout], group=group, dtype="bf16", gpu=gpu,
+                 launches_per_decode_step=per_step, bytes=nbytes, copies_in_turn=copies,
+                 **timing, bound_share=timing["bound_ms"] / timing["ms"])
+            for key in step:
+                step[key] += per_step * (nbytes if key == "bytes" else timing[key])
+        del records, dense
     for fn in KERNELS:  # timing launches are not path launches
         fn.launches = saved[fn.__name__]
-    emit(phase="times", exp="int4_gemv_per_decode_step", launches=GEMVS_PER_STEP, gpu=gpu,
-         **step, bound_share=step["bound_ms"] / step["ms"])
+    for rows, step in steps.items():
+        emit(phase="times", exp="int4_gemv_per_decode_step", rows=rows,
+             launches=GEMVS_PER_STEP, gpu=gpu, **step,
+             bound_share=step["bound_ms"] / step["ms"])
+    step = steps[1]
     return dict(ms=step["ms"] / GEMVS_PER_STEP, plain_ms=step["plain_ms"] / GEMVS_PER_STEP,
                 library_ms=step["library_ms"] / GEMVS_PER_STEP,
                 bound_ms=step["bound_ms"] / GEMVS_PER_STEP, bound_by="bytes")

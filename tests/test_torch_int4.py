@@ -82,12 +82,16 @@ def test_down_proj_pads_to_5632_rows_at_group_88():
     assert t_int4.best_group(5632, 2048) == 88
 
 
-@pytest.mark.parametrize("fin,fout,group", GEMV_SHAPES)
-def test_plain_gemv_matches_interpret_kernel_and_unpack_matmul(fin, fout, group):
+@pytest.mark.parametrize("fin,fout,group,rows", [
+    *[pytest.param(*shape, 3, id="-".join(map(str, shape))) for shape in GEMV_SHAPES],
+    # the row counts around the CUDA kernel's batches of x rows
+    *[pytest.param(2048, 512, 128, rows, id=f"2048-512-128-rows{rows}") for rows in (1, 5, 31)],
+])
+def test_plain_gemv_matches_interpret_kernel_and_unpack_matmul(fin, fout, group, rows):
     rng, _, (q4, scale) = _packed(fin, fout, group)
-    x = np.array(jnp.asarray(rng.normal(size=(3, fin)), jnp.bfloat16).astype(jnp.float32))
+    x = np.array(jnp.asarray(rng.normal(size=(rows, fin)), jnp.bfloat16).astype(jnp.float32))
     y = t_int4.int4_gemv(*_t(x, q4, scale)).numpy()
-    assert y.dtype == np.float32 and y.shape == (3, fout)
+    assert y.dtype == np.float32 and y.shape == (rows, fout)
     kernel = np.asarray(j_int4.int4_gemv(jnp.asarray(x), jnp.asarray(q4), jnp.asarray(scale),
                                          interpret=True))
     dense = x @ np.asarray(j_int4.unpack_int4(jnp.asarray(q4), jnp.asarray(scale), jnp.float32))
@@ -99,11 +103,19 @@ def test_plain_gemv_matches_interpret_kernel_and_unpack_matmul(fin, fout, group)
     np.testing.assert_array_equal(yb, y)
 
 
-def test_gemv_takes_a_group_that_does_not_divide_half():
-    """in=384 at group 128: the high half's scale rows start mid-group."""
-    rng, _, (q4, scale) = _packed(384, 64, 128, seed=4)
-    x = rng.normal(size=(2, 384)).astype(np.float32)
+@pytest.mark.parametrize("fin,fout,group,rows", [
+    (384, 64, 128, 2),
+    # outs that are multiples of 4 but not of the CUDA kernel's column tile,
+    # and group 256 at in/2 = 1152 (the high half's groups start mid-group)
+    (2048, 516, 128, 3), (2048, 2052, 128, 1), (2304, 256, 256, 5)])
+def test_gemv_takes_a_group_that_does_not_divide_half(fin, fout, group, rows):
+    """in=384 at group 128: the high half's scale rows start mid-group. The
+    JAX kernel takes only outs that are multiples of 128, so these are held
+    against JAX's ``unpack_int4`` + matmul."""
+    rng, _, (q4, scale) = _packed(fin, fout, group, seed=4)
+    x = rng.normal(size=(rows, fin)).astype(np.float32)
     y = t_int4.int4_gemv(*_t(x, q4, scale)).numpy()
+    assert y.shape == (rows, fout)
     dense = x @ np.asarray(j_int4.unpack_int4(jnp.asarray(q4), jnp.asarray(scale), jnp.float32))
     assert np.abs(y - dense).max() / np.abs(dense).std() < REL
 
