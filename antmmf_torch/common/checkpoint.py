@@ -1,0 +1,211 @@
+"""Checkpoints: ``torch.save`` snapshots with the JAX package's layout and
+its tolerant load.
+
+Port of ``antmmf_tpu/common/checkpoint.py``. Under ``save_dir``:
+
+* ``models/model_<n>``: the full state at step n (``save``): the step, the
+  fp32 masters and the AdamW state (``count``, ``mu`` in its own dtype,
+  ``nu``) keyed by flax path, and the ``torch.Generator`` state; ``_gc``
+  keeps the newest ``max_ckpt_num`` of them;
+* ``models/best``: the same, saved when early stopping sees a new best;
+* ``<model_name>_final``: the masters alone (``save_final_weights``);
+* ``config.yaml`` and ``git_info.json`` (branch, commit, status).
+
+Each file is written under a temporary name and renamed into place, so a
+reader never meets half a file. Tensors are stored as they are in the
+module (a Dense weight [out, in]), keyed by the flax path that
+``utils.weights.flax_paths`` gives. ``restore_state`` puts a snapshot back
+bit for bit and refreshes the module's compute-dtype copies from the
+masters. ``load_model_weights`` is the weights-only tolerant load: leaves
+whose path and shape agree are copied, the rest reported as missing,
+shape-mismatched or unexpected, with ``pretrained_mapping`` prefix remaps
+first, as ``merge_params_tolerant`` does; it reads the port's checkpoints
+and a ``params.npz`` of ``/``-joined flax paths in flax layout (the port's
+``model_dir`` format). ``resume`` applies ``resume``, ``resume_file`` and
+``restart``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import subprocess
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from antmmf_torch.common.configuration import Configuration, convert_to_config
+from antmmf_torch.utils.weights import flax_paths, to_torch_layout
+
+
+def merge_params_tolerant(target: Mapping[str, torch.Tensor], loaded: Mapping[str, Any],
+                          pretrained_mapping: Optional[Mapping[str, str]] = None,
+                          logger: Optional[Any] = None
+                          ) -> Tuple[Dict[str, Any], Dict[str, list]]:
+    """Leaves of ``loaded`` (flat, by path) whose path, after the
+    ``pretrained_mapping`` prefix remaps, and shape agree with ``target``'s.
+    Returns (the matched leaves, a report of loaded / missing /
+    shape_mismatch / unexpected paths)."""
+    if pretrained_mapping:
+        remapped = {}
+        for path, leaf in loaded.items():
+            for src, dst in dict(pretrained_mapping).items():
+                if path.startswith(src):
+                    path = dst + path[len(src):]
+                    break
+            remapped[path] = leaf
+        loaded = remapped
+    report: Dict[str, list] = {"loaded": [], "missing": [], "shape_mismatch": [],
+                               "unexpected": []}
+    merged = {}
+    for path, tleaf in target.items():
+        if path not in loaded:
+            report["missing"].append(path)
+            continue
+        shape = tuple(np.shape(loaded[path]))
+        if shape != tuple(tleaf.shape):
+            report["shape_mismatch"].append(f"{path}: ckpt{shape} vs model{tuple(tleaf.shape)}")
+            continue
+        merged[path] = loaded[path]
+        report["loaded"].append(path)
+    report["unexpected"] = [path for path in loaded if path not in target]
+    if logger is not None:
+        for kind in ("missing", "shape_mismatch", "unexpected"):
+            for item in report[kind][:20]:
+                logger.write(f"checkpoint partial-load {kind}: {item}", level="warning")
+    return merged, report
+
+
+def _git_provenance(repo_dir: str) -> Dict[str, str]:
+    def run(*args: str) -> str:
+        try:
+            return subprocess.run(["git", *args], cwd=repo_dir, capture_output=True, text=True,
+                                  timeout=10).stdout.strip()
+        except Exception:
+            return ""
+
+    return {"branch": run("rev-parse", "--abbrev-ref", "HEAD"),
+            "commit": run("rev-parse", "HEAD"), "status": run("status", "--short")[:4000]}
+
+
+def _atomic_save(obj: Any, path: str) -> None:
+    tmp = f"{path}.tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def _cpu(tree: Mapping[str, torch.Tensor], names: Mapping[str, str]) -> Dict[str, torch.Tensor]:
+    return {names[n]: t.detach().to("cpu", copy=True) for n, t in tree.items()}
+
+
+class Checkpoint:
+    def __init__(self, config: Mapping, logger: Optional[Any] = None, load_only: bool = False):
+        self.config = convert_to_config(config)
+        tp = self.config.get("training_parameters", {})
+        self.logger = logger
+        self.save_dir = os.path.abspath(tp.get("save_dir", "./save"))
+        self.models_dir = os.path.join(self.save_dir, "models")
+        self.max_to_keep = tp.get("max_ckpt_num", None)
+        if not load_only:
+            os.makedirs(self.models_dir, exist_ok=True)
+            Configuration(self.config.to_dict()).save(os.path.join(self.save_dir, "config.yaml"))
+            with open(os.path.join(self.save_dir, "git_info.json"), "w") as f:
+                json.dump(_git_provenance(os.getcwd()), f, indent=2)
+
+    # ------------------------------------------------------------------- save
+    def _state_tree(self, state) -> Dict[str, Any]:
+        names = flax_paths(state.model)
+        opt = state.opt_state
+        return {"step": int(state.step), "params": _cpu(state.params, names),
+                "opt_state": {"count": int(opt["count"]), "mu": _cpu(opt["mu"], names),
+                              "nu": _cpu(opt["nu"], names)},
+                "generator": state.generator.get_state()}
+
+    def save(self, state, iteration: Optional[int] = None, tag: Optional[str] = None) -> str:
+        iteration = int(iteration if iteration is not None else state.step)
+        path = os.path.join(self.models_dir, tag or f"model_{iteration}")
+        _atomic_save(self._state_tree(state), path)
+        if tag is None:
+            self._gc()
+        return path
+
+    def save_best(self, state) -> str:
+        return self.save(state, tag="best")
+
+    def save_final_weights(self, state, model_name: str = "model") -> str:
+        path = os.path.join(self.save_dir, f"{model_name}_final")
+        _atomic_save({"params": _cpu(state.params, flax_paths(state.model))}, path)
+        return path
+
+    def _gc(self) -> None:
+        if not self.max_to_keep:
+            return
+        nums = {int(m.group(1)): d for d in os.listdir(self.models_dir)
+                if (m := re.fullmatch(r"model_(\d+)", d))}
+        for n in sorted(nums)[:-int(self.max_to_keep)]:
+            os.remove(os.path.join(self.models_dir, nums[n]))
+
+    # ---------------------------------------------------------------- restore
+    def latest_path(self) -> Optional[str]:
+        if not os.path.isdir(self.models_dir):
+            return None
+        nums = {int(m.group(1)): d for d in os.listdir(self.models_dir)
+                if (m := re.fullmatch(r"model_(\d+)", d))}
+        return os.path.join(self.models_dir, nums[max(nums)]) if nums else None
+
+    @torch.no_grad()
+    def restore_state(self, state, path: Optional[str] = None):
+        """Full resume, bit for bit: step, masters, AdamW state, generator."""
+        path = path or self.latest_path()
+        if path is None:
+            return state, False
+        tree = torch.load(path, map_location="cpu", weights_only=True)
+        names = flax_paths(state.model)
+        opt = state.opt_state
+        for name, dst in (("params", state.params), ("mu", opt["mu"]), ("nu", opt["nu"])):
+            src = tree["params"] if name == "params" else tree["opt_state"][name]
+            for n, t in dst.items():
+                t.copy_(src[names[n]])
+        opt["count"] = tree["opt_state"]["count"]
+        state.step = tree["step"]
+        state.generator.set_state(tree["generator"])
+        state.sync_model()
+        return state, True
+
+    @torch.no_grad()
+    def load_model_weights(self, state, path: str,
+                           pretrained_mapping: Optional[Mapping[str, str]] = None):
+        """Weights-only tolerant load (the restart / finetune path) from a
+        port checkpoint or a ``params.npz`` of flax-layout leaves."""
+        if path.endswith(".npz"):
+            with np.load(path) as npz:
+                loaded = {k: torch.from_numpy(to_torch_layout(k, npz[k]).astype(np.float32))
+                          for k in npz.files}
+        else:
+            loaded = torch.load(path, map_location="cpu", weights_only=True)["params"]
+        names = flax_paths(state.model)
+        target = {names[n]: t for n, t in state.params.items()}
+        merged, report = merge_params_tolerant(target, loaded, pretrained_mapping, self.logger)
+        for leaf_path, value in merged.items():
+            target[leaf_path].copy_(value)
+        state.sync_model()
+        return state, report
+
+    def resume(self, state, tp: Optional[Mapping] = None):
+        """Apply the resume / resume_file / restart flags."""
+        tp = convert_to_config(tp if tp is not None
+                               else self.config.get("training_parameters", {}))
+        resume_file = tp.get("resume_file")
+        if resume_file:
+            if bool(tp.get("restart", False)):
+                state, report = self.load_model_weights(
+                    state, resume_file, tp.get("pretrained_mapping") or None)
+                return state, {"mode": "restart", **{k: len(v) for k, v in report.items()}}
+            state, ok = self.restore_state(state, resume_file)
+            return state, {"mode": "resume_file", "ok": ok}
+        if bool(tp.get("resume", False)):
+            state, ok = self.restore_state(state)
+            return state, {"mode": "resume", "ok": ok}
+        return state, {"mode": "none"}

@@ -1,10 +1,11 @@
 """YAML configuration: includes, ``${ENV}`` expansion, dotted overrides.
 
-Own copy of the part of ``antmmf_tpu/common/configuration.py`` that serving
-needs: ``includes:`` deep merge (the including file wins; later includes win
-over earlier ones), environment expansion, dotted-path command-line overrides
-with literal typing, and a mapping whose nested views share storage with
-the root.
+Own copy of the part of ``antmmf_tpu/common/configuration.py`` that the
+ported paths need: ``includes:`` deep merge (the including file wins; later
+includes win over earlier ones), environment expansion, dotted-path
+command-line overrides with literal typing, ``merge`` and ``freeze``, and a
+mapping whose nested views share storage with the root (and its frozen
+flag).
 """
 
 from __future__ import annotations
@@ -82,17 +83,20 @@ class Configuration(collections.abc.Mapping):
     """Nested mapping; nested dicts are returned as views sharing storage
     with the root."""
 
-    __slots__ = ("_data",)
+    __slots__ = ("_data", "_frozen")
 
-    def __init__(self, data: Mapping[str, Any] = None, _shared: bool = False):
+    def __init__(self, data: Mapping[str, Any] = None, _shared: bool = False,
+                 frozen: bool = False):
         object.__setattr__(self, "_data", data if _shared else _plain(dict(data or {})))
+        object.__setattr__(self, "_frozen", frozen)
 
     @classmethod
     def from_file(cls, path: str) -> "Configuration":
         return cls(load_yaml_with_includes(path))
 
     def _wrap(self, val: Any) -> Any:
-        return Configuration(val, _shared=True) if isinstance(val, dict) else val
+        return Configuration(val, _shared=True, frozen=self._frozen) if isinstance(val, dict) \
+            else val
 
     def __getitem__(self, key: str) -> Any:
         return self._wrap(self._data[key])
@@ -103,14 +107,39 @@ class Configuration(collections.abc.Mapping):
     def __len__(self) -> int:
         return len(self._data)
 
+    def _check_mutable(self, what: str) -> None:
+        if self._frozen:
+            raise AttributeError(f"Config is frozen; cannot {what}")
+
     def __setitem__(self, key: str, value: Any) -> None:
+        self._check_mutable(f"set {key!r}")
         self._data[key] = _plain(value)
+
+    def freeze(self) -> "Configuration":
+        object.__setattr__(self, "_frozen", True)
+        return self
+
+    @property
+    def frozen(self) -> bool:
+        return self._frozen
+
+    def merge(self, other: Mapping[str, Any]) -> "Configuration":
+        """Deep-merge ``other`` in place (dicts merge, the rest replaces)."""
+        self._check_mutable("merge")
+        nested_dict_update(self._data, other)
+        return self
 
     def to_dict(self) -> Dict[str, Any]:
         return copy.deepcopy(self._data)
 
+    def save(self, path: str) -> None:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w", encoding="utf-8") as f:
+            f.write(yaml.safe_dump(self.to_dict(), sort_keys=False, default_flow_style=False))
+
     def override_with_opts(self, opts: Sequence[str]) -> "Configuration":
         """Apply ``key.path value ...`` or ``key.path=value`` overrides."""
+        self._check_mutable("override")
         pairs: List[tuple] = []
         opts = list(opts or [])
         i = 0
@@ -128,6 +157,7 @@ class Configuration(collections.abc.Mapping):
         return self
 
     def set_dotted(self, dotted_key: str, value: Any) -> None:
+        self._check_mutable(f"set {dotted_key!r}")
         node = self._data
         parts = dotted_key.split(".")
         for part in parts[:-1]:

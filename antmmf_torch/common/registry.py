@@ -1,7 +1,7 @@
 """Component registry of the port: name → class maps per component kind.
 
-Own copy of the surface of ``antmmf_tpu/common/registry.py`` that the serving
-path uses (``register_<kind>`` decorators and ``get_<kind>_class`` lookups),
+Own copy of the surface of ``antmmf_tpu/common/registry.py`` that the ported
+paths use (``register_<kind>`` decorators and ``get_<kind>_class`` lookups),
 with its own instance, so the port's names never collide with the JAX
 package's.
 """
@@ -10,7 +10,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional
 
-_KINDS = ("model", "processor", "predictor")
+_KINDS = ("model", "processor", "predictor", "trainer", "task", "builder", "metric", "sampler",
+          "iteration_strategy")
 
 
 class Registry:
@@ -39,23 +40,26 @@ class Registry:
 
         return wrap
 
-    def register_model(self, name: Optional[str] = None):
-        return self._decorator("model", name)
 
-    def register_processor(self, name: Optional[str] = None):
-        return self._decorator("processor", name)
+def _make_register(kind: str):
+    def register(self: Registry, name: Optional[str] = None):
+        return self._decorator(kind, name)
 
-    def register_predictor(self, name: Optional[str] = None):
-        return self._decorator("predictor", name)
+    register.__name__ = f"register_{kind}"
+    return register
 
-    def get_model_class(self, name: str, default: Any = ...) -> type:
-        return self.get_class("model", name, default=default)
 
-    def get_processor_class(self, name: str, default: Any = ...) -> type:
-        return self.get_class("processor", name, default=default)
+def _make_get(kind: str):
+    def get(self: Registry, name: str, default: Any = ...) -> type:
+        return self.get_class(kind, name, default=default)
 
-    def get_predictor_class(self, name: str, default: Any = ...) -> type:
-        return self.get_class("predictor", name, default=default)
+    get.__name__ = f"get_{kind}_class"
+    return get
+
+
+for _kind in _KINDS:  # register_model / get_model_class, ... for every kind
+    setattr(Registry, f"register_{_kind}", _make_register(_kind))
+    setattr(Registry, f"get_{_kind}_class", _make_get(_kind))
 
 
 registry = Registry()

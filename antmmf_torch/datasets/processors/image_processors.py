@@ -83,7 +83,7 @@ class NormalizedImageProcessor(BaseProcessor):
         super().__init__(config)
         cfg = self.config
         if cfg.get("train_augment"):
-            raise NotImplementedError("train_augment is not ported; serving takes none")
+            raise NotImplementedError("train_augment is not ported yet")
         self.size = int(cfg.get("size", 224))
         self.resize_target = int(cfg.get("resize", self.size))
         default_mean, default_std = NORM_PRESETS[cfg.get("norm_preset", "imagenet")]

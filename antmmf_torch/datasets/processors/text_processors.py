@@ -3,8 +3,9 @@
 Own copy of the unmasked path of ``antmmf_tpu/datasets/processors/
 text_processors.py``'s ``MaskedTokenProcessor``: ``input_ids`` int64[L] =
 [CLS] a [SEP] (b [SEP]) padded with 0, ``input_mask`` 1 on real tokens,
-``segment_ids`` 0/1. Masked-LM target synthesis belongs to the training
-slices; a positive masking probability raises.
+``segment_ids`` 0/1, ``lm_label_ids`` -1 everywhere (no token is a
+masked-LM target). Masked-LM target synthesis is not ported: a positive
+masking probability raises.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from antmmf_torch.datasets.processors.processors import BaseProcessor
 from antmmf_torch.utils.tokenization import CLS_TOKEN, SEP_TOKEN, BertTokenizer
 
 DEFAULT_VOCAB = "tests/data/vocabs/bert-base-uncased_30522_vocab.txt"
+LM_IGNORE_INDEX = -1
 
 
 def _resolve_vocab_path(path: str) -> str:
@@ -73,6 +75,7 @@ class MaskedTokenProcessor(BaseProcessor):
             "input_ids": np.asarray(ids + [0] * pad, dtype=np.int64)[:L],
             "input_mask": np.asarray([1] * len(ids) + [0] * pad, dtype=np.int64)[:L],
             "segment_ids": np.asarray(segment_ids + [0] * pad, dtype=np.int64)[:L],
+            "lm_label_ids": np.full((L,), LM_IGNORE_INDEX, dtype=np.int64),
         }
 
     def _truncate(self, tokens_a: List[str], tokens_b: Optional[List[str]]) -> None:

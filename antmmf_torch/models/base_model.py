@@ -5,9 +5,10 @@ Port of ``antmmf_tpu/models/base_model.py:61-190``: ``build_model`` resolves
 device and wraps it in a ``ModelShell``. ``apply`` is the online-serving
 forward (under ``torch.inference_mode``, losses dropped); ``loss_fn`` is the
 training surface: the total is the sum of the means of the model's losses,
-with ``losses/*`` and ``total_loss`` scalars. Config-declared losses (the
-registry's ``Losses``) raise until they are ported; config metrics belong
-to the trainer (slice 3) and are not read here.
+with ``losses/*``, ``metrics/*`` (the model config's ``metrics``, computed
+on the device without a host sync) and ``total_loss`` scalars.
+Config-declared losses (the registry's ``Losses``) raise until they are
+ported.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from torch import nn
 from antmmf_torch.common.configuration import convert_to_config
 from antmmf_torch.common.registry import registry
 from antmmf_torch.modules.layers import init_weights
+from antmmf_torch.modules.metrics.metrics import Metrics
 
 
 def resolve_device(device: Optional[str] = None) -> torch.device:
@@ -35,9 +37,11 @@ def resolve_device(device: Optional[str] = None) -> torch.device:
 class ModelShell:
     """A built model on its device, with the serving forward and the loss."""
 
-    def __init__(self, module: nn.Module, device: torch.device):
+    def __init__(self, module: nn.Module, device: torch.device,
+                 metrics: Optional[Metrics] = None):
         self.module = module.eval()
         self.device = device
+        self.metrics = metrics or Metrics([])
 
     def init(self, seed: int = 0) -> None:
         """Seeded random weights (flax's default initializers)."""
@@ -58,12 +62,17 @@ class ModelShell:
     def loss_fn(self, batch: Mapping[str, Any], deterministic: bool = False
                 ) -> Tuple[torch.Tensor, Tuple[Dict[str, Any], Dict[str, torch.Tensor]]]:
         """(total, (output, scalars)) with gradients enabled: total is the sum
-        of the means of ``output["losses"]``."""
-        output = dict(self.module(self.to_device(batch), deterministic=deterministic))
+        of the means of ``output["losses"]``; ``output["metrics"]`` holds the
+        config metrics."""
+        batch = self.to_device(batch)
+        output = dict(self.module(batch, deterministic=deterministic))
         losses = output.get("losses", {})
         total = (sum(v.mean() for v in losses.values()) if losses
                  else torch.zeros((), device=self.device))
+        with torch.no_grad():
+            output["metrics"] = {**output.get("metrics", {}), **self.metrics(batch, output)}
         scalars = {f"losses/{k}": v.detach().mean() for k, v in losses.items()}
+        scalars.update({f"metrics/{k}": v.float().mean() for k, v in output["metrics"].items()})
         scalars["total_loss"] = total.detach()
         return total, (output, scalars)
 
@@ -93,4 +102,5 @@ def build_model(config: Mapping[str, Any], model_name: Optional[str] = None,
         model_config["dtype_str"] = str(policy_dtype)
     cls = registry.get_model_class(model_config.get("model_class", model_name))
     dev = resolve_device(device)
-    return ModelShell(cls.from_config(model_config, device=dev), dev)
+    return ModelShell(cls.from_config(model_config, device=dev), dev,
+                      Metrics(model_config.get("metrics", [])))

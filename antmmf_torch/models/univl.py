@@ -130,7 +130,7 @@ class UnivlForVideoTextRetrieval(nn.Module):
                  cross_layers: int = 2, hard_mining_k: int = 0, loss_type: str = "cross_en",
                  with_queue: bool = False, dropout: float = 0.0,
                  training_head_only: bool = False, sequence_parallel: str = "none",
-                 device=None):
+                 encoder_lr_decay: float = 1.0, device=None):
         super().__init__()
         if sequence_parallel != "none":
             raise NotImplementedError("sequence parallelism is not ported yet")
@@ -141,6 +141,7 @@ class UnivlForVideoTextRetrieval(nn.Module):
             raise NotImplementedError(f"dropout {dropout} is not ported yet; only 0 is")
         self.dtype = getattr(torch, dtype_str)
         self.hard_mining_k = hard_mining_k
+        self.encoder_lr_decay = encoder_lr_decay
         self.training_head_only = training_head_only
         self.base = UnivlVideoBase(vit_preset, image_size, bert_preset, embed_dim, n_clips,
                                    token_merge_r, with_cross_encoder, cross_layers,
@@ -152,6 +153,14 @@ class UnivlForVideoTextRetrieval(nn.Module):
     def from_config(cls, config: Mapping[str, Any], device=None) -> "UnivlForVideoTextRetrieval":
         names = set(inspect.signature(cls.__init__).parameters) - {"self", "device"}
         return cls(device=device, **{k: v for k, v in dict(config).items() if k in names})
+
+    def optimizer_lr_multipliers(self, tp: Mapping[str, Any]):
+        """The pretrained towers train at ``encoder_lr_decay`` × lr (the model
+        field, else ``training_parameters.encoder_lr_decay``; default 1.0,
+        no rule), as the JAX model's hook gives ``BaseTrainer.load_optimizer``."""
+        decay = float(self.encoder_lr_decay if self.encoder_lr_decay != 1.0
+                      else tp.get("encoder_lr_decay", 1.0) or 1.0)
+        return [] if decay == 1.0 else [[r"base/(img_encoder|text_encoder)/", decay]]
 
     def similarity(self, text_embed: torch.Tensor, clip_embed: torch.Tensor) -> torch.Tensor:
         """[Bt, D] × [Bv, n_clips, D] → [Bt, Bv] via logsumexp over clips."""

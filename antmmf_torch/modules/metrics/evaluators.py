@@ -1,0 +1,138 @@
+"""Corpus-level evaluators: host-side collect/summarize over a whole eval set.
+
+Port of ``antmmf_tpu/modules/metrics/evaluators.py``'s retrieval evaluator:
+``GlobalRetrievalRecallEvaluator`` gathers the text and video embeddings of
+every eval batch and computes text→video and video→text recalls with
+multi-ground-truth min-rank; with ``image_vid`` in the batch, videos are
+deduplicated by id (which also drops the rows that ``pad_last`` repeated;
+repeated captions stay, as in the JAX package). ``recall_metrics`` turns
+0-based ranks into R@1/5/10 (percent), median and mean rank. The other
+evaluators raise until they are ported.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Mapping, Optional, Sequence
+
+import numpy as np
+
+
+class BaseEvaluator:
+    def reset(self) -> None:
+        raise NotImplementedError
+
+    def collect(self, batch: Mapping, output: Mapping) -> None:
+        raise NotImplementedError
+
+    def summarize(self) -> Dict[str, float]:
+        raise NotImplementedError
+
+
+def _ranks_with_multi_gt(
+    sim: np.ndarray, gt_lists: Sequence[Sequence[int]]
+) -> np.ndarray:
+    """Row i's rank = min rank over its ground-truth column set (0-based)."""
+    order = np.argsort(-sim, axis=1)
+    ranks = np.empty(sim.shape[0], dtype=np.int64)
+    for i, gts in enumerate(gt_lists):
+        gts = set(int(g) for g in gts)
+        pos = np.nonzero(np.isin(order[i], list(gts)))[0]
+        ranks[i] = int(pos.min()) if len(pos) else sim.shape[1] - 1
+    return ranks
+
+
+def recall_metrics(ranks: np.ndarray, prefix: str) -> Dict[str, float]:
+    n = max(1, len(ranks))
+    return {
+        f"{prefix}r@1": float((ranks < 1).sum() / n * 100.0),
+        f"{prefix}r@5": float((ranks < 5).sum() / n * 100.0),
+        f"{prefix}r@10": float((ranks < 10).sum() / n * 100.0),
+        f"{prefix}median_rank": float(np.median(ranks) + 1),
+        f"{prefix}mean_rank": float(ranks.mean() + 1),
+    }
+
+
+class GlobalRetrievalRecallEvaluator(BaseEvaluator):
+    """Accumulates text/video embeddings (or sim-matrix chunks) across eval
+    batches, then computes t2v and v2t recalls with multi-gt min-rank."""
+
+    def __init__(self, params: Optional[Mapping[str, Any]] = None):
+        self.params = dict(params or {})
+        self.reset()
+
+    def reset(self) -> None:
+        self._text: List[np.ndarray] = []
+        self._video: List[np.ndarray] = []
+        self._t2v_gt: List[Sequence[int]] = []
+        self._v2t_gt: List[Sequence[int]] = []
+        self._vids: List[np.ndarray] = []
+
+    def collect(self, batch: Mapping, output: Mapping) -> None:
+        t = output.get("text_embed")
+        v = output.get("visual_embed")
+        if t is None or v is None:
+            return
+        self._text.append(np.asarray(t, dtype=np.float32))
+        self._video.append(np.asarray(v, dtype=np.float32))
+        meta = getattr(batch, "metadata", {}) if not isinstance(batch, dict) else {}
+        if isinstance(batch, Mapping) and "image_vid" in batch:
+            # unique-video id per row → dedupe + grouped gt in summarize
+            self._vids.append(np.asarray(batch["image_vid"]).reshape(-1))
+            return
+        t2v = (batch.get("caption_vid_list") if isinstance(batch, Mapping) else None) \
+            or meta.get("caption_vid_list")
+        v2t = (batch.get("image_tid_list") if isinstance(batch, Mapping) else None) \
+            or meta.get("image_tid_list")
+        n_t_prev = sum(x.shape[0] for x in self._text[:-1])
+        n_v_prev = sum(x.shape[0] for x in self._video[:-1])
+        if t2v is not None:
+            self._t2v_gt.extend(t2v)
+        else:  # identity pairing: text i ↔ video i
+            self._t2v_gt.extend([[n_v_prev + i] for i in range(self._video[-1].shape[0])])
+        if v2t is not None:
+            self._v2t_gt.extend(v2t)
+        else:
+            self._v2t_gt.extend([[n_t_prev + i] for i in range(self._text[-1].shape[0])])
+
+    def summarize(self) -> Dict[str, float]:
+        if not self._text:
+            return {}
+        t = np.concatenate(self._text)
+        v = np.concatenate(self._video)
+        if self._vids:
+            # dedupe videos by id; build grouped multi-gt both directions
+            vids = np.concatenate(self._vids)
+            uniq_ids, first_idx = np.unique(vids, return_index=True)
+            v = v[first_idx]
+            col_of = {int(u): c for c, u in enumerate(uniq_ids)}
+            self._t2v_gt = [[col_of[int(x)]] for x in vids]
+            self._v2t_gt = [
+                np.nonzero(vids == u)[0].tolist() for u in uniq_ids
+            ]
+        sim = t @ v.T
+        out = recall_metrics(_ranks_with_multi_gt(sim, self._t2v_gt), "t2v-")
+        out.update(recall_metrics(_ranks_with_multi_gt(sim.T, self._v2t_gt), "v2t-"))
+        out["mean_recall"] = float(
+            np.mean([out["t2v-r@1"], out["t2v-r@5"], out["t2v-r@10"],
+                     out["v2t-r@1"], out["v2t-r@5"], out["v2t-r@10"]])
+        )
+        return out
+
+
+EVALUATORS = {"global_retrieval_recall": GlobalRetrievalRecallEvaluator}
+NOT_PORTED = ("classification", "vqa_accuracy", "captioning", "grounding", "detection",
+              "bbox_ap")
+
+
+def build_evaluator(config: Optional[Mapping[str, Any]]) -> Optional[BaseEvaluator]:
+    if not config:
+        return None
+    if isinstance(config, str):
+        config = {"type": config}
+    if config["type"] in NOT_PORTED:
+        raise NotImplementedError(f"evaluator {config['type']!r} is not ported yet; "
+                                  f"global_retrieval_recall is")
+    cls = EVALUATORS.get(config["type"])
+    if cls is None:
+        raise KeyError(f"Unknown evaluator {config['type']!r}; known: {sorted(EVALUATORS)}")
+    return cls(config.get("params", {}))

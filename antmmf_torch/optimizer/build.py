@@ -118,12 +118,14 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor], state: Dict[str, Any],
-               params: Dict[str, torch.Tensor]) -> None:
+               params: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Returns the global norm of ``grads`` before the clip (a device
+        scalar: no host sync)."""
         names = list(params)
         p = [params[n] for n in names]
         g = [grads[n] for n in names]
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
         if self.max_grad_norm is not None:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
             keep = norm < self.max_grad_norm
             one = torch.ones((), device=norm.device)
             g = torch._foreach_div(g, torch.where(keep, one, norm))
@@ -151,6 +153,7 @@ class AdamW:
             torch._foreach_mul_(upd, [self.lr_multipliers[n] for n in names])
         torch._foreach_add_(p, upd)
         state["count"] = count
+        return norm
 
 
 def build_optimizer(paths: Mapping[str, str], optimizer_attributes: Mapping[str, Any],

@@ -2,7 +2,8 @@
 
 Own copy of ``antmmf_tpu/structures/sample.py``'s containers: a ``Sample`` is a
 dict of numpy arrays; ``SampleList.from_samples`` stacks
-array fields into a batch and keeps other fields in ``metadata``.
+array fields into a batch and keeps other fields in ``metadata``
+(``dataset_type`` and ``dataset_name`` once per batch).
 """
 
 from __future__ import annotations
@@ -10,6 +11,9 @@ from __future__ import annotations
 from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
+
+# per-batch metadata: one value per batch, not a list per sample
+_SCALAR_META_FIELDS = ("dataset_type", "dataset_name")
 
 
 class Sample(dict):
@@ -35,7 +39,9 @@ class SampleList(dict):
                     f"Inconsistent sample fields: {sorted(keys)} vs {sorted(s.keys())}")
         for key in keys:
             values = [s[key] for s in samples]
-            if isinstance(values[0], (np.ndarray, np.generic, int, float, bool)):
+            if key in _SCALAR_META_FIELDS:
+                batch.metadata[key] = values[0]
+            elif isinstance(values[0], (np.ndarray, np.generic, int, float, bool)):
                 try:
                     batch[key] = np.stack([np.asarray(v) for v in values])
                 except ValueError as e:
@@ -44,6 +50,12 @@ class SampleList(dict):
             else:
                 batch.metadata[key] = values
         return batch
+
+    def get_batch_size(self) -> int:
+        for v in self.values():
+            if isinstance(v, np.ndarray) and v.ndim > 0:
+                return int(v.shape[0])
+        raise ValueError("Empty SampleList has no batch size")
 
     def arrays(self) -> Dict[str, np.ndarray]:
         """The array fields."""

@@ -27,6 +27,7 @@ class TrainState:
         self.opt_state = opt_state
         self.generator = generator
         self.step = step
+        self.grad_norm: Optional[torch.Tensor] = None  # of the last update, before the clip
 
     @classmethod
     def create(cls, model: nn.Module, tx, params: Optional[Mapping[str, torch.Tensor]] = None,
@@ -51,27 +52,31 @@ class TrainState:
         torch._foreach_copy_([named[n] for n in self.params], list(self.params.values()))
 
     def apply_gradients(self, grads: Mapping[str, torch.Tensor], tx) -> "TrainState":
-        tx.update(grads, self.opt_state, self.params)
+        self.grad_norm = tx.update(grads, self.opt_state, self.params)
         self.step += 1
         self.sync_model()
         return self
 
 
 def make_train_step(shell, tx) -> Callable[[TrainState, Mapping[str, torch.Tensor]],
-                                           Tuple[TrainState, torch.Tensor]]:
-    """``train_step(state, batch) -> (state, loss)`` as ``bench.py`` builds
-    it: the shell's loss with ``deterministic=False``, backward, global-norm
-    clip and AdamW update (``tx``), the loss returned without a host sync."""
+                                           Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """``train_step(state, batch) -> (state, scalars)`` as the JAX trainer's
+    jitted step: the shell's loss with ``deterministic=False``, backward,
+    global-norm clip and AdamW update (``tx``). ``scalars`` holds
+    ``losses/*``, ``metrics/*``, ``total_loss`` and ``grad_norm`` (of the
+    unclipped gradients) as device tensors: the step makes no host sync.
+    The module holds no gradients after the step."""
     module = shell.module
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor]):
-        for p in module.parameters():
-            p.grad = None
-        loss, _ = shell.loss_fn(batch, deterministic=False)
+        loss, (_, scalars) = shell.loss_fn(batch, deterministic=False)
         loss.backward()
-        grads = {n: (p.grad.float() if p.grad is not None else torch.zeros_like(state.params[n]))
-                 for n, p in module.named_parameters()}
-        return state.apply_gradients(grads, tx), loss.detach()
+        grads = {}
+        for n, p in module.named_parameters():
+            grads[n] = p.grad.float() if p.grad is not None else torch.zeros_like(state.params[n])
+            p.grad = None
+        state = state.apply_gradients(grads, tx)
+        scalars["grad_norm"] = state.grad_norm
+        return state, scalars
 
     return train_step
-

@@ -68,7 +68,7 @@ def _torch_name(flax_path: str) -> str:
     return ".".join(parts)
 
 
-def _to_torch_layout(flax_path: str, value: np.ndarray) -> np.ndarray:
+def to_torch_layout(flax_path: str, value: np.ndarray) -> np.ndarray:
     if flax_path.split("/")[-1] == "kernel":
         return value.reshape(-1, value.shape[-1]).T  # Dense [in,out] or Conv HWIO
     return value
@@ -104,7 +104,7 @@ def flax_to_masters(model: nn.Module, params: Mapping[str, Any]) -> Dict[str, to
     masters = {}
     for name, param in targets.items():
         path = mapped[name]
-        value = _to_torch_layout(path, flat[path])
+        value = to_torch_layout(path, flat[path])
         if tuple(value.shape) != tuple(param.shape):
             raise ValueError(f"{path}: shape {value.shape} does not fit {name} "
                              f"{tuple(param.shape)}")

@@ -80,20 +80,44 @@ non-zero code and no result line:
    rows of bf16 x, cycling through copies so that no launch finds its
    weights in the L2 cache, beside its bound, its plain version (1 row) and
    bf16 ``torch.matmul`` on the dequantised weight, and summed over a decode
-   step's 155 launches for each row count.
+   step's 155 launches for each row count;
+12. trainer: ``python -m antmmf_torch.run`` driven in-process
+   (``antmmf_torch.run.main``) on ``projects/base_vtp/configs/
+   video_retrieval.yml`` at full width over a seeded synthetic dataset in
+   its MSR-VTT layout (64 clips of 12 frames at 240×320 in an LMDB, 64
+   captions), written under ``build/`` and deleted at the end: 8 steps at
+   B=32, the cached val batch every 2 steps, the full validation with
+   ``global_retrieval_recall`` every 4, ``max_ckpt_num`` 1, then a resumed
+   run to step 10. Checks: 24 ``small_attention`` launches for every train
+   step and eval forward and no other kernel, finite losses and a falling
+   epoch mean, the first step's loss against phase 5's bare step on the same
+   batch and masters, the recalls in [0, 100] and equal to those recomputed
+   on the host from the collected embeddings, the files on disk, the resumed
+   state (step, masters, AdamW moments, generator) equal to the first run's
+   bit for bit, model and batches on the card. Prints the step time and the
+   loader wait, clip-text pairs/s per step and over the train loop's whole
+   wall time beside phase 5's bare step, the idle share over 2 profiled
+   trainer steps (after the counts are read), one batch's host work by
+   stage, the loader's steady rate over 8 batches without an epoch restart,
+   the full validation's seconds, checkpoint seconds and bytes, resume seconds, peak
+   memory and setup seconds.
 
-Each path (serving, each training leg, each Pink request) runs with the kernels' launch counts
-set to 0 just before it and read just after; launches made to compare a
-kernel with its plain version or to time it are not counted. The line
-before the last holds the kernel table, the last line the result. Without
-CUDA the script exits non-zero before printing anything.
+Each path (serving, each training leg, each Pink request, the trainer) runs
+with the kernels' launch counts set to 0 just before it and read just after;
+launches made to compare a kernel with its plain version or to time it are
+not counted. The line before the last holds the kernel table, the last line
+the result. Without CUDA the script exits non-zero before printing anything.
 """
 
 from __future__ import annotations
 
+import io
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -104,6 +128,9 @@ if not torch.cuda.is_available():
 
 import torch.nn.functional as F  # noqa: E402
 
+from antmmf_torch import run  # noqa: E402
+from antmmf_torch.common.checkpoint import Checkpoint  # noqa: E402
+from antmmf_torch.datasets.loader import DataLoader  # noqa: E402
 from antmmf_torch.models.base_model import build_model  # noqa: E402
 from antmmf_torch.modules.layers import make_attention_mask  # noqa: E402
 from antmmf_torch.ops import _build  # noqa: E402
@@ -137,7 +164,9 @@ from antmmf_torch.predictors.quantization import (  # noqa: E402
     load_decode_records,
     quantize_for_decode,
 )
+from antmmf_torch.trainers.base_trainer import BaseTrainer  # noqa: E402
 from antmmf_torch.trainers.train_state import TrainState, make_train_step  # noqa: E402
+from antmmf_torch.utils.lmdb_lite import LmdbLiteWriter  # noqa: E402
 from antmmf_torch.utils.weights import export_flax_params, flax_paths  # noqa: E402
 
 CONFIG = "projects/base_vtp/configs/serving.yml"
@@ -767,12 +796,13 @@ def device_busy(prof, iters: int):
 
 
 def phase_training(gpu: str):
-    """Both training legs; returns the path's launches by kernel and the
-    cross-encoder's pair key bias (for phase 7's timing)."""
+    """Both training legs; returns the path's launches by kernel, the
+    cross-encoder's pair key bias (for phase 7's timing) and the flagship
+    step's p50 in ms (for phase 12)."""
     from torch.profiler import ProfilerActivity, profile
 
     totals = dict.fromkeys(STEP_LAUNCHES["flagship"], 0)
-    pair_bias = None
+    pair_bias, p50s = None, {}
     for leg, (model, B) in TRAIN_LEGS.items():
         t0 = time.perf_counter()
         shell, state, step = trainer(model)
@@ -783,18 +813,19 @@ def phase_training(gpu: str):
             zero_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, loss = step(state, batch)
+            state, scalars = step(state, batch)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             counts.append(read_counts())
-            losses.append(float(loss))
+            losses.append(float(scalars["total_loss"]))
             for name, n in counts[-1].items():
                 totals[name] += n
         timed = times[TRAIN_WARMUP:]
         p50 = float(np.percentile(timed, 50))
+        p50s[leg] = p50
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(2):
-                state, loss = step(state, batch)
+                state, _ = step(state, batch)
             torch.cuda.synchronize()
         busy, n_ops, top = device_busy(prof, 2)
         emit(phase="training", leg=leg, batch=B, gpu=gpu, setup_s=setup_s, losses=losses,
@@ -816,7 +847,7 @@ def phase_training(gpu: str):
                 [text, torch.ones(B * k, FRAMES * VIT_TOKENS, dtype=text.dtype, device="cuda")], 1))
         del shell, state, step, batch
         torch.cuda.empty_cache()
-    return totals, pair_bias
+    return totals, pair_bias, p50s["flagship"]
 
 
 # ------------------------------------------------------------------ phase 6
@@ -1473,6 +1504,354 @@ def phase_int4_times(pred, gpu) -> dict:
                 bound_ms=step["bound_ms"] / GEMVS_PER_STEP, bound_by="bytes")
 
 
+# ------------------------------------------------------------------ phase 12
+TRAINER_CONFIG = "projects/base_vtp/configs/video_retrieval.yml"
+VOCAB = "tests/data/vocabs/bert-base-uncased_30522_vocab.txt"
+TRAINER_CLIPS, TRAINER_CLIP_FRAMES, TRAINER_HW = 64, 12, (240, 320)
+TRAINER_BATCH, TRAINER_STEPS, TRAINER_RESUMED_STEPS = 32, 8, 10
+TRAINER_SNAPSHOT, TRAINER_LOG = 4, 2
+TRAINER_LAUNCHES = {"small_attention": 24, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+                    "int4_gemv": 0}  # a train step or an eval forward: 12 ViT + 12 BERT layers
+FIRST_LOSS_ATOL = 1e-3  # trainer vs bare step when cuBLAS picks another algorithm
+
+
+def write_msrvtt_layout(root: str, seed: int) -> int:
+    """A seeded synthetic dataset in the MSR-VTT layout of ``TRAINER_CONFIG``:
+    ``videos/data.mdb``, an LMDB (the port's ``LmdbLiteWriter``) of 64 clips
+    of 12 uint8 frames at 240×320 (a seeded image per clip plus seeded
+    per-frame noise), keyed by clip name; ``annotations/msrvtt_{train,test}
+    .jsonl``, 64 captions of 10 seeded words from the BERT vocabulary, one
+    per clip. Returns the LMDB's bytes."""
+    rng = np.random.default_rng(seed)
+    writer = LmdbLiteWriter(os.path.join(root, "videos") + os.sep)
+    for i in range(TRAINER_CLIPS):
+        base = rng.integers(0, 256, (1, *TRAINER_HW, 3), dtype=np.int16)
+        noise = rng.integers(-24, 25, (TRAINER_CLIP_FRAMES, *TRAINER_HW, 3), dtype=np.int16)
+        buf = io.BytesIO()
+        np.save(buf, np.clip(base + noise, 0, 255).astype(np.uint8))
+        writer.put(f"video{i}", buf.getvalue())
+    path = writer.save()
+    with open(VOCAB, encoding="utf-8") as f:
+        words = [w.strip() for w in f if w.strip().isalpha()]
+    lines = [json.dumps({"caption": " ".join(rng.choice(words, 10)), "clip_name": f"video{i}",
+                         "sen_id": i}) for i in range(TRAINER_CLIPS)]
+    os.makedirs(os.path.join(root, "annotations"))
+    for split in ("train", "test"):
+        with open(os.path.join(root, "annotations", f"msrvtt_{split}.jsonl"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return os.path.getsize(path)
+
+
+def trainer_argv(root: str, *extra: str) -> list:
+    data = "task_attributes.univl_task.dataset_attributes.video_text_retrieval"
+    tp = "training_parameters"
+    return ["--config", TRAINER_CONFIG, f"{data}.data_root_dir", root,
+            f"{data}.video_source", "lmdb", f"{tp}.batch_size", str(TRAINER_BATCH),
+            f"{tp}.test_batch_size", str(TRAINER_BATCH), f"{tp}.log_interval", str(TRAINER_LOG),
+            f"{tp}.snapshot_interval", str(TRAINER_SNAPSHOT), f"{tp}.use_warmup", "false",
+            f"{tp}.max_ckpt_num", "1", f"{tp}.num_workers", "4",
+            f"{tp}.save_dir", os.path.join(root, "save"), f"{tp}.seed", "1", *extra]
+
+
+class TrainerProbe:
+    """Wraps the steps that ``BaseTrainer.compile_steps`` builds and the
+    checkpoint's save and restore, to read what the run did: launches per
+    train step and eval forward, each step's loss (read after the run), the
+    first step's masters and batch, the devices of the batches, each full
+    validation's metrics, seconds and collected embeddings, each save's
+    seconds and bytes, the restore's seconds; with ``reference`` set, whether
+    the loaded state equals the reference trainer's bit for bit."""
+
+    def __init__(self):
+        self.train, self.eval, self.losses, self.devices = [], [], [], set()
+        self.first, self.reference, self.resumed_equal = None, None, None
+        self.validations, self.saves, self.restores = [], [], []
+        self.raw_train_step = None  # the last trainer's step, unwrapped (uncounted timing)
+
+    def install(self):
+        probe = self
+        real_compile, real_save, real_restore = (BaseTrainer.compile_steps, Checkpoint.save,
+                                                 Checkpoint.restore_state)
+
+        def counted(fn, calls):
+            def wrapped(state, batch):
+                before = read_counts()
+                out = fn(state, batch)
+                after = read_counts()
+                calls.append({k: after[k] - before[k] for k in after})
+                probe.devices.add(batch["image_data"].device.type)
+                return out
+            return wrapped
+
+        def compile_steps(trainer):
+            real_compile(trainer)
+            probe.raw_train_step = trainer._train_step
+            train, evaluate = counted(trainer._train_step, probe.train), \
+                counted(trainer._eval_step, probe.eval)
+
+            def train_step(state, batch):
+                if probe.first is None:
+                    probe.first = ({n: t.clone() for n, t in state.params.items()}, dict(batch))
+                state, scalars = train(state, batch)
+                probe.losses.append(scalars["total_loss"])
+                return state, scalars
+
+            trainer._train_step, trainer._eval_step = train_step, evaluate
+            real_evaluate = trainer.evaluate_set
+
+            def evaluate_set(dataset_type="val"):
+                t0 = time.perf_counter()
+                metrics = real_evaluate(dataset_type)
+                ev = trainer.evaluator
+                probe.validations.append(dict(
+                    dataset_type=dataset_type, seconds=time.perf_counter() - t0, metrics=metrics,
+                    embeds=[np.concatenate(x) for x in (ev._text, ev._video, ev._vids)]))
+                return metrics
+
+            trainer.evaluate_set = evaluate_set
+            if probe.reference is not None:
+                probe.resumed_equal = states_equal(trainer.state, probe.reference.state)
+
+        def save(ck, state, iteration=None, tag=None):
+            t0 = time.perf_counter()
+            path = real_save(ck, state, iteration, tag)
+            probe.saves.append((time.perf_counter() - t0, os.path.getsize(path)))
+            return path
+
+        def restore_state(ck, state, path=None):
+            t0 = time.perf_counter()
+            out = real_restore(ck, state, path)
+            torch.cuda.synchronize()
+            probe.restores.append(time.perf_counter() - t0)
+            return out
+
+        def uninstall():
+            BaseTrainer.compile_steps, Checkpoint.save, Checkpoint.restore_state = \
+                real_compile, real_save, real_restore
+
+        BaseTrainer.compile_steps, Checkpoint.save, Checkpoint.restore_state = \
+            compile_steps, save, restore_state
+        return uninstall
+
+
+def states_equal(a, b) -> dict:
+    """Step, masters, AdamW moments and generator of two TrainStates, bit for bit."""
+    same = lambda x, y: all(torch.equal(x[n], y[n]) for n in y)  # noqa: E731
+    return dict(step=a.step == b.step, masters=same(a.params, b.params),
+                mu=same(a.opt_state["mu"], b.opt_state["mu"]),
+                nu=same(a.opt_state["nu"], b.opt_state["nu"]),
+                count=a.opt_state["count"] == b.opt_state["count"],
+                generator=torch.equal(a.generator.get_state(), b.generator.get_state()))
+
+
+def host_recalls(text: np.ndarray, video: np.ndarray, vids: np.ndarray) -> dict:
+    """R@1, R@5 and the mean recall recomputed from the collected embeddings:
+    videos deduplicated by id; a caption's rank counts the videos scored
+    above its own; a video's rank counts the captions scored above its best
+    caption."""
+    uniq, first = np.unique(vids, return_index=True)
+    sim = text.astype(np.float64) @ video[first].astype(np.float64).T
+    col = np.searchsorted(uniq, vids)
+    t2v = (sim > sim[np.arange(len(vids)), col][:, None]).sum(1)
+    best = np.array([sim[vids == u, c].max() for c, u in enumerate(uniq)])
+    v2t = (sim.T > best[:, None]).sum(1)
+    out = {f"{d}-r@{k}": float((r < k).mean() * 100) for d, r in (("t2v", t2v), ("v2t", v2t))
+           for k in (1, 5, 10)}
+    out["mean_recall"] = float(np.mean(list(out.values())))
+    return out
+
+
+def loader_breakdown(trainer) -> dict:
+    """A train batch's host work on one thread, by stage, in ms: the LMDB
+    read and frame sampling, the resize, crop and normalisation of its
+    frames, the tokenisation, the collation, and the pinned copy to the card
+    (``to_device``, synchronised)."""
+    ds = trainer.task_loader.get_loaders("train")[0].dataset
+    ms = dict.fromkeys(("read_and_sample", "image_processing", "tokenize", "collate",
+                        "to_device"), 0.0)
+    samples = []
+    for i in range(TRAINER_BATCH):
+        ann = ds.annotations[i]
+        t0 = time.perf_counter()
+        frames = ds._load_frames(ann)
+        t1 = time.perf_counter()
+        for f in frames:
+            ds.image_processor.transform_array(f)
+        t2 = time.perf_counter()
+        ds.caption_processor({"text": ann["caption"]}, probability=0.0)
+        t3 = time.perf_counter()
+        ms["read_and_sample"] += (t1 - t0) * 1e3
+        ms["image_processing"] += (t2 - t1) * 1e3
+        ms["tokenize"] += (t3 - t2) * 1e3
+        samples.append(ds[i])
+    t0 = time.perf_counter()
+    batch = ds.collate_fn(samples)
+    t1 = time.perf_counter()
+    trainer._to_device(batch)
+    torch.cuda.synchronize()
+    ms.update(collate=(t1 - t0) * 1e3, to_device=(time.perf_counter() - t1) * 1e3)
+    ms["per_frame_image_processing"] = ms["image_processing"] / (TRAINER_BATCH * FRAMES)
+    return ms
+
+
+def loader_steady_state(trainer, batches: int = 8) -> dict:
+    """The train loader's rate without an epoch restart: its dataset, batch
+    size, threads and prefetch depth over ``batches`` batches of the clips
+    in order, repeated; ms a batch from the first batch's arrival to the
+    last's (host work only, nothing on the card)."""
+    train = trainer.task_loader.get_loaders("train")[0]
+    ds = train.dataset
+    order = [i % len(ds) for i in range(batches * train.batch_size)]
+    loader = DataLoader(ds, train.batch_size, sampler=order, collate_fn=train.collate_fn,
+                        num_workers=train.num_workers, drop_last=True,
+                        prefetch_batches=train.prefetch_batches)
+    arrivals = []
+    t0 = time.perf_counter()
+    for _ in loader:
+        arrivals.append(time.perf_counter())
+    per_batch = (arrivals[-1] - arrivals[0]) * 1e3 / (len(arrivals) - 1)
+    return dict(batches=len(arrivals), threads=train.num_workers,
+                first_batch_ms=(arrivals[0] - t0) * 1e3, ms_per_batch=per_batch,
+                clips_per_s=train.batch_size * 1e3 / per_batch)
+
+
+def phase_trainer(gpu: str, bare_p50_ms: float) -> int:
+    """``python -m antmmf_torch.run`` on ``TRAINER_CONFIG`` at full width
+    (ViT-B/32 on 8 frames at 224², BERT-base at L=30, embed 512, bf16, AdamW
+    with the ``img_encoder`` ×0.1 rule, clip 1.0) over a seeded synthetic
+    MSR-VTT-layout dataset that it writes into a temporary directory under
+    ``build/`` and deletes at the end. The clips are read from an LMDB: the
+    card's machine has neither OpenCV nor PIL, and the ``lmdb`` source and
+    the numpy resize need neither. 8 steps at B=32 (4 epochs of 2),
+    validation every 4 steps, ``max_ckpt_num`` 1; then a second run with
+    ``resume true`` to step 10. Returns the phase's small_attention launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="trainer_smoke_", dir=build)
+    probe = TrainerProbe()
+    uninstall = probe.install()
+    try:
+        lmdb_bytes = write_msrvtt_layout(root, SEED)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        first = run.main(trainer_argv(root, "training_parameters.max_iterations",
+                                      str(TRAINER_STEPS)))
+        setup_s = first.timings["first_step_start"] - t0
+        models = sorted(os.listdir(os.path.join(root, "save", "models")))
+        on_disk = sorted(os.listdir(os.path.join(root, "save")))
+        saves_first = list(probe.saves)
+        losses = [float(x) for x in probe.losses]
+        val = next(v for v in probe.validations if v["dataset_type"] == "val")
+        final_val = [v for v in probe.validations if v["dataset_type"] == "val"][-1]
+        first_n = len(probe.train)
+
+        t0 = time.perf_counter()
+        probe.reference = first
+        second = run.main(trainer_argv(root, "training_parameters.max_iterations",
+                                       str(TRAINER_RESUMED_STEPS), "training_parameters.resume",
+                                       "true"))
+        resume_s = time.perf_counter() - t0
+        # the main path ends here: its launches, train steps and eval forwards
+        counts = read_counts()
+        n_train, n_eval = len(probe.train), len(probe.eval)
+        resumed_losses = [float(x) for x in probe.losses[first_n:]]
+        resumed_end = second.state.step
+        # the device's idle share over 2 trainer steps (not counted): untraced
+        # wall, then traced busy time
+        batch = second._to_device(second._cached_first_batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(2):
+            second.state, _ = probe.raw_train_step(second.state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3 / 2
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                second.state, _ = probe.raw_train_step(second.state, batch)
+            torch.cuda.synchronize()
+        busy, n_ops, top = device_busy(prof, 2)
+        breakdown = loader_breakdown(second)
+        steady = loader_steady_state(second)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        on_cuda = next(second.shell.module.parameters()).device.type == "cuda"
+
+        # the bare step of phase 5 on the trainer's first batch and masters
+        masters, first_batch = probe.first
+        shell, state, step = trainer({}, masters=masters)
+        _, bare = step(state, first_batch)
+        bare_loss, trainer_loss = float(bare["total_loss"]), losses[0]
+        probe.first = None
+        del shell, state, step, masters, first_batch
+    finally:
+        uninstall()
+        shutil.rmtree(root, ignore_errors=True)
+
+    step_ms = [t * 1e3 for t in first.timings["step_s"]]
+    wait_ms = [t * 1e3 for t in first.timings["loader_wait_s"]]
+    epochs = [float(np.mean(losses[i:i + 2])) for i in range(0, TRAINER_STEPS, 2)]
+    recomputed = host_recalls(*final_val["embeds"])
+    reported = {k: final_val["metrics"][k] for k in recomputed}
+    first_save = saves_first[0]
+    emit(phase="trainer", config=TRAINER_CONFIG, batch=TRAINER_BATCH, gpu=gpu,
+         lmdb_bytes=lmdb_bytes, setup_s=setup_s, losses=losses, epoch_mean_losses=epochs,
+         resumed_losses=resumed_losses,
+         first_step_loss=dict(trainer=trainer_loss, bare=bare_loss,
+                              equal="bit for bit" if trainer_loss == bare_loss else
+                              f"within {abs(trainer_loss - bare_loss):.3g}"),
+         step_ms=step_ms, step_p50_ms=float(np.percentile(step_ms, 50)),
+         step_p95_ms=float(np.percentile(step_ms, 95)),
+         loader_wait_ms=wait_ms, loader_wait_p50_ms=float(np.percentile(wait_ms, 50)),
+         loader_one_thread_ms=breakdown, loader_steady=steady,
+         clip_pairs_per_s=TRAINER_BATCH * (len(step_ms) - 1) * 1e3 / float(np.sum(step_ms[1:])),
+         train_loop_s=first.timings["loop_s"],
+         clip_pairs_per_s_loop_wall=TRAINER_BATCH * len(step_ms) / first.timings["loop_s"],
+         bare_step_p50_ms=bare_p50_ms, bare_clip_pairs_per_s=TRAINER_BATCH * 1e3 / bare_p50_ms,
+         device_busy_ms=busy if n_ops else "not measured", step_wall_ms=wall_ms,
+         device_idle_share=1 - busy / wall_ms if n_ops else "not measured",
+         top_device_ops_ms=top,
+         full_val_s=val["seconds"], full_val_clips_per_s=TRAINER_CLIPS / val["seconds"],
+         val_metrics={k: final_val["metrics"][k] for k in ("t2v-r@1", "t2v-r@5", "v2t-r@1",
+                                                          "mean_recall", "total_loss")},
+         recalls_recomputed=recomputed, checkpoint_save_s=first_save[0],
+         checkpoint_bytes=first_save[1], saves=saves_first, resume_s=resume_s,
+         restore_s=probe.restores, resumed_state_equal=probe.resumed_equal,
+         resumed_end_step=resumed_end,
+         models_dir=models, save_dir=on_disk, peak_mem_gb=peak_gb,
+         launches=counts, launches_per_call=probe.train[0],
+         train_steps=n_train, eval_forwards=n_eval)
+
+    check(n_train == TRAINER_RESUMED_STEPS and len(probe.train) == n_train,
+          f"trainer: {n_train} train steps on the main path, {len(probe.train)} through it")
+    check(all(c == TRAINER_LAUNCHES for c in probe.train + probe.eval),
+          f"trainer: launches per step or eval forward {probe.train[:1] + probe.eval[:1]}; "
+          f"expected {TRAINER_LAUNCHES}")
+    check(counts["small_attention"] == 24 * (n_train + n_eval)
+          and not any(counts[k] for k in counts if k != "small_attention"),
+          f"trainer: the phase launched {counts}")
+    check(all(np.isfinite(losses + resumed_losses)), "trainer: a loss is not finite")
+    check(epochs[-1] < epochs[0], f"trainer: the epoch mean loss did not fall ({epochs})")
+    check(abs(trainer_loss - bare_loss) <= FIRST_LOSS_ATOL,
+          f"trainer: first-step loss {trainer_loss} against the bare step's {bare_loss}")
+    check(all(0 <= final_val["metrics"][k] <= 100 for k in ("t2v-r@1", "t2v-r@5", "v2t-r@1",
+                                                           "mean_recall")),
+          "trainer: a recall lies outside [0, 100]")
+    check(all(abs(reported[k] - recomputed[k]) <= 1e-9 for k in recomputed),
+          f"trainer: recalls {reported} against the host's {recomputed}")
+    check(models == ["best", f"model_{TRAINER_STEPS}"],
+          f"trainer: models/ holds {models}")
+    check({"config.yaml", "univl_retrieval_final", "models"} <= set(on_disk),
+          f"trainer: save_dir holds {on_disk}")
+    check(probe.resumed_equal is not None and all(probe.resumed_equal.values())
+          and len(resumed_losses) == TRAINER_RESUMED_STEPS - TRAINER_STEPS
+          and resumed_end == TRAINER_RESUMED_STEPS,
+          f"trainer: resume {probe.resumed_equal}, steps {len(resumed_losses)}")
+    check(probe.devices == {"cuda"} and on_cuda, f"trainer: ran on {probe.devices}")
+    return counts["small_attention"]
+
+
 SOURCES = {
     "small_attention": ("antmmf_torch/ops/csrc/small_attention.cu",
                         "antmmf_tpu/ops/pallas/small_attention.py:62"),
@@ -1504,7 +1883,7 @@ def main() -> None:
           "UniVL serving launched a kernel it has no use for")
     check(serving > 0, "the serving path never launched the kernel")
     phase_card_vs_cpu(predictors[0], rng)
-    launches, pair_bias = phase_training(gpu)
+    launches, pair_bias, bare_p50 = phase_training(gpu)
     launches["small_attention"] += serving
     phase_train_card_vs_cpu()
     walls, timing = phase_times(predictors, rng, gpu)
@@ -1516,6 +1895,9 @@ def main() -> None:
         launches[name] += n
     phase_pink_card_vs_cpu(pink, rng)
     timing["int4_gemv"] = phase_int4_times(pink, gpu)
+    del pink
+    torch.cuda.empty_cache()
+    launches["small_attention"] += phase_trainer(gpu, bare_p50)
 
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": SOURCES[name][0],

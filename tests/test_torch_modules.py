@@ -208,7 +208,9 @@ def test_port_imports_no_jax():
     assert "antmmf_torch.predictors.cli" in mods and "antmmf_torch.ops._build" in mods
     for new in ("ops.int4_matmul", "modules.qdense", "modules.lora", "modules.llm", "models.pink",
                 "predictors.quantization", "predictors.generation_predictor",
-                "utils.conversation", "datasets.processors.image_processors"):
+                "utils.conversation", "datasets.processors.image_processors", "run",
+                "trainers.base_trainer", "common.checkpoint", "common.task_loader",
+                "datasets.video_text_dataset", "modules.metrics.evaluators"):
         assert f"antmmf_torch.{new}" in mods, new
 
     tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())

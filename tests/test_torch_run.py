@@ -1,0 +1,100 @@
+"""``python -m antmmf_torch.run`` on the CPU, and what it refuses.
+
+* ``main([...])`` with ``training_parameters.device cpu`` trains the
+  fixture config through the whole loop (steps, validation, snapshots,
+  final weights, test inference);
+* without it the trainer asks for the card, and on a machine without CUDA
+  that raises before any data is read: it never becomes a CPU run;
+* knobs of paths that are not ported raise with the key's name:
+  ``steps_per_dispatch`` 2, the MoCo config
+  (``video_retrieval_moco.local.yml``), a world size of 2;
+* a SIGTERM saves a snapshot at the next step boundary and ends the run.
+"""
+
+import os
+import signal
+
+import pytest
+import torch
+
+from antmmf_torch import run
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIGS = os.path.join(REPO, "projects", "base_vtp", "configs")
+CFG = os.path.join(CONFIGS, "video_retrieval.local.yml")
+
+
+def _argv(save_dir, config=CFG, *extra):
+    return ["--config", config, "training_parameters.save_dir", str(save_dir),
+            "training_parameters.max_iterations", "2", "training_parameters.log_interval", "1",
+            "training_parameters.snapshot_interval", "2", "training_parameters.seed", "3",
+            *extra]
+
+
+def test_cli_trains_the_fixture_on_the_cpu(tmp_path):
+    trainer = run.main(_argv(tmp_path, CFG, "training_parameters.device", "cpu"))
+    assert trainer.state.step == 2 and trainer.device.type == "cpu"
+    assert next(trainer.shell.module.parameters()).device.type == "cpu"
+    assert len(trainer.timings["step_s"]) == 2
+    assert sorted(os.listdir(tmp_path / "models")) == ["best", "model_2"]
+    assert (tmp_path / "univl_retrieval_final").exists()
+    assert 0 <= trainer.early_stopping.best_value <= 100
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_default_device_is_the_card(tmp_path, device):
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without CUDA")
+    extra = () if device is None else ("training_parameters.device", device)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run.main(_argv(tmp_path, CFG, *extra))
+    assert not (tmp_path / "models").exists()
+
+
+@pytest.mark.parametrize("config,extra,key", [
+    (CFG, ("training_parameters.steps_per_dispatch", "2"),
+     "training_parameters.steps_per_dispatch"),
+    (CFG, ("training_parameters.remat_policy", "dots_saveable"),
+     "training_parameters.remat_policy"),
+    (os.path.join(CONFIGS, "video_retrieval_moco.local.yml"), (),
+     "model_attributes.univl_retrieval.with_momentum"),
+    (CFG, ("training_parameters.num_nodes", "2"), "world size 2"),
+], ids=["steps_per_dispatch", "remat_policy", "moco", "num_nodes"])
+def test_unported_knobs_raise(tmp_path, config, extra, key):
+    with pytest.raises(NotImplementedError, match=key):
+        run.main(_argv(tmp_path, config, "training_parameters.device", "cpu", *extra))
+
+
+def test_world_size_from_the_environment_raises(tmp_path, monkeypatch):
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="world size 2"):
+        run.main(_argv(tmp_path, CFG, "training_parameters.device", "cpu"))
+
+
+def test_sigterm_saves_a_snapshot_and_stops(tmp_path):
+    """A SIGTERM during step 2 (a preempted job) saves ``model_2`` at the
+    step boundary and ends the run without the final validation; the
+    previous handler is back afterwards."""
+    from antmmf_torch.common.build import build_config
+    from antmmf_torch.trainers.build import build_trainer
+
+    args = run.get_parser().parse_args(_argv(tmp_path, CFG, "training_parameters.device", "cpu",
+                                             "training_parameters.max_iterations", "4",
+                                             "training_parameters.snapshot_interval", "10"))
+    trainer = build_trainer(build_config(args.config, None, args.opts))
+    trainer.load()
+    step, calls = trainer._train_step, []
+
+    def preempted_step(state, batch):
+        calls.append(1)
+        if len(calls) == 2:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return step(state, batch)
+
+    trainer._train_step = preempted_step
+    before = signal.getsignal(signal.SIGTERM)
+    trainer.train()
+    assert len(calls) == 2 and trainer.state.step == 2
+    assert os.listdir(tmp_path / "models") == ["model_2"]
+    assert not (tmp_path / "univl_retrieval_final").exists()
+    assert signal.getsignal(signal.SIGTERM) == before

@@ -137,8 +137,8 @@ def test_loss_trajectory_matches_jax(name):
     step = make_train_step(shell, tx)
     losses = []
     for _ in range(STEPS):
-        state, loss = step(state, tb)
-        losses.append(float(loss))
+        state, scalars = step(state, tb)
+        losses.append(float(scalars["total_loss"]))
     assert state.step == STEPS and state.opt_state["count"] == STEPS
     np.testing.assert_allclose(losses, j_losses, atol=LOSS_ATOL, rtol=0)
     assert losses[-1] < losses[0]
