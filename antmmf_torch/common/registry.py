@@ -11,7 +11,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional
 
 _KINDS = ("model", "processor", "predictor", "trainer", "task", "builder", "metric", "sampler",
-          "iteration_strategy")
+          "iteration_strategy", "head")
 
 
 class Registry:

@@ -1,4 +1,4 @@
-"""Video-text retrieval dataset (MSR-VTT jsonl format).
+"""Video-text retrieval and pretraining dataset (MSR-VTT jsonl format).
 
 Port of ``antmmf_tpu/datasets/video_text_dataset.py`` for video media. A
 sample holds the batch schema of the JAX package (fixed shapes):
@@ -6,8 +6,8 @@ sample holds the batch schema of the JAX package (fixed shapes):
   image_data        float32[F, H, W, 3]   (F = n_clips * frames_per_clip; NHWC)
   video_mask        int64[F]
   caption_input_ids / caption_input_mask / caption_segment_ids /
-  caption_lm_label_ids                    int64[L] (lm labels all -1: no MLM)
-  caption_raw_input_ids                   int64[L]
+  caption_lm_label_ids                    int64[L] (masked when ``mlm`` is on)
+  caption_raw_input_ids                   int64[L] (never masked)
   image_vid         int64 scalar: the unique-video id (multi-gt retrieval eval)
   caption_tid       int64 scalar: the caption id
   targets           int64 scalar (when the annotation has a label)
@@ -15,9 +15,11 @@ sample holds the batch schema of the JAX package (fixed shapes):
 Clips come through ``MultiSourceLoader`` (``video_source``: ``video``,
 ``keyframes``, ``lmdb`` or ``auto``), whose numpy ``Generator`` is seeded
 from the dataset config's ``seed`` (default 0), as in the JAX package, so
-training draws the same random frames. Image media (``media_format``
-``image`` or ``mixed``) and masked-LM pretraining (``mlm``,
-``video_text_pretrain``) raise until they are ported.
+training draws the same random frames. With ``mlm`` (the
+``video_text_pretrain`` builder turns it on) training captions are masked
+for the masked-LM loss by the caption processor (its ``text`` config);
+evaluation captions are not, so their labels are all -1. Image media
+(``media_format`` ``image`` or ``mixed``) raises until it is ported.
 """
 
 from __future__ import annotations
@@ -42,8 +44,6 @@ class VideoTextDataset(BaseDataset):
     def __init__(self, name: str, dataset_type: str, config: Mapping):
         super().__init__(name, dataset_type, config)
         cfg = self.config
-        if cfg.get("mlm", False):
-            raise NotImplementedError("mlm: masked-LM caption masking is not ported yet")
         self.media_format = cfg.get("media_format", "video")
         if self.media_format != "video":
             raise NotImplementedError(f"media_format {self.media_format!r} is not ported yet; "
@@ -74,6 +74,7 @@ class VideoTextDataset(BaseDataset):
         text_cfg.setdefault("vocab_file", "tests/data/vocabs/bert-base-uncased_30522_vocab.txt")
         text_cfg.setdefault("max_seq_length", int(cfg.get("max_text_len", 30)))
         self.caption_processor = MaskedTokenProcessor(text_cfg)
+        self.mlm = bool(cfg.get("mlm", False))
 
         # caption → unique-video grouping for multi-gt retrieval eval
         self.video_ids: List[int] = []
@@ -123,10 +124,12 @@ class VideoTextDataset(BaseDataset):
         caption = str(ann.get("caption", ann.get("text", "")))
         if not caption and self.asr_root is not None:
             caption = self._asr_caption(ann)
-        tokens = self.caption_processor({"text": caption}, probability=0.0)
+        masked = self.caption_processor(
+            {"text": caption}, probability=None if self.mlm and self.is_training() else 0.0)
+        raw = self.caption_processor({"text": caption}, probability=0.0)
         for key in ("input_ids", "input_mask", "segment_ids", "lm_label_ids"):
-            sample[f"caption_{key}"] = tokens[key]
-        sample["caption_raw_input_ids"] = tokens["input_ids"]
+            sample[f"caption_{key}"] = masked[key]
+        sample["caption_raw_input_ids"] = raw["input_ids"]
         sample["caption_text"] = caption
         if "label" in ann:
             sample["targets"] = np.int64(ann["label"])
@@ -145,7 +148,7 @@ class VideoTextRetrievalBuilder(BaseDatasetBuilder):
 
 @registry.register_builder("video_text_pretrain")
 class VideoTextPretrainBuilder(BaseDatasetBuilder):
-    """The pretraining variant masks captions for MLM, which is not ported."""
+    """The same pipeline with MLM caption masking on (pretraining)."""
 
     def __init__(self, dataset_name: str = "video_text_pretrain"):
         super().__init__(dataset_name)

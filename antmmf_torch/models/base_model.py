@@ -13,6 +13,7 @@ ported.
 
 from __future__ import annotations
 
+import inspect
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
@@ -42,6 +43,8 @@ class ModelShell:
         self.module = module.eval()
         self.device = device
         self.metrics = metrics or Metrics([])
+        # a model that draws training randomness takes the trainer's generator
+        self.takes_generator = "generator" in inspect.signature(module.forward).parameters
 
     def init(self, seed: int = 0) -> None:
         """Seeded random weights (flax's default initializers)."""
@@ -59,13 +62,16 @@ class ModelShell:
         out.pop("losses", None)
         return out
 
-    def loss_fn(self, batch: Mapping[str, Any], deterministic: bool = False
+    def loss_fn(self, batch: Mapping[str, Any], deterministic: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Tuple[Dict[str, Any], Dict[str, torch.Tensor]]]:
         """(total, (output, scalars)) with gradients enabled: total is the sum
         of the means of ``output["losses"]``; ``output["metrics"]`` holds the
-        config metrics."""
+        model's metrics and the config's. ``generator`` reaches a model
+        whose forward takes one (its training draws)."""
         batch = self.to_device(batch)
-        output = dict(self.module(batch, deterministic=deterministic))
+        kw = {"generator": generator} if self.takes_generator else {}
+        output = dict(self.module(batch, deterministic=deterministic, **kw))
         losses = output.get("losses", {})
         total = (sum(v.mean() for v in losses.values()) if losses
                  else torch.zeros((), device=self.device))

@@ -36,6 +36,16 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-6) -> torch.Ten
     return x / (torch.linalg.vector_norm(x.float(), dim=dim, keepdim=True) + eps)
 
 
+def clip_similarity(text_embed: torch.Tensor, clip_embed: torch.Tensor,
+                    logit_scale: torch.Tensor) -> torch.Tensor:
+    """[Bt, D] × [Bv, n_clips, D] → fp32 [Bt, Bv]: logsumexp over clips of
+    the scaled cosines (the scale exp(logit_scale) clamped to [1, 100]),
+    less log(n_clips)."""
+    scale = torch.exp(torch.clamp(logit_scale, 0.0, math.log(100.0)))
+    sims = torch.einsum("td,vcd->tvc", text_embed.float(), clip_embed.float())
+    return torch.logsumexp(sims * scale, dim=-1) - math.log(float(sims.shape[-1]))
+
+
 class UnivlVideoBase(nn.Module):
     """The two towers, their projections into the shared space and, with
     ``with_cross_encoder``, the L2 cross-encoder."""
@@ -43,7 +53,8 @@ class UnivlVideoBase(nn.Module):
     def __init__(self, vit_preset: str = "vit_base_patch32", image_size: int = 224,
                  bert_preset: str = "bert_base", embed_dim: int = 512, n_clips: int = 1,
                  token_merge_r: int = 0, with_cross_encoder: bool = False,
-                 cross_layers: int = 2, dtype=torch.bfloat16, device=None):
+                 cross_layers: int = 2, dtype=torch.bfloat16, device=None,
+                 cross_sim_head: bool = True):
         super().__init__()
         self.n_clips = n_clips
         vit_kw = VIT_PRESETS[vit_preset]
@@ -66,8 +77,10 @@ class UnivlVideoBase(nn.Module):
                 width, cross_layers, max(1, width // 64), norm_style="post",
                 final_norm=False, dtype=dtype, device=device)
             self.cross_pooler = nn.Linear(width, width, **kw)
-            # the trained L2 match score, computed in fp32
-            self.cross_sim_head = nn.Linear(width, 1, dtype=torch.float32, device=device)
+            if cross_sim_head:
+                # the trained L2 match score, computed in fp32 (flax creates
+                # it only in a model that scores pairs)
+                self.cross_sim_head = nn.Linear(width, 1, dtype=torch.float32, device=device)
 
     def forward_img_encoder(self, image_data: torch.Tensor) -> Dict[str, torch.Tensor]:
         """image_data float[B, F, H, W, 3] → clip_embed [B, n_clips, D], the
@@ -162,12 +175,6 @@ class UnivlForVideoTextRetrieval(nn.Module):
                       else tp.get("encoder_lr_decay", 1.0) or 1.0)
         return [] if decay == 1.0 else [[r"base/(img_encoder|text_encoder)/", decay]]
 
-    def similarity(self, text_embed: torch.Tensor, clip_embed: torch.Tensor) -> torch.Tensor:
-        """[Bt, D] × [Bv, n_clips, D] → [Bt, Bv] via logsumexp over clips."""
-        scale = torch.exp(torch.clamp(self.logit_scale, 0.0, math.log(100.0)))
-        sims = torch.einsum("td,vcd->tvc", text_embed.float(), clip_embed.float())
-        return torch.logsumexp(sims * scale, dim=-1) - math.log(float(sims.shape[-1]))
-
     def forward(self, batch: Mapping[str, torch.Tensor],
                 deterministic: bool = True) -> Dict[str, Any]:
         text = self.base.forward_text_encoder(batch["caption_input_ids"],
@@ -177,7 +184,7 @@ class UnivlForVideoTextRetrieval(nn.Module):
         text_embed, clip_embed = text["text_embed"], video["clip_embed"]
         if self.training_head_only:
             text_embed, clip_embed = text_embed.detach(), clip_embed.detach()
-        sim = self.similarity(text_embed, clip_embed)
+        sim = clip_similarity(text_embed, clip_embed, self.logit_scale)
         output: Dict[str, Any] = {"l1_simi": sim, "sim": sim, "text_embed": text_embed,
                                   "visual_embed": clip_embed.mean(dim=1), "logits": sim}
         losses = {"level1_similarity_loss": symmetric_cross_en(sim)}

@@ -199,26 +199,31 @@ def cases(torch, sa, fa):
     yield small("bert_32x12x30x64_pad", 32, 12, 30, 64, True)
     yield small("pink_vit_1x12x50x64", 1, 12, 50, 64, False)
 
-    # the cross-encoder's pairs: up to 30 text tokens (ragged) then 400 live frame tokens
-    q, k, v = (proj(64, 430, 12, 64) for _ in range(3))
-    dout = torch.randn(64, 12, 430, 64, generator=gen, device="cuda").to(torch.bfloat16)
-    kb, mask = pad_bias(64, 30, 8, live_tail=400)
-    scale = 64 ** -0.5
-    out, stats = fa.flash_fwd(q, k, v, kb, scale, False)
-    _, delta = fa.flash_dq(q, k, v, kb, out, stats, dout, scale, False)
-    name = "cross_64x12x430x64_ragged"
-    yield ("flash_fwd", name, lambda: fa.flash_fwd(q, k, v, kb, scale, False),
-           lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
-    yield ("flash_dq", name,
-           lambda: fa.flash_dq(q, k, v, kb, out, stats, dout, scale, False), None)
-    yield ("flash_dkv", name,
-           lambda: fa.flash_dkv(q, k, v, kb, stats, dout, delta, scale, False), None)
+    def pairs(P, name):
+        """The cross-encoder's pair stream: up to 30 text tokens (ragged) then
+        400 live frame tokens, P pairs."""
+        q, k, v = (proj(P, 430, 12, 64) for _ in range(3))
+        dout = torch.randn(P, 12, 430, 64, generator=gen, device="cuda").to(torch.bfloat16)
+        kb, mask = pad_bias(P, 30, 8, live_tail=400)
+        scale = 64 ** -0.5
+        out, stats = fa.flash_fwd(q, k, v, kb, scale, False)
+        _, delta = fa.flash_dq(q, k, v, kb, out, stats, dout, scale, False)
+        yield ("flash_fwd", name, lambda: fa.flash_fwd(q, k, v, kb, scale, False),
+               lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+        yield ("flash_dq", name,
+               lambda: fa.flash_dq(q, k, v, kb, out, stats, dout, scale, False), None)
+        yield ("flash_dkv", name,
+               lambda: fa.flash_dkv(q, k, v, kb, stats, dout, delta, scale, False), None)
 
-    def backward():
-        _, dl = fa.flash_dq(q, k, v, kb, out, stats, dout, scale, False)
-        fa.flash_dkv(q, k, v, kb, stats, dout, dl, scale, False)
+        def backward():
+            _, dl = fa.flash_dq(q, k, v, kb, out, stats, dout, scale, False)
+            fa.flash_dkv(q, k, v, kb, stats, dout, dl, scale, False)
 
-    yield ("flash_dq+flash_dkv", name, backward, (q, k, v, mask, dout))
+        yield ("flash_dq+flash_dkv", name, backward, (q, k, v, mask, dout))
+
+    # 64 mined pairs a cross-mined step; 128 pairs a pretraining VTM or MLM pass
+    yield from pairs(64, "cross_64x12x430x64_ragged")
+    yield from pairs(128, "pretrain_128x12x430x64_ragged")
     pq, pk, pv = (proj(1, 113, 16, 128) for _ in range(3))
     yield ("flash_fwd", "pink_prefill_1x16x113x128_causal",
            lambda: fa.flash_fwd(pq, pk, pv, None, 128 ** -0.5, True),

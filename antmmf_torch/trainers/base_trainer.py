@@ -219,9 +219,12 @@ class BaseTrainer:
                 asked = time.perf_counter()
                 for batch in prefetch_to_device(batches, self._to_device):
                     got = time.perf_counter()
-                    iteration += 1
-                    if iteration > self.max_iterations:
+                    if iteration >= self.max_iterations:
+                        # the last step ended an epoch early; the JAX loop
+                        # counts this batch and names the final snapshot
+                        # one step past the state it holds
                         break
+                    iteration += 1
                     self.timings.setdefault("first_step_start", got)
                     self.state, scalars = self._train_step(self.state, batch)
                     self.timings["loader_wait_s"].append(got - asked)

@@ -61,7 +61,8 @@ class TrainState:
 def make_train_step(shell, tx) -> Callable[[TrainState, Mapping[str, torch.Tensor]],
                                            Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """``train_step(state, batch) -> (state, scalars)`` as the JAX trainer's
-    jitted step: the shell's loss with ``deterministic=False``, backward,
+    jitted step: the shell's loss with ``deterministic=False`` (the state's
+    generator drives the model's training draws), backward,
     global-norm clip and AdamW update (``tx``). ``scalars`` holds
     ``losses/*``, ``metrics/*``, ``total_loss`` and ``grad_norm`` (of the
     unclipped gradients) as device tensors: the step makes no host sync.
@@ -69,7 +70,8 @@ def make_train_step(shell, tx) -> Callable[[TrainState, Mapping[str, torch.Tenso
     module = shell.module
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor]):
-        loss, (_, scalars) = shell.loss_fn(batch, deterministic=False)
+        loss, (_, scalars) = shell.loss_fn(batch, deterministic=False,
+                                           generator=state.generator)
         loss.backward()
         grads = {}
         for n, p in module.named_parameters():

@@ -130,7 +130,7 @@ def export_flax_params(model: nn.Module) -> Dict[str, Any]:
         *scopes, leaf = paths[name].split("/")
         for scope in scopes:
             node = node.setdefault(scope, {})
-        node[leaf] = np.ascontiguousarray(value)
+        node[leaf] = value.copy(order="C")  # ascontiguousarray would make a 0-d leaf 1-d
     return tree
 
 

@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py              # from the repository root, on a machine with CUDA
     python3 chip_smoke.py --calibrate  # the card-vs-CPU readings: seeds and planted faults
+    python3 chip_smoke.py --calibrate pretraining  # one part: serving, training, pink, pretraining
 
 Phases, each printing JSON lines; a failing phase ends the script with a
 non-zero code and no result line:
@@ -16,7 +17,8 @@ non-zero code and no result line:
    autograd Function's gradients against fp32 autograd of the plain version;
    ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` against their plain versions
    on the same inputs (the cross-encoder's [64, 12, 430, 64] with ragged key
-   masks, Lq ≠ Lk, causal, a fully masked row, D 32 and 128, key counts
+   masks, the pretraining pass's [128, 12, 430, 64] with 30 ragged text keys
+   then 400 live visual keys, Lq ≠ Lk, causal, a fully masked row, D 32 and 128, key counts
    around the forward's tile ring, query counts around the backward's,
    causal with a key bias, Pink's causal prefill shape), and the
    ``flash_attention`` Function against fp32 autograd of
@@ -52,9 +54,11 @@ non-zero code and no result line:
    ``--calibrate`` reads;
 7. times: text-query and full-encode latency, each kernel's time beside its
    bound, its plain version and the library call at the paths' shapes (the
-   ViT, BERT and Pink's ViT for ``small_attention``; the cross-encoder and
-   Pink's causal prefill for ``flash_fwd``; SDPA's backward alone, with the
-   kernels that ran it, for ``flash_dq`` and ``flash_dkv``), kernel and
+   ViT, BERT and Pink's ViT for ``small_attention``; the cross-encoder's
+   pair streams of the cross-mined step (64 pairs) and of a pretraining pass
+   (128 pairs), and Pink's causal prefill for ``flash_fwd``; SDPA's backward
+   alone, with the kernels that ran it, for ``flash_dq`` and ``flash_dkv``;
+   the kernel table carries the pretraining shape's numbers), kernel and
    library as device time per launch from a CUDA graph, with the GPU's name
    and power limit;
 8. trace: ``torch.profiler`` over full encodes at B=32: device-busy time per
@@ -100,9 +104,31 @@ non-zero code and no result line:
    trainer steps (after the counts are read), one batch's host work by
    stage, the loader's steady rate over 8 batches without an epoch restart,
    the full validation's seconds, checkpoint seconds and bytes, resume seconds, peak
-   memory and setup seconds.
+   memory and setup seconds;
+13. pretraining: ``projects/base_vtp/configs/univl_pretrain.yml`` at full
+   width (ViT-B/32 8×224², BERT-base L=30, embed 512, 2 cross layers, bf16
+   on fp32 masters, AdamW): (a) the first step at B=4 on the same fp32
+   masters and masked batch, bf16 on the card against fp32 on the CPU: each
+   loss term's |Δ| (``vtc_loss``, ``itm_loss``, ``masked_lm_loss``), the
+   all-gradient cosine, the worst parameter's and the word embedding's
+   cosine, held to the bounds ``--calibrate pretraining`` reads from sound
+   seeds and three planted faults (an untied MLM decoder, VTM labels that do
+   not match the roll, the cross key bias dropped); (b) the bare step at the
+   config's B=128 on one repeated masked batch: step p50/p95, clip-text
+   pairs/s, device-busy time and idle share over 2 profiled steps, device
+   ops, peak memory, and 24 ``small_attention`` and 4 of each flash kernel
+   launched every step; (c) ``antmmf_torch.run.main`` on the config at B=32
+   over phase 12's dataset (written again under ``build/`` and deleted)
+   with MLM masking on: 6 steps and the final full validation, a resumed
+   run to step 8 (state bit for bit), then 3 steps of ``snps3_pretrain.yml``
+   (dual MLM, FOM, significant masking) with every loss term finite; the
+   launches of every train step and eval forward (24 / 4 / 4 / 4 and
+   24 / 4 / 0 / 0), the first loss against the bare step on the trainer's
+   first batch and masters, MLM targets in training and none in validation,
+   pairs/s a step and over the loop, loader wait.
 
-Each path (serving, each training leg, each Pink request, the trainer) runs
+Each path (serving, each training leg, each Pink request, the trainer, the
+pretraining step and trainer) runs
 with the kernels' launch counts set to 0 just before it and read just after;
 launches made to compare a kernel with its plain version or to time it are
 not counted. The line before the last holds the kernel table, the last line
@@ -129,6 +155,7 @@ if not torch.cuda.is_available():
 import torch.nn.functional as F  # noqa: E402
 
 from antmmf_torch import run  # noqa: E402
+from antmmf_torch.common.build import build_config  # noqa: E402
 from antmmf_torch.common.checkpoint import Checkpoint  # noqa: E402
 from antmmf_torch.datasets.loader import DataLoader  # noqa: E402
 from antmmf_torch.models.base_model import build_model  # noqa: E402
@@ -406,6 +433,11 @@ def flash_cases(gen):
 
     yield "cross_L430_ragged", proj(64, 430, 12, 64), proj(64, 430, 12, 64), \
         proj(64, 430, 12, 64), ragged(64, 430, 30), False
+    # a pretraining pass's pair stream: 30 text keys with ragged padding, then
+    # 400 live visual keys, 128 pairs
+    text_then_frames = torch.cat([ragged(128, 30, 8), torch.zeros(128, 1, 1, 400, device=dev)], -1)
+    yield "pretrain_L430_text_ragged", proj(128, 430, 12, 64), proj(128, 430, 12, 64), \
+        proj(128, 430, 12, 64), text_then_frames, False
     yield "lq120_lk430_ragged", proj(8, 120, 12, 64), proj(8, 430, 12, 64), \
         proj(8, 430, 12, 64), ragged(8, 430, 100), False
     yield "causal_L430", proj(8, 430, 12, 64), proj(8, 430, 12, 64), proj(8, 430, 12, 64), \
@@ -442,7 +474,8 @@ def flash_cases(gen):
 def phase_flash() -> dict:
     """Each flash kernel against its plain version on the same inputs, and
     the autograd Function against fp32 autograd of the plain semantics.
-    Returns the cross-encoder case's errors by kernel."""
+    Returns each kernel's largest error over the training paths' cases
+    (cross-mined and pretraining)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     failed, main = [], {}
     for name, q, k, v, bias, causal in flash_cases(gen):
@@ -488,9 +521,10 @@ def phase_flash() -> dict:
              vs_plain_tol={n: t for n, (_, t) in errs.items()},
              vs_fp32_autograd={n: e for n, (e, _) in auto.items()},
              vs_fp32_autograd_tol={n: t for n, (_, t) in auto.items()}, ok=ok)
-        if name == "cross_L430_ragged":
-            main = {"flash_fwd": errs["out"][0], "flash_dq": errs["dq"][0],
-                    "flash_dkv": max(errs["dk"][0], errs["dv"][0])}
+        if name in ("cross_L430_ragged", "pretrain_L430_text_ragged"):  # the training paths
+            for kernel, err in (("flash_fwd", errs["out"][0]), ("flash_dq", errs["dq"][0]),
+                                ("flash_dkv", max(errs["dk"][0], errs["dv"][0]))):
+                main[kernel] = max(main.get(kernel, 0.0), err)
         if not ok:
             failed.append(name)
     check(not failed, f"flash kernels disagree with their plain versions: {failed}")
@@ -785,14 +819,20 @@ def trainer(model: dict, device: str = "cuda", dtype: str = "bfloat16", seed: in
     return shell, TrainState.create(shell.module, tx, masters), make_train_step(shell, tx)
 
 
-def device_busy(prof, iters: int):
-    """(device-busy ms, device operations, top operations by ms), per iteration."""
+def device_ms_by_name(prof, iters: int):
+    """({device operation name: ms}, device operations), per iteration."""
     ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name: dict = {}
     for e in ops:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+    return by_name, len(ops) / iters
+
+
+def device_busy(prof, iters: int):
+    """(device-busy ms, device operations, top operations by ms), per iteration."""
+    by_name, n_ops = device_ms_by_name(prof, iters)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return sum(by_name.values()), len(ops) / iters, [[n[:90], ms] for n, ms in top]
+    return sum(by_name.values()), n_ops, [[n[:90], ms] for n, ms in top]
 
 
 def phase_training(gpu: str):
@@ -1083,12 +1123,13 @@ def bound(nbytes: float, flops: float) -> dict:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def phase_flash_times(pair_bias, gpu) -> dict:
-    """The flash kernels at the cross-encoder's [64, 12, 430, 64] bf16 with
-    the training batch's pair key bias, q/k/v in the projections' layout.
-    The bound counts each input read once and each output written once, and
-    the products over the live keys of each row (4, 6 and 8 multiply-adds
-    ·2 per query-key pair and head dimension for forward, dQ, dK/dV)."""
+def flash_shape_times(pair_bias, gpu, case: str) -> dict:
+    """The flash kernels at a cross-encoder pair stream's [P, 12, L, 64] bf16
+    with that stream's key bias, q/k/v in the projections' layout, beside
+    their plain versions and SDPA. The bound counts each input read once and
+    each output written once, and the products over the live keys of each
+    row (4, 6 and 8 multiply-adds ·2 per query-key pair and head dimension
+    for forward, dQ, dK/dV)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     P, L = pair_bias.shape[0], pair_bias.shape[3]
     H, D = 12, 64
@@ -1127,17 +1168,6 @@ def phase_flash_times(pair_bias, gpu) -> dict:
             library_ms=sdpa_bwd_ms,
             **bound(6 * tensor + bias_b + 3 * rows, 8 * D * pairs)),
     }
-    # the causal prefill of a Pink request: 113 tokens, 16 heads of 128
-    pq, pk, pv = (torch.randn(1, 113, 16, 128, generator=gen, device="cuda")
-                  .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
-    prefill = dict(
-        ms=graph_ms(lambda i: flash_fwd(pq, pk, pv, None, 128 ** -0.5, True), 20),
-        plain_ms=cuda_ms(lambda: plain_flash_fwd(pq, pk, pv, None, 128 ** -0.5, True), iters=10),
-        library_ms=graph_ms(
-            lambda i: F.scaled_dot_product_attention(pq, pk, pv, is_causal=True), 20),
-        **bound(4 * pq.numel() * 2 + 2 * 16 * 113 * 4, 4 * 128 * 16 * 113 * 114 // 2))
-    emit(phase="times", exp="flash_fwd", case="pink_prefill_causal", shape=[1, 16, 113, 128],
-         dtype="bf16", gpu=gpu, **prefill, bound_share=prefill["bound_ms"] / prefill["ms"])
     # SDPA forward and backward together, the yardstick for the three kernels
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
 
@@ -1160,15 +1190,41 @@ def phase_flash_times(pair_bias, gpu) -> dict:
     for fn in KERNELS:  # timing launches are not path launches
         fn.launches = saved[fn.__name__]
     for name, t in timing.items():
-        emit(phase="times", exp=name, case="cross_encoder", shape=[P, H, L, D], dtype="bf16",
+        emit(phase="times", exp=name, case=case, shape=[P, H, L, D], dtype="bf16",
              gpu=gpu, live_keys=live,
              **t, bound_share=t["bound_ms"] / t["ms"])
-    emit(phase="times", exp="flash_fwd_dq_dkv_vs_sdpa_fwd_bwd", shape=[P, H, L, D], gpu=gpu,
-         flash_ms=family_ms, sdpa_ms=sdpa_ms, timed="eager, CUDA events, .backward into .grad")
-    emit(phase="times", exp="flash_dq_dkv_vs_sdpa_bwd", shape=[P, H, L, D], gpu=gpu,
+    emit(phase="times", exp="flash_fwd_dq_dkv_vs_sdpa_fwd_bwd", case=case, shape=[P, H, L, D],
+         gpu=gpu, flash_ms=family_ms, sdpa_ms=sdpa_ms,
+         timed="eager, CUDA events, .backward into .grad")
+    emit(phase="times", exp="flash_dq_dkv_vs_sdpa_bwd", case=case, shape=[P, H, L, D], gpu=gpu,
          flash_bwd_ms=bwd_ms, sdpa_bwd_ms=sdpa_bwd_ms, sdpa_bwd_timed=sdpa_method,
          sdpa_fwd_bwd_ms=sdpa_both_ms, sdpa_fwd_bwd_timed=both_method,
          sdpa_kernels_us=backend)
+    return {name: {**t, "shape": [P, H, L, D]} for name, t in timing.items()}
+
+
+def phase_flash_times(pair_biases: dict, gpu) -> dict:
+    """The flash kernels at each training path's pair stream (``case`` →
+    key bias) and at Pink's causal prefill; returns the timing at the last
+    pair stream (the pretraining path's) for the kernel table."""
+    for case, pair_bias in pair_biases.items():
+        timing = flash_shape_times(pair_bias, gpu, case)
+        torch.cuda.empty_cache()
+    # the causal prefill of a Pink request: 113 tokens, 16 heads of 128
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    saved = read_counts()
+    pq, pk, pv = (torch.randn(1, 113, 16, 128, generator=gen, device="cuda")
+                  .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+    prefill = dict(
+        ms=graph_ms(lambda i: flash_fwd(pq, pk, pv, None, 128 ** -0.5, True), 20),
+        plain_ms=cuda_ms(lambda: plain_flash_fwd(pq, pk, pv, None, 128 ** -0.5, True), iters=10),
+        library_ms=graph_ms(
+            lambda i: F.scaled_dot_product_attention(pq, pk, pv, is_causal=True), 20),
+        **bound(4 * pq.numel() * 2 + 2 * 16 * 113 * 4, 4 * 128 * 16 * 113 * 114 // 2))
+    for fn in KERNELS:
+        fn.launches = saved[fn.__name__]
+    emit(phase="times", exp="flash_fwd", case="pink_prefill_causal", shape=[1, 16, 113, 128],
+         dtype="bf16", gpu=gpu, **prefill, bound_share=prefill["bound_ms"] / prefill["ms"])
     return timing
 
 
@@ -1564,6 +1620,7 @@ class TrainerProbe:
 
     def __init__(self):
         self.train, self.eval, self.losses, self.devices = [], [], [], set()
+        self.terms = []  # each train step's losses/* scalars (device tensors)
         self.first, self.reference, self.resumed_equal = None, None, None
         self.validations, self.saves, self.restores = [], [], []
         self.raw_train_step = None  # the last trainer's step, unwrapped (uncounted timing)
@@ -1594,6 +1651,7 @@ class TrainerProbe:
                     probe.first = ({n: t.clone() for n, t in state.params.items()}, dict(batch))
                 state, scalars = train(state, batch)
                 probe.losses.append(scalars["total_loss"])
+                probe.terms.append({k: v for k, v in scalars.items() if k.startswith("losses/")})
                 return state, scalars
 
             trainer._train_step, trainer._eval_step = train_step, evaluate
@@ -1605,7 +1663,8 @@ class TrainerProbe:
                 ev = trainer.evaluator
                 probe.validations.append(dict(
                     dataset_type=dataset_type, seconds=time.perf_counter() - t0, metrics=metrics,
-                    embeds=[np.concatenate(x) for x in (ev._text, ev._video, ev._vids)]))
+                    embeds=None if ev is None else
+                    [np.concatenate(x) for x in (ev._text, ev._video, ev._vids)]))
                 return metrics
 
             trainer.evaluate_set = evaluate_set
@@ -1852,6 +1911,346 @@ def phase_trainer(gpu: str, bare_p50_ms: float) -> int:
     return counts["small_attention"]
 
 
+# ----------------------------------------------------------------- phase 13
+PRETRAIN_CONFIG = "projects/base_vtp/configs/univl_pretrain.yml"
+SNPS3_CONFIG = "projects/snps3_vtp/configs/snps3_pretrain.yml"
+PRETRAIN_BATCH = 128  # the config's batch: the bare step's
+PRETRAIN_TRAINER_BATCH, PRETRAIN_TRAINER_STEPS, PRETRAIN_RESUMED_STEPS = 32, 6, 8
+SNPS3_STEPS = 3
+PRETRAIN_TERMS = ("vtc_loss", "itm_loss", "masked_lm_loss")
+WORD_EMBEDDINGS = "base.text_encoder.embeddings.word_embeddings.weight"
+# a pretraining train step: 12 ViT + 12 BERT layers on K1 (its backward is
+# plain tensor ops); the cross-encoder's 2 layers run twice (the VTM pairs,
+# then the MLM pass over the matched pairs), forward and backward each time.
+# An eval forward runs the same forwards and no backward
+PRETRAIN_STEP_LAUNCHES = {"small_attention": 24, "flash_fwd": 4, "flash_dq": 4, "flash_dkv": 4,
+                          "int4_gemv": 0}
+PRETRAIN_EVAL_LAUNCHES = {"small_attention": 24, "flash_fwd": 4, "flash_dq": 0, "flash_dkv": 0,
+                          "int4_gemv": 0}
+# card bf16 vs CPU fp32, the first pretraining step at B=4 on the same fp32
+# masters and the same masked batch (``--calibrate pretraining`` reads the
+# gap): each loss term's |Δ|, the cosine of all gradients together, the
+# least per-parameter cosine and the word embedding's cosine. Sound runs over
+# three seeds stay below |Δ| 0.00071 (vtc), 0.0021 (itm), 0.0047 (mlm) and
+# above cos 0.99983 (all), 0.9606 (least), 0.99989 (word embedding); the
+# untied decoder reads a word-embedding cos of 0.321, mislabelled VTM pairs
+# |Δitm| 0.067 and cos 0.928, the cross key bias dropped |Δmlm| 0.034, cos
+# 0.99328 and a word-embedding cos of 0.9963 (H100 readings)
+PRETRAIN_DLOSS_MAX = {"vtc_loss": 0.005, "itm_loss": 0.01, "masked_lm_loss": 0.015}
+PRETRAIN_COS_ALL, PRETRAIN_COS_MIN, PRETRAIN_WORD_COS = 0.999, 0.9, 0.999
+
+
+def pretrain_batch(B: int, seed: int) -> dict:
+    """``train_batch`` with its captions masked for MLM as the host
+    processor masks them: about 15 % of the real tokens after [CLS] become
+    [MASK] (id 103), their ids the labels, every other label -1."""
+    batch = train_batch(B, seed)
+    rng = np.random.default_rng(seed + 100)
+    ids, mask = batch["caption_input_ids"], batch["caption_input_mask"]
+    pick = (rng.random(ids.shape) < 0.15) & (mask > 0)
+    pick[:, 0] = False
+    batch.update(caption_raw_input_ids=ids.copy(), caption_input_ids=np.where(pick, 103, ids),
+                 caption_lm_label_ids=np.where(pick, ids, -1))
+    return batch
+
+
+def pretrain_model(device: str = "cuda", dtype: str = "bfloat16", seed: int = SEED,
+                   masters=None, config: str = PRETRAIN_CONFIG):
+    """(shell, state, train_step) of ``config``'s model and optimizer through
+    the port's entry points; seeded random weights unless fp32 ``masters``
+    are given."""
+    cfg = build_config(config, opts=["model_attributes.univl_pretrain.dtype_str", dtype])
+    shell = build_model(cfg, device=device)
+    if masters is None:
+        shell.init(seed)
+    tx, _ = build_optimizer(flax_paths(shell.module), cfg["optimizer_attributes"].to_dict(),
+                            cfg["training_parameters"].to_dict())
+    return shell, TrainState.create(shell.module, tx, masters), make_train_step(shell, tx)
+
+
+def pretrain_first_step(shell, batch):
+    """The first pretraining step's loss terms and fp32 gradients by name."""
+    for p in shell.module.parameters():
+        p.grad = None
+    loss, (_, scalars) = shell.loss_fn(batch, deterministic=False)
+    loss.backward()
+    terms = {k.split("/", 1)[1]: float(v) for k, v in scalars.items() if k.startswith("losses/")}
+    return terms, {n: p.grad.float().cpu() for n, p in shell.module.named_parameters()
+                   if p.grad is not None}
+
+
+def compare_pretrain(card, cpu) -> dict:
+    """``compare_steps`` on the total, each loss term's |Δ| and the word
+    embedding's gradient cosine."""
+    (t_card, g_card), (t_cpu, g_cpu) = card, cpu
+    res = compare_steps((sum(t_card.values()), g_card), (sum(t_cpu.values()), g_cpu))
+    res["abs_dloss_terms"] = {k: abs(t_card[k] - t_cpu[k]) for k in t_cpu}
+    res["loss_terms_cpu"] = t_cpu
+    res["word_embeddings_cos"] = torch.nn.functional.cosine_similarity(
+        g_card[WORD_EMBEDDINGS].double().reshape(-1), g_cpu[WORD_EMBEDDINGS].double().reshape(-1),
+        dim=0).item() if WORD_EMBEDDINGS in g_card else 0.0
+    return res
+
+
+def pretrain_within_bound(res) -> bool:
+    return res["grad_cos_all"] >= PRETRAIN_COS_ALL and res["grad_cos_min"] >= PRETRAIN_COS_MIN \
+        and res["word_embeddings_cos"] >= PRETRAIN_WORD_COS \
+        and all(res["abs_dloss_terms"][k] <= PRETRAIN_DLOSS_MAX[k] for k in PRETRAIN_TERMS)
+
+
+def pretrain_twins(seed: int):
+    """The pretraining model on the CPU in fp32 (plain versions) and on the
+    card in bf16 on the same fp32 masters, and a masked B=4 batch."""
+    cpu, cpu_state, _ = pretrain_model("cpu", "float32", seed)
+    card, _, _ = pretrain_model(masters=cpu_state.params)
+    return card, cpu, pretrain_batch(4, SEED + 2)
+
+
+def pretrain_faults(card):
+    """Faults planted on the card's model only, each undone after its step:
+    (name, plant, undo)."""
+    from antmmf_torch.models import univl
+
+    module, real_mask = card.module, univl.make_attention_mask
+
+    def untie():  # the MLM decoder on a detached copy of the table
+        table = module.base.text_encoder.embeddings.word_embeddings.weight
+        module.word_embedding_table = lambda: table.detach().clone()
+
+    def mislabel():  # VTM labels that do not match the roll
+        real = type(module).vtm_pairs
+        module.vtm_pairs = lambda vis: (lambda labels, seq: (1 - labels, seq))(*real(vis))
+
+    def undo(name):
+        return lambda: module.__dict__.pop(name)
+
+    return [("mlm_decoder_untied", untie, undo("word_embedding_table")),
+            ("vtm_labels_not_matching_the_roll", mislabel, undo("vtm_pairs")),
+            ("cross_key_bias_dropped", lambda: setattr(univl, "make_attention_mask",
+                                                       lambda mask: None),
+             lambda: setattr(univl, "make_attention_mask", real_mask))]
+
+
+def calibrate_pretraining(seeds=3) -> None:
+    """Phase 13 (a)'s readings: sound seeds, then planted faults at the last."""
+    for seed in range(seeds):
+        card, cpu, batch = pretrain_twins(seed)
+        ref = pretrain_first_step(cpu, batch)
+        res = compare_pretrain(pretrain_first_step(card, batch), ref)
+        emit(phase="calibrate_pretraining", kind="sound", seed=seed, **res,
+             within_bound=pretrain_within_bound(res))
+    for name, plant, undo in pretrain_faults(card):
+        plant()
+        try:
+            res = compare_pretrain(pretrain_first_step(card, batch), ref)
+        finally:
+            undo()
+        emit(phase="calibrate_pretraining", kind="fault", fault=name, seed=seeds - 1, **res,
+             within_bound=pretrain_within_bound(res))
+    emit(phase="calibrate_pretraining", kind="bound", dloss_max=PRETRAIN_DLOSS_MAX,
+         grad_cos_all=PRETRAIN_COS_ALL, grad_cos_min=PRETRAIN_COS_MIN,
+         word_embeddings_cos=PRETRAIN_WORD_COS)
+
+
+def pretrain_bare(gpu: str) -> dict:
+    """Phase 13 (b): the bare pretraining step at the config's B=128 and
+    width, one repeated masked batch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    shell, state, step = pretrain_model()
+    batch = shell.to_device(pretrain_batch(PRETRAIN_BATCH, SEED + 1))
+    setup_s = time.perf_counter() - t0
+    totals = dict.fromkeys(PRETRAIN_STEP_LAUNCHES, 0)
+    terms, times, counts = [], [], []
+    for _ in range(TRAIN_WARMUP + TRAIN_STEPS):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, scalars = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts.append(read_counts())
+        terms.append({k: float(v) for k, v in scalars.items()
+                      if k.startswith("losses/") or k == "total_loss"})
+        for name, n in counts[-1].items():
+            totals[name] += n
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    timed = times[TRAIN_WARMUP:]
+    p50 = float(np.percentile(timed, 50))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    busy, n_ops, top = device_busy(prof, 2)
+    by_name, _ = device_ms_by_name(prof, 2)
+    kernel_ms = {k: sum(ms for name, ms in by_name.items() if f"{k}_" in name)
+                 for k in ("small_attention", "flash_fwd", "flash_dq", "flash_dkv")}
+    losses = [t["total_loss"] for t in terms]
+    emit(phase="pretraining", part="bare_step", config=PRETRAIN_CONFIG, batch=PRETRAIN_BATCH,
+         gpu=gpu, setup_s=setup_s, loss_terms=terms, step_ms=times, step_p50_ms=p50,
+         step_p95_ms=float(np.percentile(timed, 95)),
+         clip_pairs_per_s=PRETRAIN_BATCH * 1e3 / p50, launches_per_step=counts[-1],
+         peak_mem_gb=peak_gb, device_busy_ms=busy if n_ops else "not measured",
+         device_idle_share=1 - busy / p50 if n_ops else "not measured",
+         device_ops_per_step=n_ops, top_device_ops_ms=top, kernel_device_ms=kernel_ms,
+         flash_share_of_busy=sum(v for k, v in kernel_ms.items() if k.startswith("flash"))
+         / busy if n_ops else "not measured")
+    check(all(np.isfinite(list(t.values())).all() for t in terms),
+          "pretraining bare step: a loss is not finite")
+    check(all(f"losses/{k}" in terms[0] for k in PRETRAIN_TERMS),
+          f"pretraining bare step: loss terms {sorted(terms[0])}")
+    check(losses[-1] < losses[0], f"pretraining bare step: the loss did not fall ({losses})")
+    check(all(c == PRETRAIN_STEP_LAUNCHES for c in counts),
+          f"pretraining bare step: launches per step {counts[-1]}; "
+          f"expected {PRETRAIN_STEP_LAUNCHES}")
+    del shell, state, step, batch
+    torch.cuda.empty_cache()
+    return dict(totals=totals, p50=p50)
+
+
+def pretrain_argv(root: str, config: str, *extra: str) -> list:
+    data = "task_attributes.univl_task.dataset_attributes.video_text_pretrain"
+    tp = "training_parameters"
+    return ["--config", config, f"{data}.data_root_dir", root, f"{data}.video_source", "lmdb",
+            f"{data}.annotations.train", "annotations/msrvtt_train.jsonl",
+            f"{data}.annotations.val", "annotations/msrvtt_test.jsonl", f"{data}.text.seed", "0",
+            f"{tp}.batch_size", str(PRETRAIN_TRAINER_BATCH),
+            f"{tp}.test_batch_size", str(PRETRAIN_TRAINER_BATCH), f"{tp}.log_interval", "2",
+            f"{tp}.snapshot_interval", "1000", f"{tp}.max_ckpt_num", "1",
+            f"{tp}.num_workers", "4", f"{tp}.run_type", "train",
+            f"{tp}.save_dir", os.path.join(root, "save"), f"{tp}.seed", "1", *extra]
+
+
+def pretrain_trainer(gpu: str, bare_p50_ms: float) -> dict:
+    """Phase 13 (c): ``python -m antmmf_torch.run`` on ``univl_pretrain.yml``
+    at full width over phase 12's seeded MSR-VTT-layout dataset (written
+    again under ``build/`` and deleted at the end), with MLM masking on: 6
+    steps at B=32 and the final full validation, a resumed run to step 8,
+    then 3 steps of ``snps3_pretrain.yml`` (dual MLM, FOM, significant
+    masking). Returns the phase's launches by kernel."""
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="pretrain_smoke_", dir=build)
+    probe = TrainerProbe()
+    uninstall = probe.install()
+    try:
+        write_msrvtt_layout(root, SEED)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        first = run.main(pretrain_argv(root, PRETRAIN_CONFIG, "training_parameters.max_iterations",
+                                       str(PRETRAIN_TRAINER_STEPS)))
+        timings, setup_s = first.timings, first.timings["first_step_start"] - t0
+        models = sorted(os.listdir(os.path.join(root, "save", "models")))
+        first_n = len(probe.train)
+        val = [v for v in probe.validations if v["dataset_type"] == "val"][-1]
+        probe.reference = first
+        t0 = time.perf_counter()
+        second = run.main(pretrain_argv(root, PRETRAIN_CONFIG, "training_parameters.max_iterations",
+                                        str(PRETRAIN_RESUMED_STEPS), "training_parameters.resume",
+                                        "true"))
+        resume_s, resumed_end = time.perf_counter() - t0, second.state.step
+        probe.reference = None
+        del first, second
+        torch.cuda.empty_cache()
+        univl_steps = len(probe.train)
+        snps3 = run.main(pretrain_argv(root, SNPS3_CONFIG, "training_parameters.max_iterations",
+                                       str(SNPS3_STEPS), "training_parameters.save_dir",
+                                       os.path.join(root, "snps3")))
+        snps3_step_ms = [t * 1e3 for t in snps3.timings["step_s"]]
+        del snps3
+        # the main path ends here: its launches, train steps and eval forwards
+        counts = read_counts()
+        n_train, n_eval = len(probe.train), len(probe.eval)
+        losses = [float(x) for x in probe.losses]
+        terms = [{k.split("/", 1)[1]: float(v) for k, v in t.items()} for t in probe.terms]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        # the bare step on the trainer's first batch and masters
+        masters, first_batch = probe.first
+        shell, state, step = pretrain_model(masters=masters)
+        _, bare = step(state, first_batch)
+        bare_loss = float(bare["total_loss"])
+        probe.first = None
+        del shell, state, step, masters, first_batch, bare
+        torch.cuda.empty_cache()
+    finally:
+        uninstall()
+        shutil.rmtree(root, ignore_errors=True)
+
+    step_ms = [t * 1e3 for t in timings["step_s"]]
+    wait_ms = [t * 1e3 for t in timings["loader_wait_s"]]
+    B = PRETRAIN_TRAINER_BATCH
+    snps3_terms = terms[univl_steps:]
+    emit(phase="pretraining", part="trainer", config=PRETRAIN_CONFIG, batch=B, gpu=gpu,
+         setup_s=setup_s, losses=losses[:first_n], resumed_losses=losses[first_n:univl_steps],
+         loss_terms_first_step=terms[0],
+         first_step_loss=dict(trainer=losses[0], bare=bare_loss,
+                              equal="bit for bit" if losses[0] == bare_loss else
+                              f"within {abs(losses[0] - bare_loss):.3g}"),
+         step_ms=step_ms, step_p50_ms=float(np.percentile(step_ms, 50)),
+         step_p95_ms=float(np.percentile(step_ms, 95)),
+         loader_wait_ms=wait_ms, loader_wait_p50_ms=float(np.percentile(wait_ms, 50)),
+         clip_pairs_per_s=B * (len(step_ms) - 1) * 1e3 / float(np.sum(step_ms[1:])),
+         train_loop_s=timings["loop_s"],
+         clip_pairs_per_s_loop_wall=B * len(step_ms) / timings["loop_s"],
+         bare_step_p50_ms_b128=bare_p50_ms,
+         full_val_s=val["seconds"], val_metrics=val["metrics"], resume_s=resume_s,
+         resumed_state_equal=probe.resumed_equal, resumed_end_step=resumed_end,
+         models_dir=models, peak_mem_gb=peak_gb, launches=counts,
+         launches_per_call=probe.train[0], launches_per_eval=probe.eval[0],
+         train_steps=n_train, eval_forwards=n_eval)
+    emit(phase="pretraining", part="snps3", config=SNPS3_CONFIG, batch=B, gpu=gpu,
+         loss_terms=snps3_terms, step_ms=snps3_step_ms)
+
+    check(n_train == PRETRAIN_RESUMED_STEPS + SNPS3_STEPS,
+          f"pretraining trainer: {n_train} train steps")
+    check(all(c == PRETRAIN_STEP_LAUNCHES for c in probe.train)
+          and all(c == PRETRAIN_EVAL_LAUNCHES for c in probe.eval),
+          f"pretraining trainer: launches per step {probe.train[:1]}, per eval forward "
+          f"{probe.eval[:1]}; expected {PRETRAIN_STEP_LAUNCHES}, {PRETRAIN_EVAL_LAUNCHES}")
+    check(all(counts[k] == PRETRAIN_STEP_LAUNCHES[k] * n_train + PRETRAIN_EVAL_LAUNCHES[k] * n_eval
+              for k in counts), f"pretraining trainer: the phase launched {counts}")
+    check(all(np.isfinite(list(t.values())).all() for t in terms),
+          "pretraining trainer: a loss term is not finite")
+    check(all(f"{k}" in terms[0] for k in PRETRAIN_TERMS),
+          f"pretraining trainer: loss terms {sorted(terms[0])}")
+    check(all({*PRETRAIN_TERMS, "text_masked_lm_loss", "fom_loss"} <= set(t) for t in snps3_terms)
+          and len(snps3_terms) == SNPS3_STEPS,
+          f"snps3: loss terms {[sorted(t) for t in snps3_terms]}")
+    check(abs(losses[0] - bare_loss) <= FIRST_LOSS_ATOL,
+          f"pretraining trainer: first-step loss {losses[0]} against the bare step's {bare_loss}")
+    check(terms[0]["masked_lm_loss"] > 0 and val["metrics"]["losses/masked_lm_loss"] == 0.0,
+          "pretraining trainer: MLM targets in training and none in validation expected")
+    check(models == ["best", f"model_{PRETRAIN_TRAINER_STEPS}"],
+          f"pretraining trainer: models/ holds {models}")
+    check(probe.resumed_equal is not None and all(probe.resumed_equal.values())
+          and resumed_end == PRETRAIN_RESUMED_STEPS,
+          f"pretraining trainer: resume {probe.resumed_equal}, end step {resumed_end}")
+    check(probe.devices == {"cuda"}, f"pretraining trainer: ran on {probe.devices}")
+    return counts
+
+
+def phase_pretraining(gpu: str) -> dict:
+    """Phase 13: (a) card vs CPU, (b) the bare step at B=128, (c) the
+    trainer. Returns the launches of (b) and (c) by kernel."""
+    card, cpu, batch = pretrain_twins(SEED)
+    res = compare_pretrain(pretrain_first_step(card, batch), pretrain_first_step(cpu, batch))
+    ok = pretrain_within_bound(res)
+    emit(phase="pretraining", part="card_vs_cpu", batch=4, **res, dloss_max=PRETRAIN_DLOSS_MAX,
+         grad_cos_all_bound=PRETRAIN_COS_ALL, grad_cos_min_bound=PRETRAIN_COS_MIN,
+         word_embeddings_cos_bound=PRETRAIN_WORD_COS, ok=ok)
+    check(ok, "card and CPU pretraining steps disagree beyond the stated bound")
+    del card, cpu, batch
+    torch.cuda.empty_cache()
+    bare = pretrain_bare(gpu)
+    counts = pretrain_trainer(gpu, bare["p50"])
+    return {k: bare["totals"][k] + counts[k] for k in counts}
+
+
 SOURCES = {
     "small_attention": ("antmmf_torch/ops/csrc/small_attention.cu",
                         "antmmf_tpu/ops/pallas/small_attention.py:62"),
@@ -1887,7 +2286,11 @@ def main() -> None:
     launches["small_attention"] += serving
     phase_train_card_vs_cpu()
     walls, timing = phase_times(predictors, rng, gpu)
-    timing = {"small_attention": timing, **phase_flash_times(pair_bias, gpu)}
+    text = torch.as_tensor(pretrain_batch(PRETRAIN_BATCH, SEED + 1)["caption_input_mask"]).cuda()
+    pretrain_bias = make_attention_mask(torch.cat(
+        [text, torch.ones(PRETRAIN_BATCH, FRAMES * VIT_TOKENS, dtype=text.dtype, device="cuda")], 1))
+    timing = {"small_attention": timing, **phase_flash_times(
+        {"cross_mined": pair_bias, "pretraining": pretrain_bias}, gpu)}
     phase_trace(walls, gpu)
     del predictors, walls
     pink, pink_launches = phase_pink(rng, gpu)
@@ -1898,6 +2301,8 @@ def main() -> None:
     del pink
     torch.cuda.empty_cache()
     launches["small_attention"] += phase_trainer(gpu, bare_p50)
+    for name, n in phase_pretraining(gpu).items():
+        launches[name] += n
 
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -1909,12 +2314,14 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+CALIBRATIONS = {"serving": calibrate, "training": calibrate_training, "pink": calibrate_pink,
+                "pretraining": calibrate_pretraining}
+
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--calibrate"]:
-        calibrate()
-        calibrate_training()
-        calibrate_pink()
+    if sys.argv[1:2] == ["--calibrate"] and set(sys.argv[2:]) <= set(CALIBRATIONS):
+        for part in sys.argv[2:] or CALIBRATIONS:
+            CALIBRATIONS[part]()
     elif sys.argv[1:]:
-        sys.exit("usage: python3 chip_smoke.py [--calibrate]")
+        sys.exit(f"usage: python3 chip_smoke.py [--calibrate [{'|'.join(CALIBRATIONS)} ...]]")
     else:
         main()

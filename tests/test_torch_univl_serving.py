@@ -149,5 +149,9 @@ def test_tokenization_matches_jax():
         a, b = port({"text": text}, probability=0.0), ref({"text": text}, probability=0.0)
         for key in ("input_ids", "input_mask", "segment_ids"):
             np.testing.assert_array_equal(a[key], b[key], err_msg=f"{text!r} {key}")
-    with pytest.raises(NotImplementedError):
-        port({"text": "a"})  # masking (default probability 0.15) is not ported
+    # the default probability (0.15) masks, drawing as the JAX processor draws
+    port, ref = TProc({**cfg, "seed": 0}), JProc({**cfg, "seed": 0})
+    for text in CAPTIONS * 10:
+        a, b = port({"text": text}), ref({"text": text})
+        for key in ("input_ids", "lm_label_ids"):
+            np.testing.assert_array_equal(a[key], b[key], err_msg=f"{text!r} {key}")
