@@ -5,8 +5,10 @@ Port of ``antmmf_tpu/common/checkpoint.py``. Under ``save_dir``:
 
 * ``models/model_<n>``: the full state at step n (``save``): the step, the
   fp32 masters and the AdamW state (``count``, ``mu`` in its own dtype,
-  ``nu``) keyed by flax path, and the ``torch.Generator`` state; ``_gc``
-  keeps the newest ``max_ckpt_num`` of them;
+  ``nu``) keyed by flax path, the ``torch.Generator`` state, and with MoCo
+  the momentum towers (fp32, by flax path) and the queues (``moco``:
+  ``text_queue/queue``, ``ptr``, ``filled``); ``_gc`` keeps the newest
+  ``max_ckpt_num`` of them;
 * ``models/best``: the same, saved when early stopping sees a new best;
 * ``<model_name>_final``: the masters alone (``save_final_weights``);
 * ``config.yaml`` and ``git_info.json`` (branch, commit, status).
@@ -19,7 +21,10 @@ bit for bit and refreshes the module's compute-dtype copies from the
 masters. ``load_model_weights`` is the weights-only tolerant load: leaves
 whose path and shape agree are copied, the rest reported as missing,
 shape-mismatched or unexpected, with ``pretrained_mapping`` prefix remaps
-first, as ``merge_params_tolerant`` does; it reads the port's checkpoints
+first, as ``merge_params_tolerant`` does; the queues and momentum towers
+take part as ``moco/...`` and ``momentum/...`` leaves, as they do in the
+JAX package's variables, so a MoCo checkpoint loaded into a model without
+a queue reports them as unexpected; it reads the port's checkpoints
 and a ``params.npz`` of ``/``-joined flax paths in flax layout (the port's
 ``model_dir`` format). ``resume`` applies ``resume``, ``resume_file`` and
 ``restart``.
@@ -37,6 +42,7 @@ import numpy as np
 import torch
 
 from antmmf_torch.common.configuration import Configuration, convert_to_config
+from antmmf_torch.modules.moco import queue_buffers
 from antmmf_torch.utils.weights import flax_paths, to_torch_layout
 
 
@@ -118,10 +124,16 @@ class Checkpoint:
     def _state_tree(self, state) -> Dict[str, Any]:
         names = flax_paths(state.model)
         opt = state.opt_state
-        return {"step": int(state.step), "params": _cpu(state.params, names),
+        tree = {"step": int(state.step), "params": _cpu(state.params, names),
                 "opt_state": {"count": int(opt["count"]), "mu": _cpu(opt["mu"], names),
                               "nu": _cpu(opt["nu"], names)},
                 "generator": state.generator.get_state()}
+        queues = queue_buffers(state.model)
+        if queues:
+            tree["moco"] = {p: t.detach().to("cpu", copy=True) for p, t in queues.items()}
+        if state.momentum is not None:
+            tree["momentum"] = _cpu(state.momentum, names)
+        return tree
 
     def save(self, state, iteration: Optional[int] = None, tag: Optional[str] = None) -> str:
         iteration = int(iteration if iteration is not None else state.step)
@@ -157,7 +169,8 @@ class Checkpoint:
 
     @torch.no_grad()
     def restore_state(self, state, path: Optional[str] = None):
-        """Full resume, bit for bit: step, masters, AdamW state, generator."""
+        """Full resume, bit for bit: step, masters, AdamW state, generator,
+        and the queues and momentum towers of a MoCo state."""
         path = path or self.latest_path()
         if path is None:
             return state, False
@@ -168,6 +181,12 @@ class Checkpoint:
             src = tree["params"] if name == "params" else tree["opt_state"][name]
             for n, t in dst.items():
                 t.copy_(src[names[n]])
+        for p, t in queue_buffers(state.model).items():
+            t.copy_(tree["moco"][p])
+        if state.momentum is not None:
+            for n, t in state.momentum.items():
+                t.copy_(tree["momentum"][names[n]])
+            state.sync_key_module()
         opt["count"] = tree["opt_state"]["count"]
         state.step = tree["step"]
         state.generator.set_state(tree["generator"])
@@ -181,15 +200,24 @@ class Checkpoint:
         port checkpoint or a ``params.npz`` of flax-layout leaves."""
         if path.endswith(".npz"):
             with np.load(path) as npz:
-                loaded = {k: torch.from_numpy(to_torch_layout(k, npz[k]).astype(np.float32))
+                loaded = {k: torch.from_numpy(to_torch_layout(k, npz[k]))
                           for k in npz.files}
         else:
-            loaded = torch.load(path, map_location="cpu", weights_only=True)["params"]
+            tree = torch.load(path, map_location="cpu", weights_only=True)
+            loaded = dict(tree["params"])
+            for collection in ("moco", "momentum"):
+                loaded.update({f"{collection}/{p}": t
+                               for p, t in tree.get(collection, {}).items()})
         names = flax_paths(state.model)
         target = {names[n]: t for n, t in state.params.items()}
+        target.update({f"moco/{p}": t for p, t in queue_buffers(state.model).items()})
+        if state.momentum is not None:
+            target.update({f"momentum/{names[n]}": t for n, t in state.momentum.items()})
         merged, report = merge_params_tolerant(target, loaded, pretrained_mapping, self.logger)
         for leaf_path, value in merged.items():
             target[leaf_path].copy_(value)
+        if state.momentum is not None:
+            state.sync_key_module()
         state.sync_model()
         return state, report
 

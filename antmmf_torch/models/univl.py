@@ -10,8 +10,10 @@ symmetric cross-entropy L1 loss, and with the cross-encoder the L2 loss,
 either over in-step mined hard negatives (training, ``hard_mining_k`` > 1)
 or over the full B×B pair grid. Outputs ``l1_simi``, ``sim``, ``text_embed``,
 ``visual_embed``, ``logits`` and ``losses`` (plus the L2 outputs).
-Other ``loss_type`` values, the MoCo queue, dropout and sequence parallelism
-raise until they are ported.
+``loss_type`` ``mil_nce`` (identity positives) and ``neg_nce`` (symmetric)
+replace the L1 loss; ``with_queue`` replaces it with MoCo InfoNCE against
+text and video queues held in buffers (``moco.MocoQueue``). Dropout and
+sequence parallelism raise until they are ported.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from torch import nn
 from antmmf_torch.common.registry import registry
 from antmmf_torch.modules.encoders.text_encoder import PRESETS as BERT_PRESETS, BertEncoder
 from antmmf_torch.modules.layers import make_attention_mask
-from antmmf_torch.modules.losses.contrastive import symmetric_cross_en
+from antmmf_torch.modules import moco
+from antmmf_torch.modules.losses.contrastive import NEG_INF, mil_nce, neg_nce, symmetric_cross_en
 from antmmf_torch.modules.transformers.base import TransformerEncoder
 from antmmf_torch.modules.vision.vit import PRESETS as VIT_PRESETS, VisionTransformer
 
@@ -134,26 +137,37 @@ class UnivlForVideoTextRetrieval(nn.Module):
     scan_layers, ...) are ignored, as the JAX ``from_config`` ignores unknown
     keys. ``forward(batch, deterministic)`` follows the JAX ``__call__``:
     with ``deterministic=False`` and ``hard_mining_k`` > 1 the L2 loss runs
-    over mined pairs, otherwise over the full pair grid."""
+    over mined pairs, otherwise over the full pair grid.
+
+    With ``with_queue`` the keys (``_moco_key_text``/``_moco_key_video`` of
+    the batch, which the trainer fills from its momentum towers, else the
+    online embeddings) are enqueued only by ``flush_queues``, which the
+    train step calls after the backward: the loss's backward reads the
+    queues, so they must not change before it. A forward with
+    ``deterministic=False`` leaves its keys pending for that call."""
 
     def __init__(self, vit_preset: str = "vit_base_patch32", image_size: int = 224,
                  bert_preset: str = "bert_base", embed_dim: int = 512, n_clips: int = 1,
                  token_merge_r: int = 0, init_logit_scale: float = 2.6592,
                  dtype_str: str = "bfloat16", with_cross_encoder: bool = False,
                  cross_layers: int = 2, hard_mining_k: int = 0, loss_type: str = "cross_en",
-                 with_queue: bool = False, dropout: float = 0.0,
+                 neg_nce_margin: float = 0.0, neg_nce_weight: float = 1.0,
+                 with_queue: bool = False, queue_size: int = 4096, with_momentum: bool = False,
+                 momentum: float = 0.999, dropout: float = 0.0,
                  training_head_only: bool = False, sequence_parallel: str = "none",
                  encoder_lr_decay: float = 1.0, device=None):
         super().__init__()
         if sequence_parallel != "none":
             raise NotImplementedError("sequence parallelism is not ported yet")
-        if loss_type != "cross_en" or with_queue:
-            raise NotImplementedError(f"loss_type {loss_type!r} and the MoCo queue are not "
-                                      f"ported yet; only cross_en without a queue is")
+        if loss_type not in ("cross_en", "mil_nce", "neg_nce"):
+            raise ValueError(f"loss_type {loss_type!r}: cross_en, mil_nce or neg_nce")
         if dropout:
             raise NotImplementedError(f"dropout {dropout} is not ported yet; only 0 is")
         self.dtype = getattr(torch, dtype_str)
         self.hard_mining_k = hard_mining_k
+        self.loss_type = loss_type
+        self.neg_nce_margin, self.neg_nce_weight = neg_nce_margin, neg_nce_weight
+        self.with_queue, self.with_momentum, self.momentum = with_queue, with_momentum, momentum
         self.encoder_lr_decay = encoder_lr_decay
         self.training_head_only = training_head_only
         self.base = UnivlVideoBase(vit_preset, image_size, bert_preset, embed_dim, n_clips,
@@ -161,6 +175,12 @@ class UnivlForVideoTextRetrieval(nn.Module):
                                    self.dtype, device)
         self.logit_scale = nn.Parameter(
             torch.tensor(init_logit_scale, dtype=torch.float32, device=device))
+        if with_queue:
+            # random rows (filled from the first step) with momentum towers,
+            # as the JAX model draws them with PRNGKey 1 and 2
+            self.text_queue = moco.MocoQueue(queue_size, embed_dim, with_momentum, 1, device)
+            self.video_queue = moco.MocoQueue(queue_size, embed_dim, with_momentum, 2, device)
+        self._pending_keys = None
 
     @classmethod
     def from_config(cls, config: Mapping[str, Any], device=None) -> "UnivlForVideoTextRetrieval":
@@ -175,6 +195,29 @@ class UnivlForVideoTextRetrieval(nn.Module):
                       else tp.get("encoder_lr_decay", 1.0) or 1.0)
         return [] if decay == 1.0 else [[r"base/(img_encoder|text_encoder)/", decay]]
 
+    @staticmethod
+    def moco_keys(base: UnivlVideoBase, batch: Mapping[str, torch.Tensor]):
+        """The MoCo keys of ``base`` (the trainer's momentum towers):
+        (``text_embed``, ``clip_embed`` averaged over clips)."""
+        text = base.forward_text_encoder(batch["caption_input_ids"],
+                                         batch["caption_input_mask"],
+                                         batch.get("caption_segment_ids"))
+        return text["text_embed"], base.forward_img_encoder(batch["image_data"])[
+            "clip_embed"].mean(dim=1)
+
+    def encode(self, batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The towers alone, for corpus evaluation: ``text_embed``,
+        ``visual_embed`` and, with the cross-encoder, ``text_seq`` and
+        ``visual_tokens``, as the forward gives them."""
+        text = self.base.forward_text_encoder(batch["caption_input_ids"],
+                                              batch["caption_input_mask"],
+                                              batch.get("caption_segment_ids"))
+        video = self.base.forward_img_encoder(batch["image_data"])
+        out = {"text_embed": text["text_embed"], "visual_embed": video["clip_embed"].mean(dim=1)}
+        if self.base.with_cross_encoder:
+            out.update(text_seq=text["sequence_output"], visual_tokens=video["visual_tokens"])
+        return out
+
     def forward(self, batch: Mapping[str, torch.Tensor],
                 deterministic: bool = True) -> Dict[str, Any]:
         text = self.base.forward_text_encoder(batch["caption_input_ids"],
@@ -187,11 +230,53 @@ class UnivlForVideoTextRetrieval(nn.Module):
         sim = clip_similarity(text_embed, clip_embed, self.logit_scale)
         output: Dict[str, Any] = {"l1_simi": sim, "sim": sim, "text_embed": text_embed,
                                   "visual_embed": clip_embed.mean(dim=1), "logits": sim}
-        losses = {"level1_similarity_loss": symmetric_cross_en(sim)}
+        if self.with_queue:
+            level1 = self._moco_loss(batch, text_embed, clip_embed, deterministic)
+        elif self.loss_type == "mil_nce":
+            eye = torch.eye(sim.shape[0], sim.shape[1], device=sim.device)
+            level1 = 0.5 * (mil_nce(sim, eye) + mil_nce(sim.T, eye.T))
+        elif self.loss_type == "neg_nce":
+            level1 = 0.5 * (neg_nce(sim, self.neg_nce_margin, self.neg_nce_weight)
+                            + neg_nce(sim.T, self.neg_nce_margin, self.neg_nce_weight))
+        else:
+            level1 = symmetric_cross_en(sim)
+        losses = {"level1_similarity_loss": level1}
         if self.base.with_cross_encoder:
             self._level2(batch, text, video, sim, deterministic, output, losses)
         output["losses"] = losses
         return output
+
+    def _moco_loss(self, batch, text_embed, clip_embed, deterministic) -> torch.Tensor:
+        """MoCo InfoNCE both ways (``univl.py:415-443`` of the JAX package):
+        each query against its positive key (column 0) and the other
+        modality's queue, unfilled slots masked; the video key and query are
+        the clip mean, not re-normalised."""
+        scale = torch.exp(torch.clamp(self.logit_scale, 0.0, math.log(100.0)))
+        v_mean = clip_embed.mean(dim=1)
+        key_text, key_video = batch.get("_moco_key_text"), batch.get("_moco_key_video")
+        key_text = (text_embed if key_text is None else key_text).detach().float()
+        key_video = (v_mean if key_video is None else key_video).detach().float()
+
+        def infonce(q, k_pos, queue: moco.MocoQueue):
+            negs, valid = moco.queue_negatives(queue.state())
+            q = q.float()
+            pos = (q * k_pos).sum(-1, keepdim=True) * scale
+            neg = torch.where(valid[None, :], (q @ negs.T) * scale, NEG_INF)
+            return -torch.log_softmax(torch.cat([pos, neg], dim=1), dim=-1)[:, 0].mean()
+
+        loss = 0.5 * (infonce(text_embed, key_video, self.video_queue)
+                      + infonce(v_mean, key_text, self.text_queue))
+        if not deterministic:
+            self._pending_keys = (key_text, key_video)
+        return loss
+
+    def flush_queues(self) -> None:
+        """Enqueue the keys of the last training forward (after its backward)."""
+        if self._pending_keys is not None:
+            key_text, key_video = self._pending_keys
+            moco.enqueue(self.text_queue.state(), key_text)
+            moco.enqueue(self.video_queue.state(), key_video)
+            self._pending_keys = None
 
     def _level2(self, batch, text, video, sim, deterministic, output, losses) -> None:
         """The L2 loss (``univl.py:458-505`` of the JAX package)."""

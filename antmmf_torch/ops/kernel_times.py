@@ -16,7 +16,10 @@ Each reading is device time per launch: 20 launches captured in a CUDA graph
 and replayed, timed with CUDA events, so the host's launch cost stays out of
 it (it would swamp the one-sample shapes). One JSON line per kernel and
 shape, with the card's name and power limit as ``nvidia-smi`` gives them.
-The backward pair is also timed as one row, ``flash_dq+flash_dkv``, against
+Rows of ``small_attention`` and ``flash_fwd`` carry ``bound_us``, the least
+time the card could take (each input read once, each output written once
+at 3.35 TB/s; the products over the live keys at 989 TFLOP/s bf16; the
+larger of the two). The backward pair is also timed as one row, ``flash_dq+flash_dkv``, against
 SDPA's backward alone (``sdpa_bwd``: the forward run once outside the graph,
 ``torch.autograd.grad`` captured), with the SDPA kernels that ran.
 
@@ -40,6 +43,7 @@ import sys
 
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
+BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores (data sheet)
 # the Pink decode path's int4 records: (x columns, record rows, out, group,
 # launches a decode step); down_proj is stored row-padded at group 88
 INT4_SHAPES = {"attn_q_o": (2048, 2048, 2048, 128, 44),
@@ -170,10 +174,15 @@ def int4_cases(torch, i4, row_counts=INT4_ROWS):
                    cycled(lambda i, x=x: torch.matmul(x, dense[i]), len(dense)))
 
 
+def bound_us(nbytes: float, flops: float) -> float:
+    return max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e6
+
+
 def cases(torch, sa, fa):
-    """(kernel, shape name, port call, library): the library call timed the
-    same way, or None, or for the backward pair the SDPA inputs (q, k, v,
-    mask, dout) whose backward ``sdpa_backward_ms`` times alone."""
+    """(kernel, shape name, port call, library, bound in µs or None): the
+    library call timed the same way, or None, or for the backward pair the
+    SDPA inputs (q, k, v, mask, dout) whose backward ``sdpa_backward_ms``
+    times alone."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -188,18 +197,24 @@ def cases(torch, sa, fa):
         live = torch.cat([live, torch.ones(B, live_tail, dtype=torch.bool, device="cuda")], 1)
         return torch.where(live, 0.0, fmin).float().contiguous(), live[:, None, None, :]
 
-    def small(name, B, H, L, D, bias):
+    def small(name, B, H, L, D, bias, lo=5):
         q, k, v = (proj(B, L, H, D) for _ in range(3))
-        kb, mask = pad_bias(B, L, 5) if bias else (None, None)
+        kb, mask = pad_bias(B, L, lo) if bias else (None, None)
+        live = int(mask.sum().item()) if bias else B * L
         return ("small_attention", name,
                 lambda: sa.small_attention(q, k, v, kb),
-                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                bound_us(4 * B * H * L * D * 2 + (B * L * 4 if bias else 0),
+                         4 * H * L * live * D))
 
     yield small("vit_256x12x50x64", 256, 12, 50, 64, False)
     yield small("bert_32x12x30x64_pad", 32, 12, 30, 64, True)
     yield small("pink_vit_1x12x50x64", 1, 12, 50, 64, False)
+    # DMAE's temporal encoder at B=128: 12 frames, 8 heads of 64, a frame
+    # padding bias (at least 8 live frames)
+    yield small("dmae_temporal_128x8x12x64_framepad", 128, 8, 12, 64, True, lo=8)
 
-    def pairs(P, name):
+    def pairs(P, name, forward_only=False):
         """The cross-encoder's pair stream: up to 30 text tokens (ragged) then
         400 live frame tokens, P pairs."""
         q, k, v = (proj(P, 430, 12, 64) for _ in range(3))
@@ -208,30 +223,38 @@ def cases(torch, sa, fa):
         scale = 64 ** -0.5
         out, stats = fa.flash_fwd(q, k, v, kb, scale, False)
         _, delta = fa.flash_dq(q, k, v, kb, out, stats, dout, scale, False)
+        live = int(mask.sum().item())
         yield ("flash_fwd", name, lambda: fa.flash_fwd(q, k, v, kb, scale, False),
-               lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+               lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+               bound_us(4 * P * 12 * 430 * 64 * 2 + P * 430 * 4 + 2 * P * 12 * 430 * 4,
+                        4 * 12 * 430 * live * 64))
+        if forward_only:
+            return
         yield ("flash_dq", name,
-               lambda: fa.flash_dq(q, k, v, kb, out, stats, dout, scale, False), None)
+               lambda: fa.flash_dq(q, k, v, kb, out, stats, dout, scale, False), None, None)
         yield ("flash_dkv", name,
-               lambda: fa.flash_dkv(q, k, v, kb, stats, dout, delta, scale, False), None)
+               lambda: fa.flash_dkv(q, k, v, kb, stats, dout, delta, scale, False), None, None)
 
         def backward():
             _, dl = fa.flash_dq(q, k, v, kb, out, stats, dout, scale, False)
             fa.flash_dkv(q, k, v, kb, stats, dout, dl, scale, False)
 
-        yield ("flash_dq+flash_dkv", name, backward, (q, k, v, mask, dout))
+        yield ("flash_dq+flash_dkv", name, backward, (q, k, v, mask, dout), None)
 
     # 64 mined pairs a cross-mined step; 128 pairs a pretraining VTM or MLM pass
     yield from pairs(64, "cross_64x12x430x64_ragged")
     yield from pairs(128, "pretrain_128x12x430x64_ragged")
+    # a stage-2 re-ranking chunk of 32 pairs (retrieval_trainer), forward only
+    yield from pairs(32, "stage2_32x12x430x64_ragged", forward_only=True)
     pq, pk, pv = (proj(1, 113, 16, 128) for _ in range(3))
     yield ("flash_fwd", "pink_prefill_1x16x113x128_causal",
            lambda: fa.flash_fwd(pq, pk, pv, None, 128 ** -0.5, True),
-           lambda: F.scaled_dot_product_attention(pq, pk, pv, is_causal=True))
+           lambda: F.scaled_dot_product_attention(pq, pk, pv, is_causal=True),
+           bound_us(4 * pq.numel() * 2 + 2 * 16 * 113 * 4, 4 * 128 * 16 * 113 * 114 // 2))
 
 
 def time_attention(args, gpu, torch, sa, fa, only) -> None:
-    for kernel, shape, port, library in list(cases(torch, sa, fa)):
+    for kernel, shape, port, library, bound in list(cases(torch, sa, fa)):
         if only and kernel not in only:
             continue
         ms = [graph_ms(port) for _ in range(args.rounds)]
@@ -248,7 +271,7 @@ def time_attention(args, gpu, torch, sa, fa, only) -> None:
         print(json.dumps({"tree": args.label, "kernel": kernel, "shape": shape, "gpu": gpu,
                           "us": [round(x * 1e3, 2) for x in ms],
                           "sdpa_us": lib and [round(x * 1e3, 2) for x in lib],
-                          **extra}), flush=True)
+                          "bound_us": bound, **extra}), flush=True)
 
 
 def time_int4(args, gpu, torch, i4) -> None:

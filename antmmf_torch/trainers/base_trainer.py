@@ -23,9 +23,12 @@ mesh computes, so the mesh is recorded in the log and the whole global
 batch runs on the device. Knobs of paths that are not ported raise with the
 key's name: ``steps_per_dispatch`` > 1, ``remat_policy`` other than
 ``none``, ``evalai_inference``, ``profile_at_iteration``,
-``param_sharding_rules``, a model's ``with_momentum`` / ``with_queue``, a
-world size above 1, and ``interpret``. The FLOPs telemetry of the JAX
-trainer (XLA's cost analysis) is not ported.
+``param_sharding_rules``, a world size above 1, and ``interpret``. A
+model with ``with_momentum`` trains MoCo momentum towers: the state holds
+their EMA (``TrainState.init_momentum``, made before the checkpoint is
+applied, as the JAX trainer makes it) and the step runs the key forward.
+The FLOPs telemetry of the JAX trainer (XLA's cost analysis) is not
+ported.
 
 ``timings`` keeps, per train step on the host clock, the wait on the loader
 and the time from asking for the batch to the step's return (the step
@@ -94,9 +97,6 @@ class BaseTrainer:
             "training_parameters.profile_at_iteration": bool(tp.get("profile_at_iteration")),
             "training_parameters.param_sharding_rules": bool(tp.get("param_sharding_rules")),
         }
-        for name, attrs in dict(self.config.get("model_attributes", {})).items():
-            for key in ("with_momentum", "with_queue"):
-                refused[f"model_attributes.{name}.{key}"] = bool(attrs.get(key, False))
         world = max(int(os.environ.get("WORLD_SIZE", 1)), int(tp.get("num_nodes", 1) or 1))
         refused[f"world size {world}"] = world > 1
         for key, bad in refused.items():
@@ -156,7 +156,13 @@ class BaseTrainer:
                                                     self.tp.to_dict())
 
     def load_extras(self) -> None:
-        self.state = TrainState.create(self.shell.module, self.tx, seed=self.seed)
+        module = self.shell.module
+        self.state = TrainState.create(module, self.tx, seed=self.seed)
+        # full-MoCo momentum towers: the EMA of ``base`` from the initial masters
+        self._moco_m = 0.0
+        if getattr(module, "with_momentum", False):
+            self.state.init_momentum("base")
+            self._moco_m = float(module.momentum)
         self.checkpoint = Checkpoint(self.config, self.writer)
         self.state, self.resume_info = self.checkpoint.resume(self.state, self.tp)
         self.writer.write(f"checkpoint: {self.resume_info}")
@@ -181,7 +187,7 @@ class BaseTrainer:
         """The train step (``make_train_step``) and the eval step: the loss
         and the outputs without gradients."""
         shell = self.shell
-        self._train_step = make_train_step(shell, self.tx)
+        self._train_step = make_train_step(shell, self.tx, self._moco_m)
 
         def eval_step(state: TrainState, batch: Mapping[str, torch.Tensor]):
             with torch.inference_mode():

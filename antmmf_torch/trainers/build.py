@@ -14,6 +14,7 @@ import antmmf_torch.models  # noqa: F401
 import antmmf_torch.tasks  # noqa: F401
 import antmmf_torch.tasks.iteration_strategies  # noqa: F401
 import antmmf_torch.trainers.base_trainer  # noqa: F401
+import antmmf_torch.trainers.retrieval_trainer  # noqa: F401
 from antmmf_torch.common.configuration import convert_to_config
 from antmmf_torch.common.registry import registry
 

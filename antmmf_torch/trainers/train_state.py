@@ -9,14 +9,24 @@ it once per update: the model module holds compute-dtype copies (bf16 for
 Dense/Embed weights, fp32 for LayerNorm and the fp32 heads), refreshed from
 the masters after each ``apply_gradients``, and its bf16 gradients are cast
 to fp32 for the optimizer, which is what the JAX cast's gradient does.
+
+MoCo (``init_momentum``): the state also holds the fp32 EMA copy of the
+momentum subtree's masters (``momentum``, by parameter name) and a key
+module, a copy of that subtree in the compute dtype, refreshed from the EMA
+by explicit casts as ``sync_model`` refreshes the model. The step then runs
+the key forward first and the EMA update after AdamW, against the updated
+masters, as the JAX trainer reads ``new_state.params``.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
+
+from antmmf_torch.modules import moco
 
 
 class TrainState:
@@ -28,6 +38,9 @@ class TrainState:
         self.generator = generator
         self.step = step
         self.grad_norm: Optional[torch.Tensor] = None  # of the last update, before the clip
+        self.momentum: Optional[Dict[str, torch.Tensor]] = None  # fp32 EMA masters by name
+        self.key_module: Optional[nn.Module] = None
+        self.momentum_prefix = ""
 
     @classmethod
     def create(cls, model: nn.Module, tx, params: Optional[Mapping[str, torch.Tensor]] = None,
@@ -51,6 +64,29 @@ class TrainState:
         named = dict(self.model.named_parameters())
         torch._foreach_copy_([named[n] for n in self.params], list(self.params.values()))
 
+    def init_momentum(self, module: str = "base") -> None:
+        """The EMA copy of the masters under the submodule ``module`` and the
+        key module: a deep copy of that submodule, set from the EMA."""
+        self.momentum_prefix = f"{module}."
+        self.momentum = {n: t.clone() for n, t in self.params.items()
+                         if n.startswith(self.momentum_prefix)}
+        self.key_module = copy.deepcopy(getattr(self.model, module)).requires_grad_(False)
+        self.sync_key_module()
+
+    @torch.no_grad()
+    def sync_key_module(self) -> None:
+        """Cast the EMA masters into the key module's parameters."""
+        named = dict(self.key_module.named_parameters())
+        cut = len(self.momentum_prefix)
+        torch._foreach_copy_([named[n[cut:]] for n in self.momentum],
+                             list(self.momentum.values()))
+
+    def update_momentum(self, mu: float) -> None:
+        """m ← μ·m + (1 − μ)·p against the current masters, then the key module."""
+        moco.momentum_update(list(self.momentum.values()),
+                             [self.params[n] for n in self.momentum], mu)
+        self.sync_key_module()
+
     def apply_gradients(self, grads: Mapping[str, torch.Tensor], tx) -> "TrainState":
         self.grad_norm = tx.update(grads, self.opt_state, self.params)
         self.step += 1
@@ -58,18 +94,32 @@ class TrainState:
         return self
 
 
-def make_train_step(shell, tx) -> Callable[[TrainState, Mapping[str, torch.Tensor]],
-                                           Tuple[TrainState, Dict[str, torch.Tensor]]]:
+def make_train_step(shell, tx, momentum: float = 0.0
+                    ) -> Callable[[TrainState, Mapping[str, torch.Tensor]],
+                                  Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """``train_step(state, batch) -> (state, scalars)`` as the JAX trainer's
     jitted step: the shell's loss with ``deterministic=False`` (the state's
     generator drives the model's training draws), backward,
     global-norm clip and AdamW update (``tx``). ``scalars`` holds
     ``losses/*``, ``metrics/*``, ``total_loss`` and ``grad_norm`` (of the
     unclipped gradients) as device tensors: the step makes no host sync.
-    The module holds no gradients after the step."""
+    The module holds no gradients after the step.
+
+    With ``momentum`` > 0 and a state holding momentum towers, the MoCo
+    keys come first, from the key module without gradients
+    (``module.moco_keys``), into the batch as ``_moco_key_text`` and
+    ``_moco_key_video``; after AdamW the EMA moves towards the updated
+    masters. A model with queues enqueues its keys after the backward
+    (``module.flush_queues``)."""
     module = shell.module
+    flush = getattr(module, "flush_queues", None)
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor]):
+        if momentum > 0.0 and state.key_module is not None:
+            batch = shell.to_device(batch)
+            with torch.no_grad():
+                key_text, key_video = module.moco_keys(state.key_module, batch)
+            batch = {**batch, "_moco_key_text": key_text, "_moco_key_video": key_video}
         loss, (_, scalars) = shell.loss_fn(batch, deterministic=False,
                                            generator=state.generator)
         loss.backward()
@@ -78,6 +128,10 @@ def make_train_step(shell, tx) -> Callable[[TrainState, Mapping[str, torch.Tenso
             grads[n] = p.grad.float() if p.grad is not None else torch.zeros_like(state.params[n])
             p.grad = None
         state = state.apply_gradients(grads, tx)
+        if momentum > 0.0 and state.momentum is not None:
+            state.update_momentum(momentum)
+        if flush is not None:
+            flush()
         scalars["grad_norm"] = state.grad_norm
         return state, scalars
 

@@ -18,6 +18,12 @@ dicts in place of a kernel) count as leaves of a tree:
 ``export_flax_params`` is the way back, a module's parameters as a flax-layout
 tree of fp32 arrays, which ``quantize_for_decode`` takes.
 
+``load_flax_variables`` carries a whole flax variables dict: ``params``, the
+model's ``moco`` collection (each queue's ``queue``, ``ptr`` and ``filled``
+into its ``MocoQueue`` buffers) and the trainer's ``momentum`` collection
+(the EMA towers, into ``TrainState.momentum``); ``export_flax_variables`` is
+its inverse.
+
 A missing or unused key, or a shape mismatch, raises. ``params.npz`` files
 hold the flax leaves under ``/``-joined paths; they are the port's
 ``model_dir`` format. ``flax_to_masters`` gives the same carry as fp32
@@ -37,6 +43,7 @@ from torch import nn
 
 from antmmf_torch.modules.embeddings import PatchEmbed
 from antmmf_torch.modules.layers import LayerNorm
+from antmmf_torch.modules.moco import queue_buffers
 from antmmf_torch.modules.qdense import QuantDense
 
 
@@ -112,26 +119,104 @@ def flax_to_masters(model: nn.Module, params: Mapping[str, Any]) -> Dict[str, to
     return masters
 
 
-def export_flax_params(model: nn.Module) -> Dict[str, Any]:
-    """``model``'s parameters as a nested flax-layout tree of fp32 arrays
-    (Dense kernels [in, out], the patch convolution HWIO), the inverse of
-    ``load_flax_params``."""
+def _nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """{"a/b/kernel": leaf} → the nested tree."""
+    tree: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        node = tree
+        *scopes, name = path.split("/")
+        for scope in scopes:
+            node = node.setdefault(scope, {})
+        node[name] = leaf
+    return tree
+
+
+def _flax_tree(model: nn.Module, tensors: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Tensors by ``model``'s parameter names → a nested flax-layout tree of
+    fp32 arrays (Dense kernels [in, out], the patch convolution HWIO)."""
     patch = {f"{name}.proj.weight": mod.patch_size
              for name, mod in model.named_modules() if isinstance(mod, PatchEmbed)}
-    tree: Dict[str, Any] = {}
     paths = flax_paths(model)
-    for name, param in model.named_parameters():
-        value = param.detach().float().cpu().numpy()
+    flat = {}
+    for name, t in tensors.items():
+        value = t.detach().float().cpu().numpy()
         if paths[name].split("/")[-1] == "kernel":
             value = value.T
             if name in patch:
                 value = value.reshape(patch[name], patch[name], -1, value.shape[-1])
-        node = tree
-        *scopes, leaf = paths[name].split("/")
-        for scope in scopes:
-            node = node.setdefault(scope, {})
-        node[leaf] = value.copy(order="C")  # ascontiguousarray would make a 0-d leaf 1-d
-    return tree
+        flat[paths[name]] = value.copy(order="C")  # ascontiguousarray would make 0-d leaves 1-d
+    return _nest(flat)
+
+
+def export_flax_params(model: nn.Module) -> Dict[str, Any]:
+    """``model``'s parameters as a nested flax-layout tree of fp32 arrays
+    (Dense kernels [in, out], the patch convolution HWIO), the inverse of
+    ``load_flax_params``."""
+    return _flax_tree(model, dict(model.named_parameters()))
+
+
+def export_flax_variables(model: nn.Module, state=None) -> Dict[str, Any]:
+    """``{"params", "moco", "momentum"}`` in flax layout: the parameters (the
+    state's fp32 masters when a ``TrainState`` is given), the queues as
+    numpy arrays (``ptr``/``filled`` int32, as flax keeps them) and the
+    state's momentum towers; a collection the model or state lacks is left
+    out. The inverse of ``load_flax_variables``."""
+    out = {"params": _flax_tree(model, state.params if state is not None
+                                else dict(model.named_parameters()))}
+    queues = queue_buffers(model)
+    if queues:
+        out["moco"] = _nest({path: t.cpu().numpy().astype(
+            np.int32 if path.split("/")[-1] in ("ptr", "filled") else np.float32)
+            for path, t in queues.items()})
+    if state is not None and state.momentum is not None:
+        out["momentum"] = _flax_tree(model, state.momentum)
+    return out
+
+
+def load_flax_variables(model: nn.Module, variables: Mapping[str, Any], state=None) -> None:
+    """flax ``variables`` into the port: ``params`` into the model (into the
+    state's fp32 masters, then the model, when a ``TrainState`` is given),
+    every queue of the ``moco`` collection into the model's buffers, and the
+    ``momentum`` collection into ``state.momentum`` (then its key module).
+    A leaf that is missing, unused or of another shape raises."""
+    if "params" in variables:
+        if state is None:
+            load_flax_params(model, variables["params"])
+        else:
+            masters = flax_to_masters(model, variables["params"])
+            with torch.no_grad():
+                for name, t in state.params.items():
+                    t.copy_(masters[name])
+            state.sync_model()
+    buffers = queue_buffers(model)
+    loaded = flatten_flax(variables.get("moco", {}))
+    if set(loaded) != set(buffers):
+        raise KeyError(f"moco collection {sorted(loaded)} does not match the model's "
+                       f"queues {sorted(buffers)}")
+    with torch.no_grad():
+        for path, t in buffers.items():
+            if tuple(loaded[path].shape) != tuple(t.shape):
+                raise ValueError(f"moco/{path}: shape {loaded[path].shape} does not fit "
+                                 f"{tuple(t.shape)}")
+            t.copy_(torch.from_numpy(np.array(loaded[path])))
+    if "momentum" in variables:
+        if state is None or state.momentum is None:
+            raise KeyError("a momentum collection needs a TrainState with momentum towers")
+        by_path = {path: name for name, path in flax_paths(model).items()
+                   if name in state.momentum}
+        flat = flatten_flax(variables["momentum"])
+        if set(flat) != set(by_path):
+            raise KeyError(f"momentum collection does not match the state's towers: "
+                           f"unused {sorted(set(flat) - set(by_path))[:8]}, "
+                           f"missing {sorted(set(by_path) - set(flat))[:8]}")
+        with torch.no_grad():
+            for path, name in by_path.items():
+                value = to_torch_layout(path, flat[path])
+                if tuple(value.shape) != tuple(state.momentum[name].shape):
+                    raise ValueError(f"momentum/{path}: shape {value.shape} does not fit "
+                                     f"{name}")
+                state.momentum[name].copy_(torch.from_numpy(np.array(value, np.float32)))
+        state.sync_key_module()
 
 
 def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> None:

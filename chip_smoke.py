@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py              # from the repository root, on a machine with CUDA
     python3 chip_smoke.py --calibrate  # the card-vs-CPU readings: seeds and planted faults
-    python3 chip_smoke.py --calibrate pretraining  # one part: serving, training, pink, pretraining
+    python3 chip_smoke.py --calibrate dmae  # one part: serving, training, pink, pretraining, dmae
 
 Phases, each printing JSON lines; a failing phase ends the script with a
 non-zero code and no result line:
@@ -13,12 +13,15 @@ non-zero code and no result line:
 2. kernel vs plain: ``small_attention`` against ``plain_small_attention`` on
    the same inputs at the serving path's shapes and at the edges of the bf16
    kernel's tiles (L 15 to 256, D 32 to 128, strided and biased, fully masked
-   rows on both of its branches), bf16 and fp32, and its
-   autograd Function's gradients against fp32 autograd of the plain version;
+   rows on both of its branches), DMAE's temporal encoder ([128, 8, 12, 64]
+   and [4, 8, 8, 64] with a frame-padding key bias), bf16 and fp32, and its
+   autograd Function's gradients against fp32 autograd of the plain version
+   (the ViT shape, and the temporal shapes in both dtypes);
    ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` against their plain versions
    on the same inputs (the cross-encoder's [64, 12, 430, 64] with ragged key
    masks, the pretraining pass's [128, 12, 430, 64] with 30 ragged text keys
-   then 400 live visual keys, Lq ≠ Lk, causal, a fully masked row, D 32 and 128, key counts
+   then 400 live visual keys, stage-2 re-ranking's chunk of 32 such pairs and
+   a tail chunk of 5, Lq ≠ Lk, causal, a fully masked row, D 32 and 128, key counts
    around the forward's tile ring, query counts around the backward's,
    causal with a key bias, Pink's causal prefill shape), and the
    ``flash_attention`` Function against fp32 autograd of
@@ -54,7 +57,9 @@ non-zero code and no result line:
    ``--calibrate`` reads;
 7. times: text-query and full-encode latency, each kernel's time beside its
    bound, its plain version and the library call at the paths' shapes (the
-   ViT, BERT and Pink's ViT for ``small_attention``; the cross-encoder's
+   ViT, BERT, Pink's ViT and DMAE's temporal encoder for
+   ``small_attention``; the forward alone at a stage-2 chunk of 32 pairs;
+   the cross-encoder's
    pair streams of the cross-mined step (64 pairs) and of a pretraining pass
    (128 pairs), and Pink's causal prefill for ``flash_fwd``; SDPA's backward
    alone, with the kernels that ran it, for ``flash_dq`` and ``flash_dkv``;
@@ -125,10 +130,37 @@ non-zero code and no result line:
    launches of every train step and eval forward (24 / 4 / 4 / 4 and
    24 / 4 / 0 / 0), the first loss against the bare step on the trainer's
    first batch and masters, MLM targets in training and none in validation,
-   pairs/s a step and over the loop, loader wait.
+   pairs/s a step and over the loop, loader wait;
+14. retrieval variants: (a) DMAE (``dmae_vtp/configs/msrvtt_retrieval.yml``
+   at full width: 12 frames, L=32, 4 temporal layers) card bf16 against
+   CPU fp32 on the first step at B=4 with padded frames and captions: each
+   loss term's |Δ| and the gradient cosines, held to the bounds
+   ``--calibrate dmae`` reads, and three planted faults (WTI masked with
+   finfo.min instead of zero, token weights softmaxed over padding,
+   NegNCE's hard mask in one direction) each outside them; (b) the bare
+   DMAE step at its B=128 on one repeated batch (28 ``small_attention``
+   launches a step: 12 ViT, 12 BERT, 4 temporal; p50/p95, pairs/s,
+   device-busy time, idle share, device ops, peak memory); (c)
+   ``antmmf_torch.run.main`` on it through ``retrieval_trainer`` at B=32
+   over phase 12's dataset: 6 steps, the final validation's L1 and L3
+   corpus recalls equal to a host recomputation from the encode outputs,
+   a resume to 8 bit for bit; (d) MoCo on ``video_retrieval.yml``
+   (``with_queue``, ``with_momentum``, momentum 0.99, queue 4096): the bare
+   step at B=128 beside the plain step on the same batch (48 launches a
+   MoCo step: 24 online, 24 key forward), the key forward and the EMA
+   timed alone; the trainer at B=32 for 6 steps (``ptr`` 192, ``filled``
+   4096, one momentum tensor against a host EMA of the masters after each
+   step) and a resume to 8 with the queues, momentum towers and key module
+   bit for bit; (e) stage 2: ``video_retrieval.yml`` with the
+   cross-encoder through ``retrieval_trainer`` (``stage2_topk`` 8,
+   ``stage2_chunk`` 32), one validation over the 64 clips: 32 ``flash_fwd``
+   launches (16 chunks × 2 layers) and no backward kernel, 8 candidates a
+   text and −1e30 elsewhere, the L2 recalls between the host's
+   tie-optimistic and tie-pessimistic rankings of the port's own scores.
 
 Each path (serving, each training leg, each Pink request, the trainer, the
-pretraining step and trainer) runs
+pretraining step and trainer, each part of phase 14 but its card-vs-CPU
+comparison) runs
 with the kernels' launch counts set to 0 just before it and read just after;
 launches made to compare a kernel with its plain version or to time it are
 not counted. The line before the last holds the kernel table, the last line
@@ -191,7 +223,9 @@ from antmmf_torch.predictors.quantization import (  # noqa: E402
     load_decode_records,
     quantize_for_decode,
 )
+from antmmf_torch.modules.moco import queue_buffers  # noqa: E402
 from antmmf_torch.trainers.base_trainer import BaseTrainer  # noqa: E402
+from antmmf_torch.trainers.retrieval_trainer import RetrievalTrainer  # noqa: E402
 from antmmf_torch.trainers.train_state import TrainState, make_train_step  # noqa: E402
 from antmmf_torch.utils.lmdb_lite import LmdbLiteWriter  # noqa: E402
 from antmmf_torch.utils.weights import export_flax_params, flax_paths  # noqa: E402
@@ -348,6 +382,20 @@ def kernel_cases(gen):
             masked = torch.zeros(2, 1, 1, L, device=dev)
             masked[0] = fmin  # every key of sample 0 masked
             yield f"fully_masked_L{L}_{tag}", q, k, v, masked
+        yield from temporal_cases(gen, dtype)
+
+
+def temporal_cases(gen, dtype):
+    """DMAE's temporal encoder: 8 heads of 64 over 12 frames at B=128 (and 8
+    frames at B=4), trailing frames padded by the key bias, in the
+    projections' layout."""
+    tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+    for B, L, lo in ((128, 12, 8), (4, 8, 2)):
+        q, k, v = (torch.randn(B, L, 8, 64, generator=gen, device="cuda").to(dtype)
+                   .transpose(1, 2) for _ in range(3))
+        lens = torch.randint(lo, L + 1, (B,), generator=gen, device="cuda")
+        bias = make_attention_mask((torch.arange(L, device="cuda")[None] < lens[:, None]).long())
+        yield f"dmae_temporal_B{B}_L{L}_framepad_{tag}", q, k, v, bias
 
 
 def phase_kernels() -> float:
@@ -400,6 +448,24 @@ def phase_kernels() -> float:
          max_abs_err={n: e for n, (e, _) in errs.items()},
          tol={n: t for n, (_, t) in errs.items()}, ok=ok)
     check(ok, "small_attention's gradients disagree with fp32 autograd")
+    # the same at DMAE's temporal shapes, bf16 and fp32, with the frame bias
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, q, k, v, bias in temporal_cases(gen, dtype):
+            q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+            out = small_attention(q, k, v, bias=bias)
+            dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+            out.backward(dout)
+            leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+            plain_small_attention(*leaves, bias=bias).backward(dout.float())
+            errs = (grad_errs((q, k, v), leaves, "qkv") if dtype == torch.bfloat16 else
+                    {f"d{n}": (max_err(a.grad, b.grad),
+                               FP32_TOL * max(b.grad.abs().max().item(), 1.0))
+                     for a, b, n in zip((q, k, v), leaves, "qkv")})
+            ok = out.grad_fn is not None and all(e <= t for e, t in errs.values())
+            emit(phase="kernel_check", case=f"{name}_autograd",
+                 max_abs_err={n: e for n, (e, _) in errs.items()},
+                 tol={n: t for n, (_, t) in errs.items()}, ok=ok)
+            check(ok, f"small_attention's gradients disagree with fp32 autograd at {name}")
     return worst_main
 
 
@@ -438,6 +504,12 @@ def flash_cases(gen):
     text_then_frames = torch.cat([ragged(128, 30, 8), torch.zeros(128, 1, 1, 400, device=dev)], -1)
     yield "pretrain_L430_text_ragged", proj(128, 430, 12, 64), proj(128, 430, 12, 64), \
         proj(128, 430, 12, 64), text_then_frames, False
+    # stage-2 re-ranking (retrieval_trainer): a chunk of 32 pairs and a tail
+    # chunk of 5, 30 ragged text keys then 400 live visual keys
+    for P, name in ((32, "stage2_L430_text_ragged"), (5, "stage2_tail_L430_text_ragged")):
+        stream = torch.cat([ragged(P, 30, 8), torch.zeros(P, 1, 1, 400, device=dev)], -1)
+        yield name, proj(P, 430, 12, 64), proj(P, 430, 12, 64), proj(P, 430, 12, 64), \
+            stream, False
     yield "lq120_lk430_ragged", proj(8, 120, 12, 64), proj(8, 430, 12, 64), \
         proj(8, 430, 12, 64), ragged(8, 430, 100), False
     yield "causal_L430", proj(8, 430, 12, 64), proj(8, 430, 12, 64), proj(8, 430, 12, 64), \
@@ -1093,7 +1165,8 @@ def phase_times(predictors, rng, gpu):
     main = None
     for name, (B, H, L, D), biased in (("vit_b32", (256, 12, 50, 64), False),
                                        ("bert_b32_pad", (32, 12, TEXT_LEN, 64), True),
-                                       ("pink_vit_b1", (1, 12, 50, 64), False)):
+                                       ("pink_vit_b1", (1, 12, 50, 64), False),
+                                       ("dmae_temporal_b128_framepad", (128, 8, 12, 64), True)):
         q, k, v = (torch.randn(B, L, H, D, generator=gen, device="cuda")
                    .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
         bias = mask = None
@@ -1203,13 +1276,41 @@ def flash_shape_times(pair_bias, gpu, case: str) -> dict:
     return {name: {**t, "shape": [P, H, L, D]} for name, t in timing.items()}
 
 
-def phase_flash_times(pair_biases: dict, gpu) -> dict:
+def flash_fwd_times(pair_bias, gpu, case: str) -> dict:
+    """The flash forward alone at an evaluation pair stream [P, 12, L, 64]
+    bf16 (stage-2 re-ranking runs no backward), beside its plain version and
+    SDPA, with ``flash_shape_times``'s bound."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    P, L, H, D = pair_bias.shape[0], pair_bias.shape[3], 12, 64
+    q, k, v = (torch.randn(P, L, H, D, generator=gen, device="cuda")
+               .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+    kb, scale = key_bias(pair_bias, P, L), D ** -0.5
+    live = int((kb > torch.finfo(torch.float32).min / 2).sum().item())
+    mask = pair_bias > torch.finfo(torch.float32).min / 2
+    saved = read_counts()
+    row = dict(ms=graph_ms(lambda i: flash_fwd(q, k, v, kb, scale, False), 20),
+               plain_ms=cuda_ms(lambda: plain_flash_fwd(q, k, v, kb, scale, False), iters=10),
+               library_ms=graph_ms(
+                   lambda i: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 20),
+               **bound(4 * P * H * L * D * 2 + P * L * 4 + 2 * P * H * L * 4, 4 * D * H * L * live))
+    for fn in KERNELS:  # timing launches are not path launches
+        fn.launches = saved[fn.__name__]
+    emit(phase="times", exp="flash_fwd", case=case, shape=[P, H, L, D], dtype="bf16", gpu=gpu,
+         live_keys=live, **row, bound_share=row["bound_ms"] / row["ms"])
+    return row
+
+
+def phase_flash_times(pair_biases: dict, gpu, eval_biases: dict) -> dict:
     """The flash kernels at each training path's pair stream (``case`` →
-    key bias) and at Pink's causal prefill; returns the timing at the last
-    pair stream (the pretraining path's) for the kernel table."""
+    key bias), the forward alone at each evaluation pair stream
+    (``eval_biases``) and at Pink's causal prefill; returns the timing at
+    the last training pair stream (the pretraining path's) for the kernel
+    table."""
     for case, pair_bias in pair_biases.items():
         timing = flash_shape_times(pair_bias, gpu, case)
         torch.cuda.empty_cache()
+    for case, pair_bias in eval_biases.items():
+        flash_fwd_times(pair_bias, gpu, case)
     # the causal prefill of a Pink request: 113 tokens, 16 heads of 128
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     saved = read_counts()
@@ -1624,21 +1725,42 @@ class TrainerProbe:
         self.first, self.reference, self.resumed_equal = None, None, None
         self.validations, self.saves, self.restores = [], [], []
         self.raw_train_step = None  # the last trainer's step, unwrapped (uncounted timing)
+        # retrieval_trainer: launches per encode batch and per stage-2 chunk,
+        # the encode outputs on the host (with each batch's image_vid)
+        self.encode, self.rescore, self.encoded = [], [], []
+        self.track, self.tracked = None, []  # one master's value after every step
 
     def install(self):
         probe = self
         real_compile, real_save, real_restore = (BaseTrainer.compile_steps, Checkpoint.save,
                                                  Checkpoint.restore_state)
+        real_rcompile = RetrievalTrainer.compile_steps
 
         def counted(fn, calls):
-            def wrapped(state, batch):
+            def wrapped(state, batch, *rest):
                 before = read_counts()
-                out = fn(state, batch)
+                out = fn(state, batch, *rest)
                 after = read_counts()
                 calls.append({k: after[k] - before[k] for k in after})
-                probe.devices.add(batch["image_data"].device.type)
+                if isinstance(batch, dict):
+                    probe.devices.add(batch["image_data"].device.type)
                 return out
             return wrapped
+
+        def rcompile(trainer):
+            real_rcompile(trainer)
+            encode = counted(trainer._encode_step, probe.encode)
+
+            def encode_step(state, batch):
+                out = encode(state, batch)
+                probe.encoded.append(({k: v.float().cpu().numpy() for k, v in out.items()
+                                       if k not in ("text_seq", "visual_tokens")},
+                                      batch["image_vid"].cpu().numpy().reshape(-1)))
+                return out
+
+            trainer._encode_step = encode_step
+            if trainer._rescore_step is not None:
+                trainer._rescore_step = counted(trainer._rescore_step, probe.rescore)
 
         def compile_steps(trainer):
             real_compile(trainer)
@@ -1650,6 +1772,8 @@ class TrainerProbe:
                 if probe.first is None:
                     probe.first = ({n: t.clone() for n, t in state.params.items()}, dict(batch))
                 state, scalars = train(state, batch)
+                if probe.track is not None:
+                    probe.tracked.append(state.params[probe.track].clone())
                 probe.losses.append(scalars["total_loss"])
                 probe.terms.append({k: v for k, v in scalars.items() if k.startswith("losses/")})
                 return state, scalars
@@ -1663,7 +1787,7 @@ class TrainerProbe:
                 ev = trainer.evaluator
                 probe.validations.append(dict(
                     dataset_type=dataset_type, seconds=time.perf_counter() - t0, metrics=metrics,
-                    embeds=None if ev is None else
+                    embeds=None if ev is None or not ev._text else
                     [np.concatenate(x) for x in (ev._text, ev._video, ev._vids)]))
                 return metrics
 
@@ -1687,20 +1811,29 @@ class TrainerProbe:
         def uninstall():
             BaseTrainer.compile_steps, Checkpoint.save, Checkpoint.restore_state = \
                 real_compile, real_save, real_restore
+            RetrievalTrainer.compile_steps = real_rcompile
 
         BaseTrainer.compile_steps, Checkpoint.save, Checkpoint.restore_state = \
             compile_steps, save, restore_state
+        RetrievalTrainer.compile_steps = rcompile
         return uninstall
 
 
 def states_equal(a, b) -> dict:
-    """Step, masters, AdamW moments and generator of two TrainStates, bit for bit."""
+    """Step, masters, AdamW moments and generator of two TrainStates, bit for
+    bit; with MoCo also the momentum towers, the key module and the queues."""
     same = lambda x, y: all(torch.equal(x[n], y[n]) for n in y)  # noqa: E731
-    return dict(step=a.step == b.step, masters=same(a.params, b.params),
-                mu=same(a.opt_state["mu"], b.opt_state["mu"]),
-                nu=same(a.opt_state["nu"], b.opt_state["nu"]),
-                count=a.opt_state["count"] == b.opt_state["count"],
-                generator=torch.equal(a.generator.get_state(), b.generator.get_state()))
+    out = dict(step=a.step == b.step, masters=same(a.params, b.params),
+               mu=same(a.opt_state["mu"], b.opt_state["mu"]),
+               nu=same(a.opt_state["nu"], b.opt_state["nu"]),
+               count=a.opt_state["count"] == b.opt_state["count"],
+               generator=torch.equal(a.generator.get_state(), b.generator.get_state()))
+    if b.momentum is not None:
+        out.update(momentum=a.momentum is not None and same(a.momentum, b.momentum),
+                   key_module=same(dict(a.key_module.named_parameters()),
+                                   dict(b.key_module.named_parameters())),
+                   queues=same(queue_buffers(a.model), queue_buffers(b.model)))
+    return out
 
 
 def host_recalls(text: np.ndarray, video: np.ndarray, vids: np.ndarray) -> dict:
@@ -1708,16 +1841,27 @@ def host_recalls(text: np.ndarray, video: np.ndarray, vids: np.ndarray) -> dict:
     videos deduplicated by id; a caption's rank counts the videos scored
     above its own; a video's rank counts the captions scored above its best
     caption."""
-    uniq, first = np.unique(vids, return_index=True)
-    sim = text.astype(np.float64) @ video[first].astype(np.float64).T
-    col = np.searchsorted(uniq, vids)
-    t2v = (sim > sim[np.arange(len(vids)), col][:, None]).sum(1)
-    best = np.array([sim[vids == u, c].max() for c, u in enumerate(uniq)])
-    v2t = (sim.T > best[:, None]).sum(1)
-    out = {f"{d}-r@{k}": float((r < k).mean() * 100) for d, r in (("t2v", t2v), ("v2t", v2t))
-           for k in (1, 5, 10)}
+    _, first = np.unique(vids, return_index=True)
+    out = sim_recalls(text.astype(np.float64) @ video[first].astype(np.float64).T, vids)
     out["mean_recall"] = float(np.mean(list(out.values())))
     return out
+
+
+def sim_recalls(sim: np.ndarray, vids: np.ndarray, ties: str = "above") -> dict:
+    """R@1/5/10 both ways of a [caption, unique video] score grid, videos in
+    ``np.unique(vids)`` order: a caption's rank counts the videos scored
+    above its own, a video's the captions scored above its best caption;
+    ``ties="at"`` also counts the others scored equal (the worst rank that
+    any order of ties gives)."""
+    uniq = np.unique(vids)
+    col = np.searchsorted(uniq, vids)
+    beats = (lambda a, b: a > b) if ties == "above" else (lambda a, b: a >= b)
+    own = sim[np.arange(len(vids)), col][:, None]
+    t2v = beats(sim, own).sum(1) - (ties == "at")
+    best = np.array([sim[vids == u, c].max() for c, u in enumerate(uniq)])
+    v2t = beats(sim.T, best[:, None]).sum(1) - (ties == "at")
+    return {f"{d}-r@{k}": float((r < k).mean() * 100) for d, r in (("t2v", t2v), ("v2t", v2t))
+            for k in (1, 5, 10)}
 
 
 def loader_breakdown(trainer) -> dict:
@@ -2250,6 +2394,502 @@ def phase_pretraining(gpu: str) -> dict:
     counts = pretrain_trainer(gpu, bare["p50"])
     return {k: bare["totals"][k] + counts[k] for k in counts}
 
+# ----------------------------------------------------------------- phase 14
+DMAE_CONFIG = "projects/dmae_vtp/configs/msrvtt_retrieval.yml"
+DMAE_FRAMES, DMAE_TEXT_LEN, DMAE_BATCH = 12, 32, 128  # the config's frames, length, batch
+DMAE_TERMS = ("level1_similarity_loss", "level3_similarity_loss")
+# a DMAE step or forward: 12 ViT + 12 BERT layers and the 4 temporal layers
+# on K1 (its backward is plain tensor ops)
+DMAE_LAUNCHES = {"small_attention": 28, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+                 "int4_gemv": 0}
+# a MoCo step: the online towers and the key towers (no gradient), 24 each
+MOCO_OPTS = ["model_attributes.univl_retrieval.with_queue", "true",
+             "model_attributes.univl_retrieval.with_momentum", "true",
+             "model_attributes.univl_retrieval.momentum", "0.99"]
+MOCO_MU, MOCO_QUEUE = 0.99, 4096
+MOCO_LAUNCHES = {**TRAINER_LAUNCHES, "small_attention": 48}
+MOCO_TRACKED = "base.img_fc.weight"  # the momentum tensor held against a host EMA
+RV_BATCH, RV_STEPS, RV_RESUMED_STEPS = 32, 6, 8
+STAGE2_TOPK, STAGE2_CHUNK = 8, 32
+# card bf16 vs CPU fp32, DMAE's first step at B=4 on the same fp32 masters
+# and padded batch (``--calibrate dmae`` reads the gap): each loss term's
+# |Δ|, the cosine of all gradients together and the least per-parameter
+# cosine. Sound runs over three seeds stay below |Δ| 0.0013 (level 1) and
+# 0.00041 (level 3); the gradient cosines are noisy, down to 0.955 (all)
+# and 0.776 (least): bf16 rounding moves WTI's max between near-equal frame
+# tokens and NegNCE's hard set. The planted faults read |Δ level 3| 0.0098
+# (WTI masked with finfo.min), 0.026 (token weights over padding, cos 0.68)
+# and 0.0091 (the hard mask in one direction) (H100 readings)
+DMAE_DLOSS_MAX = {"level1_similarity_loss": 0.005, "level3_similarity_loss": 0.003}
+DMAE_COS_ALL, DMAE_COS_MIN = 0.9, 0.5
+
+
+def dmae_batch(B: int, seed: int, padded: bool = False) -> dict:
+    """A DMAE batch: 12 frames of 224² and captions of up to 32 tokens
+    (ragged). ``padded``: row 0 keeps 2 live frames and a 3-token caption,
+    and every row from 1 on pads its last 3 frames, so that the WTI masking
+    and the token weights meet padding on both sides."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(8, DMAE_TEXT_LEN + 1, B)
+    video_mask = np.ones((B, DMAE_FRAMES), np.int64)
+    if padded:
+        lens[0] = 3
+        video_mask[0, 2:] = 0
+        video_mask[1:, -3:] = 0
+    mask = (np.arange(DMAE_TEXT_LEN)[None] < lens[:, None]).astype(np.int64)
+    return {"image_data": rng.standard_normal((B, DMAE_FRAMES, SIZE, SIZE, 3)).astype(np.float32),
+            "video_mask": video_mask,
+            "caption_input_ids": rng.integers(1, 30522, (B, DMAE_TEXT_LEN)) * mask,
+            "caption_input_mask": mask,
+            "caption_segment_ids": np.zeros((B, DMAE_TEXT_LEN), np.int64)}
+
+
+def config_model(config: str, opts=(), device: str = "cuda", dtype: str = "bfloat16",
+                 seed: int = SEED, masters=None, momentum: float = 0.0):
+    """(shell, state, train_step) of ``config``'s only model and its
+    optimizer through the port's entry points; seeded random weights unless
+    fp32 ``masters`` are given; with ``momentum`` the state holds MoCo
+    momentum towers over ``base``."""
+    name = next(iter(build_config(config)["model_attributes"]))
+    cfg = build_config(config, opts=[f"model_attributes.{name}.dtype_str", dtype, *opts])
+    shell = build_model(cfg, device=device)
+    if masters is None:
+        shell.init(seed)
+    tx, _ = build_optimizer(flax_paths(shell.module), cfg["optimizer_attributes"].to_dict(),
+                            cfg["training_parameters"].to_dict())
+    state = TrainState.create(shell.module, tx, masters)
+    if momentum:
+        state.init_momentum("base")
+    return shell, state, make_train_step(shell, tx, momentum)
+
+
+def dmae_twins(seed: int):
+    """DMAE on the CPU in fp32 (plain versions) and on the card in bf16 on
+    the same fp32 masters, and a padded B=4 batch."""
+    cpu, cpu_state, _ = config_model(DMAE_CONFIG, device="cpu", dtype="float32", seed=seed)
+    card, _, _ = config_model(DMAE_CONFIG, masters=cpu_state.params)
+    return card, cpu, dmae_batch(4, SEED + 7, padded=True)
+
+
+def compare_dmae(card, cpu) -> dict:
+    (t_card, g_card), (t_cpu, g_cpu) = card, cpu
+    res = compare_steps((sum(t_card.values()), g_card), (sum(t_cpu.values()), g_cpu))
+    res["abs_dloss_terms"] = {k: abs(t_card[k] - t_cpu[k]) for k in t_cpu}
+    res["loss_terms_cpu"] = t_cpu
+    return res
+
+
+def dmae_within_bound(res) -> bool:
+    return res["grad_cos_all"] >= DMAE_COS_ALL and res["grad_cos_min"] >= DMAE_COS_MIN \
+        and all(res["abs_dloss_terms"][k] <= DMAE_DLOSS_MAX[k] for k in DMAE_TERMS)
+
+
+def dmae_faults(card):
+    """Faults planted on the card's model only, each undone after its step:
+    (name, plant, undo): WTI masked with −inf (finfo.min) instead of zero
+    before the max; token weights softmaxed over the padding too; NegNCE's
+    hard mask taken in the row direction only."""
+    from antmmf_torch.models import dmae
+    from antmmf_torch.modules.losses.contrastive import NEG_INF
+
+    real_wti, real_nce = dmae.wti_similarity, dmae.neg_nce_dmae
+    heads = (card.module.text_weight_head, card.module.video_weight_head)
+
+    def wti_neg_inf(tt, tw, vt, vw, tm, vm):
+        c = torch.einsum("tld,vmd->tvlm", tt.float(), vt.float())
+        valid = (tm[:, None, :, None] > 0) & (vm[None, :, None, :] > 0)
+        c = c.masked_fill(~valid, NEG_INF)
+        return 0.5 * (torch.einsum("tvl,tl->tv", c.amax(-1), tw.float())
+                      + torch.einsum("tvm,vm->tv", c.amax(-2), vw.float()))
+
+    def nce_one_direction(sim, logit_scale=100.0, c_pos=1.0, c_neg=0.5, margin=0.0):
+        sim = sim.float()
+        p = torch.softmax(sim * logit_scale, dim=-1).clamp(1e-6, 1 - 1e-6)
+        eye = torch.eye(sim.shape[0], dtype=torch.bool, device=sim.device)
+        hard = (torch.relu(margin + sim - torch.diagonal(sim)[:, None]) > 0) & ~eye
+        neg = torch.where(hard, -torch.log(1.0 - p), 0.0)
+        pos = -torch.log(torch.diagonal(p)).mean()
+        return c_pos * pos + c_neg * neg.sum() / hard.sum().clamp(min=1)
+
+    def over_padding():
+        for head in heads:
+            head.forward = (lambda h: lambda tokens, mask: torch.softmax(
+                h.weight_proj(tokens.float())[..., 0], dim=-1))(head)
+
+    def undo_heads():
+        for head in heads:
+            head.__dict__.pop("forward")
+
+    return [("wti_masked_with_neg_inf", lambda: setattr(dmae, "wti_similarity", wti_neg_inf),
+             lambda: setattr(dmae, "wti_similarity", real_wti)),
+            ("token_weights_over_padding", over_padding, undo_heads),
+            ("negnce_hard_mask_one_direction",
+             lambda: setattr(dmae, "neg_nce_dmae", nce_one_direction),
+             lambda: setattr(dmae, "neg_nce_dmae", real_nce))]
+
+
+def calibrate_dmae(seeds=3) -> None:
+    """Phase 14 (a)'s readings: sound seeds, then planted faults at the last."""
+    for seed in range(seeds):
+        card, cpu, batch = dmae_twins(seed)
+        ref = pretrain_first_step(cpu, batch)
+        res = compare_dmae(pretrain_first_step(card, batch), ref)
+        emit(phase="calibrate_dmae", kind="sound", seed=seed, **res,
+             within_bound=dmae_within_bound(res))
+    for name, plant, undo in dmae_faults(card):
+        plant()
+        try:
+            res = compare_dmae(pretrain_first_step(card, batch), ref)
+        finally:
+            undo()
+        emit(phase="calibrate_dmae", kind="fault", fault=name, seed=seeds - 1, **res,
+             within_bound=dmae_within_bound(res))
+    emit(phase="calibrate_dmae", kind="bound", dloss_max=DMAE_DLOSS_MAX,
+         grad_cos_all=DMAE_COS_ALL, grad_cos_min=DMAE_COS_MIN)
+
+
+def bare_steps(name: str, gpu: str, shell, state, step, batch, launches: dict, extra=None):
+    """Warm-up and timed steps of a bare train step on one repeated batch:
+    step times, launches, losses, peak memory, then 2 profiled steps for
+    device-busy time and idle share. Returns (state, summary)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    totals = dict.fromkeys(launches, 0)
+    times, counts, terms = [], [], []
+    for _ in range(TRAIN_WARMUP + TRAIN_STEPS):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, scalars = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts.append(read_counts())
+        terms.append({k: float(v) for k, v in scalars.items()
+                      if k.startswith("losses/") or k == "total_loss"})
+        for k, n in counts[-1].items():
+            totals[k] += n
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    timed = times[TRAIN_WARMUP:]
+    p50 = float(np.percentile(timed, 50))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    busy, n_ops, top = device_busy(prof, 2)
+    B = batch["caption_input_ids"].shape[0]
+    summary = dict(step_ms=times, step_p50_ms=p50, step_p95_ms=float(np.percentile(timed, 95)),
+                   clip_pairs_per_s=B * 1e3 / p50, launches_per_step=counts[-1],
+                   peak_mem_gb=peak_gb, device_busy_ms=busy if n_ops else "not measured",
+                   device_idle_share=1 - busy / p50 if n_ops else "not measured",
+                   device_ops_per_step=n_ops, top_device_ops_ms=top, loss_terms=terms)
+    emit(phase="retrieval_variants", part=name, batch=B, gpu=gpu, **summary, **(extra or {}))
+    check(all(np.isfinite(list(t.values())).all() for t in terms), f"{name}: a loss is not finite")
+    check(all(c == launches for c in counts),
+          f"{name}: launches per step {counts[-1]}; expected {launches}")
+    return state, dict(summary, totals=totals)
+
+
+def dmae_bare(gpu: str) -> dict:
+    """Phase 14 (b): the bare DMAE step at the config's B=128, 12 frames at
+    224², L=32, on one repeated batch."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    shell, state, step = config_model(DMAE_CONFIG)
+    batch = shell.to_device(dmae_batch(DMAE_BATCH, SEED + 1))
+    setup_s = time.perf_counter() - t0
+    _, res = bare_steps("dmae_bare_step", gpu, shell, state, step, batch, DMAE_LAUNCHES,
+                        dict(config=DMAE_CONFIG, frames=DMAE_FRAMES, text_len=DMAE_TEXT_LEN,
+                             vit_images=DMAE_BATCH * DMAE_FRAMES, setup_s=setup_s))
+    del shell, state, step, batch
+    torch.cuda.empty_cache()
+    return res["totals"]
+
+
+def rv_argv(root: str, config: str, *extra: str) -> list:
+    """``trainer_argv``'s overrides on ``config`` at B=32: one full
+    validation at the end (no test inference), the BERT vocabulary given."""
+    data = "task_attributes.univl_task.dataset_attributes.video_text_retrieval"
+    tp = "training_parameters"
+    argv = trainer_argv(root, f"{data}.text.vocab_file", VOCAB, f"{tp}.snapshot_interval",
+                        "1000", f"{tp}.run_type", "train", f"{tp}.batch_size", str(RV_BATCH),
+                        f"{tp}.test_batch_size", str(RV_BATCH), *extra)
+    argv[1] = config
+    return argv
+
+
+def rv_trainer(gpu: str, name: str, config: str, launches: dict, eval_launches: dict,
+               extra=(), track=None):
+    """``antmmf_torch.run.main`` on ``config`` over phase 12's synthetic
+    layout (written under ``build/`` and deleted at the end): RV_STEPS steps
+    at B=32 and the final full validation, then a run resumed to
+    RV_RESUMED_STEPS, its state checked bit for bit. ``launches`` are a
+    train step's, ``eval_launches`` an eval forward's or encode batch's.
+    Returns (the phase's launches, the probe, the first run's state and
+    records, the summary)."""
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="rv_smoke_", dir=build)
+    probe = TrainerProbe()
+    probe.track = track
+    uninstall = probe.install()
+    try:
+        write_msrvtt_layout(root, SEED)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        first = run.main(rv_argv(root, config, "training_parameters.max_iterations",
+                                 str(RV_STEPS), *extra))
+        setup_s = first.timings["first_step_start"] - t0
+        info = dict(state=first.state, timings=first.timings, setup_s=setup_s,
+                    validations=list(probe.validations), encoded=list(probe.encoded),
+                    encode_launches=list(probe.encode), first_n=len(probe.train))
+        probe.reference = first
+        second = run.main(rv_argv(root, config, "training_parameters.max_iterations",
+                                  str(RV_RESUMED_STEPS), "training_parameters.resume", "true",
+                                  *extra))
+        counts = read_counts()  # the main path ends here
+        info.update(resumed_end=second.state.step, resumed_state=second.state,
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        probe.reference = None
+        del first, second
+        torch.cuda.empty_cache()
+    finally:
+        uninstall()
+        shutil.rmtree(root, ignore_errors=True)
+    losses = [float(x) for x in probe.losses]
+    step_ms = [t * 1e3 for t in info["timings"]["step_s"]]
+    wait_ms = [t * 1e3 for t in info["timings"]["loader_wait_s"]]
+    val = [v for v in info["validations"] if v["dataset_type"] == "val"][-1]
+    summary = dict(losses=losses, step_ms=step_ms, step_p50_ms=float(np.percentile(step_ms, 50)),
+                   loader_wait_p50_ms=float(np.percentile(wait_ms, 50)),
+                   clip_pairs_per_s=RV_BATCH * (len(step_ms) - 1) * 1e3
+                   / float(np.sum(step_ms[1:])),
+                   clip_pairs_per_s_loop_wall=RV_BATCH * len(step_ms) / info["timings"]["loop_s"],
+                   setup_s=info["setup_s"], full_val_s=val["seconds"],
+                   val_metrics=val["metrics"], resumed_state_equal=probe.resumed_equal,
+                   resumed_end_step=info["resumed_end"], peak_mem_gb=info["peak_gb"],
+                   launches=counts, launches_per_step=probe.train[0],
+                   train_steps=len(probe.train), eval_forwards=len(probe.eval),
+                   encode_batches=len(probe.encode))
+    evals = probe.eval + probe.encode
+    check(all(np.isfinite(losses)) and len(losses) == RV_RESUMED_STEPS,
+          f"{name}: losses {losses}")
+    check(all(c == launches for c in probe.train) and all(c == eval_launches for c in evals),
+          f"{name}: launches per step {probe.train[:1]}, per eval forward or encode "
+          f"{evals[:1]}; expected {launches}, {eval_launches}")
+    check(all(counts[k] == launches[k] * len(probe.train) + eval_launches[k] * len(evals)
+              for k in counts), f"{name}: the phase launched {counts}")
+    check(probe.resumed_equal is not None and all(probe.resumed_equal.values())
+          and info["resumed_end"] == RV_RESUMED_STEPS,
+          f"{name}: resume {probe.resumed_equal}, end step {info['resumed_end']}")
+    check(probe.devices == {"cuda"}, f"{name}: ran on {probe.devices}")
+    return counts, probe, info, summary
+
+
+def host_wti(w: dict, first: np.ndarray) -> np.ndarray:
+    """The corpus WTI grid in float64 from the collected components, videos
+    at the rows ``first``: pairs with a padded token zeroed, then the max."""
+    tt, tw, tm = (w[k].astype(np.float64) for k in ("wti_text_tokens", "wti_text_weights",
+                                                      "wti_text_mask"))
+    vt, vw, vm = (w[k][first].astype(np.float64) for k in ("wti_video_tokens",
+                                                            "wti_video_weights", "wti_video_mask"))
+    c = np.einsum("tld,vmd->tvlm", tt, vt) * tm[:, None, :, None] * vm[None, :, None, :]
+    return 0.5 * (np.einsum("tvl,tl->tv", c.max(-1), tw) + np.einsum("tvm,vm->tv", c.max(-2), vw))
+
+
+def dmae_trainer(gpu: str) -> dict:
+    """Phase 14 (c): ``msrvtt_retrieval.yml`` through ``retrieval_trainer``;
+    the L1 and L3 recalls of the final validation against a host
+    recomputation from the collected encode outputs."""
+    counts, probe, info, summary = rv_trainer(gpu, "dmae_trainer", DMAE_CONFIG, DMAE_LAUNCHES,
+                                              DMAE_LAUNCHES)
+    outs = [o for o, _ in info["encoded"]]
+    vids = np.concatenate([v for _, v in info["encoded"]])
+    cat = {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+    _, first = np.unique(vids, return_index=True)
+    l1 = sim_recalls(cat["text_embed"].astype(np.float64)
+                     @ cat["visual_embed"][first].astype(np.float64).T, vids)
+    l3 = sim_recalls(host_wti(cat, first), vids)
+    reported = summary["val_metrics"]
+    host = {**{f"l1_simi_{k}": v for k, v in l1.items()},
+            **{f"l3_simi_{k}": v for k, v in l3.items()}}
+    emit(phase="retrieval_variants", part="dmae_trainer", config=DMAE_CONFIG, batch=RV_BATCH,
+         gpu=gpu, **summary, recalls_host=host, corpus_texts=len(vids))
+    check(len(info["encoded"]) == TRAINER_CLIPS // RV_BATCH and len(vids) == TRAINER_CLIPS,
+          f"dmae trainer: {len(vids)} texts encoded in the final validation")
+    check(all(abs(reported[k] - v) <= 1e-9 for k, v in host.items()),
+          f"dmae trainer: recalls {dict((k, reported[k]) for k in host)} against the host's {host}")
+    check(0 <= reported["l3_simi_t2v-mean_recall"] <= 100, "dmae trainer: L3 mean recall")
+    return counts
+
+
+def moco_bare(gpu: str) -> dict:
+    """Phase 14 (d), first part: ``video_retrieval.yml`` with MoCo (momentum
+    0.99, the model's queue of 4096) at its B=128 beside the plain step of
+    the same config on the same batch; the key forward and the EMA timed
+    alone."""
+    batch_np = train_batch(128, SEED + 1)
+    totals = dict.fromkeys(MOCO_LAUNCHES, 0)
+    results = {}
+    for leg, leg_opts, momentum, launches in (("plain", [], 0.0, TRAINER_LAUNCHES),
+                                              ("moco", MOCO_OPTS, MOCO_MU, MOCO_LAUNCHES)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        shell, state, step = config_model(TRAINER_CONFIG, leg_opts, momentum=momentum)
+        batch = shell.to_device(batch_np)
+        extra = {"config": TRAINER_CONFIG, "leg": leg}
+        state, res = bare_steps(f"moco_bare_step_{leg}", gpu, shell, state, step, batch,
+                                launches, extra)
+        results[leg] = res
+        if leg == "moco":
+            saved = read_counts()
+            module = shell.module
+            with torch.no_grad():
+                key_ms = cuda_ms(lambda: module.moco_keys(state.key_module, batch), iters=5,
+                                 warmup=2)
+            ema_ms = cuda_ms(lambda: state.update_momentum(MOCO_MU), iters=5, warmup=2)
+            for fn in KERNELS:  # timing launches are not path launches
+                fn.launches = saved[fn.__name__]
+            queue = module.text_queue
+            results["moco_parts"] = dict(key_forward_ms=key_ms, ema_ms=ema_ms,
+                                         queue_filled=int(queue.filled), queue_ptr=int(queue.ptr))
+        for k, n in res["totals"].items():
+            totals[k] += n
+        del shell, state, step, batch
+    cost = results["moco"]["step_p50_ms"] - results["plain"]["step_p50_ms"]
+    emit(phase="retrieval_variants", part="moco_cost", batch=128, gpu=gpu,
+         moco_p50_ms=results["moco"]["step_p50_ms"], plain_p50_ms=results["plain"]["step_p50_ms"],
+         moco_over_plain_ms=cost, moco_busy_ms=results["moco"]["device_busy_ms"],
+         plain_busy_ms=results["plain"]["device_busy_ms"], **results["moco_parts"])
+    parts = results["moco_parts"]
+    # 8 + 2 profiled steps (and the timed EMA passes) of 128 keys into 4096 slots
+    check(parts["queue_filled"] == MOCO_QUEUE, f"moco bare step: queue {parts}")
+    torch.cuda.empty_cache()
+    return totals
+
+
+def moco_trainer(gpu: str) -> dict:
+    """Phase 14 (d), second part: the trainer at B=32 with MoCo, 6 steps and
+    a resume to 8: ``ptr`` and ``filled`` after 6 steps, one momentum tensor
+    against a host EMA of the masters after each step, the queues and
+    momentum restored bit for bit."""
+    counts, probe, info, summary = rv_trainer(gpu, "moco_trainer", TRAINER_CONFIG, MOCO_LAUNCHES,
+                                              TRAINER_LAUNCHES, MOCO_OPTS, track=MOCO_TRACKED)
+    state = info["state"]
+    masters0 = probe.first[0][MOCO_TRACKED].cpu().float()
+    host = masters0.clone()
+    for p in probe.tracked[:info["first_n"]]:
+        host = host * MOCO_MU + (1.0 - MOCO_MU) * p.cpu().float()
+    ema_err = (state.momentum[MOCO_TRACKED].cpu() - host).abs().max().item()
+    queue = state.model.text_queue
+    ptr, filled = int(queue.ptr), int(queue.filled)
+    emit(phase="retrieval_variants", part="moco_trainer", config=TRAINER_CONFIG, batch=RV_BATCH,
+         gpu=gpu, **summary, queue_ptr=ptr, queue_filled=filled, momentum_vs_host_ema=ema_err)
+    check(ptr == RV_STEPS * RV_BATCH % MOCO_QUEUE and filled == MOCO_QUEUE,
+          f"moco trainer: ptr {ptr}, filled {filled} after {RV_STEPS} steps")
+    check(ema_err <= 1e-6, f"moco trainer: momentum against the host EMA {ema_err}")
+    probe.first = None
+    return counts
+
+
+def stage2_eval(gpu: str) -> dict:
+    """Phase 14 (e): ``video_retrieval.yml`` with the cross-encoder through
+    ``retrieval_trainer`` (``stage2_topk`` 8, ``stage2_chunk`` 32), one
+    ``evaluate_set("val")`` over the 64 clips (``run_type val``)."""
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="stage2_smoke_", dir=build)
+    probe = TrainerProbe()
+    uninstall = probe.install()
+    scores = []
+    real_rescore = RetrievalTrainer._stage2_rescore
+
+    def rescore(trainer, *args):
+        t0 = time.perf_counter()
+        scores.append(real_rescore(trainer, *args))
+        scores.append(time.perf_counter() - t0)
+        return scores[-2]
+
+    RetrievalTrainer._stage2_rescore = rescore
+    try:
+        write_msrvtt_layout(root, SEED)
+        tp = "training_parameters"
+        argv = rv_argv(root, TRAINER_CONFIG, f"{tp}.trainer", "retrieval_trainer",
+                       "model_attributes.univl_retrieval.with_cross_encoder", "true",
+                       f"{tp}.stage2_topk", str(STAGE2_TOPK), f"{tp}.stage2_chunk",
+                       str(STAGE2_CHUNK), f"{tp}.run_type", "val")
+        zero_counts()
+        t0 = time.perf_counter()
+        trainer_ = run.main(argv)
+        wall_s = time.perf_counter() - t0
+        counts = read_counts()  # the main path ends here
+        metrics = probe.validations[0]["metrics"] if probe.validations else {}
+        val_s = probe.validations[0]["seconds"] if probe.validations else None
+        del trainer_
+    finally:
+        RetrievalTrainer._stage2_rescore = real_rescore
+        uninstall()
+        shutil.rmtree(root, ignore_errors=True)
+    l2, rescore_s = scores
+    vids = np.concatenate([v for _, v in probe.encoded])
+    cand = (l2 > -1e29).sum(1)
+    lo, hi = sim_recalls(l2, vids, "above"), sim_recalls(l2, vids, "at")
+    pairs = TRAINER_CLIPS * STAGE2_TOPK
+    expected_fwd = -(-pairs // STAGE2_CHUNK) * 2  # chunks × 2 cross layers
+    reported = {k: metrics[f"l2_simi_{k}"] for k in lo}
+    emit(phase="retrieval_variants", part="stage2_eval", config=TRAINER_CONFIG, gpu=gpu,
+         clips=TRAINER_CLIPS, topk=STAGE2_TOPK, chunk=STAGE2_CHUNK, pairs=pairs,
+         evaluate_set_s=val_s, rescore_s=rescore_s, run_s=wall_s, launches=counts,
+         encode_batches=len(probe.encode), rescore_chunks=len(probe.rescore),
+         l2_recalls=reported, host_ties_above=lo, host_ties_at=hi,
+         l1_recalls={k: metrics[f"l1_simi_{k}"] for k in lo})
+    check(counts["flash_fwd"] == expected_fwd and counts["flash_dq"] == 0
+          and counts["flash_dkv"] == 0,
+          f"stage 2: {counts}; expected {expected_fwd} flash_fwd and no backward kernel")
+    check(counts["small_attention"] == 24 * len(probe.encode) and len(probe.encode) == 2,
+          f"stage 2: {counts['small_attention']} small_attention over {len(probe.encode)} encodes")
+    check(l2.shape == (TRAINER_CLIPS, TRAINER_CLIPS) and (cand == STAGE2_TOPK).all()
+          and (l2[l2 <= -1e29] == -1e30).all(), "stage 2: candidates or the −1e30 fill")
+    check(all(hi[k] <= reported[k] <= lo[k] for k in lo),
+          f"stage 2: L2 recalls {reported} outside the host's re-ranking [{hi}, {lo}]")
+    check(probe.devices == {"cuda"}, f"stage 2: ran on {probe.devices}")
+    return counts
+
+
+def phase_retrieval_variants(gpu: str) -> dict:
+    """Phase 14: (a) DMAE card vs CPU, (b) the bare DMAE step, (c) DMAE
+    through ``retrieval_trainer``, (d) MoCo bare and through the trainer,
+    (e) stage-2 re-ranking. Returns the launches of (b) to (e) by kernel."""
+    t0 = time.perf_counter()
+    card, cpu, batch = dmae_twins(SEED)
+    ref = pretrain_first_step(cpu, batch)
+    res = compare_dmae(pretrain_first_step(card, batch), ref)
+    caught = {}
+    for name, plant, undo in dmae_faults(card):
+        plant()
+        try:
+            caught[name] = not dmae_within_bound(compare_dmae(pretrain_first_step(card, batch),
+                                                              ref))
+        finally:
+            undo()
+    ok = dmae_within_bound(res)
+    emit(phase="retrieval_variants", part="dmae_card_vs_cpu", batch=4, **res,
+         dloss_max=DMAE_DLOSS_MAX, grad_cos_all_bound=DMAE_COS_ALL,
+         grad_cos_min_bound=DMAE_COS_MIN, faults_caught=caught, ok=ok)
+    check(ok, "card and CPU DMAE steps disagree beyond the stated bound")
+    check(all(caught.values()), f"DMAE card vs CPU: a planted fault passed the bound: {caught}")
+    del card, cpu, batch, ref
+    torch.cuda.empty_cache()
+    totals = dict.fromkeys(DMAE_LAUNCHES, 0)
+    for part in (dmae_bare, dmae_trainer, moco_bare, moco_trainer, stage2_eval):
+        for k, n in part(gpu).items():
+            totals[k] += n
+        torch.cuda.empty_cache()
+    emit(phase="retrieval_variants", part="summary", seconds=time.perf_counter() - t0,
+         launches=totals)
+    return totals
+
 
 SOURCES = {
     "small_attention": ("antmmf_torch/ops/csrc/small_attention.cu",
@@ -2289,8 +2929,13 @@ def main() -> None:
     text = torch.as_tensor(pretrain_batch(PRETRAIN_BATCH, SEED + 1)["caption_input_mask"]).cuda()
     pretrain_bias = make_attention_mask(torch.cat(
         [text, torch.ones(PRETRAIN_BATCH, FRAMES * VIT_TOKENS, dtype=text.dtype, device="cuda")], 1))
+    lens = torch.as_tensor(np.random.default_rng(SEED + 6).integers(8, TEXT_LEN + 1, STAGE2_CHUNK))
+    stage2_text = (torch.arange(TEXT_LEN)[None] < lens[:, None]).long().cuda()
+    stage2_bias = make_attention_mask(torch.cat([stage2_text, torch.ones(
+        STAGE2_CHUNK, FRAMES * VIT_TOKENS, dtype=stage2_text.dtype, device="cuda")], 1))
     timing = {"small_attention": timing, **phase_flash_times(
-        {"cross_mined": pair_bias, "pretraining": pretrain_bias}, gpu)}
+        {"cross_mined": pair_bias, "pretraining": pretrain_bias}, gpu,
+        {"stage2_chunk_32": stage2_bias})}
     phase_trace(walls, gpu)
     del predictors, walls
     pink, pink_launches = phase_pink(rng, gpu)
@@ -2302,6 +2947,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     launches["small_attention"] += phase_trainer(gpu, bare_p50)
     for name, n in phase_pretraining(gpu).items():
+        launches[name] += n
+    for name, n in phase_retrieval_variants(gpu).items():
         launches[name] += n
 
     print(json.dumps({"kernels": [{
@@ -2315,7 +2962,7 @@ def main() -> None:
 
 
 CALIBRATIONS = {"serving": calibrate, "training": calibrate_training, "pink": calibrate_pink,
-                "pretraining": calibrate_pretraining}
+                "pretraining": calibrate_pretraining, "dmae": calibrate_dmae}
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--calibrate"] and set(sys.argv[2:]) <= set(CALIBRATIONS):

@@ -6,8 +6,12 @@
 * without it the trainer asks for the card, and on a machine without CUDA
   that raises before any data is read: it never becomes a CPU run;
 * knobs of paths that are not ported raise with the key's name:
-  ``steps_per_dispatch`` 2, the MoCo config
-  (``video_retrieval_moco.local.yml``), a world size of 2;
+  ``steps_per_dispatch`` 2, a nonzero ``dropout``, a world size of 2;
+* the retrieval variants run to the end on the CPU: the MoCo config
+  (``video_retrieval_moco.local.yml``), DMAE through ``retrieval_trainer``
+  (``dmae_vtp/configs/msrvtt_retrieval.local.yml``), ``loss_type``
+  ``mil_nce`` and ``neg_nce``, and ``retrieval_trainer`` with the
+  cross-encoder's stage 2; without ``device cpu`` each asks for the card;
 * a SIGTERM saves a snapshot at the next step boundary and ends the run.
 """
 
@@ -22,6 +26,16 @@ from antmmf_torch import run
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = os.path.join(REPO, "projects", "base_vtp", "configs")
 CFG = os.path.join(CONFIGS, "video_retrieval.local.yml")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the suite runs several test processes side by
+    side, whose thread pools would contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _argv(save_dir, config=CFG, *extra):
@@ -56,13 +70,49 @@ def test_default_device_is_the_card(tmp_path, device):
      "training_parameters.steps_per_dispatch"),
     (CFG, ("training_parameters.remat_policy", "dots_saveable"),
      "training_parameters.remat_policy"),
-    (os.path.join(CONFIGS, "video_retrieval_moco.local.yml"), (),
-     "model_attributes.univl_retrieval.with_momentum"),
+    (CFG, ("model_attributes.univl_retrieval.dropout", "0.1"), "dropout 0.1"),
     (CFG, ("training_parameters.num_nodes", "2"), "world size 2"),
-], ids=["steps_per_dispatch", "remat_policy", "moco", "num_nodes"])
+], ids=["steps_per_dispatch", "remat_policy", "dropout", "num_nodes"])
 def test_unported_knobs_raise(tmp_path, config, extra, key):
     with pytest.raises(NotImplementedError, match=key):
         run.main(_argv(tmp_path, config, "training_parameters.device", "cpu", *extra))
+
+
+VARIANTS = {
+    "moco": (os.path.join(CONFIGS, "video_retrieval_moco.local.yml"), ()),
+    "dmae": (os.path.join(REPO, "projects", "dmae_vtp", "configs", "msrvtt_retrieval.local.yml"),
+             ()),
+    "mil_nce": (CFG, ("model_attributes.univl_retrieval.loss_type", "mil_nce")),
+    "neg_nce": (CFG, ("model_attributes.univl_retrieval.loss_type", "neg_nce")),
+    "stage2": (CFG, ("training_parameters.trainer", "retrieval_trainer",
+                     "model_attributes.univl_retrieval.with_cross_encoder", "true",
+                     "training_parameters.stage2_topk", "2")),
+}
+
+
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_cli_runs_the_retrieval_variants_on_the_cpu(tmp_path, name):
+    config, extra = VARIANTS[name]
+    trainer = run.main(_argv(tmp_path, config, "training_parameters.device", "cpu", *extra))
+    assert trainer.state.step == 2 and trainer.device.type == "cpu"
+    assert sorted(os.listdir(tmp_path / "models")) == ["best", "model_2"]
+    losses = trainer.meter.meters["train/total_loss"].deque
+    assert len(losses) == 2 and all(torch.isfinite(torch.tensor(list(losses))))
+    if name == "moco":
+        assert int(trainer.shell.module.text_queue.ptr) == 2 * 4
+    if name in ("dmae", "stage2"):
+        key = "l3_simi_t2v-mean_recall" if name == "dmae" else "l2_simi_t2v-r@1"
+        assert 0 <= trainer.evaluate_set("val")[key] <= 100
+
+
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_retrieval_variants_ask_for_the_card(tmp_path, name):
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without CUDA")
+    config, extra = VARIANTS[name]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run.main(_argv(tmp_path, config, *extra))
+    assert not (tmp_path / "models").exists()
 
 
 def test_world_size_from_the_environment_raises(tmp_path, monkeypatch):

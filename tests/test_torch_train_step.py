@@ -235,8 +235,13 @@ def test_weight_decay_mask_and_multipliers_follow_flax_paths():
 
 
 def test_unported_training_options_raise():
-    for key, value in (("loss_type", "mil_nce"), ("with_queue", True), ("dropout", 0.1)):
+    """What the port still refuses (``loss_type`` mil_nce/neg_nce and the
+    MoCo queue are ported: ``tests/test_torch_moco.py``); an unknown
+    ``loss_type`` is an error."""
+    for key, value in (("dropout", 0.1), ("sequence_parallel", "ring")):
         with pytest.raises(NotImplementedError):
             t_build(_config({**MODELS["flagship"][0], key: value}), device="cpu")
+    with pytest.raises(ValueError, match="loss_type"):
+        t_build(_config({**MODELS["flagship"][0], "loss_type": "triplet"}), device="cpu")
     with pytest.raises(NotImplementedError):
         t_optimizer({}, {"type": "lion"}, TRAINING)
