@@ -1,2 +1,10 @@
 # importing the model modules registers the models
-from antmmf_torch.models import dmae, pink, univl, univl_pretrain  # noqa: F401
+from antmmf_torch.models import (  # noqa: F401
+    dmae,
+    pink,
+    univl,
+    univl_caption,
+    univl_cls,
+    univl_mcqa,
+    univl_pretrain,
+)

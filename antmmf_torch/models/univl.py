@@ -13,7 +13,9 @@ or over the full B×B pair grid. Outputs ``l1_simi``, ``sim``, ``text_embed``,
 ``loss_type`` ``mil_nce`` (identity positives) and ``neg_nce`` (symmetric)
 replace the L1 loss; ``with_queue`` replaces it with MoCo InfoNCE against
 text and video queues held in buffers (``moco.MocoQueue``). Dropout and
-sequence parallelism raise until they are ported.
+sequence parallelism raise until they are ported. ``univl_auto`` dispatches
+on ``training_stage`` to the family's models (``roi`` raises until
+``univl_roi`` is ported).
 """
 
 from __future__ import annotations
@@ -57,7 +59,7 @@ class UnivlVideoBase(nn.Module):
                  bert_preset: str = "bert_base", embed_dim: int = 512, n_clips: int = 1,
                  token_merge_r: int = 0, with_cross_encoder: bool = False,
                  cross_layers: int = 2, dtype=torch.bfloat16, device=None,
-                 cross_sim_head: bool = True):
+                 cross_sim_head: bool = True, with_text: bool = True):
         super().__init__()
         self.n_clips = n_clips
         vit_kw = VIT_PRESETS[vit_preset]
@@ -65,16 +67,21 @@ class UnivlVideoBase(nn.Module):
                                              token_merge_r=token_merge_r,
                                              dtype=dtype, device=device, **vit_kw)
         bert_kw = BERT_PRESETS[bert_preset]
-        self.text_encoder = BertEncoder(dtype=dtype, device=device, **bert_kw)
         kw = dict(dtype=dtype, device=device)
-        text_hidden, visual_hidden = bert_kw["hidden_size"], vit_kw["embed_dim"]
-        self.img_fc = nn.Linear(visual_hidden, embed_dim, bias=False, **kw)
-        self.text_fc = nn.Linear(text_hidden, embed_dim, bias=False, **kw)
+        text_hidden, self.visual_hidden = bert_kw["hidden_size"], vit_kw["embed_dim"]
+        self.vocab_size = bert_kw["vocab_size"]
+        # a model that never calls the text tower (captioning) has no
+        # parameters for it in the JAX tree
+        if with_text:
+            self.text_encoder = BertEncoder(dtype=dtype, device=device, **bert_kw)
+        self.img_fc = nn.Linear(self.visual_hidden, embed_dim, bias=False, **kw)
+        if with_text:
+            self.text_fc = nn.Linear(text_hidden, embed_dim, bias=False, **kw)
         self.with_cross_encoder = with_cross_encoder
         if with_cross_encoder:
-            width = max(text_hidden, visual_hidden)
+            width = max(text_hidden, self.visual_hidden)
             self.cross_text_proj = nn.Linear(text_hidden, width, **kw)
-            self.cross_visual_proj = nn.Linear(visual_hidden, width, **kw)
+            self.cross_visual_proj = nn.Linear(self.visual_hidden, width, **kw)
             self.cross_type_embed = nn.Embedding(2, width, **kw)
             self.cross_encoder = TransformerEncoder(
                 width, cross_layers, max(1, width // 64), norm_style="post",
@@ -125,6 +132,53 @@ class UnivlVideoBase(nn.Module):
         """The trained L2 match score of each (text, video) pair → f32[P]."""
         cross = self.forward_cross_encoder(text_seq, text_mask, visual_seq, visual_mask)
         return self.cross_sim_head(cross["cross_pooled"].float())[..., 0]
+
+
+def config_keys(cls) -> set:
+    """The keyword arguments a model class takes: those of its ``__init__``
+    and, while an ``__init__`` passes ``**kw`` on, of its bases' (the JAX
+    ``from_config`` takes the dataclass fields, inherited ones included)."""
+    names = set()
+    for klass in cls.__mro__:
+        init = vars(klass).get("__init__")
+        if init is None:
+            continue
+        params = inspect.signature(init).parameters.values()
+        names |= {p.name for p in params if p.kind in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY)}
+        if not any(p.kind is p.VAR_KEYWORD for p in params):
+            break
+    return names - {"self", "device"}
+
+
+# ``training_stage`` → model (``antmmf_tpu/models/univl.py:209-238``)
+STAGES = {"pretraining": "univl_pretrain", "pretrain": "univl_pretrain",
+          "retrieval": "univl_retrieval", "classification": "univl_classification",
+          "mcqa": "univl_mcqa", "caption": "univl_caption", "generation": "univl_caption",
+          "roi": "univl_roi"}
+
+
+def univl_dispatch(config: Mapping[str, Any], device=None) -> nn.Module:
+    """The reference's ``Univl`` model dispatches on its task config:
+    ``training_stage`` (default ``retrieval``) picks the family, built from
+    the rest of the config. An unknown stage is a ``KeyError``, as in JAX."""
+    config = dict(config or {})
+    stage = config.pop("training_stage", "retrieval")
+    name = STAGES.get(stage)
+    if name is None:
+        raise KeyError(f"Unknown univl training_stage {stage!r}")
+    if name == "univl_roi":
+        raise NotImplementedError("univl training_stage 'roi' (univl_roi) is not ported yet; "
+                                  "it is slice 11")
+    return registry.get_model_class(name).from_config(config, device=device)
+
+
+@registry.register_model("univl_auto")
+class UnivlDispatch:
+    """Config-dispatched UniVL entry point (see ``univl_dispatch``)."""
+
+    @classmethod
+    def from_config(cls, config: Mapping[str, Any], device=None) -> nn.Module:
+        return univl_dispatch(config, device)
 
 
 @registry.register_model("univl_retrieval")
@@ -184,7 +238,7 @@ class UnivlForVideoTextRetrieval(nn.Module):
 
     @classmethod
     def from_config(cls, config: Mapping[str, Any], device=None) -> "UnivlForVideoTextRetrieval":
-        names = set(inspect.signature(cls.__init__).parameters) - {"self", "device"}
+        names = config_keys(cls)
         return cls(device=device, **{k: v for k, v in dict(config).items() if k in names})
 
     def optimizer_lr_multipliers(self, tp: Mapping[str, Any]):

@@ -1,47 +1,76 @@
 """Multi-head attention with its core routed to the hand-written kernels.
 
 Port of ``antmmf_tpu/modules/attention.py`` (``xla_attention_core``,
-``attention_core`` and ``MultiHeadAttention`` on the plain self-attention
-branch). Routing is by structure alone:
+``attention_core`` and ``MultiHeadAttention`` with its cross-attention and
+incremental-decoding branches). Routing is by structure alone, decided
+before any kernel is tried:
 
-* no bias or a key-padding bias [B, 1, 1, Lk], self-attention at L <= 256:
+* head widths that neither kernel family instantiates (D not in
+  ``HEAD_DIMS``), and one-token decode calls against a cache
+  (``use_kernels=False``, as the JAX package passes ``use_pallas=False``
+  there): the einsum core, where the JAX router takes its XLA core;
+* query- or head-dependent biases: the einsum core, as the JAX router sends
+  such biases to its XLA core;
+* no bias or a key-padding bias [B|1, 1, 1, Lk], self-attention at L <= 256:
   ``ops.small_attention`` (kernel K1);
 * the same biases past 256 tokens, or Lq ≠ Lk: ``ops.flash_attention`` (the
-  flash forward, dQ and dK/dV kernels);
-* query- or head-dependent biases: the einsum core, as the JAX router sends
-  such biases to its XLA core.
+  flash forward, dQ and dK/dV kernels).
 
 Both kernel ops are autograd Functions. On the CPU they compute their plain
-versions; on the card a dtype or head width a kernel does not take raises
-and never falls back to the einsum core. Decode caches, ``cached_kv``,
-sequence parallelism and ``sow_attention`` are not ported.
+versions; on the card a call the router gave a kernel that the kernel
+refuses (a dtype it does not take, a launch that fails) raises and never
+falls back to the einsum core. Sequence parallelism, the fused QKV
+projection and ``sow_attention`` are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from antmmf_torch.ops.flash_attention import flash_attention
-from antmmf_torch.ops.small_attention import MAX_L, einsum_attention, small_attention
+from antmmf_torch.ops.small_attention import HEAD_DIMS, MAX_L, einsum_attention, small_attention
+
+MASKED = -1e30  # the JAX package's additive mask for causal and decode-cache slots
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    bias: Optional[torch.Tensor] = None,
-                   scale: Optional[float] = None) -> torch.Tensor:
-    if bias is not None and bias.dim() == 4 and (bias.shape[1] > 1 or bias.shape[2] > 1):
+                   scale: Optional[float] = None, use_kernels: bool = True) -> torch.Tensor:
+    """softmax(q·kᵀ·scale + bias)·v over q [B, H, Lq, D] and k, v [B, H, Lk, D],
+    routed as the module docstring says (both kernel families instantiate
+    the same head widths, ``HEAD_DIMS``)."""
+    if not use_kernels or q.shape[-1] not in HEAD_DIMS:
         return einsum_attention(q, k, v, bias=bias, scale=scale)
+    if bias is not None and bias.dim() == 4:
+        if bias.shape[1] > 1 or bias.shape[2] > 1:
+            return einsum_attention(q, k, v, bias=bias, scale=scale)
+        # a key bias broadcast over the batch (a causal mask over one token)
+        bias = bias.expand(q.shape[0], 1, 1, k.shape[2])
     if q.shape[2] == k.shape[2] <= MAX_L:
         return small_attention(q, k, v, bias=bias, scale=scale)
     return flash_attention(q, k, v, bias=bias, scale=scale)
 
 
 class MultiHeadAttention(nn.Module):
-    """Self-attention with separate q/k/v projections (flax names
+    """Self- or cross-attention with separate q/k/v projections (flax names
     ``q_proj``/``k_proj``/``v_proj``/``out_proj``). ``bias`` is an additive
-    fp32 mask (see ``layers.make_attention_mask``)."""
+    fp32 mask (see ``layers.make_attention_mask``).
+
+    ``forward(x, bias, kv=None, ...)``: with ``kv`` [B, Lk, C] the keys and
+    values come from it (cross-attention). Incremental decoding, as in the
+    JAX module:
+
+    * ``return_kv``: project ``kv`` once and return its (k, v) heads
+      [B, H, Lk, D], for reuse as ``cached_kv`` (the cross-attention memory,
+      primed once per request);
+    * ``cached_kv`` (k, v): skip the k/v projections;
+    * ``cache`` {"k", "v"} [B, H, T, D] with ``decode_pos`` int[B]: one-token
+      self-attention; each row's k/v is written in place at its slot, the
+      row attends to slots <= its position, and the call returns
+      (out, cache)."""
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.bfloat16, device=None):
         super().__init__()
@@ -54,15 +83,40 @@ class MultiHeadAttention(nn.Module):
         self.v_proj = nn.Linear(dim, dim, **kw)
         self.out_proj = nn.Linear(dim, dim, **kw)
 
-    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        B, L, C = x.shape
-        H = self.num_heads
+    def _heads(self, t: torch.Tensor) -> torch.Tensor:
+        # a strided [B, H, L, D] view of [B, L, H, D]: the kernels read it in
+        # place, without a transposed copy
+        B, L, C = t.shape
+        return t.view(B, L, self.num_heads, C // self.num_heads).transpose(1, 2)
 
-        def heads(t: torch.Tensor) -> torch.Tensor:
-            # a strided [B, H, L, D] view of [B, L, H, D]: the kernels read it
-            # in place, without a transposed copy
-            return t.view(B, L, H, C // H).transpose(1, 2)
+    def _out(self, out: torch.Tensor) -> torch.Tensor:
+        B, H, L, D = out.shape
+        return self.out_proj(out.transpose(1, 2).reshape(B, L, H * D))
 
-        out = attention_core(heads(self.q_proj(x)), heads(self.k_proj(x)),
-                             heads(self.v_proj(x)), bias=bias)
-        return self.out_proj(out.transpose(1, 2).reshape(B, L, C))
+    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                kv: Optional[torch.Tensor] = None, return_kv: bool = False,
+                cached_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                cache: Optional[Dict[str, torch.Tensor]] = None,
+                decode_pos: Optional[torch.Tensor] = None):
+        kv = x if kv is None else kv
+        if return_kv:
+            return self._heads(self.k_proj(kv)), self._heads(self.v_proj(kv))
+        q = self._heads(self.q_proj(x))
+        if cached_kv is not None:
+            return self._out(attention_core(q, *cached_kv, bias=bias))
+        if cache is not None:
+            if decode_pos is None or x.shape[1] != 1:
+                raise ValueError("a decode-cache call takes x [B, 1, C] and decode_pos int[B]")
+            B, T = x.shape[0], cache["k"].shape[2]
+            rows = torch.arange(B, device=x.device)
+            cache["k"][rows, :, decode_pos] = self._heads(self.k_proj(x))[:, :, 0].to(
+                cache["k"].dtype)
+            cache["v"][rows, :, decode_pos] = self._heads(self.v_proj(x))[:, :, 0].to(
+                cache["v"].dtype)
+            valid = torch.arange(T, device=x.device)[None] <= decode_pos[:, None]
+            step_bias = torch.where(valid, 0.0, MASKED)[:, None, None, :]
+            out = attention_core(q, cache["k"], cache["v"], bias=step_bias, use_kernels=False)
+            return self._out(out), cache
+        out = attention_core(q, self._heads(self.k_proj(kv)), self._heads(self.v_proj(kv)),
+                             bias=bias)
+        return self._out(out)

@@ -1,13 +1,16 @@
 """Corpus-level evaluators: host-side collect/summarize over a whole eval set.
 
-Port of ``antmmf_tpu/modules/metrics/evaluators.py``'s retrieval evaluator:
+Port of ``antmmf_tpu/modules/metrics/evaluators.py``'s retrieval and caption
+evaluators:
 ``GlobalRetrievalRecallEvaluator`` gathers the text and video embeddings of
 every eval batch and computes text→video and video→text recalls with
 multi-ground-truth min-rank; with ``image_vid`` in the batch, videos are
 deduplicated by id (which also drops the rows that ``pad_last`` repeated;
 repeated captions stay, as in the JAX package). ``recall_metrics`` turns
-0-based ranks into R@1/5/10 (percent), median and mean rank. The other
-evaluators raise until they are ported.
+0-based ranks into R@1/5/10 (percent), median and mean rank.
+``CaptioningEvaluator`` (``captioning``) scores generated captions with
+corpus BLEU-4 and ROUGE-L. The other evaluators raise until they are
+ported.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from __future__ import annotations
 from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
+
+from antmmf_torch.modules.metrics.extended import bleu4, rouge_l
 
 
 class BaseEvaluator:
@@ -119,9 +124,45 @@ class GlobalRetrievalRecallEvaluator(BaseEvaluator):
         return out
 
 
-EVALUATORS = {"global_retrieval_recall": GlobalRetrievalRecallEvaluator}
-NOT_PORTED = ("classification", "vqa_accuracy", "captioning", "grounding", "detection",
-              "bbox_ap")
+class CaptioningEvaluator(BaseEvaluator):
+    """Corpus BLEU-4 and mean ROUGE-L of generated against reference token
+    ids: ``output["generated_ids"]`` against the batch's
+    ``caption_raw_input_ids`` (else ``targets``), each stripped of the
+    ``pad_ids`` (default 0, 101, 102). A batch without both is skipped (the
+    trainer's forward generates nothing, as in the JAX package)."""
+
+    def __init__(self, params: Optional[Mapping[str, Any]] = None):
+        self.params = dict(params or {})
+        self.pad_ids = set(self.params.get("pad_ids", [0, 101, 102]))
+        self.reset()
+
+    def reset(self) -> None:
+        self._cands: List[List[int]] = []
+        self._refs: List[List[int]] = []
+
+    def _strip(self, seq) -> List[int]:
+        return [int(t) for t in np.asarray(seq).reshape(-1) if int(t) not in self.pad_ids]
+
+    def collect(self, batch: Mapping, output: Mapping) -> None:
+        gen = output.get("generated_ids")
+        ref = batch.get("caption_raw_input_ids", batch.get("targets"))
+        if gen is None or ref is None:
+            return
+        for g, r in zip(np.asarray(gen), np.asarray(ref)):
+            self._cands.append(self._strip(g))
+            self._refs.append(self._strip(r))
+
+    def summarize(self) -> Dict[str, float]:
+        if not self._cands:
+            return {}
+        return {"bleu4": bleu4(self._cands, self._refs),
+                "rouge_l": float(np.mean([rouge_l(c, r)
+                                          for c, r in zip(self._cands, self._refs)]))}
+
+
+EVALUATORS = {"global_retrieval_recall": GlobalRetrievalRecallEvaluator,
+              "captioning": CaptioningEvaluator}
+NOT_PORTED = ("classification", "vqa_accuracy", "grounding", "detection", "bbox_ap")
 
 
 def build_evaluator(config: Optional[Mapping[str, Any]]) -> Optional[BaseEvaluator]:

@@ -25,22 +25,12 @@ from antmmf_torch.common.registry import registry
 from antmmf_torch.datasets.processors.image_processors import NormalizedImageProcessor
 from antmmf_torch.datasets.processors.text_processors import DEFAULT_VOCAB, _resolve_vocab_path
 from antmmf_torch.predictors.base_predictor import BasePredictor
+from antmmf_torch.predictors.caption_predictor import ids_to_caption
 from antmmf_torch.predictors.quantization import load_decode_records, quantize_for_decode
 from antmmf_torch.structures.sample import Sample, SampleList
 from antmmf_torch.utils.conversation import build_prompt
 from antmmf_torch.utils.tokenization import BertTokenizer
 from antmmf_torch.utils.weights import export_flax_params
-
-
-def ids_to_caption(tokenizer, ids) -> str:
-    """[SEP]-terminated wordpiece ids → text (``caption_predictor.py`` of the
-    JAX package)."""
-    tokens = tokenizer.convert_ids_to_tokens([int(t) for t in ids])
-    for stop in ("[SEP]", "[PAD]"):
-        if stop in tokens:
-            tokens = tokens[: tokens.index(stop)]
-    tokens = [t for t in tokens if t != "[CLS]"]
-    return " ".join(tokens).replace(" ##", "").strip("##").strip()
 
 
 @registry.register_predictor("generation_predictor")

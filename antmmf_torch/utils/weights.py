@@ -9,7 +9,9 @@ layer_0.attention.q_proj``), so the carry is a name map plus transposes:
 * ``Embed`` ``embedding`` → ``weight``;
 * everything else (``pos_embedding``, ``cls_token``, the ``logit_scale``
   scalar, ``RMSNorm``'s ``scale``, the ``lora_a``/``lora_b`` matrices of
-  ``LoRADense`` and the ``q_lora_a``-style adapters inside attention) as is.
+  ``LoRADense``, the ``q_lora_a``-style adapters inside attention, and
+  ``ClassifierLayer``'s ``weight`` [in, labels], ``scale`` and ``queries``)
+  as is.
 
 ``QuantDense`` carries like the ``Linear`` it is; ``LoRADense`` keeps flax's
 ``base`` scope. Decode records (``{"q4", "scale"}`` and ``{"q", "scale"}``

@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py              # from the repository root, on a machine with CUDA
     python3 chip_smoke.py --calibrate  # the card-vs-CPU readings: seeds and planted faults
-    python3 chip_smoke.py --calibrate dmae  # one part: serving, training, pink, pretraining, dmae
+    python3 chip_smoke.py --calibrate dmae  # one part: serving, training, pink, pretraining,
+                                            # dmae, task_heads
 
 Phases, each printing JSON lines; a failing phase ends the script with a
 non-zero code and no result line:
@@ -156,11 +157,34 @@ non-zero code and no result line:
    ``stage2_chunk`` 32), one validation over the 64 clips: 32 ``flash_fwd``
    launches (16 chunks × 2 layers) and no backward kernel, 8 candidates a
    text and −1e30 elsewhere, the L2 recalls between the host's
-   tie-optimistic and tie-pessimistic rankings of the port's own scores.
+   tie-optimistic and tie-pessimistic rankings of the port's own scores;
+15. task heads (``video_retrieval.yml`` with ``model_class`` overridden):
+   (a) ``caption_predictor`` through the CLI's code on ``univl_caption`` at
+   its defaults (ViT-B/32 on 8 frames at 224², 3 decoder layers of 768 with
+   8 heads, vocabulary 30,522, 40 tokens, 4 beams, seeded weights): a
+   warm-up and 6 requests, each launching K1 12 times (the ViT) and no flash
+   kernel (the decoder's 96-wide heads take the einsum core); request
+   p50/p95, prime ms (ViT and the memory k/v), decode ms a step (the rest
+   over 39 steps), peak memory, idle share over one profiled request;
+   (b) card bf16 against CPU fp32 on the same masters at B=2: the caption
+   model's teacher-forced logits (cosine, |Δ| over the spread) and loss,
+   MCQA's option logits, held to the bounds ``--calibrate task_heads``
+   reads; three planted faults outside them (the causal mask dropped, the
+   memory mask ignored, MCQA attending to option padding); the caption
+   model in fp32 on the card, beam search with the caches against
+   re-encoding (tokens, each step's candidates, the cached decode's logits
+   on the re-encoded tokens), and the cache written one slot late outside
+   that bound; (c) the bare train step at B=32 of ``univl_caption``,
+   ``univl_classification`` and ``univl_mcqa`` (12, 24 and 24 K1 launches
+   a step; p50/p95, pairs/s, busy ms, idle share, ops, peak memory); (d)
+   ``univl_caption`` through ``antmmf_torch.run.main`` on phase 12's
+   synthetic layout, 6 steps at B=32 and a resume to 8 bit for bit, the
+   first loss against the bare step's on the same batch and masters.
 
 Each path (serving, each training leg, each Pink request, the trainer, the
 pretraining step and trainer, each part of phase 14 but its card-vs-CPU
-comparison) runs
+comparison, each caption request, bare step and trainer run of phase 15)
+runs
 with the kernels' launch counts set to 0 just before it and read just after;
 launches made to compare a kernel with its plain version or to time it are
 not counted. The line before the last holds the kernel table, the last line
@@ -169,6 +193,7 @@ the result. Without CUDA the script exits non-zero before printing anything.
 
 from __future__ import annotations
 
+import gc
 import io
 import json
 import os
@@ -1787,7 +1812,7 @@ class TrainerProbe:
                 ev = trainer.evaluator
                 probe.validations.append(dict(
                     dataset_type=dataset_type, seconds=time.perf_counter() - t0, metrics=metrics,
-                    embeds=None if ev is None or not ev._text else
+                    embeds=None if not getattr(ev, "_text", None) else
                     [np.concatenate(x) for x in (ev._text, ev._video, ev._vids)]))
                 return metrics
 
@@ -2548,7 +2573,8 @@ def calibrate_dmae(seeds=3) -> None:
          grad_cos_all=DMAE_COS_ALL, grad_cos_min=DMAE_COS_MIN)
 
 
-def bare_steps(name: str, gpu: str, shell, state, step, batch, launches: dict, extra=None):
+def bare_steps(name: str, gpu: str, shell, state, step, batch, launches: dict, extra=None,
+               phase: str = "retrieval_variants"):
     """Warm-up and timed steps of a bare train step on one repeated batch:
     step times, launches, losses, peak memory, then 2 profiled steps for
     device-busy time and idle share. Returns (state, summary)."""
@@ -2576,13 +2602,13 @@ def bare_steps(name: str, gpu: str, shell, state, step, batch, launches: dict, e
             state, _ = step(state, batch)
         torch.cuda.synchronize()
     busy, n_ops, top = device_busy(prof, 2)
-    B = batch["caption_input_ids"].shape[0]
+    B = batch["image_data"].shape[0]
     summary = dict(step_ms=times, step_p50_ms=p50, step_p95_ms=float(np.percentile(timed, 95)),
                    clip_pairs_per_s=B * 1e3 / p50, launches_per_step=counts[-1],
                    peak_mem_gb=peak_gb, device_busy_ms=busy if n_ops else "not measured",
                    device_idle_share=1 - busy / p50 if n_ops else "not measured",
                    device_ops_per_step=n_ops, top_device_ops_ms=top, loss_terms=terms)
-    emit(phase="retrieval_variants", part=name, batch=B, gpu=gpu, **summary, **(extra or {}))
+    emit(phase=phase, part=name, batch=B, gpu=gpu, **summary, **(extra or {}))
     check(all(np.isfinite(list(t.values())).all() for t in terms), f"{name}: a loss is not finite")
     check(all(c == launches for c in counts),
           f"{name}: launches per step {counts[-1]}; expected {launches}")
@@ -2891,6 +2917,420 @@ def phase_retrieval_variants(gpu: str) -> dict:
     return totals
 
 
+# ----------------------------------------------------------------- phase 15
+TASK_MODEL = "model_attributes.univl_retrieval"
+CAPTION_OPTS = [f"{TASK_MODEL}.model_class", "univl_caption"]
+CLS_OPTS = [f"{TASK_MODEL}.model_class", "univl_classification"]
+MCQA_OPTS = [f"{TASK_MODEL}.model_class", "univl_mcqa"]
+CAPTION_LEN, CAPTION_BEAMS, CAPTION_REQUESTS = 40, 4, 6  # the model's defaults; timed requests
+MCQA_OPTIONS, TASK_BATCH, TWIN_BATCH = 5, 32, 2
+NO_LAUNCHES = {"small_attention": 0, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+               "int4_gemv": 0}
+# a caption request or step: the ViT's 12 layers on K1; the decoder's heads
+# are 768 / 8 = 96 wide, outside the kernels, so its attention takes the
+# einsum core. Classification and MCQA: 12 ViT + 12 BERT layers (MCQA's B·5
+# options in one text-tower call)
+CAPTION_LAUNCHES = {**NO_LAUNCHES, "small_attention": 12}
+TOWER_LAUNCHES = {**NO_LAUNCHES, "small_attention": 24}
+# card bf16 vs CPU fp32 on the same masters (``--calibrate task_heads``):
+# the teacher-forced caption loss's |Δ|, the cosine of the logits at the
+# scored positions and their largest |Δ| over the CPU logits' spread, and
+# MCQA's largest |Δlogit|. Sound runs over three seeds stay below |Δloss|
+# 0.0025, above cos 0.999962, below 0.0052 of the spread, and below MCQA's
+# 0.022; the causal mask dropped reads |Δloss| 0.114, cos 0.867; the memory
+# mask ignored cos 0.9974 and 0.072 of the spread (its |Δloss| 0.0003 is
+# inside); MCQA attending to option padding 0.366 (H100 readings)
+CAPTION_DLOSS_MAX, CAPTION_COS_MIN, CAPTION_DLOGIT_MAX = 0.01, 0.9995, 0.02
+MCQA_DLOGIT_MAX = 0.1
+# the card in fp32: the cached decode's logits against the re-encoded ones
+# on the same tokens, over their spread (sound 7.8e-7 at most over three
+# seeds, the cache written one slot late 0.21); where the two searches'
+# candidate indices part, the smallest gap between adjacent top candidates
+# in log-probability (no sound run parted)
+CACHE_DLOGIT_MAX, TIE_GAP_MAX = 1e-5, 1e-3
+
+
+def caption_batch(B: int, seed: int) -> dict:
+    """8 frames of 224², row 1 with its last 3 frames padded; captions of
+    8 to 30 tokens ([CLS] ... [SEP], then pads) as ``caption_raw_input_ids``."""
+    batch = train_batch(B, seed)
+    ids, mask = batch.pop("caption_input_ids"), batch["caption_input_mask"]
+    lens = mask.sum(1)
+    ids[:, 0] = 101
+    ids[np.arange(B), lens - 1] = 102
+    batch.update(caption_raw_input_ids=ids)
+    if B > 1:
+        batch["video_mask"][1, -3:] = 0
+    return batch
+
+
+def cls_batch(B: int, seed: int) -> dict:
+    return {**train_batch(B, seed),
+            "targets": np.random.default_rng(seed + 1).integers(0, 2, B)}
+
+
+def mcqa_batch(B: int, seed: int) -> dict:
+    """5 options of 4 to 30 tokens a clip, and the answer's index."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(4, TEXT_LEN + 1, (B, MCQA_OPTIONS))
+    mask = (np.arange(TEXT_LEN)[None, None] < lens[..., None]).astype(np.int64)
+    return {"image_data": rng.standard_normal((B, FRAMES, SIZE, SIZE, 3)).astype(np.float32),
+            "video_mask": np.ones((B, FRAMES), np.int64),
+            "options_input_ids": rng.integers(1, 30522, (B, MCQA_OPTIONS, TEXT_LEN)) * mask,
+            "options_input_mask": mask, "targets": rng.integers(0, MCQA_OPTIONS, B)}
+
+
+def task_model(opts, device: str = "cuda", dtype: str = "bfloat16", seed: int = SEED,
+               masters=None):
+    """(shell, state, train_step) of ``video_retrieval.yml``'s model class
+    overridden by ``opts``, at full width."""
+    return config_model(TRAINER_CONFIG, opts, device, dtype, seed, masters)
+
+
+def caption_serving(gpu: str) -> dict:
+    """Phase 15 (a): ``caption_predictor`` through the CLI's code on
+    ``video_retrieval.yml`` with ``univl_caption`` at its defaults (seeded
+    weights): a warm-up and CAPTION_REQUESTS requests of 8 frames at 224²,
+    4 beams, 40 tokens. Returns the launches of the requests."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gc.collect()  # tensors of earlier phases held only by reference cycles
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    pred, _ = build_predictor(["--config", TRAINER_CONFIG, "--predictor", "caption_predictor",
+                               "--no_ckpt", *CAPTION_OPTS])
+    load_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 15)
+    reqs = [{"image_data": rng.standard_normal((FRAMES, SIZE, SIZE, 3)).astype(np.float32)}
+            for _ in range(CAPTION_REQUESTS + 1)]
+    totals, lat, outs = dict.fromkeys(NO_LAUNCHES, 0), [], []
+    for req in reqs:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(pred.predict(req))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()  # the main path ends here
+        check(counts == CAPTION_LAUNCHES,
+              f"caption request: launches {counts}; expected {CAPTION_LAUNCHES}")
+        for k, n in counts.items():
+            totals[k] += n
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - held_gb  # above what was held
+    for out in outs:
+        ids = np.asarray(out["generated_ids"])
+        check(ids.shape == (1, CAPTION_LEN) and ids[0, 0] == 101
+              and ((ids >= 0) & (ids < 30522)).all(), f"caption ids {ids.shape}")
+        check(isinstance(out["caption"], str) and np.isfinite(out["scores"]).all(),
+              "caption text and score")
+    timed = lat[1:]
+    module = pred.shell.module
+    batch = pred.shell.to_device(pred.build_sample(reqs[0]).arrays())
+
+    def prime():
+        with torch.inference_mode():
+            memory, _ = module._memory(batch)
+            module.decoder.prime(memory)
+
+    prime_ms = pct(host_ms(lambda: (prime(), torch.cuda.synchronize()), 10, 2))["p50_ms"]
+    p50 = float(np.percentile(timed, 50))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pred.predict(reqs[1])
+        torch.cuda.synchronize()
+    busy, n_ops, top = device_busy(prof, 1)
+    summary = dict(request_ms=lat, request_p50_ms=p50,
+                   request_p95_ms=float(np.percentile(timed, 95)), prime_ms=prime_ms,
+                   decode_ms_per_step=(p50 - prime_ms) / (CAPTION_LEN - 1),
+                   peak_mem_gb=peak_gb, held_before_gb=held_gb, load_s=load_s,
+                   launches_per_request=CAPTION_LAUNCHES,
+                   device_busy_ms=busy if n_ops else "not measured",
+                   device_idle_share=1 - busy / p50 if n_ops else "not measured",
+                   device_ops_per_request=n_ops, top_device_ops_ms=top,
+                   captions=[o["caption"][:60] for o in outs[:2]])
+    emit(phase="task_heads", part="caption_serving", beams=CAPTION_BEAMS, tokens=CAPTION_LEN,
+         frames=FRAMES, gpu=gpu, **summary)
+    del pred, module, batch
+    torch.cuda.empty_cache()
+    return totals
+
+
+def task_twins(opts, seed: int):
+    """The model on the CPU in fp32 (plain versions) and on the card in bf16
+    on the same fp32 masters."""
+    cpu, cpu_state, _ = task_model(opts, "cpu", "float32", seed)
+    card, _, _ = task_model(opts, masters=cpu_state.params)
+    return card, cpu
+
+
+def forward_out(shell, batch) -> dict:
+    with torch.no_grad():
+        _, (out, scalars) = shell.loss_fn(batch, deterministic=True)
+    return dict(logits=out["logits"].float().cpu(),
+                loss=float(next(v for k, v in scalars.items() if k.startswith("losses/"))))
+
+
+def compare_caption(card, cpu, batch) -> dict:
+    """Teacher-forced logits at the positions the loss scores, and the loss."""
+    valid = torch.as_tensor(batch["caption_input_mask"][:, 1:] > 0)
+    a, b = card["logits"][:, :-1][valid].double(), cpu["logits"][:, :-1][valid].double()
+    cos = torch.nn.functional.cosine_similarity(a.reshape(-1), b.reshape(-1), dim=0).item()
+    return dict(loss_card=card["loss"], loss_cpu=cpu["loss"],
+                abs_dloss=abs(card["loss"] - cpu["loss"]), logits_cos=cos,
+                max_abs_dlogit_over_spread=((a - b).abs().max() / (b.max() - b.min())).item())
+
+
+def compare_mcqa(card, cpu) -> dict:
+    return dict(loss_card=card["loss"], loss_cpu=cpu["loss"],
+                max_abs_dlogit=(card["logits"] - cpu["logits"]).abs().max().item(),
+                logits_cpu=cpu["logits"].tolist())
+
+
+def caption_within_bound(res) -> bool:
+    return res["abs_dloss"] <= CAPTION_DLOSS_MAX and res["logits_cos"] >= CAPTION_COS_MIN \
+        and res["max_abs_dlogit_over_spread"] <= CAPTION_DLOGIT_MAX
+
+
+def mcqa_within_bound(res) -> bool:
+    return res["max_abs_dlogit"] <= MCQA_DLOGIT_MAX
+
+
+def cache_late(real_forward):
+    """A decode call's k/v written one slot past its position (and its
+    validity mask shifted with it)."""
+    def forward(self, x, bias=None, kv=None, return_kv=False, cached_kv=None, cache=None,
+                decode_pos=None):
+        return real_forward(self, x, bias, kv, return_kv, cached_kv, cache,
+                            None if decode_pos is None else decode_pos + 1)
+    return forward
+
+
+def task_faults():
+    """Faults planted on the card's models only: (name, model, plant, undo).
+    The caption decoder with its causal mask dropped, or its cross-attention
+    ignoring the memory mask; MCQA attending to the options' padding."""
+    from antmmf_torch.modules import decoders
+
+    real_causal, real_mask = decoders.causal_bias, decoders.make_attention_mask
+    return [
+        ("causal_mask_dropped", "caption",
+         lambda: setattr(decoders, "causal_bias", lambda L, device=None: torch.zeros(
+             1, 1, L, L, device=device)),
+         lambda: setattr(decoders, "causal_bias", real_causal)),
+        ("memory_mask_ignored", "caption",
+         lambda: setattr(decoders, "make_attention_mask", lambda m: torch.zeros(
+             m.shape[0], 1, 1, m.shape[1], device=m.device)),
+         lambda: setattr(decoders, "make_attention_mask", real_mask)),
+        ("option_padding_attended", "mcqa", None, None)]
+
+
+def twin_readings(seed: int, faults: bool = False) -> dict:
+    """Card bf16 vs CPU fp32 on the same masters: the caption model's
+    teacher-forced logits and loss at B=2 (a padded frame, ragged captions),
+    MCQA's option logits at B=2; with ``faults`` each planted fault's too."""
+    out = {}
+    cb, mb = caption_batch(TWIN_BATCH, SEED + 30 + seed), mcqa_batch(TWIN_BATCH, SEED + 40 + seed)
+    for model, opts in (("caption", CAPTION_OPTS), ("mcqa", MCQA_OPTS)):
+        card, cpu = task_twins(opts, seed)
+        batch = cb if model == "caption" else mb
+        ref = forward_out(cpu, batch)
+        compare_fn = (lambda c: compare_caption(c, ref, cb)) if model == "caption" else \
+            (lambda c: compare_mcqa(c, ref))
+        out[model] = compare_fn(forward_out(card, batch))
+        for name, target, plant, undo in task_faults() if faults else ():
+            if target != model:
+                continue
+            if plant is None:  # the options' masks all ones on the card
+                res = compare_fn(forward_out(card, {**batch, "options_input_mask":
+                                                    np.ones_like(batch["options_input_mask"])}))
+            else:
+                plant()
+                try:
+                    res = compare_fn(forward_out(card, batch))
+                finally:
+                    undo()
+            out[name] = res
+        del card, cpu
+        torch.cuda.empty_cache()
+    return out
+
+
+def cache_reading(seed: int, fault: bool = False) -> dict:
+    """The caption model in fp32 on the card: beam search with the caches and
+    by re-encoding (4 beams, 40 tokens, B=2 with a padded frame), every
+    step's top candidates recorded; and the cached decode's logits against
+    the re-encoded ones on the re-encoded best tokens. With ``fault`` the
+    decode cache is written one slot late."""
+    from antmmf_torch.modules import attention
+    from antmmf_torch.utils import text_utils
+
+    shell, _, _ = task_model(CAPTION_OPTS, dtype="float32", seed=seed)
+    module = shell.module
+    batch = shell.to_device(caption_batch(TWIN_BATCH, SEED + 50 + seed))
+    real_top_k, real_forward = text_utils.top_k, attention.MultiHeadAttention.forward
+    logs = {}
+
+    def recording(log):
+        def top_k(x, k):
+            v, i = real_top_k(x, min(k + 1, x.shape[-1]))
+            log.append((v.cpu(), i.cpu()))
+            return v[:, :k], i[:, :k]
+        return top_k
+
+    if fault:
+        attention.MultiHeadAttention.forward = cache_late(real_forward)
+    try:
+        runs = {}
+        for use_cache in (True, False):
+            logs[use_cache] = []
+            text_utils.top_k = recording(logs[use_cache])
+            runs[use_cache] = module.generate(batch, num_beams=CAPTION_BEAMS,
+                                              max_length=CAPTION_LEN, use_cache=use_cache)
+        text_utils.top_k = real_top_k
+        tokens = runs[False][0]
+        with torch.inference_mode():
+            memory, mm = module._memory(batch)
+            full = module.decoder(tokens, memory, mm)
+            kvs = module.decoder.prime(memory)
+            H = module.decoder_heads
+            caches = [{n: torch.zeros(TWIN_BATCH, H, CAPTION_LEN, memory.shape[-1] // H,
+                                      device=memory.device) for n in ("k", "v")} for _ in kvs]
+            worst = 0.0
+            for t in range(CAPTION_LEN - 1):
+                pos = torch.full((TWIN_BATCH,), t, dtype=torch.long, device=memory.device)
+                logits, caches = module.decoder.decode_step(tokens[:, t], pos, caches, kvs, mm)
+                worst = max(worst, (logits - full[:, t]).abs().max().item())
+            spread = (full.max() - full.min()).item()
+    finally:
+        text_utils.top_k, attention.MultiHeadAttention.forward = real_top_k, real_forward
+    parted = [j for j, (a, b) in enumerate(zip(logs[True], logs[False]))
+              if not torch.equal(a[1][:, :CAPTION_BEAMS], b[1][:, :CAPTION_BEAMS])]
+    gap = None
+    if parted:  # the smallest gap between adjacent top candidates where they part
+        v = logs[False][parted[0]][0]
+        gap = (v[:, :-1] - v[:, 1:]).min().item()
+    res = dict(tokens_equal=torch.equal(runs[True][0], runs[False][0]),
+               scores_cached=runs[True][1].tolist(), scores_reencoded=runs[False][1].tolist(),
+               cache_dlogit_over_spread=worst / spread, steps_parted=parted[:5],
+               tie_gap_where_parted=gap)
+    del shell, module, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def cache_within_bound(res) -> bool:
+    return res["cache_dlogit_over_spread"] <= CACHE_DLOGIT_MAX and (
+        res["tie_gap_where_parted"] is None or res["tie_gap_where_parted"] <= TIE_GAP_MAX)
+
+
+def calibrate_task_heads(seeds=3) -> None:
+    """Phase 15 (b)'s readings: sound seeds, then the planted faults at the last."""
+    for seed in range(seeds):
+        res = twin_readings(seed, faults=seed == seeds - 1)
+        for name, r in res.items():
+            kind = "sound" if name in ("caption", "mcqa") else "fault"
+            within = (caption_within_bound(r) if "logits_cos" in r else mcqa_within_bound(r))
+            emit(phase="calibrate_task_heads", kind=kind, case=name, seed=seed, **r,
+                 within_bound=within)
+        res = cache_reading(seed)
+        emit(phase="calibrate_task_heads", kind="sound", case="cache", seed=seed, **res,
+             within_bound=cache_within_bound(res))
+    res = cache_reading(seeds - 1, fault=True)
+    emit(phase="calibrate_task_heads", kind="fault", case="cache_one_slot_late", seed=seeds - 1,
+         **res, within_bound=cache_within_bound(res))
+    emit(phase="calibrate_task_heads", kind="bound", caption_dloss_max=CAPTION_DLOSS_MAX,
+         caption_cos_min=CAPTION_COS_MIN, caption_dlogit_max=CAPTION_DLOGIT_MAX,
+         mcqa_dlogit_max=MCQA_DLOGIT_MAX, cache_dlogit_max=CACHE_DLOGIT_MAX,
+         tie_gap_max=TIE_GAP_MAX)
+
+
+def task_card_vs_cpu() -> None:
+    """Phase 15 (b): the readings at seed 0, each fault outside its bound."""
+    res = twin_readings(SEED, faults=True)
+    cache, late = cache_reading(SEED), cache_reading(SEED, fault=True)
+    caught = {name: not (caption_within_bound(r) if "logits_cos" in r else mcqa_within_bound(r))
+              for name, r in res.items() if name not in ("caption", "mcqa")}
+    caught["cache_one_slot_late"] = not cache_within_bound(late)
+    emit(phase="task_heads", part="card_vs_cpu", batch=TWIN_BATCH, caption=res["caption"],
+         mcqa=res["mcqa"], cache=cache, faults={n: r for n, r in res.items()
+                                                 if n not in ("caption", "mcqa")},
+         cache_fault=late, faults_caught=caught,
+         bounds=dict(caption_dloss_max=CAPTION_DLOSS_MAX, caption_cos_min=CAPTION_COS_MIN,
+                     caption_dlogit_max=CAPTION_DLOGIT_MAX, mcqa_dlogit_max=MCQA_DLOGIT_MAX,
+                     cache_dlogit_max=CACHE_DLOGIT_MAX, tie_gap_max=TIE_GAP_MAX))
+    check(caption_within_bound(res["caption"]), f"caption card vs CPU: {res['caption']}")
+    check(mcqa_within_bound(res["mcqa"]), f"MCQA card vs CPU: {res['mcqa']}")
+    check(cache_within_bound(cache), f"caption cached vs re-encoded: {cache}")
+    check(all(caught.values()), f"task heads: a planted fault passed the bound: {caught}")
+
+
+def task_bare_steps(gpu: str) -> dict:
+    """Phase 15 (c): the bare train step at B=32 of each model on one
+    repeated batch. Returns (the launches by kernel, each model's summary)."""
+    totals, summaries = dict.fromkeys(NO_LAUNCHES, 0), {}
+    for name, opts, make_batch, launches in (
+            ("caption", CAPTION_OPTS, caption_batch, CAPTION_LAUNCHES),
+            ("classification", CLS_OPTS, cls_batch, TOWER_LAUNCHES),
+            ("mcqa", MCQA_OPTS, mcqa_batch, TOWER_LAUNCHES)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        shell, state, step = task_model(opts)
+        batch = shell.to_device(make_batch(TASK_BATCH, SEED + 60))
+        _, res = bare_steps(f"{name}_bare_step", gpu, shell, state, step, batch, launches,
+                            dict(config=TRAINER_CONFIG, model_class=opts[1]), phase="task_heads")
+        for k, n in res["totals"].items():
+            totals[k] += n
+        summaries[name] = res
+        del shell, state, step, batch
+    torch.cuda.empty_cache()
+    return totals, summaries
+
+
+def caption_trainer(gpu: str, bare_p50_ms: float) -> dict:
+    """Phase 15 (d): ``univl_caption`` through ``antmmf_torch.run.main`` on
+    phase 12's synthetic layout (the ``captioning`` evaluator, which scores
+    nothing: the trainer does not generate), 6 steps at B=32 and a resume to
+    8 bit for bit; the first loss against the bare step on the trainer's
+    first batch and masters."""
+    counts, probe, info, summary = rv_trainer(
+        gpu, "caption_trainer", TRAINER_CONFIG, CAPTION_LAUNCHES, CAPTION_LAUNCHES,
+        extra=(*CAPTION_OPTS, "training_parameters.evaluator", "captioning"))
+    masters, first_batch = probe.first
+    shell, state, step = task_model(CAPTION_OPTS, masters=masters)
+    _, bare = step(state, first_batch)
+    bare_loss = float(bare["total_loss"])
+    probe.first = None
+    del shell, state, step, masters, first_batch, bare
+    torch.cuda.empty_cache()
+    losses = summary["losses"]
+    emit(phase="task_heads", part="caption_trainer", config=TRAINER_CONFIG, batch=RV_BATCH,
+         gpu=gpu, **summary, bare_step_p50_ms_b32=bare_p50_ms,
+         first_step_loss=dict(trainer=losses[0], bare=bare_loss,
+                              equal="bit for bit" if losses[0] == bare_loss else
+                              f"within {abs(losses[0] - bare_loss):.3g}"))
+    check(abs(losses[0] - bare_loss) <= FIRST_LOSS_ATOL,
+          f"caption trainer: first-step loss {losses[0]} against the bare step's {bare_loss}")
+    check("bleu4" not in summary["val_metrics"], "caption trainer: validation generated")
+    return counts
+
+
+def phase_task_heads(gpu: str) -> dict:
+    """Phase 15: (a) caption serving, (b) card vs CPU with planted faults,
+    (c) the bare steps, (d) the caption trainer. Returns the launches of (a),
+    (c) and (d) by kernel."""
+    t0 = time.perf_counter()
+    totals = caption_serving(gpu)
+    task_card_vs_cpu()
+    bare, summaries = task_bare_steps(gpu)
+    trainer_counts = caption_trainer(gpu, summaries["caption"]["step_p50_ms"])
+    for part in (bare, trainer_counts):
+        for k, n in part.items():
+            totals[k] += n
+    emit(phase="task_heads", part="summary", seconds=time.perf_counter() - t0, launches=totals)
+    return totals
+
+
 SOURCES = {
     "small_attention": ("antmmf_torch/ops/csrc/small_attention.cu",
                         "antmmf_tpu/ops/pallas/small_attention.py:62"),
@@ -2950,6 +3390,8 @@ def main() -> None:
         launches[name] += n
     for name, n in phase_retrieval_variants(gpu).items():
         launches[name] += n
+    for name, n in phase_task_heads(gpu).items():
+        launches[name] += n
 
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -2962,7 +3404,8 @@ def main() -> None:
 
 
 CALIBRATIONS = {"serving": calibrate, "training": calibrate_training, "pink": calibrate_pink,
-                "pretraining": calibrate_pretraining, "dmae": calibrate_dmae}
+                "pretraining": calibrate_pretraining, "dmae": calibrate_dmae,
+                "task_heads": calibrate_task_heads}
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--calibrate"] and set(sys.argv[2:]) <= set(CALIBRATIONS):

@@ -151,17 +151,27 @@ def test_query_dependent_bias_takes_the_einsum_core():
     (300, 64, torch.float16, "pad"),
 ])
 def test_key_bias_attention_never_takes_the_einsum_core(L, D, dtype, bias_kind, monkeypatch):
-    """A shape or dtype the kernels do not take reaches a kernel's wrapper
-    (small attention to L = 256, flash beyond), which refuses it; the einsum
-    core is kept for query- or head-dependent biases only."""
+    """Within the kernels' head widths a key-bias attention never takes the
+    einsum core: a dtype the kernels do not take reaches a kernel's wrapper
+    (small attention to L = 256, flash beyond), which refuses it. A head
+    width outside ``HEAD_DIMS`` (48 here) is routed to the einsum core by
+    structure, before any kernel is tried, as JAX routes it to XLA."""
+    calls = []
+
     def einsum_attention(*args, **kwargs):
-        raise AssertionError("a key-bias attention took the einsum core")
+        calls.append("einsum")
 
     monkeypatch.setattr(t_attention, "einsum_attention", einsum_attention)
     q = torch.zeros(2, 2, L, D, dtype=dtype)
     bias = _bias(bias_kind, 2, L, np.random.default_rng(8))
-    with pytest.raises(ValueError, match="(small|flash)_attention takes"):
-        t_attention.attention_core(q, q, q, None if bias is None else torch.from_numpy(bias))
+    bias = None if bias is None else torch.from_numpy(bias)
+    if D in t_attention.HEAD_DIMS:
+        with pytest.raises(ValueError, match="(small|flash)_attention takes"):
+            t_attention.attention_core(q, q, q, bias)
+        assert calls == []
+    else:
+        t_attention.attention_core(q, q, q, bias)
+        assert calls == ["einsum"]
 
 
 @pytest.mark.parametrize("r", [0, 1, 3])
@@ -215,7 +225,10 @@ def test_port_imports_no_jax():
                 "modules.transformers.heads.mlm", "modules.transformers.heads.itm",
                 "modules.transformers.heads.fom", "common.constants", "modules.moco",
                 "modules.losses.contrastive", "models.dmae", "trainers.retrieval_trainer",
-                "trainers.train_state", "utils.weights"):
+                "trainers.train_state", "utils.weights", "modules.decoders",
+                "modules.classifier", "modules.metrics.extended", "utils.text_utils",
+                "models.univl_caption", "models.univl_cls", "models.univl_mcqa",
+                "datasets.mcqa_dataset", "predictors.caption_predictor"):
         assert f"antmmf_torch.{new}" in mods, new
 
     tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
