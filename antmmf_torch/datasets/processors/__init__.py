@@ -1,2 +1,6 @@
 # importing the processor modules registers the processors
-from antmmf_torch.datasets.processors import image_processors, text_processors  # noqa: F401
+from antmmf_torch.datasets.processors import (  # noqa: F401
+    image_processors,
+    region_processors,
+    text_processors,
+)

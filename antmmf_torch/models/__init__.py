@@ -7,4 +7,5 @@ from antmmf_torch.models import (  # noqa: F401
     univl_cls,
     univl_mcqa,
     univl_pretrain,
+    univl_roi,
 )

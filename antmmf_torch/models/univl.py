@@ -14,8 +14,7 @@ or over the full B×B pair grid. Outputs ``l1_simi``, ``sim``, ``text_embed``,
 replace the L1 loss; ``with_queue`` replaces it with MoCo InfoNCE against
 text and video queues held in buffers (``moco.MocoQueue``). Dropout and
 sequence parallelism raise until they are ported. ``univl_auto`` dispatches
-on ``training_stage`` to the family's models (``roi`` raises until
-``univl_roi`` is ported).
+on ``training_stage`` to the family's models.
 """
 
 from __future__ import annotations
@@ -59,22 +58,26 @@ class UnivlVideoBase(nn.Module):
                  bert_preset: str = "bert_base", embed_dim: int = 512, n_clips: int = 1,
                  token_merge_r: int = 0, with_cross_encoder: bool = False,
                  cross_layers: int = 2, dtype=torch.bfloat16, device=None,
-                 cross_sim_head: bool = True, with_text: bool = True):
+                 cross_sim_head: bool = True, with_text: bool = True,
+                 with_visual: bool = True):
         super().__init__()
         self.n_clips = n_clips
         vit_kw = VIT_PRESETS[vit_preset]
-        self.img_encoder = VisionTransformer(image_size=image_size,
-                                             token_merge_r=token_merge_r,
-                                             dtype=dtype, device=device, **vit_kw)
+        # a model that never calls a tower (captioning the text tower, ROI
+        # pretraining without its grid stream the ViT) has no parameters
+        # for it in the JAX tree
+        if with_visual:
+            self.img_encoder = VisionTransformer(image_size=image_size,
+                                                 token_merge_r=token_merge_r,
+                                                 dtype=dtype, device=device, **vit_kw)
         bert_kw = BERT_PRESETS[bert_preset]
         kw = dict(dtype=dtype, device=device)
         text_hidden, self.visual_hidden = bert_kw["hidden_size"], vit_kw["embed_dim"]
         self.vocab_size = bert_kw["vocab_size"]
-        # a model that never calls the text tower (captioning) has no
-        # parameters for it in the JAX tree
         if with_text:
             self.text_encoder = BertEncoder(dtype=dtype, device=device, **bert_kw)
-        self.img_fc = nn.Linear(self.visual_hidden, embed_dim, bias=False, **kw)
+        if with_visual:
+            self.img_fc = nn.Linear(self.visual_hidden, embed_dim, bias=False, **kw)
         if with_text:
             self.text_fc = nn.Linear(text_hidden, embed_dim, bias=False, **kw)
         self.with_cross_encoder = with_cross_encoder
@@ -166,9 +169,6 @@ def univl_dispatch(config: Mapping[str, Any], device=None) -> nn.Module:
     name = STAGES.get(stage)
     if name is None:
         raise KeyError(f"Unknown univl training_stage {stage!r}")
-    if name == "univl_roi":
-        raise NotImplementedError("univl training_stage 'roi' (univl_roi) is not ported yet; "
-                                  "it is slice 11")
     return registry.get_model_class(name).from_config(config, device=device)
 
 

@@ -22,10 +22,24 @@ on the towers and cross-encoder of ``models/univl.py``:
   The JAX package draws both from its ``dropout`` rng stream, which torch
   cannot reproduce; without training nothing is shuffled.
 
+* ``attentive_masking``: in training, the caption's MLM positions are
+  redrawn in proportion to the text tower's word importance
+  (``BertEncoder.word_importance`` of ``caption_raw_input_ids``, its
+  probabilities from the einsum core, no gradient) on one step in two:
+  ``n_mask = max(1, int(L · attentive_mask_ratio))`` positions a row by a
+  Gumbel top-k over log(importance + 1e-6) with noise from uniform(1e-9,
+  1), never a special token ([CLS], [SEP], padding id 0) or a padded
+  position; they become ``mask_token_id`` with the raw ids as labels. A
+  coin (probability 0.5) a step picks these ids and labels or the
+  processor's uniform ones. The top-k is ``utils.text_utils.top_k``, ties
+  at the lower index as ``jax.lax.top_k``. Both draws come from the
+  trainer's generator (``attentive_draws``); the JAX package draws them
+  from its ``dropout`` stream.
+
 The output holds ``losses``, ``metrics``, ``text_embed``, ``visual_embed``
 and, with their objectives, ``sim``/``l1_simi``, ``itm_logits`` and
-``mlm_logits``; ``logits`` is ``sim`` (else the first loss).
-``attentive_masking`` and dropout raise until they are ported.
+``mlm_logits``; ``logits`` is ``sim`` (else the first loss). Dropout
+raises until it is ported.
 """
 
 from __future__ import annotations
@@ -42,6 +56,9 @@ from antmmf_torch.modules.losses.contrastive import symmetric_cross_en
 from antmmf_torch.modules.transformers.heads.fom import FOMHead
 from antmmf_torch.modules.transformers.heads.itm import ITMHead
 from antmmf_torch.modules.transformers.heads.mlm import MLMHead
+from antmmf_torch.utils.text_utils import top_k
+
+SPECIAL_IDS = (101, 102, 0)  # [CLS], [SEP] and padding: never masked
 
 
 @registry.register_model("univl_pretrain")
@@ -56,17 +73,17 @@ class UnivlForVideoPretraining(nn.Module):
                  cross_layers: int = 2, dropout: float = 0.0, with_vtc: bool = True,
                  with_vtm: bool = True, with_mlm: bool = True, dual_mlm: bool = False,
                  with_fom: bool = False, attentive_masking: bool = False,
+                 attentive_mask_ratio: float = 0.15, mask_token_id: int = 103,
                  fom_shuffle_prob: float = 0.15, init_logit_scale: float = 2.6592,
                  dtype_str: str = "bfloat16", device=None):
         super().__init__()
-        if attentive_masking:
-            raise NotImplementedError("attentive_masking: importance-sampled MLM masking is "
-                                      "not ported yet")
         if dropout:
             raise NotImplementedError(f"dropout {dropout} is not ported yet; only 0 is")
         dtype = getattr(torch, dtype_str)
         self.with_vtc, self.with_vtm, self.with_mlm = with_vtc, with_vtm, with_mlm
         self.dual_mlm, self.with_fom, self.fom_shuffle_prob = dual_mlm, with_fom, fom_shuffle_prob
+        self.attentive_masking, self.attentive_mask_ratio = attentive_masking, attentive_mask_ratio
+        self.mask_token_id = mask_token_id
         self.base = UnivlVideoBase(vit_preset, image_size, bert_preset, embed_dim, n_clips,
                                    with_cross_encoder=True, cross_layers=cross_layers,
                                    dtype=dtype, device=device, cross_sim_head=False)
@@ -110,12 +127,51 @@ class UnivlForVideoPretraining(nn.Module):
         perm = torch.randperm(F, generator=generator, device=device)
         return perm, torch.rand(B, generator=generator, device=device) < self.fom_shuffle_prob
 
+    def attentive_draws(self, B: int, L: int, device, generator: Optional[torch.Generator]
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The Gumbel top-k's uniforms in [1e-9, 1) [B, L] and the step's coin."""
+        u = torch.rand(B, L, generator=generator, device=device)
+        return 1e-9 + (1.0 - 1e-9) * u, torch.rand((), generator=generator, device=device) < 0.5
+
+    def attentive_mask(self, raw_ids: torch.Tensor, input_mask: torch.Tensor,
+                       segment_ids: Optional[torch.Tensor], uniform_ids: torch.Tensor,
+                       uniform_labels: Optional[torch.Tensor],
+                       generator: Optional[torch.Generator]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(ids, labels) of the step: importance-sampled or the processor's."""
+        B, L = raw_ids.shape
+        with torch.no_grad():
+            importance = self.base.text_encoder.word_importance(raw_ids, input_mask, segment_ids)
+        special = torch.zeros_like(raw_ids, dtype=torch.bool)
+        for token in SPECIAL_IDS:
+            special |= raw_ids == token
+        off = special | (input_mask == 0)
+        imp = torch.where(off, 0.0, importance.float()) + 1e-6
+        n_mask = max(1, int(L * self.attentive_mask_ratio))
+        uniform, use_att = self.attentive_draws(B, L, raw_ids.device, generator)
+        scores = torch.log(imp) - torch.log(-torch.log(uniform))
+        scores = torch.where(off, torch.finfo(torch.float32).min, scores)
+        _, pos = top_k(scores, n_mask)
+        chosen = torch.zeros(B, L, dtype=torch.bool, device=raw_ids.device)
+        chosen[torch.arange(B, device=raw_ids.device)[:, None], pos] = True
+        chosen &= ~special & (input_mask > 0)
+        att_ids = torch.where(chosen, self.mask_token_id, raw_ids)
+        att_labels = torch.where(chosen, raw_ids, -1)
+        ids = torch.where(use_att, att_ids, uniform_ids)
+        labels = att_labels if uniform_labels is None else torch.where(use_att, att_labels,
+                                                                       uniform_labels)
+        return ids, labels
+
     def forward(self, batch: Mapping[str, torch.Tensor], deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         losses: Dict[str, torch.Tensor] = {}
         metrics: Dict[str, torch.Tensor] = {}
         input_ids, input_mask = batch["caption_input_ids"], batch["caption_input_mask"]
         lm_labels = batch.get("caption_lm_label_ids")
+        if self.attentive_masking and not deterministic:
+            input_ids, lm_labels = self.attentive_mask(
+                batch.get("caption_raw_input_ids", input_ids), input_mask,
+                batch.get("caption_segment_ids"), input_ids, lm_labels, generator)
         text = self.base.forward_text_encoder(input_ids, input_mask,
                                               batch.get("caption_segment_ids"))
         video = self.base.forward_img_encoder(batch["image_data"])

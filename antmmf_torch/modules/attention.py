@@ -16,6 +16,10 @@ before any kernel is tried:
 * the same biases past 256 tokens, or Lq ≠ Lk: ``ops.flash_attention`` (the
   flash forward, dQ and dK/dV kernels).
 
+A call that asks for the attention probabilities (``return_probs``, the
+word-importance pass) takes the einsum core by structure, as the JAX
+module takes its XLA core for them: the kernels return no probabilities.
+
 Both kernel ops are autograd Functions. On the CPU they compute their plain
 versions; on the card a call the router gave a kernel that the kernel
 refuses (a dtype it does not take, a launch that fails) raises and never
@@ -54,6 +58,17 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention(q, k, v, bias=bias, scale=scale)
 
 
+def attention_probs(q: torch.Tensor, k: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """fp32 softmax(q·kᵀ·scale + bias) [B, H, Lq, Lk], ``einsum_attention``'s
+    probabilities."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        logits = logits + bias
+    return torch.softmax(logits, dim=-1)
+
+
 class MultiHeadAttention(nn.Module):
     """Self- or cross-attention with separate q/k/v projections (flax names
     ``q_proj``/``k_proj``/``v_proj``/``out_proj``). ``bias`` is an additive
@@ -70,7 +85,9 @@ class MultiHeadAttention(nn.Module):
     * ``cache`` {"k", "v"} [B, H, T, D] with ``decode_pos`` int[B]: one-token
       self-attention; each row's k/v is written in place at its slot, the
       row attends to slots <= its position, and the call returns
-      (out, cache)."""
+      (out, cache);
+    * ``return_probs``: (out, probabilities [B, H, Lq, Lk]) from the einsum
+      core."""
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.bfloat16, device=None):
         super().__init__()
@@ -97,7 +114,7 @@ class MultiHeadAttention(nn.Module):
                 kv: Optional[torch.Tensor] = None, return_kv: bool = False,
                 cached_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
-                decode_pos: Optional[torch.Tensor] = None):
+                decode_pos: Optional[torch.Tensor] = None, return_probs: bool = False):
         kv = x if kv is None else kv
         if return_kv:
             return self._heads(self.k_proj(kv)), self._heads(self.v_proj(kv))
@@ -117,6 +134,8 @@ class MultiHeadAttention(nn.Module):
             step_bias = torch.where(valid, 0.0, MASKED)[:, None, None, :]
             out = attention_core(q, cache["k"], cache["v"], bias=step_bias, use_kernels=False)
             return self._out(out), cache
-        out = attention_core(q, self._heads(self.k_proj(kv)), self._heads(self.v_proj(kv)),
-                             bias=bias)
-        return self._out(out)
+        k, v = self._heads(self.k_proj(kv)), self._heads(self.v_proj(kv))
+        if return_probs:
+            probs = attention_probs(q, k, bias)
+            return self._out(torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)), probs
+        return self._out(attention_core(q, k, v, bias=bias))

@@ -1,7 +1,8 @@
 """Text and visual embeddings.
 
 Port of ``antmmf_tpu/modules/embeddings.py``: ``TextEmbeddings`` (word +
-position + token type, then fp32 LayerNorm), ``PatchEmbed`` (the stride-p
+position + token type, plus an optional additive ``extra`` such as
+LayoutLM's box embeddings, then fp32 LayerNorm), ``PatchEmbed`` (the stride-p
 VALID convolution over NHWC images with an HWIO kernel) and
 ``VisualEmbeddings`` (patches + CLS token + learned positions).
 """
@@ -29,14 +30,17 @@ class TextEmbeddings(nn.Module):
         self.token_type_embeddings = nn.Embedding(type_vocab_size, hidden_size, **kw)
         self.layer_norm = LayerNorm(hidden_size, layer_norm_eps, dtype, device)
 
-    def forward(self, input_ids: torch.Tensor,
-                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, segment_ids: Optional[torch.Tensor] = None,
+                extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``extra`` [B, L, C] is summed in before the LayerNorm."""
         L = input_ids.shape[1]
         if segment_ids is None:
             segment_ids = torch.zeros_like(input_ids)
         positions = torch.arange(L, device=input_ids.device)[None, :]
         x = (self.word_embeddings(input_ids) + self.position_embeddings(positions)
              + self.token_type_embeddings(segment_ids))
+        if extra is not None:
+            x = x + extra.to(x.dtype)
         return self.layer_norm(x)
 
 

@@ -39,6 +39,18 @@ class BertEncoder(nn.Module):
             layer_norm_eps, dtype=dtype, device=device)
         self.pooler = nn.Linear(hidden_size, hidden_size, dtype=dtype, device=device)
 
+    def embeddings_apply(self, input_ids: torch.Tensor,
+                         segment_ids: Optional[torch.Tensor] = None,
+                         extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.embeddings(input_ids, segment_ids, extra)
+
+    def word_importance(self, input_ids: torch.Tensor, input_mask: torch.Tensor,
+                        segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """fp32 [B, L]: each token's attention column mass, mean over heads,
+        summed over queries and layers."""
+        x = self.embeddings(input_ids, segment_ids)
+        return self.encoder(x, make_attention_mask(input_mask), return_importance=True)[1]
+
     def forward(self, input_ids: torch.Tensor, input_mask: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         if input_mask is None:

@@ -3,13 +3,16 @@
 Port of ``antmmf_tpu/modules/layers.py``: ``LayerNorm`` computes in fp32 and
 casts back to the compute dtype, ``Mlp`` is fc1 → activation → fc2, and
 ``make_attention_mask`` turns a 1/0 validity mask into an additive fp32 key
-bias. Linear weights are held in the compute dtype, which is exactly the
+bias. ``Dropout`` draws its keep mask from an explicit ``torch.Generator``
+(the trainer's ``TrainState`` generator), only when the call is not
+deterministic. Linear weights are held in the compute dtype, which is exactly the
 JAX package's per-call cast of its fp32 kernels; norms keep fp32 parameters.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -60,6 +63,28 @@ class Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(self.act(self.fc1(x)))
+
+
+class Dropout(nn.Module):
+    """Inverted dropout at ``rate``: each entry is kept with probability
+    1 − rate and scaled by 1 / (1 − rate). ``forward(x, deterministic,
+    generator)`` is the identity when ``deterministic`` (evaluation) or at
+    rate 0, and otherwise draws one uniform a entry from ``generator``. flax
+    draws its mask from the ``dropout`` rng stream, which torch cannot
+    reproduce: the masks agree with JAX's by their statistics only."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(f"dropout rate {rate} is not in [0, 1)")
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if deterministic or self.rate == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - self.rate
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
 def make_attention_mask(pad_mask: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,9 @@
 Port of ``antmmf_tpu/modules/transformers/base.py``: ``TransformerLayer`` in
 pre (ViT/CLIP) and post (BERT) norm style, and ``TransformerEncoder`` with its
 final LayerNorm (pre style) and the ToMe branch, whose proportional-attention key
-bias is log(token size). Layer scan, remat and pipelining are training and
+bias is log(token size). ``return_importance`` also returns the reference's
+word importance: over the layers, the sum of each layer's head-mean
+attention column mass (its probabilities from the einsum core). Layer scan, remat and pipelining are training and
 scale-out levers of the JAX package and are not ported.
 """
 
@@ -32,12 +34,26 @@ class TransformerLayer(nn.Module):
         self.norm1 = LayerNorm(dim, layer_norm_eps, dtype, device)
         self.norm2 = LayerNorm(dim, layer_norm_eps, dtype, device)
 
-    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                return_attention: bool = False):
+        """The layer's output; with ``return_attention``, (output, the
+        attention probabilities)."""
+        probs = None
+
+        def attend(h):
+            nonlocal probs
+            if not return_attention:
+                return self.attention(h, bias)
+            out, probs = self.attention(h, bias, return_probs=True)
+            return out
+
         if self.norm_style == "pre":
-            x = x + self.attention(self.norm1(x), bias)
-            return x + self.mlp(self.norm2(x))
-        x = self.norm1(x + self.attention(x, bias))
-        return self.norm2(x + self.mlp(x))
+            x = x + attend(self.norm1(x))
+            x = x + self.mlp(self.norm2(x))
+        else:
+            x = self.norm1(x + attend(x))
+            x = self.norm2(x + self.mlp(x))
+        return (x, probs) if return_attention else x
 
 
 class TransformerEncoder(nn.Module):
@@ -61,19 +77,29 @@ class TransformerEncoder(nn.Module):
         self.final_norm = (LayerNorm(dim, layer_norm_eps, dtype, device)
                            if final_norm and norm_style == "pre" else None)
 
-    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                return_importance: bool = False):
+        """The stack's output; with ``return_importance``, (output, fp32
+        importance [B, L])."""
         if self.token_merge_r > 0:
-            if bias is not None:
+            if bias is not None or return_importance:
                 raise ValueError("token_merge_r needs bias-free self-attention (images)")
             # proportional attention (ToMe §3): keys score + log(size), so a
             # merged token draws attention like the tokens it stands for
             size = torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)
             bias = torch.log(size)[:, None, None, :]
+        importance = None
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, bias)
+            layer = getattr(self, f"layer_{i}")
+            if return_importance:
+                x, probs = layer(x, bias, return_attention=True)
+                contrib = probs.mean(dim=1).sum(dim=1)
+                importance = contrib if importance is None else importance + contrib
+                continue
+            x = layer(x, bias)
             if self.token_merge_r > 0 and i < self.num_layers - 1:
                 x, size = tome_merge(x, size, self.token_merge_r)
                 bias = torch.log(size)[:, None, None, :]
         if self.final_norm is not None:
             x = self.final_norm(x)
-        return x
+        return (x, importance) if return_importance else x

@@ -3,7 +3,7 @@
     python3 chip_smoke.py              # from the repository root, on a machine with CUDA
     python3 chip_smoke.py --calibrate  # the card-vs-CPU readings: seeds and planted faults
     python3 chip_smoke.py --calibrate dmae  # one part: serving, training, pink, pretraining,
-                                            # dmae, task_heads
+                                            # dmae, task_heads, roi
 
 Phases, each printing JSON lines; a failing phase ends the script with a
 non-zero code and no result line:
@@ -15,9 +15,12 @@ non-zero code and no result line:
    the same inputs at the serving path's shapes and at the edges of the bf16
    kernel's tiles (L 15 to 256, D 32 to 128, strided and biased, fully masked
    rows on both of its branches), DMAE's temporal encoder ([128, 8, 12, 64]
-   and [4, 8, 8, 64] with a frame-padding key bias), bf16 and fp32, and its
-   autograd Function's gradients against fp32 autograd of the plain version
-   (the ViT shape, and the temporal shapes in both dtypes);
+   and [4, 8, 8, 64] with a frame-padding key bias), the ROI cross-encoder
+   ([128, 12, 104, 64] under a key bias with holes: ragged text, regions and
+   OCR; and with every other row's OCR under 24 tokens, so keys 64..103 are
+   all masked while keys 0..63 are live), bf16 and fp32, and its autograd
+   Function's gradients against fp32 autograd of the plain version (the ViT
+   shape, and the temporal and ROI shapes in both dtypes);
    ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` against their plain versions
    on the same inputs (the cross-encoder's [64, 12, 430, 64] with ragged key
    masks, the pretraining pass's [128, 12, 430, 64] with 30 ragged text keys
@@ -58,8 +61,8 @@ non-zero code and no result line:
    ``--calibrate`` reads;
 7. times: text-query and full-encode latency, each kernel's time beside its
    bound, its plain version and the library call at the paths' shapes (the
-   ViT, BERT, Pink's ViT and DMAE's temporal encoder for
-   ``small_attention``; the forward alone at a stage-2 chunk of 32 pairs;
+   ViT, BERT, Pink's ViT, DMAE's temporal encoder and the ROI
+   cross-encoder for ``small_attention``; the forward alone at a stage-2 chunk of 32 pairs;
    the cross-encoder's
    pair streams of the cross-mined step (64 pairs) and of a pretraining pass
    (128 pairs), and Pink's causal prefill for ``flash_fwd``; SDPA's backward
@@ -180,10 +183,31 @@ non-zero code and no result line:
    ``univl_caption`` through ``antmmf_torch.run.main`` on phase 12's
    synthetic layout, 6 steps at B=32 and a resume to 8 bit for bit, the
    first loss against the bare step's on the same batch and masters.
+16. ROI document pretraining (``projects/base_vtp/configs/roi_pretrain.yml``
+   at full width: BERT-base at L=30, 10 regions of 2048 features with 13
+   classes projected to 768, 64 OCR tokens with LayoutLM boxes, 2 cross
+   layers over 104 tokens, MLM + ITM + MRC, no ViT): (a) card bf16 against
+   CPU fp32 on the same masters at B=4 with the region dropout off: each
+   loss term's |Δ|, the gradient cosines and the region and layout tables'
+   cosines, held to the bounds ``--calibrate roi`` reads, and three planted
+   faults outside them (the layout embeddings dropped, the streams
+   concatenated OCR-first so that MRC reads OCR states, the KL reversed);
+   (b) the bare step at B=128 on one repeated batch with the region dropout
+   on (14 K1 launches a step: 12 BERT layers, 2 cross layers at L=104;
+   p50/p95, pairs/s, busy ms, idle share, ops, peak memory, K1's device
+   time); (c) ``antmmf_torch.run.main`` over 128 seeded synthetic
+   documents (4..14 regions, 0..12 OCR lines) written under ``build/`` and
+   deleted: 6 steps at B=32, the final validation (no MLM or MRC target),
+   a resume to 8 bit for bit, the first loss against the bare step's on the
+   same batch, masters and generator; (d) ``univl_pretrain.yml`` with
+   ``attentive_masking`` at B=128: both branches of the coin over the
+   steps, the attentive one masking 4 positions of every row with as many
+   live words and never a special token, the importance pass timed alone.
 
 Each path (serving, each training leg, each Pink request, the trainer, the
 pretraining step and trainer, each part of phase 14 but its card-vs-CPU
-comparison, each caption request, bare step and trainer run of phase 15)
+comparison, each caption request, bare step and trainer run of phase 15,
+each bare step and trainer run of phase 16)
 runs
 with the kernels' launch counts set to 0 just before it and read just after;
 launches made to compare a kernel with its plain version or to time it are
@@ -408,6 +432,36 @@ def kernel_cases(gen):
             masked[0] = fmin  # every key of sample 0 masked
             yield f"fully_masked_L{L}_{tag}", q, k, v, masked
         yield from temporal_cases(gen, dtype)
+        yield from roi_cases(gen, dtype)
+
+
+def roi_key_bias(gen, B: int, short_ocr: bool = False, device: str = "cuda"):
+    """The ROI cross-encoder's key bias over 30 text + 10 region + 64 OCR
+    keys, each segment ragged, so the live keys have holes in the middle:
+    text 5..30, regions 1..10, OCR 0..64 (``short_ocr``: every other row
+    keeps fewer than 24 OCR tokens, so keys 64..103 are all masked while
+    keys 0..63 are live)."""
+    def live(L, lo, hi):
+        n = torch.randint(lo, hi + 1, (B,), generator=gen, device=device)
+        return torch.arange(L, device=device)[None] < n[:, None]
+
+    ocr = live(ROI_OCR_LEN, 0, ROI_OCR_LEN)
+    if short_ocr:
+        ocr[::2] = live(ROI_OCR_LEN, 0, 23)[::2]
+    mask = torch.cat([live(TEXT_LEN, 5, TEXT_LEN), live(ROI_REGIONS, 1, ROI_REGIONS), ocr], 1)
+    return make_attention_mask(mask.long())
+
+
+def roi_cases(gen, dtype):
+    """The ROI cross-encoder at the config's B=128: 12 heads of 64 over 104
+    keys, q/k/v in the projections' layout, under ``roi_key_bias``."""
+    tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+    L = TEXT_LEN + ROI_REGIONS + ROI_OCR_LEN
+    for name, short in (("holes", False), ("empty_tile", True)):
+        q, k, v = (torch.randn(ROI_BATCH, L, 12, 64, generator=gen, device="cuda").to(dtype)
+                   .transpose(1, 2) for _ in range(3))
+        yield (f"roi_cross_L{L}_{name}_{tag}", q, k, v,
+               roi_key_bias(gen, ROI_BATCH, short_ocr=short))
 
 
 def temporal_cases(gen, dtype):
@@ -473,9 +527,10 @@ def phase_kernels() -> float:
          max_abs_err={n: e for n, (e, _) in errs.items()},
          tol={n: t for n, (_, t) in errs.items()}, ok=ok)
     check(ok, "small_attention's gradients disagree with fp32 autograd")
-    # the same at DMAE's temporal shapes, bf16 and fp32, with the frame bias
+    # the same at DMAE's temporal shapes and the ROI cross-encoder's, bf16
+    # and fp32, with their key biases
     for dtype in (torch.bfloat16, torch.float32):
-        for name, q, k, v, bias in temporal_cases(gen, dtype):
+        for name, q, k, v, bias in (*temporal_cases(gen, dtype), *roi_cases(gen, dtype)):
             q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
             out = small_attention(q, k, v, bias=bias)
             dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
@@ -1179,26 +1234,37 @@ def phase_times(predictors, rng, gpu):
             walls[(r, b)] = (full, float(np.median(lat)))
             emit(phase="times", exp=f"full_encode_b{b}", token_merge_r=r, gpu=gpu,
                  **pct(lat), clips_per_s=b * 1e3 / float(np.mean(lat)))
+    return walls, small_attention_times(gpu)
 
-    # the kernel at the main paths' shapes, bf16, q/k/v as the projections
-    # lay them out: the ViT at B=32 (the row that goes into the kernel
-    # table), BERT at B=32 with its padding bias, Pink's ViT at one image.
-    # Device time per launch from a CUDA graph: launched eagerly, the
-    # wrapper's host cost would hide a kernel this short
+
+def small_attention_times(gpu) -> dict:
+    """The kernel at the main paths' shapes, bf16, q/k/v as the projections
+    lay them out: the ViT at B=32 (the row that goes into the kernel table,
+    returned), BERT at B=32 with its padding bias, Pink's ViT at one image,
+    DMAE's temporal encoder, the ROI cross-encoder with its holed key bias.
+    Device time per launch from a CUDA graph: launched eagerly, the
+    wrapper's host cost would hide a kernel this short."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     saved = read_counts()
     main = None
-    for name, (B, H, L, D), biased in (("vit_b32", (256, 12, 50, 64), False),
-                                       ("bert_b32_pad", (32, 12, TEXT_LEN, 64), True),
-                                       ("pink_vit_b1", (1, 12, 50, 64), False),
-                                       ("dmae_temporal_b128_framepad", (128, 8, 12, 64), True)):
+    roi_L = TEXT_LEN + ROI_REGIONS + ROI_OCR_LEN
+    for name, (B, H, L, D), biased in (("vit_b32", (256, 12, 50, 64), None),
+                                       ("bert_b32_pad", (32, 12, TEXT_LEN, 64), "pad"),
+                                       ("pink_vit_b1", (1, 12, 50, 64), None),
+                                       ("dmae_temporal_b128_framepad", (128, 8, 12, 64), "pad"),
+                                       ("roi_cross_b128_holes", (ROI_BATCH, 12, roi_L, 64),
+                                        "roi")):
         q, k, v = (torch.randn(B, L, H, D, generator=gen, device="cuda")
                    .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
         bias = mask = None
-        if biased:
+        if biased == "pad":
             lens = torch.randint(8, L + 1, (B,), generator=gen, device="cuda")
-            mask = (torch.arange(L, device="cuda")[None] < lens[:, None])[:, None, None, :]
-            bias = make_attention_mask(mask[:, 0, 0].long())
+            bias = make_attention_mask((torch.arange(L, device="cuda")[None]
+                                        < lens[:, None]).long())
+        elif biased == "roi":
+            bias = roi_key_bias(gen, B)
+        if biased:
+            mask = bias > torch.finfo(torch.float32).min / 2  # SDPA's boolean form
         row = dict(
             ms=graph_ms(lambda i: small_attention(q, k, v, bias), 20),
             eager_ms=cuda_ms(lambda: small_attention(q, k, v, bias)),
@@ -1212,7 +1278,7 @@ def phase_times(predictors, rng, gpu):
     for fn in KERNELS:  # timing launches are not path launches
         fn.launches = saved[fn.__name__]
     main.pop("eager_ms")
-    return walls, main
+    return main
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -1768,7 +1834,8 @@ class TrainerProbe:
                 after = read_counts()
                 calls.append({k: after[k] - before[k] for k in after})
                 if isinstance(batch, dict):
-                    probe.devices.add(batch["image_data"].device.type)
+                    probe.devices.add(next(t for t in batch.values()
+                                           if torch.is_tensor(t)).device.type)
                 return out
             return wrapped
 
@@ -2602,12 +2669,15 @@ def bare_steps(name: str, gpu: str, shell, state, step, batch, launches: dict, e
             state, _ = step(state, batch)
         torch.cuda.synchronize()
     busy, n_ops, top = device_busy(prof, 2)
-    B = batch["image_data"].shape[0]
+    k1_ms = sum(ms for name, ms in device_ms_by_name(prof, 2)[0].items()
+                if "small_attention_" in name)
+    B = batch["caption_input_ids" if "caption_input_ids" in batch else "image_data"].shape[0]
     summary = dict(step_ms=times, step_p50_ms=p50, step_p95_ms=float(np.percentile(timed, 95)),
                    clip_pairs_per_s=B * 1e3 / p50, launches_per_step=counts[-1],
                    peak_mem_gb=peak_gb, device_busy_ms=busy if n_ops else "not measured",
                    device_idle_share=1 - busy / p50 if n_ops else "not measured",
-                   device_ops_per_step=n_ops, top_device_ops_ms=top, loss_terms=terms)
+                   device_ops_per_step=n_ops, top_device_ops_ms=top, loss_terms=terms,
+                   small_attention_device_ms=k1_ms if n_ops else "not measured")
     emit(phase=phase, part=name, batch=B, gpu=gpu, **summary, **(extra or {}))
     check(all(np.isfinite(list(t.values())).all() for t in terms), f"{name}: a loss is not finite")
     check(all(c == launches for c in counts),
@@ -2645,9 +2715,11 @@ def rv_argv(root: str, config: str, *extra: str) -> list:
 
 
 def rv_trainer(gpu: str, name: str, config: str, launches: dict, eval_launches: dict,
-               extra=(), track=None):
+               extra=(), track=None, write=None, argv=None):
     """``antmmf_torch.run.main`` on ``config`` over phase 12's synthetic
-    layout (written under ``build/`` and deleted at the end): RV_STEPS steps
+    layout (or the one ``write(root, seed)`` writes, with ``argv(root,
+    config, *extra)`` in place of ``rv_argv``; written under ``build/`` and
+    deleted at the end): RV_STEPS steps
     at B=32 and the final full validation, then a run resumed to
     RV_RESUMED_STEPS, its state checked bit for bit. ``launches`` are a
     train step's, ``eval_launches`` an eval forward's or encode batch's.
@@ -2660,20 +2732,21 @@ def rv_trainer(gpu: str, name: str, config: str, launches: dict, eval_launches: 
     probe.track = track
     uninstall = probe.install()
     try:
-        write_msrvtt_layout(root, SEED)
+        (write or write_msrvtt_layout)(root, SEED)
+        argv = argv or rv_argv
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
         t0 = time.perf_counter()
-        first = run.main(rv_argv(root, config, "training_parameters.max_iterations",
-                                 str(RV_STEPS), *extra))
+        first = run.main(argv(root, config, "training_parameters.max_iterations",
+                              str(RV_STEPS), *extra))
         setup_s = first.timings["first_step_start"] - t0
         info = dict(state=first.state, timings=first.timings, setup_s=setup_s,
                     validations=list(probe.validations), encoded=list(probe.encoded),
                     encode_launches=list(probe.encode), first_n=len(probe.train))
         probe.reference = first
-        second = run.main(rv_argv(root, config, "training_parameters.max_iterations",
-                                  str(RV_RESUMED_STEPS), "training_parameters.resume", "true",
-                                  *extra))
+        second = run.main(argv(root, config, "training_parameters.max_iterations",
+                               str(RV_RESUMED_STEPS), "training_parameters.resume", "true",
+                               *extra))
         counts = read_counts()  # the main path ends here
         info.update(resumed_end=second.state.step, resumed_state=second.state,
                     peak_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -3331,6 +3404,395 @@ def phase_task_heads(gpu: str) -> dict:
     return totals
 
 
+# ----------------------------------------------------------------- phase 16
+ROI_CONFIG = "projects/base_vtp/configs/roi_pretrain.yml"
+ROI_BATCH = 128  # the config's batch: the bare step's
+ROI_REGIONS, ROI_FEATURE_DIM, ROI_CLASSES, ROI_OCR_LEN = 10, 2048, 13, 64
+ROI_DOCS = 128  # the trainer's synthetic documents: 4 batches of RV_BATCH an epoch
+ROI_TERMS = ("itm_loss", "masked_lm_loss", "masked_region_classification")
+# a ROI train step or eval forward: 12 BERT layers at L=30 and the 2 cross
+# layers at 30 + 10 + 64 = 104 keys on K1; no ViT (``with_grid_stream``
+# false), no flash kernel
+ROI_LAUNCHES = {**NO_LAUNCHES, "small_attention": 14}
+ROI_TABLES = ("region_encoder.proj.weight", "region_encoder.spatial_proj.weight",
+              "ocr_layout_embeddings.x_embed.weight", "ocr_layout_embeddings.y_embed.weight",
+              "ocr_layout_embeddings.w_embed.weight", "ocr_layout_embeddings.h_embed.weight")
+ATTENTIVE_OPTS = ["model_attributes.univl_pretrain.attentive_masking", "true"]
+ATTENTIVE_N_MASK = max(1, int(TEXT_LEN * 0.15))  # the config's ratio at L=30
+# card bf16 vs CPU fp32, the first ROI step at B=4 on the same fp32 masters
+# with the region dropout off (the two devices' generators draw other
+# masks): each loss term's |Δ|, the cosine of all gradients together, the
+# least per-parameter cosine and the region and layout tables' cosines
+# (``--calibrate roi`` reads them). Sound runs over three seeds stay below
+# |Δ| 0.0027 (itm), 0.0073 (mlm), 0.0034 (mrc) and above cos 0.99975 (all),
+# 0.9657 (least), 0.99978 (tables); the layout embeddings dropped read cos
+# 0 (all, layout tables) and |Δmlm| 0.28; the streams OCR-first |Δmrc|
+# 0.028 and table cos 0.24; the KL reversed |Δmrc| 0.128, cos 0.982 and
+# table cos 0.873 (H100 readings)
+ROI_DLOSS_MAX = {"itm_loss": 0.01, "masked_lm_loss": 0.015,
+                 "masked_region_classification": 0.01}
+ROI_COS_ALL, ROI_COS_MIN, ROI_TABLE_COS = 0.999, 0.9, 0.999
+
+
+def roi_batch(B: int, seed: int) -> dict:
+    """A ``univl_roi`` batch at the config's widths: captions of 5..30
+    tokens ([CLS] … [SEP]) with about 15 % of the words masked for MLM,
+    1..10 live regions of 2048 features with 5-wide boxes (xyxy, area) and
+    13-class distributions, about 15 % of them MRC targets, 0..64 OCR
+    tokens with LayoutLM boxes, ITM labels."""
+    rng = np.random.default_rng(seed)
+    rows = np.arange(B)
+    lens = rng.integers(5, TEXT_LEN + 1, B)
+    mask = (np.arange(TEXT_LEN)[None] < lens[:, None]).astype(np.int64)
+    raw = rng.integers(1000, 30000, (B, TEXT_LEN))
+    raw[:, 0], raw[rows, lens - 1] = 101, 102
+    raw *= mask
+    pick = (rng.random((B, TEXT_LEN)) < 0.15) & (mask > 0) & (raw != 101) & (raw != 102)
+    regions = (np.arange(ROI_REGIONS)[None] < rng.integers(1, ROI_REGIONS + 1, B)[:, None])
+    xy = rng.uniform(0, 0.6, (B, ROI_REGIONS, 2))
+    x1y1 = xy + rng.uniform(0.05, 0.4, (B, ROI_REGIONS, 2))
+    boxes = np.concatenate([xy, x1y1, np.prod(x1y1 - xy, -1, keepdims=True)], -1)
+    to_predict = (rng.random((B, ROI_REGIONS)) < 0.15) & regions
+    to_predict[0, 0] = True
+    ocr = (np.arange(ROI_OCR_LEN)[None] < rng.integers(0, ROI_OCR_LEN + 1, B)[:, None])
+    corner = rng.integers(0, 900, (B, ROI_OCR_LEN, 2))
+    return {"caption_input_ids": np.where(pick, 103, raw), "caption_input_mask": mask,
+            "caption_segment_ids": np.zeros((B, TEXT_LEN), np.int64),
+            "caption_lm_label_ids": np.where(pick, raw, -1), "caption_raw_input_ids": raw,
+            "region_feature": (rng.standard_normal((B, ROI_REGIONS, ROI_FEATURE_DIM))
+                               * regions[..., None]).astype(np.float32),
+            "region_boxes": (boxes * regions[..., None]).astype(np.float32),
+            "region_mask": regions.astype(np.int64),
+            "region_to_predict": to_predict.astype(np.int64),
+            "region_cls_dis": rng.dirichlet(np.ones(ROI_CLASSES),
+                                            (B, ROI_REGIONS)).astype(np.float32),
+            "ocr_input_ids": rng.integers(1000, 30000, (B, ROI_OCR_LEN)) * ocr,
+            "ocr_input_mask": ocr.astype(np.int64),
+            "ocr_bboxes": np.concatenate([corner, corner + rng.integers(0, 100, corner.shape)],
+                                         -1) * ocr[..., None],
+            "itm_labels": rng.integers(0, 2, B)}
+
+
+def roi_first_step(shell, batch):
+    """The first ROI step's loss terms and fp32 gradients by name, the
+    region dropout off (as in evaluation: the two devices draw other masks)."""
+    for p in shell.module.parameters():
+        p.grad = None
+    loss, (_, scalars) = shell.loss_fn(batch, deterministic=True)
+    loss.backward()
+    terms = {k.split("/", 1)[1]: float(v) for k, v in scalars.items() if k.startswith("losses/")}
+    return terms, {n: p.grad.float().cpu() for n, p in shell.module.named_parameters()
+                   if p.grad is not None}
+
+
+def compare_roi(card, cpu) -> dict:
+    """``compare_steps`` on the total, each loss term's |Δ| and the region
+    and layout tables' gradient cosines (0 for a table the card's step did
+    not reach)."""
+    (t_card, g_card), (t_cpu, g_cpu) = card, cpu
+    res = compare_steps((sum(t_card.values()), g_card), (sum(t_cpu.values()), g_cpu))
+    res["abs_dloss_terms"] = {k: abs(t_card[k] - t_cpu[k]) for k in t_cpu}
+    res["loss_terms_cpu"] = t_cpu
+    res["tables_cos"] = {n: torch.nn.functional.cosine_similarity(
+        g_card[n].double().reshape(-1), g_cpu[n].double().reshape(-1), dim=0).item()
+        if n in g_card else 0.0 for n in ROI_TABLES}
+    return res
+
+
+def roi_within_bound(res) -> bool:
+    return res["grad_cos_all"] >= ROI_COS_ALL and res["grad_cos_min"] >= ROI_COS_MIN \
+        and all(c >= ROI_TABLE_COS for c in res["tables_cos"].values()) \
+        and all(res["abs_dloss_terms"][k] <= ROI_DLOSS_MAX[k] for k in ROI_TERMS)
+
+
+def roi_twins(seed: int):
+    """``roi_pretrain.yml``'s model on the CPU in fp32 (plain versions) and
+    on the card in bf16 on the same fp32 masters, and a B=4 batch."""
+    cpu, cpu_state, _ = config_model(ROI_CONFIG, device="cpu", dtype="float32", seed=seed)
+    card, _, _ = config_model(ROI_CONFIG, masters=cpu_state.params)
+    return card, cpu, roi_batch(4, SEED + 11)
+
+
+def reversed_kl(head):
+    """``MRCHead.loss_metric`` with KL(softmax ‖ p) in place of KL(p ‖ softmax)."""
+    real = type(head).loss_metric
+
+    def loss_metric(logits, region_to_predict, region_cls_dis):
+        out = real(head, logits, region_to_predict, region_cls_dis)
+        logq = torch.log_softmax(logits.float(), dim=-1)
+        kl = logq.exp() * (logq - torch.log(region_cls_dis.float().clamp(min=1e-12)))
+        mask = region_to_predict == 1
+        out["losses"][head.loss_name] = torch.where(
+            mask[..., None], kl, torch.zeros_like(kl)).sum() / mask.sum().clamp(min=1)
+        return out
+
+    return loss_metric
+
+
+def roi_faults(card):
+    """Faults planted on the card's model only, each undone after its step:
+    (name, plant, undo)."""
+    module = card.module
+    real_stream = type(module).visual_stream
+    ocr_keys = ("ocr_input_ids", "ocr_input_mask", "ocr_bboxes")
+
+    def ocr_first(batch, deterministic, generator):  # MRC then reads OCR states
+        regions = real_stream(module, {k: v for k, v in batch.items() if k not in ocr_keys},
+                              deterministic, generator)
+        ocr = real_stream(module, {k: v for k, v in batch.items()
+                                   if not k.startswith("region_")}, deterministic, generator)
+        return torch.cat([ocr[0], regions[0]], 1), torch.cat([ocr[1], regions[1]], 1)
+
+    def undo(obj, name):
+        return lambda: obj.__dict__.pop(name)
+
+    return [("layout_embeddings_dropped", lambda: setattr(module, "ocr_layout", False),
+             lambda: setattr(module, "ocr_layout", True)),
+            ("streams_concatenated_ocr_first", lambda: setattr(module, "visual_stream",
+                                                               ocr_first),
+             undo(module, "visual_stream")),
+            ("mrc_kl_reversed", lambda: setattr(module.mrc_head, "loss_metric",
+                                                reversed_kl(module.mrc_head)),
+             undo(module.mrc_head, "loss_metric"))]
+
+
+def roi_readings(card, batch, ref) -> dict:
+    """The sound reading and each planted fault's on one pair of twins."""
+    out = {"sound": compare_roi(roi_first_step(card, batch), ref)}
+    for name, plant, undo in roi_faults(card):
+        plant()
+        try:
+            out[name] = compare_roi(roi_first_step(card, batch), ref)
+        finally:
+            undo()
+    return out
+
+
+def calibrate_roi(seeds=3) -> None:
+    """Phase 16 (a)'s readings: sound seeds, then planted faults at the last."""
+    for seed in range(seeds):
+        card, cpu, batch = roi_twins(seed)
+        ref = roi_first_step(cpu, batch)
+        readings = (roi_readings(card, batch, ref) if seed == seeds - 1 else
+                    {"sound": compare_roi(roi_first_step(card, batch), ref)})
+        for name, res in readings.items():
+            emit(phase="calibrate_roi", kind="sound" if name == "sound" else "fault",
+                 fault=None if name == "sound" else name, seed=seed, **res,
+                 within_bound=roi_within_bound(res))
+        del card, cpu
+    emit(phase="calibrate_roi", kind="bound", dloss_max=ROI_DLOSS_MAX, grad_cos_all=ROI_COS_ALL,
+         grad_cos_min=ROI_COS_MIN, tables_cos=ROI_TABLE_COS)
+
+
+def roi_card_vs_cpu() -> None:
+    """Phase 16 (a): the reading at seed 0 within the bounds, each planted
+    fault outside them."""
+    card, cpu, batch = roi_twins(SEED)
+    readings = roi_readings(card, batch, roi_first_step(cpu, batch))
+    caught = {n: not roi_within_bound(r) for n, r in readings.items() if n != "sound"}
+    emit(phase="roi", part="card_vs_cpu", batch=4, **readings["sound"],
+         faults={n: r for n, r in readings.items() if n != "sound"}, faults_caught=caught,
+         bounds=dict(dloss_max=ROI_DLOSS_MAX, grad_cos_all=ROI_COS_ALL, grad_cos_min=ROI_COS_MIN,
+                     tables_cos=ROI_TABLE_COS))
+    check(roi_within_bound(readings["sound"]), "card and CPU ROI steps disagree beyond the "
+          "stated bound")
+    check(all(caught.values()), f"ROI: a planted fault passed the bound: {caught}")
+    del card, cpu
+    torch.cuda.empty_cache()
+
+
+def roi_bare(gpu: str) -> dict:
+    """Phase 16 (b): the bare ``univl_roi`` step at the config's B=128 and
+    width, one repeated batch, the region dropout on."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    shell, state, step = config_model(ROI_CONFIG)
+    batch = shell.to_device(roi_batch(ROI_BATCH, SEED + 12))
+    setup_s = time.perf_counter() - t0
+    check(not hasattr(shell.module.base, "img_encoder"), "ROI without its grid stream built a ViT")
+    _, res = bare_steps("roi_bare_step", gpu, shell, state, step, batch, ROI_LAUNCHES,
+                        dict(config=ROI_CONFIG, cross_len=TEXT_LEN + ROI_REGIONS + ROI_OCR_LEN,
+                             setup_s=setup_s,
+                             params=sum(p.numel() for p in shell.module.parameters())),
+                        phase="roi")
+    check(all(f"losses/{k}" in res["loss_terms"][0] for k in ROI_TERMS),
+          f"ROI bare step: loss terms {sorted(res['loss_terms'][0])}")
+    del shell, state, step, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def write_roi_layout(root: str, seed: int) -> int:
+    """Seeded synthetic documents in ``roi_pretrain.yml``'s layout:
+    ``features/doc{i}.npz`` (4..14 detector regions of 2048 features, so
+    that some are padded and some cut to 10, absolute boxes on a 800×1000
+    page, 13-class ``cls_prob``) and ``annotations/{train,val}.jsonl``
+    (a caption of 10 words and 0..12 OCR lines of 1..8 words with line
+    boxes, 8 on every line of a 12-line document, so a document's OCR
+    tokens span 0 to past 64). Returns the
+    features' bytes."""
+    rng = np.random.default_rng(seed)
+    with open(VOCAB, encoding="utf-8") as f:
+        words = [w.strip() for w in f if w.strip().isalpha()]
+    os.makedirs(os.path.join(root, "features"))
+    os.makedirs(os.path.join(root, "annotations"))
+    rows, size = [], 0
+    for i in range(ROI_DOCS):
+        m = 4 + i % 11
+        corner = rng.uniform(0, 600, (m, 2))
+        path = os.path.join(root, "features", f"doc{i}.npz")
+        np.savez(path, features=rng.standard_normal((m, ROI_FEATURE_DIM)).astype(np.float32),
+                 bbox=np.concatenate([corner, corner + rng.uniform(20, 200, (m, 2))], 1
+                                     ).astype(np.float32),
+                 cls_prob=rng.dirichlet(np.ones(ROI_CLASSES), m).astype(np.float32),
+                 image_height=np.float32(1000), image_width=np.float32(800))
+        size += os.path.getsize(path)
+        per_line = 8 if i % 13 == 12 else None  # 12 lines of 8 words: past 64 tokens
+        lines = [" ".join(rng.choice(words, per_line or rng.integers(1, 9)))
+                 for _ in range(i % 13)]
+        boxes = [[float(x), float(y), float(x + rng.uniform(50, 300)), float(y + 20)]
+                 for x, y in rng.uniform(0, 700, (len(lines), 2))]
+        rows.append(json.dumps({"caption": " ".join(rng.choice(words, 10)),
+                                "feature": f"doc{i}.npz", "ocr_text": lines, "ocr_box": boxes,
+                                "image_height": 1000, "image_width": 800, "id": i}))
+    for split in ("train", "val"):
+        with open(os.path.join(root, "annotations", f"{split}.jsonl"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    return size
+
+
+def roi_argv(root: str, config: str, *extra: str) -> list:
+    """``roi_pretrain.yml`` over ``write_roi_layout``'s documents at B=32:
+    one full validation at the end, every generator seeded."""
+    data = "task_attributes.univl_task.dataset_attributes.roi_dataset"
+    tp = "training_parameters"
+    return ["--config", config, f"{data}.data_root_dir", root, f"{data}.seed", "0",
+            f"{data}.region.seed", "0", f"{data}.text.seed", "0",
+            f"{tp}.batch_size", str(RV_BATCH), f"{tp}.test_batch_size", str(RV_BATCH),
+            f"{tp}.log_interval", "2", f"{tp}.snapshot_interval", "1000",
+            f"{tp}.max_ckpt_num", "1", f"{tp}.num_workers", "4", f"{tp}.run_type", "train",
+            f"{tp}.save_dir", os.path.join(root, "save"), f"{tp}.seed", "1", *extra]
+
+
+def roi_trainer(gpu: str, bare_p50_ms: float) -> dict:
+    """Phase 16 (c): ``antmmf_torch.run.main`` on ``roi_pretrain.yml`` over
+    ``write_roi_layout``'s documents (under ``build/``, deleted at the end):
+    6 steps at B=32 with the region dropout on, the final validation, a
+    resume to 8 bit for bit; the first loss against the bare step on the
+    trainer's first batch, masters and generator."""
+    counts, probe, info, summary = rv_trainer(gpu, "roi_trainer", ROI_CONFIG, ROI_LAUNCHES,
+                                              ROI_LAUNCHES, write=write_roi_layout,
+                                              argv=roi_argv)
+    masters, first_batch = probe.first
+    shell, state, step = config_model(ROI_CONFIG, masters=masters)
+    state.generator.manual_seed(1)  # the trainer's seed: the same dropout masks
+    _, bare = step(state, first_batch)
+    bare_loss = float(bare["total_loss"])
+    first_terms = {k: float(v) for k, v in probe.terms[0].items()}
+    probe.first = None
+    del shell, state, step, masters, first_batch, bare
+    torch.cuda.empty_cache()
+    losses, val = summary["losses"], summary["val_metrics"]
+    emit(phase="roi", part="trainer", config=ROI_CONFIG, batch=RV_BATCH, docs=ROI_DOCS,
+         gpu=gpu, **summary, bare_step_p50_ms_b128=bare_p50_ms, loss_terms_first_step=first_terms,
+         first_step_loss=dict(trainer=losses[0], bare=bare_loss,
+                              equal="bit for bit" if losses[0] == bare_loss else
+                              f"within {abs(losses[0] - bare_loss):.3g}"))
+    check(abs(losses[0] - bare_loss) <= FIRST_LOSS_ATOL,
+          f"ROI trainer: first-step loss {losses[0]} against the bare step's {bare_loss}")
+    check(all(f"losses/{k}" in first_terms for k in ROI_TERMS)
+          and first_terms["losses/masked_lm_loss"] > 0
+          and first_terms["losses/masked_region_classification"] > 0,
+          f"ROI trainer: first-step terms {first_terms}")
+    check(val["losses/masked_lm_loss"] == 0.0 and val["losses/masked_region_classification"] == 0.0,
+          f"ROI trainer: MLM and MRC targets in validation: {val}")
+    return counts
+
+
+def attentive_bare(gpu: str) -> dict:
+    """Phase 16 (d): ``univl_pretrain.yml`` with ``attentive_masking`` for
+    the bare step at B=128 on one repeated masked batch: both branches of
+    the coin over the steps (up to 8 more steps until both showed), the
+    attentive branch masking ``ATTENTIVE_N_MASK`` positions of every row
+    with as many live words and never a special token, the processor's ids
+    and labels on the other; the importance pass timed alone."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    shell, state, step = config_model(PRETRAIN_CONFIG, ATTENTIVE_OPTS)
+    module = shell.module
+    batch = shell.to_device(pretrain_batch(PRETRAIN_BATCH, SEED + 13))
+    coins, masked = [], []
+    real_draws, real_mask = module.attentive_draws, module.attentive_mask
+
+    def draws(*args):
+        uniform, coin = real_draws(*args)
+        coins.append(coin)
+        return uniform, coin
+
+    def attentive_mask(*args):
+        ids, labels = real_mask(*args)
+        masked.append((ids, labels))
+        return ids, labels
+
+    module.attentive_draws, module.attentive_mask = draws, attentive_mask
+    state, res = bare_steps("attentive_bare_step", gpu, shell, state, step, batch,
+                            PRETRAIN_STEP_LAUNCHES, dict(config=PRETRAIN_CONFIG,
+                                                         opts=ATTENTIVE_OPTS), phase="roi")
+    totals = res["totals"]
+    for _ in range(8):
+        if len({bool(c) for c in coins}) == 2:
+            break
+        zero_counts()
+        state, _ = step(state, batch)
+        for k, n in read_counts().items():
+            totals[k] += n
+    raw, mask = batch["caption_raw_input_ids"], batch["caption_input_mask"]
+    special = (raw == 101) | (raw == 102) | (raw == 0)
+    live = ((mask > 0) & ~special).sum(1).clamp(max=ATTENTIVE_N_MASK)
+    branches = {"attentive": 0, "processor": 0}
+    for coin, (ids, labels) in zip(coins, masked):
+        chosen = labels >= 0
+        if bool(coin):
+            branches["attentive"] += 1
+            check(torch.equal(chosen.sum(1), live) and not (chosen & special).any()
+                  and bool((ids[chosen] == 103).all())
+                  and torch.equal(ids[~chosen], raw[~chosen]),
+                  "attentive masking: a row without its n_mask positions, or a special token")
+        else:
+            branches["processor"] += 1
+            check(torch.equal(ids, batch["caption_input_ids"])
+                  and torch.equal(labels, batch["caption_lm_label_ids"]),
+                  "attentive masking: the processor's branch changed the ids")
+    module.attentive_draws, module.attentive_mask = real_draws, real_mask
+    seg = batch["caption_segment_ids"]
+    with torch.no_grad():
+        importance_ms = cuda_ms(lambda: module.base.text_encoder.word_importance(raw, mask, seg),
+                                iters=20)
+    emit(phase="roi", part="attentive_masking", batch=PRETRAIN_BATCH, gpu=gpu, branches=branches,
+         n_mask=ATTENTIVE_N_MASK, importance_pass_ms=importance_ms,
+         step_p50_ms=res["step_p50_ms"])
+    check(min(branches.values()) > 0, f"attentive masking: one branch only {branches}")
+    del shell, state, step, batch, masked, module
+    torch.cuda.empty_cache()
+    return totals
+
+
+def phase_roi(gpu: str) -> dict:
+    """Phase 16: (a) card vs CPU with planted faults, (b) the bare ROI step,
+    (c) the ROI trainer, (d) attentive masking. Returns the launches of (b),
+    (c) and (d) by kernel."""
+    t0 = time.perf_counter()
+    roi_card_vs_cpu()
+    bare = roi_bare(gpu)
+    totals = dict(bare["totals"])
+    for part in (roi_trainer(gpu, bare["step_p50_ms"]), attentive_bare(gpu)):
+        for k, n in part.items():
+            totals[k] += n
+    emit(phase="roi", part="summary", seconds=time.perf_counter() - t0, launches=totals)
+    return totals
+
+
 SOURCES = {
     "small_attention": ("antmmf_torch/ops/csrc/small_attention.cu",
                         "antmmf_tpu/ops/pallas/small_attention.py:62"),
@@ -3392,6 +3854,8 @@ def main() -> None:
         launches[name] += n
     for name, n in phase_task_heads(gpu).items():
         launches[name] += n
+    for name, n in phase_roi(gpu).items():
+        launches[name] += n
 
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -3405,7 +3869,7 @@ def main() -> None:
 
 CALIBRATIONS = {"serving": calibrate, "training": calibrate_training, "pink": calibrate_pink,
                 "pretraining": calibrate_pretraining, "dmae": calibrate_dmae,
-                "task_heads": calibrate_task_heads}
+                "task_heads": calibrate_task_heads, "roi": calibrate_roi}
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--calibrate"] and set(sys.argv[2:]) <= set(CALIBRATIONS):

@@ -228,7 +228,10 @@ def test_port_imports_no_jax():
                 "trainers.train_state", "utils.weights", "modules.decoders",
                 "modules.classifier", "modules.metrics.extended", "utils.text_utils",
                 "models.univl_caption", "models.univl_cls", "models.univl_mcqa",
-                "datasets.mcqa_dataset", "predictors.caption_predictor"):
+                "datasets.mcqa_dataset", "predictors.caption_predictor",
+                "modules.encoders.image_feature_encoder", "models.layoutlm",
+                "modules.transformers.heads.mrc", "datasets.processors.region_processors",
+                "datasets.roi_dataset", "models.univl_roi"):
         assert f"antmmf_torch.{new}" in mods, new
 
     tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())

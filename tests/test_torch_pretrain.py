@@ -231,8 +231,14 @@ def test_bridge_carries_the_whole_tree(jax_runs, port_runs):
 
 
 def test_attentive_masking_raises_with_its_name():
-    with pytest.raises(NotImplementedError, match="attentive_masking"):
-        t_build(_config({**TINY, "image_size": 32, "attentive_masking": True}), device="cpu")
+    """Attentive masking is ported: the model builds with it and keeps its
+    ratio; what is still refused, dropout, raises with its name."""
+    module = t_build(_config({**TINY, "image_size": 32, "attentive_masking": True}),
+                     device="cpu").module
+    assert module.attentive_masking and module.attentive_mask_ratio == 0.15
+    with pytest.raises(NotImplementedError, match="dropout"):
+        t_build(_config({**TINY, "image_size": 32, "attentive_masking": True, "dropout": 0.1}),
+                device="cpu")
 
 
 # ---------------------------------------------------------------------- heads

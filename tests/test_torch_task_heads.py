@@ -14,9 +14,8 @@
   scale clamped at 100.
 * The first ``video_mcqa`` batch equal to JAX's at atol 0 (frames, option
   ids and masks, targets).
-* ``univl_auto``: every ``training_stage`` builds the model JAX builds;
-  ``roi`` raises ``NotImplementedError`` naming slice 11, an unknown stage
-  a ``KeyError``.
+* ``univl_auto``: every ``training_stage`` builds the model JAX builds,
+  ``roi`` among them; an unknown stage is a ``KeyError``.
 
 Tolerances (fp32 on both sides, sums in another order): logits, losses and
 metrics at atol 1e-5, times the largest logit's magnitude where it passes 1
@@ -236,10 +235,6 @@ def test_first_mcqa_batch_matches_jax(mcqa_config, dataset_type):
 @pytest.mark.parametrize("stage,name", sorted(t_univl.STAGES.items()))
 def test_univl_auto_dispatches_every_stage(stage, name):
     config = {"model_attributes": {"univl_auto": {**TINY, "training_stage": stage}}}
-    if stage == "roi":
-        with pytest.raises(NotImplementedError, match="slice 11"):
-            t_build(config, device="cpu")
-        return
     module = t_build(config, device="cpu").module
     j_module = j_build(config).module
     assert type(module).__name__ == type(j_module).__name__
