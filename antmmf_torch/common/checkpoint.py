@@ -4,8 +4,12 @@ its tolerant load.
 Port of ``antmmf_tpu/common/checkpoint.py``. Under ``save_dir``:
 
 * ``models/model_<n>``: the full state at step n (``save``): the step, the
-  fp32 masters and the AdamW state (``count``, ``mu`` in its own dtype,
-  ``nu``) keyed by flax path, the ``torch.Generator`` state, and with MoCo
+  fp32 masters (the frozen ones too, never updated) and the AdamW state
+  (``count``, ``mu`` in its own dtype, ``nu``; of the trainable parameters
+  only) keyed by flax path, under gradient accumulation the fp32
+  accumulator ``acc`` and ``mini_step`` (so a snapshot inside an
+  accumulation window resumes bit for bit), the ``torch.Generator`` state,
+  and with MoCo
   the momentum towers (fp32, by flax path) and the queues (``moco``:
   ``text_queue/queue``, ``ptr``, ``filled``); ``_gc`` keeps the newest
   ``max_ckpt_num`` of them;
@@ -128,6 +132,9 @@ class Checkpoint:
                 "opt_state": {"count": int(opt["count"]), "mu": _cpu(opt["mu"], names),
                               "nu": _cpu(opt["nu"], names)},
                 "generator": state.generator.get_state()}
+        if "acc" in opt:
+            tree["opt_state"].update(acc=_cpu(opt["acc"], names),
+                                     mini_step=int(opt["mini_step"]))
         queues = queue_buffers(state.model)
         if queues:
             tree["moco"] = {p: t.detach().to("cpu", copy=True) for p, t in queues.items()}
@@ -169,15 +176,20 @@ class Checkpoint:
 
     @torch.no_grad()
     def restore_state(self, state, path: Optional[str] = None):
-        """Full resume, bit for bit: step, masters, AdamW state, generator,
-        and the queues and momentum towers of a MoCo state."""
+        """Full resume, bit for bit: step, masters, AdamW state (with the
+        accumulator), generator, and the queues and momentum towers of a
+        MoCo state."""
         path = path or self.latest_path()
         if path is None:
             return state, False
         tree = torch.load(path, map_location="cpu", weights_only=True)
         names = flax_paths(state.model)
         opt = state.opt_state
-        for name, dst in (("params", state.params), ("mu", opt["mu"]), ("nu", opt["nu"])):
+        trees = [("params", state.params), ("mu", opt["mu"]), ("nu", opt["nu"])]
+        if "acc" in opt:
+            trees.append(("acc", opt["acc"]))
+            opt["mini_step"] = tree["opt_state"]["mini_step"]
+        for name, dst in trees:
             src = tree["params"] if name == "params" else tree["opt_state"][name]
             for n, t in dst.items():
                 t.copy_(src[names[n]])
@@ -190,7 +202,7 @@ class Checkpoint:
         opt["count"] = tree["opt_state"]["count"]
         state.step = tree["step"]
         state.generator.set_state(tree["generator"])
-        state.sync_model()
+        state.sync_model(frozen=True)
         return state, True
 
     @torch.no_grad()
@@ -218,7 +230,7 @@ class Checkpoint:
             target[leaf_path].copy_(value)
         if state.momentum is not None:
             state.sync_key_module()
-        state.sync_model()
+        state.sync_model(frozen=True)
         return state, report
 
     def resume(self, state, tp: Optional[Mapping] = None):

@@ -1,21 +1,27 @@
-"""Pink: a vision prefix in front of a decoder LM, served with a KV cache.
+"""Pink: a vision prefix in front of a decoder LM, trained on answer tokens
+and served with a KV cache.
 
-Port of ``antmmf_tpu/models/pink.py`` on its decode-serving path: ViT tower
-read at ``clip_select_layer`` (fewer layers, no final norm) → ``vision_proj``
-→ ``[vision tokens; text tokens]`` → ``DecoderLM`` (1D RoPE, q/v LoRA) →
+Port of ``antmmf_tpu/models/pink.py``: ViT tower read at
+``clip_select_layer`` (fewer layers, no final norm) → ``vision_proj`` →
+``[vision tokens; text tokens]`` → ``DecoderLM`` (1D RoPE, q/v LoRA) →
 ``output_adapter`` → ``lm_head`` (a ``QuantDense``, so int4 records serve it
-too). ``forward`` returns logits over the text positions; ``prefill``,
-``decode_step`` and ``decode_chunk`` are the cached pieces; ``generate`` is
-greedy decoding as a Python loop over explicit tensors, with the KV cache
-(one prefill, then one single-token step per new token; the last token needs
-no trailing step) or, with ``use_cache=False``, by re-encoding the whole
-prefix per token, the anchor the cached path is held to.
+too). ``forward`` returns fp32 logits over the text positions and, given
+``labels``, the LM loss ``losses["lm_loss"]``: the logits at text position
+t predict the label at t + 1, labels below 0 are ignored, the negative
+log-softmax is summed over the rest and divided by their count (at least
+1). With ``lora_freeze_base`` the adapted projections are frozen at the
+weight (``requires_grad_(False)``), so their inputs still get gradients.
+``prefill``, ``decode_step`` and ``decode_chunk`` are the cached pieces;
+``generate`` is greedy decoding as a Python loop over explicit tensors,
+with the KV cache (one prefill, then one single-token step per new token;
+the last token needs no trailing step) or, with ``use_cache=False``, by
+re-encoding the whole prefix per token, the anchor the cached path is held
+to.
 
 ``LM_PRESETS`` is the port's copy of ``antmmf_tpu/models/m2_omni.py``'s
 table. Beam search, sampling, speculative decoding, the int8 KV cache, the
 EVA tower, ``adapter_style: pink``, layer scan, sequence parallelism,
-chunked prefill, ``extend_cache`` and the LM loss raise until they are
-ported.
+chunked prefill and ``extend_cache`` raise until they are ported.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import inspect
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from antmmf_torch.common.registry import registry
@@ -40,6 +47,18 @@ LM_PRESETS = {
     "omni_7b": dict(hidden=4096, num_layers=32, num_heads=32, num_kv_heads=8,
                     vocab_size=151936),
 }
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Next-token loss over fp32 ``logits`` [B, Lt, V]: position t predicts
+    ``labels[:, t + 1]``; labels below 0 are ignored; the summed negative
+    log-softmax over the valid positions divided by max(valid, 1)."""
+    shift_labels = labels[:, 1:]
+    valid = shift_labels >= 0
+    nll = F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
+                          torch.where(valid, shift_labels, -100).reshape(-1).long(),
+                          ignore_index=-100, reduction="sum")
+    return nll / valid.sum().clamp(min=1)
 
 
 @registry.register_model("pink")
@@ -132,14 +151,18 @@ class PinkModel(nn.Module):
 
     def forward(self, batch: Mapping[str, torch.Tensor],
                 deterministic: bool = True) -> Dict[str, torch.Tensor]:
-        """``logits`` fp32 [B, Lt, V] over the text positions."""
-        if batch.get("labels") is not None:
-            raise NotImplementedError("the LM loss is not ported yet")
+        """``logits`` fp32 [B, Lt, V] over the text positions, and with
+        ``labels`` int[B, Lt] the LM loss. Pink draws nothing in training,
+        so ``deterministic`` (the shell's training switch) changes nothing."""
         B, Lt = batch["input_ids"].shape
         embeds, full_mask, _ = self._assemble(batch)
         positions = self._positions(B, embeds.shape[1], embeds.device)
         hidden = self.decoder(embeds, positions, full_mask)
-        return {"logits": self._head(hidden[:, -Lt:])}
+        out = {"logits": self._head(hidden[:, -Lt:])}
+        labels = batch.get("labels")
+        if labels is not None:
+            out["losses"] = {"lm_loss": lm_loss(out["logits"], labels)}
+        return out
 
     # ------------------------------------------------------- cached decoding
     def prefill(self, batch: Mapping[str, torch.Tensor], cache, lens: torch.Tensor):

@@ -1,8 +1,9 @@
 """Decoder-only LM blocks: RMSNorm, 1D rotary embeddings, grouped-query
 attention with a KV cache, SwiGLU, and the decoder stack.
 
-Port of ``antmmf_tpu/modules/llm.py`` on the branches Pink decode serving
-runs (loop layout, 1D RoPE, q/v LoRA, bf16 cache). The KV cache is a list
+Port of ``antmmf_tpu/modules/llm.py`` on the branches Pink training and
+decode serving run (loop layout, 1D RoPE, q/v LoRA, bf16 cache). The KV
+cache is a list
 with one ``{"k", "v"}`` dict per layer, each [B, n_kv_heads, T, head_dim]
 with keys stored after RoPE; it is preallocated and written in place (the
 JAX package returns updated copies). Two cached modes, as in JAX:
@@ -14,10 +15,13 @@ JAX package returns updated copies). Two cached modes, as in JAX:
   with validity ``slot <= decode_pos + j`` for query j, grouped against
   the kv-head cache without repeating k/v.
 
-Causal prefill and the cache-free forward run ``ops.flash_attention`` with
-``causal=True`` and the key-padding bias (k/v repeated to the query heads):
-on the card that is the hand-written flash kernel at every length, where
-the JAX package takes an einsum core below 3072 tokens. Decode attention
+Causal prefill and the cache-free (training) forward run
+``ops.flash_attention`` with ``causal=True`` and the key-padding bias (k/v
+repeated to the query heads, so the kv heads' gradients sum their groups):
+on the card that is the hand-written flash kernel at every length, forward
+and backward, where the JAX package takes an einsum core below 3072
+tokens. A frozen projection (``lora_freeze_base``) is frozen at its weight,
+so the activation gradient still flows through it. Decode attention
 (1 to a few queries against T cached keys with a per-query validity bias)
 is plain tensor ops, as it is outside any kernel in the JAX package.
 

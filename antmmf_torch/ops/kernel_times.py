@@ -19,7 +19,9 @@ shape, with the card's name and power limit as ``nvidia-smi`` gives them.
 Rows of ``small_attention`` and ``flash_fwd`` carry ``bound_us``, the least
 time the card could take (each input read once, each output written once
 at 3.35 TB/s; the products over the live keys at 989 TFLOP/s bf16; the
-larger of the two). The backward pair is also timed as one row, ``flash_dq+flash_dkv``, against
+larger of the two). Pink's training step (causal, D=128, k/v repeated from
+4 kv heads, a ragged text bias behind 49 vision keys) has rows of its own.
+The backward pair is also timed as one row, ``flash_dq+flash_dkv``, against
 SDPA's backward alone (``sdpa_bwd``: the forward run once outside the graph,
 ``torch.autograd.grad`` captured), with the SDPA kernels that ran.
 
@@ -241,11 +243,44 @@ def cases(torch, sa, fa):
 
         yield ("flash_dq+flash_dkv", name, backward, (q, k, v, mask, dout), None)
 
+    def pink_train(B):
+        """Pink's training step: causal, 16 heads of 128, k/v repeated from 4
+        kv heads, 49 live vision keys then 8..256 live text keys; SDPA gets
+        the key mask and the causal triangle as one boolean [B, 1, L, L]."""
+        L, H, D = 49 + 256, 16, 128
+        q = proj(B, L, H, D)
+        k, v = (proj(B, L, 4, D).contiguous().repeat_interleave(4, dim=1) for _ in range(2))
+        dout = torch.randn(B, H, L, D, generator=gen, device="cuda").to(torch.bfloat16)
+        lens = torch.randint(8, 257, (B,), generator=gen, device="cuda")
+        live = torch.cat([torch.ones(B, 49, dtype=torch.bool, device="cuda"),
+                          torch.arange(256, device="cuda")[None] < lens[:, None]], 1)
+        kb = torch.where(live, 0.0, fmin).float().contiguous()
+        mask = live[:, None, None, :] & torch.ones(L, L, dtype=torch.bool, device="cuda").tril()
+        scale = D ** -0.5
+        out, stats = fa.flash_fwd(q, k, v, kb, scale, True)
+        _, delta = fa.flash_dq(q, k, v, kb, out, stats, dout, scale, True)
+        pairs = H * int(mask.sum().item())
+        name = f"pink_train_{B}x{H}x{L}x{D}_causal_ragged"
+        yield ("flash_fwd", name, lambda: fa.flash_fwd(q, k, v, kb, scale, True),
+               lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+               bound_us(4 * B * H * L * D * 2 + B * L * 4 + 2 * B * H * L * 4, 4 * D * pairs))
+        yield ("flash_dq", name,
+               lambda: fa.flash_dq(q, k, v, kb, out, stats, dout, scale, True), None, None)
+        yield ("flash_dkv", name,
+               lambda: fa.flash_dkv(q, k, v, kb, stats, dout, delta, scale, True), None, None)
+
+        def backward():
+            _, dl = fa.flash_dq(q, k, v, kb, out, stats, dout, scale, True)
+            fa.flash_dkv(q, k, v, kb, stats, dout, dl, scale, True)
+
+        yield ("flash_dq+flash_dkv", name, backward, (q, k, v, mask, dout), None)
+
     # 64 mined pairs a cross-mined step; 128 pairs a pretraining VTM or MLM pass
     yield from pairs(64, "cross_64x12x430x64_ragged")
     yield from pairs(128, "pretrain_128x12x430x64_ragged")
     # a stage-2 re-ranking chunk of 32 pairs (retrieval_trainer), forward only
     yield from pairs(32, "stage2_32x12x430x64_ragged", forward_only=True)
+    yield from pink_train(8)
     pq, pk, pv = (proj(1, 113, 16, 128) for _ in range(3))
     yield ("flash_fwd", "pink_prefill_1x16x113x128_causal",
            lambda: fa.flash_fwd(pq, pk, pv, None, 128 ** -0.5, True),

@@ -3,8 +3,10 @@
 Port of ``antmmf_tpu/optimizer/build.py`` for ``type: adam_w``: the chain
 ``clip_by_global_norm`` → ``optax.adamw`` (``scale_by_adam`` →
 ``add_decayed_weights`` under the ``NO_DECAY_PATTERNS`` mask →
-``scale_by_learning_rate``) → ``lr_multipliers``, and ``build_lr_schedule``.
-It follows optax's order and rounding, not ``torch.optim.AdamW``'s:
+``scale_by_learning_rate``) → ``lr_multipliers``, under ``optax.MultiSteps``
+with ``gradient_accumulation_steps`` > 1 and ``frozen_params`` outermost,
+and ``build_lr_schedule``. It follows optax's order and rounding, not
+``torch.optim.AdamW``'s:
 
 * clipping: ``g`` where ‖g‖ < max_norm, else ``g / ‖g‖ · max_norm``;
 * moments: ``mu = (1-b1)·g + b1·mu`` and ``nu = (1-b2)·g² + b2·nu``; with
@@ -15,21 +17,31 @@ It follows optax's order and rounding, not ``torch.optim.AdamW``'s:
   bias corrections in fp32, plus ``weight_decay · p`` where the mask allows
   (decoupled decay, before the learning rate), times ``-lr(count)`` with the
   schedule reading the step count before it is incremented, times the
-  parameter's lr multiplier; then ``p + update``.
+  parameter's lr multiplier; then ``p + update``;
+* accumulation over k trainer iterations (``MultiSteps``): an fp32 running
+  mean ``acc + (g - acc) / (n + 1)`` of the micro-gradients; every k-th
+  iteration the clip and AdamW apply to it and it is zeroed, the others
+  leave the parameters as they are; AdamW's count advances once per k, and
+  its schedule reads ``outer(count · k)``, the trainer's iterations;
+* ``frozen_params``: regular expressions searched in each parameter's flax
+  path. A frozen parameter has no update, no moment and no accumulator, and
+  stays out of the global norm the clip reads, as under
+  ``optax.multi_transform`` with ``set_to_zero``. ``TrainState`` freezes it
+  at the weight (``requires_grad_(False)``), so no gradient is made for it.
 
 Parameters and gradients are dictionaries of fp32 tensors by the model's
-parameter names; the weight-decay mask and lr multipliers match regular
-expressions against each parameter's flax path, as the JAX package does.
-The update runs as a few multi-tensor ``torch._foreach_*`` ops: the JAX
-package has no kernel for it. Other optimizer types, gradient accumulation
-and frozen parameters raise until they are ported.
+parameter names, the trainable ones only; the weight-decay mask and lr
+multipliers match regular expressions against each parameter's flax path,
+as the JAX package does. The update runs as a few multi-tensor
+``torch._foreach_*`` ops: the JAX package has no kernel for it. Other
+optimizer types raise until they are ported.
 """
 
 from __future__ import annotations
 
 import math
 import re
-from typing import Any, Callable, Dict, Mapping, Optional, Sequence
+from typing import Any, Callable, Dict, FrozenSet, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -51,6 +63,14 @@ def make_lr_multiplier_mask(paths: Mapping[str, str], rules: Sequence) -> Dict[s
     compiled = [(re.compile(pat), float(mult)) for pat, mult in rules]
     return {name: next((m for pat, m in compiled if pat.search(path)), 1.0)
             for name, path in paths.items()}
+
+
+def make_frozen_names(paths: Mapping[str, str], patterns: Sequence[str]) -> FrozenSet[str]:
+    """The parameter names whose flax path any of the regular expressions
+    ``patterns`` finds (searched, as the lr multipliers are)."""
+    compiled = [re.compile(pat) for pat in patterns]
+    return frozenset(name for name, path in paths.items()
+                     if any(pat.search(path) for pat in compiled))
 
 
 def build_lr_schedule(tp: Mapping[str, Any], base_lr: float) -> Callable[[int], np.float32]:
@@ -109,6 +129,7 @@ class AdamW:
         self.weight_decay, self.mu_dtype = weight_decay, mu_dtype
         self.decay_mask, self.max_grad_norm = decay_mask, max_grad_norm
         self.lr_multipliers = lr_multipliers
+        self.frozen: FrozenSet[str] = frozenset()  # names no update reaches
 
     def init(self, params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         return {"count": 0,
@@ -156,9 +177,44 @@ class AdamW:
         return norm
 
 
+class MultiSteps:
+    """``optax.MultiSteps`` over ``inner``: ``update`` accumulates the fp32
+    running mean of ``every_k`` micro-gradients in ``state["acc"]`` (by
+    name) and counts them in ``state["mini_step"]``; the k-th call applies
+    ``inner`` to the mean, zeroes it and resets the count; the others leave
+    the parameters and ``inner``'s state as they are. The state is
+    ``inner``'s with those two entries added."""
+
+    def __init__(self, inner: AdamW, every_k: int):
+        self.inner, self.every_k, self.frozen = inner, int(every_k), inner.frozen
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+        return {**self.inner.init(params), "mini_step": 0,
+                "acc": {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}}
+
+    @torch.no_grad()
+    def update(self, grads: Mapping[str, torch.Tensor], state: Dict[str, Any],
+               params: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Returns the global norm of this call's ``grads`` (a device scalar)."""
+        names = list(params)
+        g = [grads[n] for n in names]
+        acc = [state["acc"][n] for n in names]
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        step = torch._foreach_sub(g, acc)
+        torch._foreach_div_(step, float(state["mini_step"] + 1))
+        torch._foreach_add_(acc, step)
+        if state["mini_step"] == self.every_k - 1:
+            self.inner.update(state["acc"], state, params)
+            torch._foreach_zero_(acc)
+            state["mini_step"] = 0
+        else:
+            state["mini_step"] += 1
+        return norm
+
+
 def build_optimizer(paths: Mapping[str, str], optimizer_attributes: Mapping[str, Any],
                     training_parameters: Optional[Mapping[str, Any]] = None):
-    """(AdamW, schedule) from the JAX package's config surface::
+    """(optimizer, schedule) from the JAX package's config surface::
 
         optimizer_attributes:
           type: adam_w
@@ -166,24 +222,30 @@ def build_optimizer(paths: Mapping[str, str], optimizer_attributes: Mapping[str,
           lr_multipliers: [["img_encoder", 0.1]]
         training_parameters: {clip_gradients: true, max_grad_l2_norm: 1.0, ...}
 
-    ``paths`` maps parameter names to flax paths (``utils.weights.flax_paths``)."""
+    ``paths`` maps parameter names to flax paths (``utils.weights.flax_paths``).
+    With ``training_parameters.gradient_accumulation_steps`` k > 1 the
+    optimizer is ``MultiSteps`` over AdamW, whose schedule reads the
+    returned one (in trainer iterations) at ``count · k``;
+    ``optimizer_attributes.frozen_params`` sets its ``frozen`` names."""
     cfg = dict(optimizer_attributes or {})
     tp = dict(training_parameters or {})
     name = cfg.get("type", "adam_w")
     if name not in ("adam_w", "adamw"):
         raise NotImplementedError(f"optimizer {name!r} is not ported yet; adam_w is")
-    if int(tp.get("gradient_accumulation_steps", 1)) > 1 or cfg.get("frozen_params"):
-        raise NotImplementedError("gradient accumulation and frozen_params are not ported yet")
     p = dict(cfg.get("params", {}))
     lr = float(p.pop("lr", p.pop("learning_rate", 1e-4)))
     schedule = build_lr_schedule(tp, lr)
+    accum = int(tp.get("gradient_accumulation_steps", 1))
+    inner_schedule = schedule if accum <= 1 else (lambda count: schedule(count * accum))
     betas = p.pop("betas", None)
     b1, b2 = ((float(betas[0]), float(betas[1])) if betas is not None
               else (float(p.pop("b1", 0.9)), float(p.pop("b2", 0.999))))
     mu_dtype = p.pop("mu_dtype", None)
     mults = cfg.get("lr_multipliers", [])
-    tx = AdamW(schedule, b1, b2, float(p.pop("eps", 1e-8)), float(p.pop("weight_decay", 0.0)),
+    tx = AdamW(inner_schedule, b1, b2, float(p.pop("eps", 1e-8)),
+               float(p.pop("weight_decay", 0.0)),
                getattr(torch, mu_dtype) if mu_dtype else None, make_weight_decay_mask(paths),
                float(tp.get("max_grad_l2_norm", 1.0)) if tp.get("clip_gradients") else None,
                make_lr_multiplier_mask(paths, mults) if mults else None)
-    return tx, schedule
+    tx.frozen = make_frozen_names(paths, list(cfg.get("frozen_params") or []))
+    return (MultiSteps(tx, accum) if accum > 1 else tx), schedule

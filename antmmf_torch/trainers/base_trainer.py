@@ -30,6 +30,13 @@ applied, as the JAX trainer makes it) and the step runs the key forward.
 The FLOPs telemetry of the JAX trainer (XLA's cost analysis) is not
 ported.
 
+With ``gradient_accumulation_steps`` k, a train step is one trainer
+iteration (one micro-batch): the optimizer updates the masters every k-th,
+and iterations, the logged lr (the schedule in trainer iterations),
+snapshots and ``max_iterations`` count trainer iterations, as in the JAX
+trainer. ``frozen_params`` and the model's own frozen weights hold no
+optimizer state (``TrainState``); the log says how many parameters train.
+
 ``timings`` keeps, per train step on the host clock, the wait on the loader
 and the time from asking for the batch to the step's return (the step
 makes no host sync, so a step that outruns the device waits in a later
@@ -163,6 +170,10 @@ class BaseTrainer:
         if getattr(module, "with_momentum", False):
             self.state.init_momentum("base")
             self._moco_m = float(module.momentum)
+        n_train = sum(self.state.params[n].numel() for n in self.state.trainable)
+        self.writer.write(f"trainable params: {n_train:,} of "
+                          f"{sum(t.numel() for t in self.state.params.values()):,}; optimizer "
+                          f"state: {self.state.optimizer_state_bytes():,} bytes")
         self.checkpoint = Checkpoint(self.config, self.writer)
         self.state, self.resume_info = self.checkpoint.resume(self.state, self.tp)
         self.writer.write(f"checkpoint: {self.resume_info}")

@@ -10,6 +10,7 @@ from typing import Mapping
 
 import antmmf_torch.datasets.samplers  # noqa: F401  (registry side effects)
 import antmmf_torch.datasets.mcqa_dataset  # noqa: F401
+import antmmf_torch.datasets.pink_instruct_dataset  # noqa: F401
 import antmmf_torch.datasets.roi_dataset  # noqa: F401
 import antmmf_torch.datasets.video_text_dataset  # noqa: F401
 import antmmf_torch.models  # noqa: F401

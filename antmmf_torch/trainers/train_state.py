@@ -10,6 +10,14 @@ Dense/Embed weights, fp32 for LayerNorm and the fp32 heads), refreshed from
 the masters after each ``apply_gradients``, and its bf16 gradients are cast
 to fp32 for the optimizer, which is what the JAX cast's gradient does.
 
+Frozen parameters (the optimizer's ``frozen`` names, from ``frozen_params``,
+and those the model froze itself, such as ``lora_freeze_base``'s base
+projections) are frozen at the weight with ``requires_grad_(False)``: no
+gradient is made for them, the optimizer holds no moment or accumulator for
+them (``trainable`` lists the others), and their fp32 masters never change;
+they are cast into the module when the state is made or restored, and kept
+for the checkpoint.
+
 MoCo (``init_momentum``): the state also holds the fp32 EMA copy of the
 momentum subtree's masters (``momentum``, by parameter name) and a key
 module, a copy of that subtree in the compute dtype, refreshed from the EMA
@@ -34,6 +42,8 @@ class TrainState:
                  generator: torch.Generator, step: int = 0):
         self.model = model
         self.params = params
+        # the names the optimizer updates, in the module's order
+        self.trainable = [n for n, p in model.named_parameters() if p.requires_grad]
         self.opt_state = opt_state
         self.generator = generator
         self.step = step
@@ -46,23 +56,37 @@ class TrainState:
     def create(cls, model: nn.Module, tx, params: Optional[Mapping[str, torch.Tensor]] = None,
                seed: int = 0) -> "TrainState":
         """Masters from ``params`` (fp32 by name, e.g. ``flax_to_masters``) or
-        from the module's own values, on the module's device; the module is
-        then set from them."""
+        from the module's own values, on the module's device; the
+        optimizer's ``frozen`` names are frozen at the weight, its state made
+        for the rest; the module is then set from the masters."""
         device = next(model.parameters()).device
+        for n, p in model.named_parameters():
+            if n in tx.frozen:
+                p.requires_grad_(False)
         if params is None:
             params = {n: p.detach() for n, p in model.named_parameters()}
         masters = {n: t.to(device=device, dtype=torch.float32, copy=True)
                    for n, t in params.items()}
-        state = cls(model, masters, tx.init(masters),
-                    torch.Generator(device=device).manual_seed(seed))
-        state.sync_model()
+        state = cls(model, masters, None, torch.Generator(device=device).manual_seed(seed))
+        state.opt_state = tx.init(state.trainable_params())
+        state.sync_model(frozen=True)
         return state
 
+    def optimizer_state_bytes(self) -> int:
+        """Device bytes of the optimizer's tensors (moments, accumulator)."""
+        return sum(t.numel() * t.element_size() for tree in self.opt_state.values()
+                   if isinstance(tree, dict) for t in tree.values())
+
+    def trainable_params(self) -> Dict[str, torch.Tensor]:
+        return {n: self.params[n] for n in self.trainable}
+
     @torch.no_grad()
-    def sync_model(self) -> None:
-        """Cast the masters into the module's parameters (explicit casts)."""
+    def sync_model(self, frozen: bool = False) -> None:
+        """Cast the trainable masters (all of them with ``frozen``) into the
+        module's parameters (explicit casts)."""
         named = dict(self.model.named_parameters())
-        torch._foreach_copy_([named[n] for n in self.params], list(self.params.values()))
+        names = list(self.params) if frozen else self.trainable
+        torch._foreach_copy_([named[n] for n in names], [self.params[n] for n in names])
 
     def init_momentum(self, module: str = "base") -> None:
         """The EMA copy of the masters under the submodule ``module`` and the
@@ -88,7 +112,9 @@ class TrainState:
         self.sync_key_module()
 
     def apply_gradients(self, grads: Mapping[str, torch.Tensor], tx) -> "TrainState":
-        self.grad_norm = tx.update(grads, self.opt_state, self.params)
+        """One trainer iteration of ``tx`` on the trainable masters' fp32
+        ``grads`` (an update, or with accumulation maybe only a micro-step)."""
+        self.grad_norm = tx.update(grads, self.opt_state, self.trainable_params())
         self.step += 1
         self.sync_model()
         return self
@@ -100,10 +126,11 @@ def make_train_step(shell, tx, momentum: float = 0.0
     """``train_step(state, batch) -> (state, scalars)`` as the JAX trainer's
     jitted step: the shell's loss with ``deterministic=False`` (the state's
     generator drives the model's training draws), backward,
-    global-norm clip and AdamW update (``tx``). ``scalars`` holds
-    ``losses/*``, ``metrics/*``, ``total_loss`` and ``grad_norm`` (of the
-    unclipped gradients) as device tensors: the step makes no host sync.
-    The module holds no gradients after the step.
+    global-norm clip and AdamW update (``tx``, under accumulation one
+    micro-step of it). ``scalars`` holds ``losses/*``, ``metrics/*``,
+    ``total_loss`` and ``grad_norm`` (of this step's unclipped gradients of
+    the trainable parameters) as device tensors: the step makes no host
+    sync. The module holds no gradients after the step.
 
     With ``momentum`` > 0 and a state holding momentum towers, the MoCo
     keys come first, from the key module without gradients
@@ -123,8 +150,10 @@ def make_train_step(shell, tx, momentum: float = 0.0
         loss, (_, scalars) = shell.loss_fn(batch, deterministic=False,
                                            generator=state.generator)
         loss.backward()
+        named = dict(module.named_parameters())
         grads = {}
-        for n, p in module.named_parameters():
+        for n in state.trainable:
+            p = named[n]
             grads[n] = p.grad.float() if p.grad is not None else torch.zeros_like(state.params[n])
             p.grad = None
         state = state.apply_gradients(grads, tx)

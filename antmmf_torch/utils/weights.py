@@ -189,7 +189,7 @@ def load_flax_variables(model: nn.Module, variables: Mapping[str, Any], state=No
             with torch.no_grad():
                 for name, t in state.params.items():
                     t.copy_(masters[name])
-            state.sync_model()
+            state.sync_model(frozen=True)
     buffers = queue_buffers(model)
     loaded = flatten_flax(variables.get("moco", {}))
     if set(loaded) != set(buffers):

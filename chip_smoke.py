@@ -3,7 +3,7 @@
     python3 chip_smoke.py              # from the repository root, on a machine with CUDA
     python3 chip_smoke.py --calibrate  # the card-vs-CPU readings: seeds and planted faults
     python3 chip_smoke.py --calibrate dmae  # one part: serving, training, pink, pretraining,
-                                            # dmae, task_heads, roi
+                                            # dmae, task_heads, roi, pink_train
 
 Phases, each printing JSON lines; a failing phase ends the script with a
 non-zero code and no result line:
@@ -27,9 +27,12 @@ non-zero code and no result line:
    then 400 live visual keys, stage-2 re-ranking's chunk of 32 such pairs and
    a tail chunk of 5, Lq ≠ Lk, causal, a fully masked row, D 32 and 128, key counts
    around the forward's tile ring, query counts around the backward's,
-   causal with a key bias, Pink's causal prefill shape), and the
-   ``flash_attention`` Function against fp32 autograd of
-   ``plain_flash_attention``; ``int4_gemv`` against ``plain_int4_gemv`` and
+   causal with a key bias, Pink's causal prefill shape, Pink's training
+   step: causal [8, 16, 305, 128] with 49 vision keys and 8..256 live text
+   keys, k/v repeated from 4 kv heads), and the ``flash_attention``
+   Function against fp32 autograd of ``plain_flash_attention``, also as the
+   decoder calls it at D=128 (causal, the ragged bias, k/v repeated inside
+   the graph, the gradients of the 4 kv heads); ``int4_gemv`` against ``plain_int4_gemv`` and
    against ``unpack_int4`` + matmul in fp32 on the decode path's five weight
    shapes (2048→2048, 2048→512, 2048→5504, the row-padded 5632→2048 at group
    88 with x of 5504 columns, 2048→151,936) at 1, 8 and 32 rows of bf16 and
@@ -65,7 +68,9 @@ non-zero code and no result line:
    cross-encoder for ``small_attention``; the forward alone at a stage-2 chunk of 32 pairs;
    the cross-encoder's
    pair streams of the cross-mined step (64 pairs) and of a pretraining pass
-   (128 pairs), and Pink's causal prefill for ``flash_fwd``; SDPA's backward
+   (128 pairs), Pink's training step (causal, D=128, SDPA given the same
+   mask as a boolean [B, 1, L, L]) and Pink's causal prefill for
+   ``flash_fwd``; SDPA's backward
    alone, with the kernels that ran it, for ``flash_dq`` and ``flash_dkv``;
    the kernel table carries the pretraining shape's numbers), kernel and
    library as device time per launch from a CUDA graph, with the GPU's name
@@ -203,11 +208,34 @@ non-zero code and no result line:
    ``attentive_masking`` at B=128: both branches of the coin over the
    steps, the attentive one masking 4 positions of every row with as many
    live words and never a special token, the importance pass timed alone.
+17. Pink instruction tuning (``projects/pink/configs/pink_instruct.local.yml``
+   at full width: ``omni_1b`` behind ViT-B/32 at 224², bf16, LoRA rank 16 on
+   the decoder's q and v, ``pink_7b.yml``'s ``frozen_params``, B=8,
+   ``gradient_accumulation_steps`` 2, the clip on, text of 256 tokens):
+   (a) card bf16 against CPU fp32 on the same masters (every ``lora_b``
+   drawn nonzero) at 4 of the 22 decoder layers and B=2: |Δ lm_loss| and
+   the trainable gradients' cosines, held to the bounds ``--calibrate
+   pink_train`` reads, and three planted faults outside them (labels not
+   shifted, the frozen q/v projections' outputs detached, the decoder's
+   attention not causal); (b) ``antmmf_torch.run.main`` over 256 seeded
+   rows in the config's vqa, grounding and caption sources (naming the
+   repository's three fixture images where OpenCV reads them, else none:
+   black frames), written under ``build/`` and deleted: 5 iterations, the
+   final validation and a snapshot one micro-step into the third window; a
+   trainer resumed from it holds the saved state bit for bit, and the 6th
+   iteration from the resumed state and from the first run's gives the
+   same state bit for bit (3 updates); 11 K1 and 22 of each flash kernel an
+   iteration (22 / 44 / 44 / 44 an update), 11 and 22 forward an eval; the
+   first batch's loss under the final masters below the initial one;
+   optimizer-state bytes (12 a trainable parameter, none for a frozen one),
+   peak memory; (c) timed updates on one batch: p50 per update and per
+   micro-batch, tokens/s over all positions and over the supervised ones,
+   device-busy ms, flash ms and the idle share over 2 profiled updates.
 
 Each path (serving, each training leg, each Pink request, the trainer, the
 pretraining step and trainer, each part of phase 14 but its card-vs-CPU
 comparison, each caption request, bare step and trainer run of phase 15,
-each bare step and trainer run of phase 16)
+each bare step and trainer run of phase 16, phase 17's trainer runs)
 runs
 with the kernels' launch counts set to 0 just before it and read just after;
 launches made to compare a kernel with its plain version or to time it are
@@ -226,6 +254,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -274,8 +303,10 @@ from antmmf_torch.predictors.quantization import (  # noqa: E402
 )
 from antmmf_torch.modules.moco import queue_buffers  # noqa: E402
 from antmmf_torch.trainers.base_trainer import BaseTrainer  # noqa: E402
+from antmmf_torch.trainers.build import build_trainer  # noqa: E402
 from antmmf_torch.trainers.retrieval_trainer import RetrievalTrainer  # noqa: E402
 from antmmf_torch.trainers.train_state import TrainState, make_train_step  # noqa: E402
+from antmmf_torch.utils.flags import get_parser  # noqa: E402
 from antmmf_torch.utils.lmdb_lite import LmdbLiteWriter  # noqa: E402
 from antmmf_torch.utils.weights import export_flax_params, flax_paths  # noqa: E402
 
@@ -325,6 +356,9 @@ PINK_LAUNCHES = {"small_attention": PINK_VIT_LAYERS, "flash_fwd": PINK_LAYERS, "
                  "flash_dkv": 0,
                  # lm_head on the last prompt token, then every decode step
                  "int4_gemv": 1 + (PINK_NEW_TOKENS - 1) * GEMVS_PER_STEP}
+# Pink instruction tuning at full width (phase 17): B=8 of 49 vision and 256
+# text tokens through the causal flash family at D=128
+PINK_TRAIN_BATCH, PINK_TRAIN_TEXT = 8, 256
 # the decode path's weight shapes: (x columns, record rows, out, group)
 INT4_SHAPES = {"attn_q_o": (2048, 2048, 2048, 128), "attn_k_v": (2048, 2048, 512, 128),
                "mlp_gate_up": (2048, 2048, 5504, 128), "mlp_down": (5504, 5632, 2048, 88),
@@ -621,6 +655,58 @@ def flash_cases(gen):
         proj(4, 200, 12, 64), ragged(4, 200, 1), True
     yield "pink_prefill_L113_d128_causal", proj(1, 113, 16, 128), proj(1, 113, 16, 128), \
         proj(1, 113, 16, 128), None, True
+    # Pink's training step (phase 17): 49 vision keys then 256 text keys with
+    # ragged padding, causal, 16 heads of 128, k/v the 4 kv heads repeated
+    q, k, v, bias = pink_train_qkv(gen, PINK_TRAIN_BATCH)
+    yield "pink_train_L305_d128_causal_ragged", q, k, v, bias, True
+
+
+def pink_train_qkv(gen, B: int, kv_leaves: bool = False):
+    """q [B, 16, 305, 128] in the projection layout, k and v the [B, 4, 305,
+    128] kv heads repeated to 16 as the decoder repeats them (with
+    ``kv_leaves``, the kv heads themselves), and the key-padding bias [B, 1,
+    1, 305]: 49 live vision keys, then 256 text keys of which 8..256 live."""
+    dev, L = "cuda", PINK_PATCHES + PINK_TRAIN_TEXT
+    q = torch.randn(B, L, 16, 128, generator=gen, device=dev).to(torch.bfloat16).transpose(1, 2)
+    kv = [torch.randn(B, L, 4, 128, generator=gen, device=dev).to(torch.bfloat16)
+          .transpose(1, 2).contiguous() for _ in range(2)]
+    lens = torch.randint(8, PINK_TRAIN_TEXT + 1, (B,), generator=gen, device=dev)
+    live = torch.cat([torch.ones(B, PINK_PATCHES, dtype=torch.bool, device=dev),
+                      torch.arange(PINK_TRAIN_TEXT, device=dev)[None] < lens[:, None]], 1)
+    bias = make_attention_mask(live.long())
+    if kv_leaves:
+        return q, kv[0], kv[1], bias
+    return (q, *(t.repeat_interleave(4, dim=1) for t in kv), bias)
+
+
+def pink_gqa_gradients(gen) -> dict:
+    """The ``flash_attention`` Function as the decoder calls it (causal, the
+    ragged key bias, k/v repeated from 4 kv heads inside the graph) against
+    fp32 autograd of ``plain_flash_attention`` on the same graph: the output
+    and the gradients of q and of the 4 kv heads. A kv head's gradient sums
+    the 4 query heads of its group, each rounded to bf16 first, so it is
+    held to FLASH_AUTOGRAD_ULPS plus one rounding per summand."""
+    q, k4, v4, bias = pink_train_qkv(gen, 2, kv_leaves=True)
+    dout = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def run(leaves, fn):
+        q_, k_, v_ = leaves
+        out = fn(q_, k_.repeat_interleave(4, dim=1), v_.repeat_interleave(4, dim=1),
+                 bias=bias, causal=True)
+        out.backward(dout.to(out.dtype))
+        return out
+
+    leaves = [t.detach().requires_grad_() for t in (q, k4, v4)]
+    out = run(leaves, flash_attention)
+    ref_leaves = [t.detach().float().requires_grad_() for t in (q, k4, v4)]
+    ref = run(ref_leaves, plain_flash_attention)
+    errs = {"out": (max_err(out, ref), ulps_tol(ref, FLASH_AUTOGRAD_ULPS)),
+            "dq": (max_err(leaves[0].grad, ref_leaves[0].grad),
+                   ulps_tol(ref_leaves[0].grad, FLASH_AUTOGRAD_ULPS))}
+    for i, n in ((1, "dk_kv_heads"), (2, "dv_kv_heads")):
+        errs[n] = (max_err(leaves[i].grad, ref_leaves[i].grad),
+                   ulps_tol(ref_leaves[i].grad, FLASH_AUTOGRAD_ULPS + 4))
+    return errs
 
 
 def phase_flash() -> dict:
@@ -679,6 +765,14 @@ def phase_flash() -> dict:
                 main[kernel] = max(main.get(kernel, 0.0), err)
         if not ok:
             failed.append(name)
+    gqa = pink_gqa_gradients(gen)
+    ok = all(e <= t for e, t in gqa.values())
+    emit(phase="flash_check", case="pink_train_gqa_function_d128_causal_ragged",
+         q=[2, 16, PINK_PATCHES + PINK_TRAIN_TEXT, 128], kv_heads=4, causal=True,
+         vs_fp32_autograd={n: e for n, (e, _) in gqa.items()},
+         vs_fp32_autograd_tol={n: t for n, (_, t) in gqa.items()}, ok=ok)
+    if not ok:
+        failed.append("pink_train_gqa_function")
     check(not failed, f"flash kernels disagree with their plain versions: {failed}")
     # a dtype the kernels do not take raises on the card, never runs plain
     x = torch.zeros(2, 2, 300, 64, device="cuda", dtype=torch.float16)
@@ -1287,48 +1381,57 @@ def bound(nbytes: float, flops: float) -> dict:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def flash_shape_times(pair_bias, gpu, case: str) -> dict:
-    """The flash kernels at a cross-encoder pair stream's [P, 12, L, 64] bf16
-    with that stream's key bias, q/k/v in the projections' layout, beside
-    their plain versions and SDPA. The bound counts each input read once and
-    each output written once, and the products over the live keys of each
-    row (4, 6 and 8 multiply-adds ·2 per query-key pair and head dimension
-    for forward, dQ, dK/dV)."""
+def flash_shape_times(pair_bias, gpu, case: str, qkv=None, causal: bool = False) -> dict:
+    """The flash kernels at a pair stream's [P, 12, L, 64] bf16 (or at
+    ``qkv``'s shape) with that stream's key bias, q/k/v in the projections'
+    layout, beside their plain versions and SDPA (with ``causal``, a boolean
+    mask of the key bias and the causal triangle). The bound counts each
+    input read once and each output written once, and the products over the
+    (query, key) pairs each row attends (4, 6 and 8 multiply-adds ·2 per
+    pair and head dimension for forward, dQ, dK/dV)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     P, L = pair_bias.shape[0], pair_bias.shape[3]
-    H, D = 12, 64
-    q, k, v = (torch.randn(P, L, H, D, generator=gen, device="cuda")
-               .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+    if qkv is None:
+        H, D = 12, 64
+        q, k, v = (torch.randn(P, L, H, D, generator=gen, device="cuda")
+                   .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+    else:
+        (q, k, v), H, D = qkv, qkv[0].shape[1], qkv[0].shape[3]
     dout = torch.randn(P, H, L, D, generator=gen, device="cuda").to(torch.bfloat16)
     kb, scale = key_bias(pair_bias, P, L), D ** -0.5
     saved = read_counts()
-    out, stats = flash_fwd(q, k, v, kb, scale, False)
-    _, delta = flash_dq(q, k, v, kb, out, stats, dout, scale, False)
-    live = int((kb > torch.finfo(torch.float32).min / 2).sum().item())  # live keys, all rows
-    pairs = H * L * live  # (query, key) pairs over heads
+    out, stats = flash_fwd(q, k, v, kb, scale, causal)
+    _, delta = flash_dq(q, k, v, kb, out, stats, dout, scale, causal)
+    key_live = kb > torch.finfo(torch.float32).min / 2
+    attended = key_live[:, None, :].expand(P, L, L)
+    if causal:
+        attended = attended & torch.ones(L, L, dtype=torch.bool, device="cuda").tril()
+    live = int(key_live.sum().item())  # live keys, all rows
+    pairs = H * int(attended.sum().item())  # (query, key) pairs attended, over heads
     tensor, rows = P * H * L * D * 2, P * H * L * 4  # one bf16 [P, H, L, D]; one fp32 row stat
     bias_b = P * L * 4
-    mask = pair_bias > torch.finfo(torch.float32).min / 2  # SDPA's boolean form
+    # SDPA's boolean form of the same attention
+    mask = attended[:, None] if causal else pair_bias > torch.finfo(torch.float32).min / 2
     # SDPA's backward alone, device time per call, the library time of both
     # backward kernels (together they compute what it computes)
     sdpa_bwd_ms, sdpa_method = sdpa_backward_ms(q, k, v, mask, dout)
     timing = {
         "flash_fwd": dict(
-            ms=graph_ms(lambda i: flash_fwd(q, k, v, kb, scale, False), 20),
-            plain_ms=cuda_ms(lambda: plain_flash_fwd(q, k, v, kb, scale, False), iters=10),
+            ms=graph_ms(lambda i: flash_fwd(q, k, v, kb, scale, causal), 20),
+            plain_ms=cuda_ms(lambda: plain_flash_fwd(q, k, v, kb, scale, causal), iters=10),
             library_ms=graph_ms(
                 lambda i: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 20),
             **bound(4 * tensor + bias_b + 2 * rows, 4 * D * pairs)),
         "flash_dq": dict(
-            ms=graph_ms(lambda i: flash_dq(q, k, v, kb, out, stats, dout, scale, False), 20),
+            ms=graph_ms(lambda i: flash_dq(q, k, v, kb, out, stats, dout, scale, causal), 20),
             plain_ms=cuda_ms(lambda: plain_flash_dq(q, k, v, kb, out, stats, dout, scale,
-                                                    False), iters=10),
+                                                    causal), iters=10),
             library_ms=sdpa_bwd_ms,
             **bound(6 * tensor + bias_b + 3 * rows, 6 * D * pairs)),
         "flash_dkv": dict(
-            ms=graph_ms(lambda i: flash_dkv(q, k, v, kb, stats, dout, delta, scale, False), 20),
+            ms=graph_ms(lambda i: flash_dkv(q, k, v, kb, stats, dout, delta, scale, causal), 20),
             plain_ms=cuda_ms(lambda: plain_flash_dkv(q, k, v, kb, stats, dout, delta, scale,
-                                                     False), iters=10),
+                                                     causal), iters=10),
             library_ms=sdpa_bwd_ms,
             **bound(6 * tensor + bias_b + 3 * rows, 8 * D * pairs)),
     }
@@ -1339,13 +1442,13 @@ def flash_shape_times(pair_bias, gpu, case: str) -> dict:
         F.scaled_dot_product_attention(*leaves, attn_mask=mask).backward(dout)
 
     def flash_fwd_bwd():
-        o, st = flash_fwd(q, k, v, kb, scale, False)
-        _, dl = flash_dq(q, k, v, kb, o, st, dout, scale, False)
-        flash_dkv(q, k, v, kb, st, dout, dl, scale, False)
+        o, st = flash_fwd(q, k, v, kb, scale, causal)
+        _, dl = flash_dq(q, k, v, kb, o, st, dout, scale, causal)
+        flash_dkv(q, k, v, kb, st, dout, dl, scale, causal)
 
     def flash_bwd(i):
-        _, dl = flash_dq(q, k, v, kb, out, stats, dout, scale, False)
-        flash_dkv(q, k, v, kb, stats, dout, dl, scale, False)
+        _, dl = flash_dq(q, k, v, kb, out, stats, dout, scale, causal)
+        flash_dkv(q, k, v, kb, stats, dout, dl, scale, causal)
 
     sdpa_ms, family_ms = cuda_ms(sdpa_fwd_bwd, iters=20), cuda_ms(flash_fwd_bwd, iters=20)
     bwd_ms = graph_ms(flash_bwd, 20)
@@ -1355,7 +1458,7 @@ def flash_shape_times(pair_bias, gpu, case: str) -> dict:
         fn.launches = saved[fn.__name__]
     for name, t in timing.items():
         emit(phase="times", exp=name, case=case, shape=[P, H, L, D], dtype="bf16",
-             gpu=gpu, live_keys=live,
+             gpu=gpu, causal=causal, live_keys=live, attended_pairs=pairs,
              **t, bound_share=t["bound_ms"] / t["ms"])
     emit(phase="times", exp="flash_fwd_dq_dkv_vs_sdpa_fwd_bwd", case=case, shape=[P, H, L, D],
          gpu=gpu, flash_ms=family_ms, sdpa_ms=sdpa_ms,
@@ -1393,13 +1496,19 @@ def flash_fwd_times(pair_bias, gpu, case: str) -> dict:
 
 def phase_flash_times(pair_biases: dict, gpu, eval_biases: dict) -> dict:
     """The flash kernels at each training path's pair stream (``case`` →
-    key bias), the forward alone at each evaluation pair stream
-    (``eval_biases``) and at Pink's causal prefill; returns the timing at
-    the last training pair stream (the pretraining path's) for the kernel
-    table."""
+    key bias), at Pink's training step (causal, D=128, k/v repeated from 4
+    kv heads, the ragged text bias behind 49 vision keys), the forward alone
+    at each evaluation pair stream (``eval_biases``) and at Pink's causal
+    prefill; returns the timing at the last training pair stream (the
+    pretraining path's) for the kernel table."""
     for case, pair_bias in pair_biases.items():
         timing = flash_shape_times(pair_bias, gpu, case)
         torch.cuda.empty_cache()
+    q, k, v, bias = pink_train_qkv(torch.Generator(device="cuda").manual_seed(SEED + 7),
+                                   PINK_TRAIN_BATCH)
+    flash_shape_times(bias, gpu, "pink_train_causal_d128", (q, k, v), causal=True)
+    del q, k, v
+    torch.cuda.empty_cache()
     for case, pair_bias in eval_biases.items():
         flash_fwd_times(pair_bias, gpu, case)
     # the causal prefill of a Pink request: 113 tokens, 16 heads of 128
@@ -1913,13 +2022,17 @@ class TrainerProbe:
 
 def states_equal(a, b) -> dict:
     """Step, masters, AdamW moments and generator of two TrainStates, bit for
-    bit; with MoCo also the momentum towers, the key module and the queues."""
+    bit; under gradient accumulation also the accumulator and its count; with
+    MoCo also the momentum towers, the key module and the queues."""
     same = lambda x, y: all(torch.equal(x[n], y[n]) for n in y)  # noqa: E731
     out = dict(step=a.step == b.step, masters=same(a.params, b.params),
                mu=same(a.opt_state["mu"], b.opt_state["mu"]),
                nu=same(a.opt_state["nu"], b.opt_state["nu"]),
                count=a.opt_state["count"] == b.opt_state["count"],
                generator=torch.equal(a.generator.get_state(), b.generator.get_state()))
+    if "acc" in b.opt_state:  # gradient accumulation: the running mean and its count
+        out.update(acc=same(a.opt_state["acc"], b.opt_state["acc"]),
+                   mini_step=a.opt_state["mini_step"] == b.opt_state["mini_step"])
     if b.momentum is not None:
         out.update(momentum=a.momentum is not None and same(a.momentum, b.momentum),
                    key_module=same(dict(a.key_module.named_parameters()),
@@ -3793,6 +3906,459 @@ def phase_roi(gpu: str) -> dict:
     return totals
 
 
+# ----------------------------------------------------------------- phase 17
+PINK_TRAIN_CONFIG = "projects/pink/configs/pink_instruct.local.yml"
+PINK_7B_CONFIG = "projects/pink/configs/pink_7b.yml"  # its frozen_params list
+PINK_DATA = "task_attributes.pink_task.dataset_attributes.pink_instruct"
+PINK_ROWS = {"vqa": 128, "grounding": 64, "caption": 64}  # the seeded corpus, by format
+PINK_ACCUM, PINK_TRAIN_ITERS = 2, 6  # 3 optimizer updates
+PINK_CALIB_LAYERS = 4  # card vs CPU: full width at 4 of the 22 decoder layers
+# a trainer iteration (micro-batch): the frozen ViT's 11 layers forward on
+# K1, the 22 causal decoder layers on the flash forward and backward; an
+# eval forward runs no backward kernel
+PINK_ITER_LAUNCHES = {**NO_LAUNCHES, "small_attention": PINK_VIT_LAYERS,
+                      "flash_fwd": PINK_LAYERS, "flash_dq": PINK_LAYERS,
+                      "flash_dkv": PINK_LAYERS}
+PINK_UPDATE_LAUNCHES = {k: n * PINK_ACCUM for k, n in PINK_ITER_LAUNCHES.items()}
+PINK_EVAL_LAUNCHES = {**PINK_ITER_LAUNCHES, "flash_dq": 0, "flash_dkv": 0}
+# card bf16 vs CPU fp32, the first micro-step at B=2 on the same fp32
+# masters (every lora_b drawn nonzero, so that every trainable gradient is
+# live): |Δ lm_loss| and the gradient cosines of the 22 trainable tensors
+# (``--calibrate pink_train`` reads them). Sound runs over three seeds stay
+# below |Δ| 0.0048 and above cos 0.99978 (all), 0.99954 (least); labels not
+# shifted read |Δ| 0.048–0.099, cos 0.65–0.68 (all), 0.02–0.06 (least); the
+# frozen q/v outputs detached |Δ| 0.0015–0.0025 but cos 0.28–0.32 (all);
+# causal dropped |Δ| 0.069–0.215, cos 0.79–0.82 (all) (H100 readings)
+PINK_TRAIN_DLOSS_MAX, PINK_TRAIN_COS_ALL, PINK_TRAIN_COS_MIN = 0.02, 0.999, 0.99
+
+
+def pink_frozen_params() -> list:
+    return list(build_config(PINK_7B_CONFIG)["optimizer_attributes"]["frozen_params"])
+
+
+def pink_train_opts(layers: str = "omni_1b") -> list:
+    """The full-width overrides of ``pink_instruct.local.yml`` but its dtype:
+    ``omni_1b`` (or a preset of fewer layers) behind ViT-B/32 at 224², the
+    tokenizer's ids inside the preset's vocabulary, LoRA rank 16,
+    ``pink_7b.yml``'s ``frozen_params``, B=8, accumulation 2, the clip on."""
+    model, tp = "model_attributes.pink", "training_parameters"
+    return [f"{model}.lm_preset", layers, f"{model}.vit_preset", "vit_base_patch32",
+            f"{model}.image_size", str(SIZE), f"{model}.vocab_override", "0",
+            f"{model}.lora_rank", "16",
+            f"{PINK_DATA}.image.size", str(SIZE), f"{PINK_DATA}.image.resize", "256",
+            f"{PINK_DATA}.conversation.max_length", str(PINK_TRAIN_TEXT),
+            "optimizer_attributes.frozen_params", json.dumps(pink_frozen_params()),
+            f"{tp}.batch_size", str(PINK_TRAIN_BATCH),
+            f"{tp}.test_batch_size", str(PINK_TRAIN_BATCH),
+            f"{tp}.gradient_accumulation_steps", str(PINK_ACCUM),
+            f"{tp}.clip_gradients", "true"]
+
+
+def write_pink_corpus(root: str, seed: int, images: bool) -> int:
+    """Seeded rows in ``pink_instruct.local.yml``'s three sources under
+    ``root`` (``vqa.jsonl``, ``grounding.jsonl``, ``caption.jsonl``): questions
+    of 6..40 words, one- to three-word answers, referring expressions with
+    boxes on their image's size, captions of 8..60 words; with ``images``,
+    each row names one of the repository's three fixture images (copied to
+    ``root/images``), else no image (the dataset then feeds black frames).
+    Returns the rows written."""
+    rng = np.random.default_rng(seed)
+    with open(VOCAB, encoding="utf-8") as f:
+        words = [w.strip() for w in f if w.strip().isalpha()]
+    fixture = os.path.join("tests", "data", "pink", "images")
+    os.makedirs(os.path.join(root, "images"))
+    sizes = {}
+    for name in sorted(os.listdir(fixture)):
+        shutil.copy(os.path.join(fixture, name), os.path.join(root, "images", name))
+        sizes[name] = (56, 40)
+    names = sorted(sizes)
+
+    def text(lo, hi):
+        return " ".join(rng.choice(words, int(rng.integers(lo, hi + 1))))
+
+    n = 0
+    for fmt, count in PINK_ROWS.items():
+        rows = []
+        for i in range(count):
+            row = {"image": names[i % len(names)]} if images else {}
+            if fmt == "vqa":
+                row.update(question=text(6, 40) + "?", answer=text(1, 3))
+            elif fmt == "grounding":
+                w, h = 56, 40
+                x, y = rng.uniform(0, w / 2), rng.uniform(0, h / 2)
+                row.update(expr=text(2, 8), width=w, height=h,
+                           bbox=[float(x), float(y), float(x + rng.uniform(4, w / 2)),
+                                 float(y + rng.uniform(4, h / 2))])
+            else:
+                row.update(caption=text(8, 60))
+            rows.append(json.dumps(row))
+        with open(os.path.join(root, f"{fmt}.jsonl"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+        n += count
+    return n
+
+
+def pink_train_argv(root: str, *extra: str) -> list:
+    """The full-width run over ``write_pink_corpus``'s rows in bf16: the log
+    (with the cached val batch) every 2 iterations, no snapshot before the
+    end, no test inference."""
+    tp = "training_parameters"
+    return ["--config", PINK_TRAIN_CONFIG, *pink_train_opts(), "model_attributes.pink.dtype_str",
+            "bfloat16", f"{PINK_DATA}.data_root_dir", root,
+            f"{tp}.max_iterations", str(PINK_TRAIN_ITERS), f"{tp}.log_interval", "2",
+            f"{tp}.snapshot_interval", "1000", f"{tp}.run_type", "train",
+            f"{tp}.num_workers", "4", f"{tp}.seed", "1",
+            f"{tp}.save_dir", os.path.join(root, "save"), *extra]
+
+
+def pink_train_batch(B: int, seed: int) -> dict:
+    """A Pink training batch at the full-width shapes: an image [B, 1, 224,
+    224, 3] of normalised noise, prompts of 40..256 wordpiece ids ([CLS]
+    first), the last 4..30 live tokens of each the supervised answer."""
+    rng = np.random.default_rng(seed)
+    L = PINK_TRAIN_TEXT
+    lens = rng.integers(40, L + 1, B)
+    live = np.arange(L)[None] < lens[:, None]
+    ids = rng.integers(1000, 30000, (B, L)) * live
+    ids[:, 0] = 101
+    answer = np.arange(L)[None] >= (lens - rng.integers(4, 31, B))[:, None]
+    return {"input_ids": ids, "input_mask": live.astype(np.int64),
+            "labels": np.where(live & answer, ids, -100),
+            "image_data": rng.standard_normal((B, 1, SIZE, SIZE, 3)).astype(np.float32)}
+
+
+def pink_first_step(shell, batch):
+    """The first micro-step's LM loss and the trainable parameters' fp32
+    gradients by name."""
+    for p in shell.module.parameters():
+        p.grad = None
+    loss, _ = shell.loss_fn(batch, deterministic=False)
+    loss.backward()
+    return loss.item(), {n: p.grad.float().cpu() for n, p in shell.module.named_parameters()
+                         if p.grad is not None}
+
+
+def pink_train_within_bound(res) -> bool:
+    return res["abs_dloss"] <= PINK_TRAIN_DLOSS_MAX and res["grad_cos_all"] >= PINK_TRAIN_COS_ALL \
+        and res["grad_cos_min"] >= PINK_TRAIN_COS_MIN
+
+
+def pink_train_twins(seed: int):
+    """Pink at full width with ``PINK_CALIB_LAYERS`` decoder layers, frozen
+    as the trainer freezes it: fp32 on the CPU (plain versions) and bf16 on
+    the card on the same fp32 masters, every ``lora_b`` drawn from N(0,
+    0.02); a B=2 batch."""
+    from antmmf_torch.models import pink as pink_model
+
+    preset = f"omni_1b_{PINK_CALIB_LAYERS}_layers"
+    pink_model.LM_PRESETS[preset] = {**pink_model.LM_PRESETS["omni_1b"],
+                                     "num_layers": PINK_CALIB_LAYERS}
+    opts = pink_train_opts(preset)
+    cpu, cpu_state, _ = config_model(PINK_TRAIN_CONFIG, opts, device="cpu", dtype="float32",
+                                     seed=seed)
+    gen = torch.Generator().manual_seed(seed)
+    for name, t in cpu_state.params.items():
+        if name.endswith("lora_b"):
+            t.normal_(0.0, 0.02, generator=gen)
+    cpu_state.sync_model(frozen=True)
+    card, _, _ = config_model(PINK_TRAIN_CONFIG, opts, masters=cpu_state.params)
+    return card, cpu, pink_train_batch(2, SEED + 17)
+
+
+def pink_train_faults():
+    """Faults planted on the card's model only, each undone after its step:
+    (name, plant, undo)."""
+    from antmmf_torch.models import pink as pink_model
+    from antmmf_torch.modules import llm
+
+    real_loss, real_project, real_attention = (pink_model.lm_loss, llm.GQAttention._project,
+                                               llm.flash_attention)
+
+    def unshifted(logits, labels):  # position t scored against its own label
+        valid = labels >= 0
+        nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                              torch.where(valid, labels, -100).reshape(-1).long(),
+                              ignore_index=-100, reduction="sum")
+        return nll / valid.sum().clamp(min=1)
+
+    def detached(self, name, x):  # the round-5 PEFT bug: the frozen outputs cut off
+        out = real_project(self, name, x)
+        if name not in self.lora_targets:
+            return out
+        base = getattr(self, f"{name}_proj")(x)
+        return out - base + base.detach()
+
+    def non_causal(q, k, v, bias=None, scale=None, causal=False):
+        return real_attention(q, k, v, bias=bias, scale=scale, causal=False)
+
+    return [("labels_not_shifted", lambda: setattr(pink_model, "lm_loss", unshifted),
+             lambda: setattr(pink_model, "lm_loss", real_loss)),
+            ("frozen_qv_outputs_detached", lambda: setattr(llm.GQAttention, "_project", detached),
+             lambda: setattr(llm.GQAttention, "_project", real_project)),
+            ("causal_dropped", lambda: setattr(llm, "flash_attention", non_causal),
+             lambda: setattr(llm, "flash_attention", real_attention))]
+
+
+def pink_train_readings(card, batch, ref) -> dict:
+    out = {"sound": compare_steps(pink_first_step(card, batch), ref)}
+    for name, plant, undo in pink_train_faults():
+        plant()
+        try:
+            out[name] = compare_steps(pink_first_step(card, batch), ref)
+        finally:
+            undo()
+    return out
+
+
+def calibrate_pink_train(seeds=3) -> None:
+    """Phase 17 (a)'s readings: sound seeds, then planted faults at the last."""
+    for seed in range(seeds):
+        card, cpu, batch = pink_train_twins(seed)
+        ref = pink_first_step(cpu, batch)
+        readings = (pink_train_readings(card, batch, ref) if seed == seeds - 1 else
+                    {"sound": compare_steps(pink_first_step(card, batch), ref)})
+        for name, res in readings.items():
+            emit(phase="calibrate_pink_train", kind="sound" if name == "sound" else "fault",
+                 fault=None if name == "sound" else name, seed=seed, **res,
+                 within_bound=pink_train_within_bound(res))
+        del card, cpu
+    emit(phase="calibrate_pink_train", kind="bound", dloss_max=PINK_TRAIN_DLOSS_MAX,
+         grad_cos_all=PINK_TRAIN_COS_ALL, grad_cos_min=PINK_TRAIN_COS_MIN)
+
+
+def pink_train_card_vs_cpu() -> None:
+    """Phase 17 (a): the reading at seed 0 within the bounds, each planted
+    fault outside them."""
+    t0 = time.perf_counter()
+    card, cpu, batch = pink_train_twins(SEED)
+    readings = pink_train_readings(card, batch, pink_first_step(cpu, batch))
+    caught = {n: not pink_train_within_bound(r) for n, r in readings.items() if n != "sound"}
+    emit(phase="pink_train", part="card_vs_cpu", batch=2, layers=PINK_CALIB_LAYERS,
+         **readings["sound"], faults={n: r for n, r in readings.items() if n != "sound"},
+         faults_caught=caught, seconds=time.perf_counter() - t0,
+         bounds=dict(dloss_max=PINK_TRAIN_DLOSS_MAX, grad_cos_all=PINK_TRAIN_COS_ALL,
+                     grad_cos_min=PINK_TRAIN_COS_MIN))
+    check(pink_train_within_bound(readings["sound"]),
+          "card and CPU Pink training steps disagree beyond the stated bound")
+    check(all(caught.values()), f"Pink training: a planted fault passed the bound: {caught}")
+    del card, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class SnapshotProbe:
+    """Copies of the state at each save (step, masters, optimizer state with
+    the accumulator, generator), to hold a restored snapshot against."""
+
+    def __init__(self):
+        self.saved = {}
+
+    def install(self):
+        real_save = Checkpoint.save
+
+        def save(ck, state, iteration=None, tag=None):
+            if tag is None:
+                opt = {k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict) else v)
+                       for k, v in state.opt_state.items()}
+                generator = torch.Generator(device=state.generator.device)
+                generator.set_state(state.generator.get_state())
+                self.saved[int(iteration)] = types.SimpleNamespace(
+                    step=state.step, params={n: t.clone() for n, t in state.params.items()},
+                    opt_state=opt, generator=generator, momentum=None)
+            return real_save(ck, state, iteration, tag)
+
+        Checkpoint.save = save
+        return lambda: setattr(Checkpoint, "save", real_save)
+
+
+def pink_updates(step, state, batch, updates: int):
+    """``updates`` optimizer updates (PINK_ACCUM micro-steps each) on one
+    batch: per update the host ms (ending in ``synchronize``) and the
+    launches; the micro-steps' ms."""
+    update_ms, micro_ms, counts = [], [], []
+    for _ in range(updates):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PINK_ACCUM):
+            t1 = time.perf_counter()
+            state, scalars = step(state, batch)
+            torch.cuda.synchronize()
+            micro_ms.append((time.perf_counter() - t1) * 1e3)
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+        counts.append(read_counts())
+    return state, update_ms, micro_ms, counts, float(scalars["total_loss"])
+
+
+def pink_resumed(root: str, path: str):
+    """A trainer on ``pink_train_argv``'s config resumed from ``path``
+    (``run.main``'s build and load, without its train loop)."""
+    args = get_parser().parse_args(pink_train_argv(root, "training_parameters.resume_file",
+                                                   path))
+    trainer = build_trainer(build_config(args.config, args.config_override,
+                                         [o for o in args.opts if o != "--"], args))
+    trainer.load()
+    return trainer
+
+
+def pink_trainer(gpu: str) -> dict:
+    """Phase 17 (b)–(c): ``antmmf_torch.run.main`` on ``pink_instruct.local.yml``
+    at full width over the seeded corpus (under ``build/``, deleted at the
+    end): 5 iterations at B=8 with accumulation 2, the final validation and
+    the last snapshot at 5, one micro-step into the third window. A trainer
+    resumed from that snapshot holds the state saved there bit for bit; the
+    6th iteration on one batch, from the resumed state and from the first
+    run's own, closes the window (3 updates) to the same state bit for bit.
+    Then timed and profiled updates of the trainer's step on its first
+    batch. Returns the launches of the runs and the 6th iterations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="pink_smoke_", dir=build)
+    try:
+        import cv2  # noqa: F401
+        images = True
+    except ImportError:
+        images = False
+    probe, snaps = TrainerProbe(), SnapshotProbe()
+    uninstall, unsnap = probe.install(), snaps.install()
+    last = PINK_TRAIN_ITERS - 1
+    try:
+        rows = write_pink_corpus(root, SEED, images)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        first = run.main(pink_train_argv(root, "training_parameters.max_iterations", str(last)))
+        setup_s = first.timings["first_step_start"] - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        first_step, state = probe.raw_train_step, first.state
+        loader_wait_ms = [t * 1e3 for t in first.timings["loader_wait_s"]]
+        iteration_ms = [t * 1e3 for t in first.timings["step_s"]]
+        mid_window = (state.step, state.opt_state["mini_step"], state.opt_state["count"])
+        masters0, batch = probe.first
+        # the resume: the state saved at the last snapshot, then the 6th
+        # iteration from it and from the first run's own state
+        probe.reference = types.SimpleNamespace(state=snaps.saved[last])
+        t1 = time.perf_counter()
+        resumed = pink_resumed(root, os.path.join(root, "save", "models", f"model_{last}"))
+        resume_s = time.perf_counter() - t1
+        probe.reference = None
+        before = read_counts()
+        state_r, sixth_scalars = probe.raw_train_step(resumed.state, batch)
+        after = read_counts()
+        state, _ = first_step(state, batch)
+        sixth_loss = float(sixth_scalars["total_loss"])
+        counts = read_counts()  # the main path ends here
+        sixth = {k: after[k] - before[k] for k in after}
+        continued = states_equal(state_r, state)
+        trainable = len(state.trainable)
+        n_params = sum(t.numel() for t in state.params.values())
+        n_trainable = sum(state.params[n].numel() for n in state.trainable)
+        opt_bytes = state.optimizer_state_bytes()
+        # the first batch's loss under the initial masters and the final ones
+        shell = first.shell
+        with torch.inference_mode():
+            loss_after = float(shell.loss_fn(batch, deterministic=True)[0])
+        final = {n: t.clone() for n, t in state.params.items()}
+        with torch.no_grad():
+            for n, t in state.params.items():
+                t.copy_(masters0[n])
+        state.sync_model(frozen=True)
+        with torch.inference_mode():
+            loss_before = float(shell.loss_fn(batch, deterministic=True)[0])
+        with torch.no_grad():
+            for n, t in state.params.items():
+                t.copy_(final[n])
+        state.sync_model(frozen=True)
+        probe.first = None
+        del final, resumed, state_r, masters0
+        gc.collect()
+        torch.cuda.empty_cache()
+        # timed updates of the trainer's own step on its first batch
+        state, _, _, _, _ = pink_updates(first_step, state, batch, 2)
+        state, update_ms, micro_ms, bare_counts, _ = pink_updates(first_step, state, batch, 6)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, _, _, _, _ = pink_updates(first_step, state, batch, 2)
+            torch.cuda.synchronize()
+        busy, n_ops, top = device_busy(prof, 2)
+        flash_ms = sum(ms for name, ms in device_ms_by_name(prof, 2)[0].items()
+                       if "flash_" in name)
+        supervised = int((batch["labels"][:, 1:] >= 0).sum().item())
+        positions = PINK_TRAIN_BATCH * (PINK_PATCHES + PINK_TRAIN_TEXT)
+        del first, state, shell, batch, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        unsnap()
+        uninstall()
+        shutil.rmtree(root, ignore_errors=True)
+    losses = [float(x) for x in probe.losses] + [sixth_loss]
+    upd_p50 = float(np.percentile(update_ms, 50))
+    run1 = probe.train[:last]
+    per_update = [{k: a[k] + b[k] for k in a} for a, b in zip(run1[0::2], run1[1::2])]
+    evals = probe.eval
+    summary = dict(
+        config=PINK_TRAIN_CONFIG, gpu=gpu, rows=rows, images="fixture images (cv2)" if images
+        else "none: black frames (no cv2)", batch=PINK_TRAIN_BATCH, accumulation=PINK_ACCUM,
+        losses=losses, first_batch_loss=dict(initial_masters=loss_before,
+                                             final_masters=loss_after),
+        update_p50_ms=upd_p50, update_p95_ms=float(np.percentile(update_ms, 95)),
+        micro_batch_p50_ms=float(np.percentile(micro_ms, 50)),
+        trainer_iteration_ms=iteration_ms,
+        loader_wait_p50_ms=float(np.percentile(loader_wait_ms, 50)),
+        tokens_per_s_all_positions=PINK_ACCUM * positions * 1e3 / upd_p50,
+        tokens_per_s_supervised=PINK_ACCUM * supervised * 1e3 / upd_p50,
+        device_busy_ms_per_update=busy if n_ops else "not measured",
+        device_idle_share=1 - busy / upd_p50 if n_ops else "not measured",
+        flash_device_ms_per_update=flash_ms if n_ops else "not measured",
+        device_ops_per_update=n_ops, top_device_ops_ms=top, peak_mem_gb=peak_gb,
+        params=n_params, trainable_params=n_trainable, trainable_tensors=trainable,
+        optimizer_state_bytes=opt_bytes, launches=counts, launches_per_update=per_update[0],
+        launches_per_timed_update=bare_counts[0], launches_sixth_iteration=sixth,
+        train_iterations=len(probe.train), eval_forwards=len(evals),
+        snapshot_at=dict(zip(("step", "mini_step", "count"), mid_window)),
+        resumed_state_equal=probe.resumed_equal, continued_state_equal=continued,
+        setup_s=setup_s, resume_s=resume_s, restore_s=probe.restores, saves_s_bytes=probe.saves)
+    emit(phase="pink_train", part="trainer", **summary)
+    check(all(np.isfinite(losses)) and len(losses) == PINK_TRAIN_ITERS,
+          f"Pink trainer: losses {losses}")
+    check(loss_after < loss_before,
+          f"Pink trainer: the first batch's loss did not fall ({loss_before} → {loss_after})")
+    check(all(c == PINK_ITER_LAUNCHES for c in probe.train)
+          and all(c == PINK_EVAL_LAUNCHES for c in evals)
+          and all(c == PINK_UPDATE_LAUNCHES for c in per_update + bare_counts),
+          f"Pink trainer: launches per iteration {probe.train[:1]}, per update "
+          f"{per_update[:1]}, per eval forward {evals[:1]}; expected {PINK_ITER_LAUNCHES}, "
+          f"{PINK_UPDATE_LAUNCHES}, {PINK_EVAL_LAUNCHES}")
+    check(sixth == PINK_ITER_LAUNCHES and all(
+        counts[k] == PINK_ITER_LAUNCHES[k] * (len(probe.train) + 2)  # the 6th, twice
+        + PINK_EVAL_LAUNCHES[k] * len(evals) for k in counts),
+          f"Pink trainer: the phase launched {counts}")
+    check(mid_window == (last, 1, last // PINK_ACCUM),
+          f"Pink trainer: the snapshot is not inside a window: {mid_window}")
+    check(probe.resumed_equal is not None and all(probe.resumed_equal.values())
+          and "acc" in probe.resumed_equal, f"Pink trainer: resume {probe.resumed_equal}")
+    check(all(continued.values()), f"Pink trainer: the resumed 6th iteration {continued}")
+    check(opt_bytes == 12 * n_trainable and n_trainable < 0.01 * n_params,
+          f"Pink trainer: optimizer state {opt_bytes} bytes for {n_trainable} trainable of "
+          f"{n_params} parameters")
+    check(probe.devices == {"cuda"}, f"Pink trainer: ran on {probe.devices}")
+    return counts
+
+
+def phase_pink_train(gpu: str) -> dict:
+    """Phase 17: (a) card vs CPU with planted faults, (b)–(c) the trainer.
+    Returns the launches of (b)."""
+    t0 = time.perf_counter()
+    pink_train_card_vs_cpu()
+    counts = pink_trainer(gpu)
+    emit(phase="pink_train", part="summary", seconds=time.perf_counter() - t0, launches=counts)
+    return counts
+
+
 SOURCES = {
     "small_attention": ("antmmf_torch/ops/csrc/small_attention.cu",
                         "antmmf_tpu/ops/pallas/small_attention.py:62"),
@@ -3856,6 +4422,8 @@ def main() -> None:
         launches[name] += n
     for name, n in phase_roi(gpu).items():
         launches[name] += n
+    for name, n in phase_pink_train(gpu).items():
+        launches[name] += n
 
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -3869,7 +4437,8 @@ def main() -> None:
 
 CALIBRATIONS = {"serving": calibrate, "training": calibrate_training, "pink": calibrate_pink,
                 "pretraining": calibrate_pretraining, "dmae": calibrate_dmae,
-                "task_heads": calibrate_task_heads, "roi": calibrate_roi}
+                "task_heads": calibrate_task_heads, "roi": calibrate_roi,
+                "pink_train": calibrate_pink_train}
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--calibrate"] and set(sys.argv[2:]) <= set(CALIBRATIONS):

@@ -231,7 +231,9 @@ def test_port_imports_no_jax():
                 "datasets.mcqa_dataset", "predictors.caption_predictor",
                 "modules.encoders.image_feature_encoder", "models.layoutlm",
                 "modules.transformers.heads.mrc", "datasets.processors.region_processors",
-                "datasets.roi_dataset", "models.univl_roi"):
+                "datasets.roi_dataset", "models.univl_roi",
+                "datasets.processors.pink_processors", "datasets.processors.pink_conversation",
+                "datasets.pink_instruct_dataset"):
         assert f"antmmf_torch.{new}" in mods, new
 
     tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())

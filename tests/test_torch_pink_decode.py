@@ -259,8 +259,12 @@ def test_pink_logits_match_jax(pink_tiny):
     assert set(out) == {"logits"} and out["logits"].dtype == F32
     _close(out["logits"], ref, 1e-4)
     assert shell.module.num_vision_tokens(batch) == jm.num_vision_tokens(batch) == 4
-    with pytest.raises(NotImplementedError, match="LM loss"):
-        shell.module({**shell.to_device(batch), "labels": torch.zeros(2, 6)})
+    # given labels, the LM loss (ported since the training slice) matches JAX's
+    labels = np.where(np.asarray(batch["input_mask"]) > 0, np.asarray(batch["input_ids"]), -100)
+    want = jm.apply(variables, {**batch, "labels": jnp.asarray(labels)})["losses"]["lm_loss"]
+    with torch.inference_mode():
+        got = shell.module({**shell.to_device(batch), "labels": torch.as_tensor(labels)})
+    assert abs(float(got["losses"]["lm_loss"]) - float(want)) <= 1e-5
 
 
 def test_pink_exported_params_round_trip(pink_tiny):

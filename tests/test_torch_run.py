@@ -6,7 +6,8 @@
 * without it the trainer asks for the card, and on a machine without CUDA
   that raises before any data is read: it never becomes a CPU run;
 * knobs of paths that are not ported raise with the key's name:
-  ``steps_per_dispatch`` 2, a nonzero ``dropout``, a world size of 2;
+  ``steps_per_dispatch`` 2, a nonzero ``dropout``, a world size of 2,
+  Pink's ``scan_layers`` and ``visual_tower: eva``;
 * the retrieval variants run to the end on the CPU: the MoCo config
   (``video_retrieval_moco.local.yml``), DMAE through ``retrieval_trainer``
   (``dmae_vtp/configs/msrvtt_retrieval.local.yml``), ``loss_type``
@@ -26,6 +27,7 @@ from antmmf_torch import run
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = os.path.join(REPO, "projects", "base_vtp", "configs")
 CFG = os.path.join(CONFIGS, "video_retrieval.local.yml")
+PINK = os.path.join(REPO, "projects", "pink", "configs", "pink_instruct.local.yml")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -72,7 +74,10 @@ def test_default_device_is_the_card(tmp_path, device):
      "training_parameters.remat_policy"),
     (CFG, ("model_attributes.univl_retrieval.dropout", "0.1"), "dropout 0.1"),
     (CFG, ("training_parameters.num_nodes", "2"), "world size 2"),
-], ids=["steps_per_dispatch", "remat_policy", "dropout", "num_nodes"])
+    (PINK, ("model_attributes.pink.scan_layers", "true"), "scan_layers"),
+    (PINK, ("model_attributes.pink.visual_tower", "eva"), "visual_tower"),
+], ids=["steps_per_dispatch", "remat_policy", "dropout", "num_nodes", "pink_scan_layers",
+        "pink_eva"])
 def test_unported_knobs_raise(tmp_path, config, extra, key):
     with pytest.raises(NotImplementedError, match=key):
         run.main(_argv(tmp_path, config, "training_parameters.device", "cpu", *extra))
