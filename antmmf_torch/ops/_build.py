@@ -16,6 +16,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -93,6 +94,27 @@ def build() -> str:
             f.write("\n".join(log))
         os.replace(tmp_lib, lib_path)  # atomic: a reader never sees half a file
     return lib_path
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel's mangled name: {"registers", "spill_stores", "spill_loads"}}
+    from the ``-Xptxas -v`` lines of a build's log (spills in bytes)."""
+    report, name = {}, None
+    for line in log.splitlines():
+        found = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)",
+                          line)
+        if found:
+            name = found.group(1)
+            report.setdefault(name, {"registers": None, "spill_stores": 0, "spill_loads": 0})
+            continue
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spills and name:
+            report[name].update(spill_stores=int(spills.group(1)),
+                                spill_loads=int(spills.group(2)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            report[name]["registers"] = int(used.group(1))
+    return report
 
 
 def load() -> ctypes.CDLL:

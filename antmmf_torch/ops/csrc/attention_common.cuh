@@ -189,7 +189,8 @@ __device__ __forceinline__ void scale_bias(float (&s)[kTile / 8][4], const float
 
 // 16 keys of a probability tile, rounded to bf16, as an A fragment (the
 // accumulator layout of key blocks 2·kk and 2·kk + 1)
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[4], const float (&p)[kTile / 8][4], int kk) {
+template <int NT>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[4], const float (&p)[NT][4], int kk) {
   pa[0] = pack(p[2 * kk][0], p[2 * kk][1]);
   pa[1] = pack(p[2 * kk][2], p[2 * kk][3]);
   pa[2] = pack(p[2 * kk + 1][0], p[2 * kk + 1][1]);

@@ -54,10 +54,11 @@
 // (K) and ldmatrix.x4.trans (V), one shared-memory load for two
 // products; Pink's causal prefill at D = 128 is 32 blocks of two tiles, a
 // matter of latency, where wgmma has nothing to add.
-// At D = 64 the dQ and dK/dV kernels share that design (ring, wgmma, ex2; see
-// "backward, D = 64"). At D = 32 and 128, which no path trains at, they still
-// load their tiles synchronously, single buffered, with scalar fragment loads
-// on mma.sync.
+// At D = 64 and D = 128 (Pink's causal training step) the dQ and dK/dV
+// kernels share that design (ring, wgmma, ex2; see "backward, D = 64" and
+// "backward, D = 128", which also skips the key tiles whose keys are all
+// masked). At D = 32, which no path trains at, they still load their tiles
+// synchronously, single buffered, with scalar fragment loads on mma.sync.
 // P is rounded to bf16 before P·V and dS before dS·K, as the JAX kernels do.
 
 #include "attention_common.cuh"
@@ -183,13 +184,15 @@ __device__ __forceinline__ T* at(const void* base, const long long (&s)[3], int 
 // One thread's share of the asynchronous copies that bring 64-row tiles of a
 // [L, D] operand into shared memory: the same rows and 16-byte chunk of every
 // tile, so all addressing but the tile's offset is done once. SWZ selects the
-// shared-memory layout: rows of D + 8 (padded, for ldmatrix) or, at D = 64,
-// 128-byte rows whose 16-byte chunks are XORed with the row's low three bits
-// (the 128-byte swizzle that wgmma descriptors name).
+// shared-memory layout: rows of D + 8 (padded, for ldmatrix) or 128-byte
+// rows whose 16-byte chunks are XORed with the row's low three bits (the
+// 128-byte swizzle that wgmma descriptors name), 64 columns a slab: at
+// D = 128 columns 64..127 form a second [64][64] slab after the first.
 template <int D, bool SWZ>
 struct TileCopier {
   static constexpr int CH = D / 8, RSTEP = kThreads / CH, N = kTile / RSTEP;
-  static constexpr int PITCH = (SWZ ? D : D + 8) * (int)sizeof(bf16);
+  static constexpr int PITCH = (SWZ ? 64 : D + 8) * (int)sizeof(bf16);
+  static_assert(!SWZ || (RSTEP % 8 == 0 && D % 64 == 0), "a thread's rows share one swizzle");
   const bf16* base;  // row 0 of the operand, read for nothing when a row is past L
   const bf16* src;   // this thread's chunk of its first row
   long long sl, step;
@@ -200,7 +203,8 @@ struct TileCopier {
       : base(p), sl(row_stride), step(RSTEP * row_stride), r0(threadIdx.x / CH) {
     const int part = threadIdx.x % CH;
     src = p + r0 * sl + part * 8;
-    off = r0 * PITCH + ((SWZ ? part ^ (r0 & 7) : part) << 4);
+    off = SWZ ? (part >> 3) * kTile * PITCH + r0 * PITCH + (((part & 7) ^ (r0 & 7)) << 4)
+              : r0 * PITCH + (part << 4);
   }
 
   // rows [row0, row0 + 64) to the tile at shared address `tile`; rows at or
@@ -298,10 +302,14 @@ struct FwdBlock {
   const float* bias;
   float c;  // scale in log2 units
 
-  __device__ __forceinline__ explicit FwdBlock(const FlashArgs& args) : a(args) {
-    bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  // head: the grid's y; row block: its x
+  __device__ __forceinline__ explicit FwdBlock(const FlashArgs& args)
+      : FwdBlock(args, blockIdx.y, blockIdx.x) {}
+
+  __device__ __forceinline__ FwdBlock(const FlashArgs& args, int bh_, int rb) : a(args) {
+    bh = bh_, b = bh / a.H, h = bh % a.H;
     warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    row0 = blockIdx.x * kRows, wrow = row0 + warp * 16;
+    row0 = rb * kRows, wrow = row0 + warp * 16;
     bias = a.bias ? a.bias + (long long)b * a.Lk : nullptr;
     c = a.scale * kLog2e;
     nkt = (a.Lk + kTile - 1) / kTile;
@@ -421,9 +429,10 @@ __device__ __forceinline__ void wgmma_commit_wait() {
 }
 
 // keeps the compiler from moving uses of an accumulator across the wait
-__device__ __forceinline__ void fence_regs(float (&d)[8][4]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N][4]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
 }
@@ -569,7 +578,9 @@ __global__ void __launch_bounds__(kThreads, kWgMinBlocks) flash_fwd_wgmma_kernel
   if (f.t == 0) store_stats(a, f.bh, f.wrow + f.g, m, l0, l1);
 }
 
-// ----------------------------------------------------------------------- dQ
+// ------------------------------------------------------------ dQ, D = 32
+// The first design, kept for D = 32, which no path trains at: tiles
+// loaded synchronously into one buffer, scalar fragment loads, mma.sync.
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const FlashArgs a) {
   constexpr int SD = D + 8, KD = D / 16, ND = D / 8, NT = kTile / 8;
@@ -653,10 +664,10 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const FlashArgs a) {
   }
 }
 
-// -------------------------------------------------------------------- dK/dV
-template <int D, int QT>
+// --------------------------------------------------------- dK/dV, D = 32
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const FlashArgs a) {
-  constexpr int SD = D + 8, KD = D / 16, ND = D / 8, NT = QT / 8;
+  constexpr int QT = kTile, SD = D + 8, KD = D / 16, ND = D / 8, NT = QT / 8;
   __shared__ __align__(16) bf16 sQ[QT * SD];
   __shared__ __align__(16) bf16 sO[QT * SD];  // dO tile
   __shared__ float sM[QT], sG[QT], sDl[QT];
@@ -769,9 +780,10 @@ __device__ __forceinline__ float2 row_terms(const FlashArgs& a, long long row, l
 
 // keeps A fragments in their registers until the products that read them are
 // waited for (see the forward)
-__device__ __forceinline__ void pin(const uint32_t (&f)[kTile / 16][4]) {
+template <int N>
+__device__ __forceinline__ void pin(const uint32_t (&f)[N][4]) {
 #pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk)
+  for (int kk = 0; kk < N; ++kk)
     asm volatile("" ::"r"(f[kk][0]), "r"(f[kk][1]), "r"(f[kk][2]), "r"(f[kk][3]));
 }
 
@@ -1032,6 +1044,369 @@ __global__ void __launch_bounds__(kThreads, kDkvMinBlocks) flash_dkv_wgmma_kerne
   store_acc(dv, 1.f, 1.f, aligned + kWgTile, at<bf16>(a.dv, a.dv_s, b, h), a.dv_s[2], key0, a.Lk);
 }
 
+// ----------------------------------------------------- backward, D = 128, wgmma
+// The D = 64 design above, at D = 128, the width of Pink's causal training step
+// [8, 16, 305, 128]. What bounds it there on an H100: about 60 MB of q, k, v,
+// dO, O and the gradients a kernel (18 us at 3.35 TB/s) against about 4 us of
+// causal products, so loads have to run behind the products.
+//   * A row of 128 bf16 is two 128-byte swizzle rows: a [64][128] tile is two
+//     swizzled [64][64] slabs (columns 0..63, then 64..127) 8 KB apart
+//     (TileCopier<128, true>). Products over D step through both slabs
+//     (dstep); products whose N is D run as two n64 wgmma, one a slab, so
+//     every B descriptor names one swizzle atom across N, as at D = 64.
+//   * Registers: dQ's accumulator [64][128] is 64 a thread beside S and dP.
+//     dK and dV for 64 keys are 128 a thread, so flash_dkv computes its
+//     transposed scores 32 queries at a time (m64n32) and keeps one
+//     warpgroup a block; both kernels fit two blocks an SM (about 98 KB of
+//     shared memory each: the resident pair of tiles and a ring of two
+//     stages of two tiles).
+//   * Work that cannot count is skipped, exactly. A key whose bias is
+//     finfo.min (clamped to -FLT_MAX in log2 units) or that lies past Lk
+//     scores -FLT_MAX or -inf; in a row whose m lies above -FLT_MAX (hence at
+//     least one ulp, 2^104, above it) its exponent is below -2^104, so P and
+//     dS are +0 and the products gain nothing. A fully masked row (m =
+//     -FLT_MAX) instead gives such keys the uniform weight 1/l. So flash_dq
+//     walks only the key tiles with a live key unless a row of its block is
+//     fully masked, and flash_dkv writes zeros for a block of 64 dead keys
+//     unless a row that sees them is fully masked. Pink's ragged text leaves
+//     the last one or two of a sample's five key tiles dead.
+//   * The grid puts heads in x and row blocks in y, so a wave holds the same
+//     row block of many heads, and under causal the longest blocks start
+//     first: dQ's last row block walks the most key tiles, dK/dV's first key
+//     block the most query tiles.
+constexpr int kWgTile2 = 2 * kWgTile;      // bytes of a [64][128] tile
+constexpr int kSlab = kWgTile >> 4;        // the second slab, in descriptor units
+constexpr int kRows16 = (16 * 128) >> 4;   // 16 rows of a slab, in descriptor units
+constexpr int kBwd128MinBlocks = 2;        // blocks an SM, by shared memory
+
+// descriptor offset of step kk (16 of D) in a two-slab tile
+__device__ __forceinline__ int dstep(int kk) { return (kk >> 2) * kSlab + 2 * (kk & 3); }
+
+// d = a·b (or d += a·b): m64n32k16, both operands by descriptor, K-major
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[4][4], uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+               "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+               "%16, %17, p, 1, 1, 0, 0;\n}\n"
+               : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+                 "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+                 "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+                 "+f"(d[3][3])
+               : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// dQ: as flash_dq_wgmma_kernel, with the live key tiles in a mask. Shared
+// memory from a 1024-byte aligned base: Q, dO, the two stages of K and V
+// tiles, the two stages' biases, each warp's mask of live tiles.
+constexpr size_t kDq128SmemBytes =
+    1024 + 6 * kWgTile2 + 2 * kTile * sizeof(float) + 4 * sizeof(uint64_t);
+
+__global__ void __launch_bounds__(kThreads, kBwd128MinBlocks)
+    flash_dq128_kernel(const FlashArgs a) {
+  constexpr int NT = kTile / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t sQ = (smem_addr(smem) + 1023) & ~1023u;
+  const uint32_t sDo = sQ + kWgTile2, ring = sQ + 2 * kWgTile2;
+  unsigned char* aligned = smem + (sQ - smem_addr(smem));
+  float* sB = reinterpret_cast<float*>(aligned + 6 * kWgTile2);
+  uint64_t* sLive = reinterpret_cast<uint64_t*>(sB + 2 * kTile);
+  const FwdBlock f(a, blockIdx.x, gridDim.y - 1 - blockIdx.y);  // the last row block first
+  const TileCopier<128, true> copy_k(at<const bf16>(a.k, a.k_s, f.b, f.h), a.k_s[2]);
+  const TileCopier<128, true> copy_v(at<const bf16>(a.v, a.v_s, f.b, f.h), a.v_s[2]);
+  auto copy_kv = [&](int kt, int stage) {
+    const uint32_t st = ring + stage * 2 * kWgTile2;
+    copy_k.start(st, kt * kTile, a.Lk);
+    copy_v.start(st + kWgTile2, kt * kTile, a.Lk);
+    cp_async_commit();
+  };
+  const bf16* dout = at<const bf16>(a.dout, a.do_s, f.b, f.h);
+  TileCopier<128, true>(at<const bf16>(a.q, a.q_s, f.b, f.h), a.q_s[2]).start(sQ, f.row0, a.Lq);
+  TileCopier<128, true>(dout, a.do_s[2]).start(sDo, f.row0, a.Lq);
+  copy_kv(0, 0);  // tile 0 goes first, live or not: a dead tile adds exact zeros
+  if (threadIdx.x < kTile) sB[threadIdx.x] = f.key_bias(threadIdx.x);
+
+  // delta = rowsum(dO∘O) in fp32 for rows r0 = wrow + g and r1 = r0 + 8: a
+  // quad's lanes take 32 columns each
+  const int r0 = f.wrow + f.g, r1 = r0 + 8;
+  float d[2];
+  {
+    const bf16* o = at<const bf16>(a.o, a.o_s, f.b, f.h);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = i ? r1 : r0;
+      float acc = 0.f;
+      if (r < a.Lq) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const uint4 x = *reinterpret_cast<const uint4*>(dout + r * a.do_s[2] + f.t * 32 + c * 8);
+          const uint4 y = *reinterpret_cast<const uint4*>(o + r * a.o_s[2] + f.t * 32 + c * 8);
+          const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 u = unpack(xs[e]), w = unpack(ys[e]);
+            acc += u.x * w.x + u.y * w.y;
+          }
+        }
+      }
+      d[i] = quad_sum(acc);
+    }
+  }
+  const long long row = (long long)f.bh * a.Lq, plane = (long long)a.B * a.H * a.Lq;
+  if (f.t == 0) {
+    if (r0 < a.Lq) a.delta[row + r0] = d[0];
+    if (r1 < a.Lq) a.delta[row + r1] = d[1];
+  }
+  const float2 st0 = row_terms(a, row, plane, r0), st1 = row_terms(a, row, plane, r1);
+  const float ds[2] = {d[0] * a.scale, d[1] * a.scale};  // delta·scale
+  const uint64_t qd = tile_desc(sQ), dod = tile_desc(sDo);
+
+  // bit kt: key tile kt holds a live key (bit 63 stands for every tile from
+  // 63 on); all bits when a row of the block is fully masked
+  uint64_t live = 0;
+  if (!f.bias || st0.x == -FLT_MAX || st1.x == -FLT_MAX) {
+    live = ~0ull;
+  } else {
+    for (int j = threadIdx.x; j < a.Lk; j += kThreads)
+      if (f.key_bias(j) > -FLT_MAX) live |= 1ull << min(j / kTile, 63);
+  }
+#pragma unroll
+  for (int o = 16; o; o >>= 1) live |= __shfl_xor_sync(0xffffffffu, live, o);
+  if (f.lane == 0) sLive[f.warp] = live;
+
+  float dq0[8][4], dq1[8][4];  // columns 0..63 and 64..127
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq0[nt][e] = dq1[nt][e] = 0.f;
+
+  int kt = 0;
+  for (int it = 0; kt < f.nkt; ++it) {
+    cp_async_wait<0>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // tile kt has landed for every thread; the previous one is consumed
+    if (it == 0) live = sLive[0] | sLive[1] | sLive[2] | sLive[3];
+    int next = kt + 1;
+    while (next < f.nkt && !((live >> min(next, 63)) & 1)) ++next;
+    const bool more = next < f.nkt;
+    const int stage = it & 1;
+    float next_bias = 0.f;
+    if (more) {
+      copy_kv(next, stage ^ 1);
+      if (threadIdx.x < kTile) next_bias = f.key_bias(next * kTile + threadIdx.x);
+    }
+    const uint64_t kd = tile_desc(ring + stage * 2 * kWgTile2), vd = kd + (kWgTile2 >> 4);
+    const int key0 = kt * kTile;
+
+    float s[NT][4], dp[NT][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) wgmma_ss(s, qd + dstep(kk), kd + dstep(kk), kk > 0);  // S = Q·Kᵀ
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) wgmma_ss(dp, dod + dstep(kk), vd + dstep(kk), kk > 0);  // dO·Vᵀ
+    wgmma_commit_wait();
+    fence_regs(s);
+    fence_regs(dp);
+
+    scale_bias(s, sB + stage * kTile, f.c, f.t);
+    if (a.causal && key0 + kTile - 1 > f.wrow) causal_mask(s, key0, f.wrow, f.g, f.t);
+    uint32_t dsa[NT / 2][4];
+    fence_regs(dq0);
+    fence_regs(dq1);
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {  // 16 keys a step; their products start at once
+#pragma unroll
+      for (int nt = 2 * kk; nt < 2 * kk + 2; ++nt)  // dS = P∘(dP - delta)·scale, over dP
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 st = e < 2 ? st0 : st1;
+          dp[nt][e] = ex2((s[nt][e] - st.x) - st.y) * fmaf(dp[nt][e], a.scale, -ds[e >> 1]);
+        }
+      pack_p(dsa[kk], dp, kk);
+      wgmma_fence();
+      wgmma_rs_tb(dq0, dsa[kk], kd + kk * kRows16);  // dQ += dS·K, K MN-major, a slab each
+      wgmma_rs_tb(dq1, dsa[kk], kd + kSlab + kk * kRows16);
+    }
+    wgmma_commit_wait();
+    fence_regs(dq0);
+    fence_regs(dq1);
+    pin(dsa);
+    // that stage's biases were last read in the iteration before
+    if (more && threadIdx.x < kTile) sB[(stage ^ 1) * kTile + threadIdx.x] = next_bias;
+    kt = next;
+  }
+
+  __syncthreads();  // no product reads the Q tile any more
+  bf16* gq = at<bf16>(a.dq, a.dq_s, f.b, f.h);
+  store_acc(dq0, 1.f, 1.f, aligned, gq, a.dq_s[2], f.row0, a.Lq);
+  store_acc(dq1, 1.f, 1.f, aligned + kWgTile, gq + 64, a.dq_s[2], f.row0, a.Lq);
+}
+
+// dK/dV: as flash_dkv_wgmma_kernel, each 64-query tile in two halves of 32
+// (Sᵀ and dPᵀ m64n32, then dV and dK over those 32 queries). Shared memory
+// from a 1024-byte aligned base: K, V, the two stages of Q and dO tiles, the
+// two stages' rows.
+constexpr size_t kDkv128SmemBytes = 1024 + 6 * kWgTile2 + 2 * 3 * kTile * sizeof(float);
+
+__global__ void __launch_bounds__(kThreads, kBwd128MinBlocks)
+    flash_dkv128_kernel(const FlashArgs a) {
+  constexpr int NH = 4;  // 8-query blocks of a half
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t sK = (smem_addr(smem) + 1023) & ~1023u;
+  const uint32_t sV = sK + kWgTile2, ring = sK + 2 * kWgTile2;
+  unsigned char* aligned = smem + (sK - smem_addr(smem));
+  float* sRow = reinterpret_cast<float*>(aligned + 6 * kWgTile2);  // [stage][m, log l, delta·scale][64]
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int key0 = blockIdx.y * kRows, k0 = key0 + (threadIdx.x >> 5) * 16 + g, k1 = k0 + 8;
+  const float* bias = a.bias ? a.bias + (long long)b * a.Lk : nullptr;
+  auto key_bias = [&](int j) { return j < a.Lk ? (bias ? bias_log2(bias[j]) : 0.f) : -INFINITY; };
+  const float bz0 = key_bias(k0), bz1 = key_bias(k1), c = a.scale * kLog2e;
+  const long long row = (long long)bh * a.Lq, plane = (long long)a.B * a.H * a.Lq;
+  bf16* gk = at<bf16>(a.dk, a.dk_s, b, h);
+  bf16* gv = at<bf16>(a.dv, a.dv_s, b, h);
+  const int qt0 = a.causal ? key0 / kTile : 0;  // causal: earlier rows see none of these keys
+
+  // 64 dead keys (see above): their gradients are 0 unless a row that sees
+  // them is fully masked
+  if (__syncthreads_and(bz0 <= -FLT_MAX && bz1 <= -FLT_MAX)) {
+    bool full = false;
+    for (int r = qt0 * kTile + threadIdx.x; r < a.Lq; r += kThreads)
+      full |= row_terms(a, row, plane, r).x == -FLT_MAX;
+    if (!__syncthreads_or(full)) {
+      for (int i = threadIdx.x; i < kRows * 16; i += kThreads) {
+        const int r = key0 + i / 16, part = i % 16;
+        if (r < a.Lk) {
+          *reinterpret_cast<uint4*>(gk + r * a.dk_s[2] + part * 8) = make_uint4(0u, 0u, 0u, 0u);
+          *reinterpret_cast<uint4*>(gv + r * a.dv_s[2] + part * 8) = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+      return;
+    }
+  }
+
+  const TileCopier<128, true> copy_q(at<const bf16>(a.q, a.q_s, b, h), a.q_s[2]);
+  const TileCopier<128, true> copy_do(at<const bf16>(a.dout, a.do_s, b, h), a.do_s[2]);
+  auto copy_qdo = [&](int qt) {
+    const uint32_t stage = ring + (qt & 1) * 2 * kWgTile2;
+    copy_q.start(stage, qt * kTile, a.Lq);
+    copy_do.start(stage + kWgTile2, qt * kTile, a.Lq);
+    cp_async_commit();
+  };
+  // a stage's rows: threads 0..63 fetch m and log l of one row, 64..127 its
+  // delta·scale
+  const int rj = threadIdx.x & (kTile - 1);
+  auto fetch_rows = [&](int qt) {
+    const int r = qt * kTile + rj;
+    if (threadIdx.x < kTile) return row_terms(a, row, plane, r);
+    return make_float2(r < a.Lq ? a.delta[row + r] * a.scale : 0.f, 0.f);
+  };
+  auto put_rows = [&](int qt, float2 x) {
+    float* st = sRow + (qt & 1) * 3 * kTile;
+    if (threadIdx.x < kTile) {
+      st[rj] = x.x;
+      st[kTile + rj] = x.y;
+    } else {
+      st[2 * kTile + rj] = x.x;
+    }
+  };
+
+  const int nqt = (a.Lq + kTile - 1) / kTile;
+  TileCopier<128, true>(at<const bf16>(a.k, a.k_s, b, h), a.k_s[2]).start(sK, key0, a.Lk);
+  TileCopier<128, true>(at<const bf16>(a.v, a.v_s, b, h), a.v_s[2]).start(sV, key0, a.Lk);
+  copy_qdo(qt0);
+  if (qt0 < nqt) put_rows(qt0, fetch_rows(qt0));
+  const uint64_t kd = tile_desc(sK), vd = tile_desc(sV);
+
+  float dk0[8][4], dk1[8][4], dv0[8][4], dv1[8][4];  // columns 0..63 and 64..127
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk0[nt][e] = dk1[nt][e] = dv0[nt][e] = dv1[nt][e] = 0.f;
+
+  for (int qt = qt0; qt < nqt; ++qt) {
+    cp_async_wait<0>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // tile qt has landed for every thread; tile qt - 1 is consumed
+    const bool more = qt + 1 < nqt;
+    float2 next_rows = make_float2(0.f, 0.f);
+    if (more) {
+      copy_qdo(qt + 1);
+      next_rows = fetch_rows(qt + 1);
+    }
+    const int stage = qt & 1;
+    const uint64_t qd = tile_desc(ring + stage * 2 * kWgTile2), dod = qd + (kWgTile2 >> 4);
+    const float* st = sRow + stage * 3 * kTile;
+
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      const int q0 = qt * kTile + half * 32;  // this half's first query
+      if (q0 >= a.Lq) break;                  // rows past Lq have P = 0
+      const uint64_t qh = qd + half * 2 * kRows16, doh = dod + half * 2 * kRows16;
+      float s[NH][4], dp[NH][4];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) wgmma_ss_n32(s, kd + dstep(kk), qh + dstep(kk), kk > 0);  // Sᵀ
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) wgmma_ss_n32(dp, vd + dstep(kk), doh + dstep(kk), kk > 0);  // dPᵀ
+      wgmma_commit_wait();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // only a half that crosses this warp's diagonal needs the causal mask
+      const bool mask = a.causal && k0 - g + 15 > q0;
+      uint32_t pa[NH / 2][4], dsa[NH / 2][4];
+      fence_regs(dv0);
+      fence_regs(dv1);
+      fence_regs(dk0);
+      fence_regs(dk1);
+#pragma unroll
+      for (int kk = 0; kk < NH / 2; ++kk) {  // 16 queries a step; their products start at once
+#pragma unroll
+        for (int nt = 2 * kk; nt < 2 * kk + 2; ++nt) {
+          const int col = half * 32 + nt * 8 + 2 * t;  // this thread's columns of the tile
+          const float2 m = *reinterpret_cast<const float2*>(st + col);
+          const float2 lg = *reinterpret_cast<const float2*>(st + kTile + col);
+          const float2 dl = *reinterpret_cast<const float2*>(st + 2 * kTile + col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = e & 1;
+            float x = fmaf(s[nt][e], c, e < 2 ? bz0 : bz1);
+            if (mask && (e < 2 ? k0 : k1) > qt * kTile + col + j) x = -INFINITY;
+            const float p = ex2((x - (j ? m.y : m.x)) - (j ? lg.y : lg.x));
+            s[nt][e] = p;
+            dp[nt][e] = p * fmaf(dp[nt][e], a.scale, -(j ? dl.y : dl.x));  // dSᵀ
+          }
+        }
+        pack_p(pa[kk], s, kk);
+        pack_p(dsa[kk], dp, kk);
+        const int rows = (half * 2 + kk) * kRows16;  // these 16 queries' rows of the tiles
+        wgmma_fence();
+        wgmma_rs_tb(dv0, pa[kk], dod + rows);  // dV += Pᵀ·dO, dO MN-major, a slab each
+        wgmma_rs_tb(dv1, pa[kk], dod + kSlab + rows);
+        wgmma_rs_tb(dk0, dsa[kk], qd + rows);  // dK += dSᵀ·Q, Q MN-major
+        wgmma_rs_tb(dk1, dsa[kk], qd + kSlab + rows);
+      }
+      wgmma_commit_wait();
+      fence_regs(dv0);
+      fence_regs(dv1);
+      fence_regs(dk0);
+      fence_regs(dk1);
+      pin(pa);
+      pin(dsa);
+    }
+    // that stage's rows were last read in iteration qt - 1
+    if (more) put_rows(qt + 1, next_rows);
+  }
+
+  cp_async_wait<0>();  // with no query tile to walk the copies were never waited for
+  __syncthreads();     // no product reads the K and V tiles any more
+  store_acc(dk0, 1.f, 1.f, aligned, gk, a.dk_s[2], key0, a.Lk);
+  store_acc(dk1, 1.f, 1.f, aligned + kWgTile, gk + 64, a.dk_s[2], key0, a.Lk);
+  store_acc(dv0, 1.f, 1.f, aligned + kWgTile2, gv, a.dv_s[2], key0, a.Lk);
+  store_acc(dv1, 1.f, 1.f, aligned + kWgTile2 + kWgTile, gv + 64, a.dv_s[2], key0, a.Lk);
+}
+
 bool takes(const FlashArgs* a) {
   return a->B >= 1 && a->H >= 1 && a->Lq >= 1 && a->Lk >= 1 && (long long)a->B * a->H <= 65535;
 }
@@ -1046,17 +1421,32 @@ int launch_rows(Kernel kernel, size_t smem, int L, const FlashArgs& a, cudaStrea
   return (int)cudaGetLastError();
 }
 
-// D = 64 takes the wgmma kernels, D = 32 and 128 the mma.sync ones
+// the same with heads in x and the row blocks in y
+template <typename Kernel>
+int launch_heads(Kernel kernel, size_t smem, int L, const FlashArgs& a, cudaStream_t s) {
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.B * a.H, (L + kRows - 1) / kRows);
+  kernel<<<grid, kThreads, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// D = 64 takes the wgmma kernels; D = 128 the mma.sync forward and the wgmma
+// backward; D = 32 the mma.sync ones
 template <int D>
 int launch(int which, const FlashArgs& a, cudaStream_t s) {
   if constexpr (D == 64) {
     if (which == 0) return launch_rows(flash_fwd_wgmma_kernel, kWgSmemBytes, a.Lq, a, s);
     if (which == 1) return launch_rows(flash_dq_wgmma_kernel, kDqSmemBytes, a.Lq, a, s);
     return launch_rows(flash_dkv_wgmma_kernel, kDkvSmemBytes, a.Lk, a, s);
+  } else if constexpr (D == 128) {
+    if (which == 0) return launch_rows(flash_fwd_kernel<D>, fwd_smem_bytes<D>(), a.Lq, a, s);
+    if (which == 1) return launch_heads(flash_dq128_kernel, kDq128SmemBytes, a.Lq, a, s);
+    return launch_heads(flash_dkv128_kernel, kDkv128SmemBytes, a.Lk, a, s);
   } else {
     if (which == 0) return launch_rows(flash_fwd_kernel<D>, fwd_smem_bytes<D>(), a.Lq, a, s);
     if (which == 1) return launch_rows(flash_dq_kernel<D>, 0, a.Lq, a, s);
-    return launch_rows(flash_dkv_kernel<D, D == 128 ? 32 : 64>, 0, a.Lk, a, s);
+    return launch_rows(flash_dkv_kernel<D>, 0, a.Lk, a, s);
   }
 }
 

@@ -16,11 +16,14 @@ Each reading is device time per launch: 20 launches captured in a CUDA graph
 and replayed, timed with CUDA events, so the host's launch cost stays out of
 it (it would swamp the one-sample shapes). One JSON line per kernel and
 shape, with the card's name and power limit as ``nvidia-smi`` gives them.
-Rows of ``small_attention`` and ``flash_fwd`` carry ``bound_us``, the least
-time the card could take (each input read once, each output written once
-at 3.35 TB/s; the products over the live keys at 989 TFLOP/s bf16; the
-larger of the two). Pink's training step (causal, D=128, k/v repeated from
-4 kv heads, a ragged text bias behind 49 vision keys) has rows of its own.
+Every attention row carries ``bound_us``, the least time the card could
+take (each input read once, each output written once at 3.35 TB/s; the
+products over the attended (query, key) pairs at 989 TFLOP/s bf16; the
+larger of the two). For ``flash_dq`` and ``flash_dkv`` K and V count only
+the rows of live keys where no row is fully masked (``flash_bwd_bytes``);
+the pair's row carries the sum of the two. Pink's training step (causal,
+D=128, k/v repeated from 4 kv heads, a ragged text bias behind 49 vision
+keys) has rows of its own.
 The backward pair is also timed as one row, ``flash_dq+flash_dkv``, against
 SDPA's backward alone (``sdpa_bwd``: the forward run once outside the graph,
 ``torch.autograd.grad`` captured), with the SDPA kernels that ran.
@@ -46,6 +49,7 @@ import sys
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores (data sheet)
+LOG2E, FLT_MAX = 1.4426950408889634, 3.4028234663852886e38  # a key bias as the kernels read it
 # the Pink decode path's int4 records: (x columns, record rows, out, group,
 # launches a decode step); down_proj is stored row-padded at group 88
 INT4_SHAPES = {"attn_q_o": (2048, 2048, 2048, 128, 44),
@@ -180,8 +184,30 @@ def bound_us(nbytes: float, flops: float) -> float:
     return max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e6
 
 
+def flash_bwd_bytes(kb, B: int, H: int, Lq: int, Lk: int, D: int, causal: bool):
+    """(dq, dkv): the bytes ``flash_dq`` and ``flash_dkv`` must move, each
+    input read once and each output written once: bf16 [B, H, L, D]
+    tensors, the fp32 row statistics (m, log l) and delta, the fp32 key bias
+    ``kb`` [B, Lk] or None. K and V count the rows these inputs need: in a
+    sample with no fully masked row, its live keys only (a bias above
+    finfo.min once in log2 units, as the kernels read it), since every
+    other key's P is exactly 0; in a sample with one (causal: its first key
+    masked; otherwise: no key live), all Lk. dK and dV are written whole."""
+    if kb is None:
+        kv_rows = B * Lk
+    else:
+        live = kb.double() * LOG2E > -FLT_MAX
+        full = ~live[:, 0] if causal else ~live.any(dim=1)
+        kv_rows = int(live.sum(dim=1).masked_fill(full, Lk).sum().item())
+    q, kv, k = B * H * Lq * D * 2, H * kv_rows * D * 2, B * H * Lk * D * 2
+    rows, bias = B * H * Lq * 4, 0 if kb is None else B * Lk * 4
+    # dQ reads q, o, dout, k, v, m, log l; writes dq and delta.
+    # dK/dV reads q, dout, k, v, m, log l, delta; writes dk and dv.
+    return 4 * q + 2 * kv + bias + 3 * rows, 2 * q + 2 * kv + 2 * k + bias + 3 * rows
+
+
 def cases(torch, sa, fa):
-    """(kernel, shape name, port call, library, bound in µs or None): the
+    """(kernel, shape name, port call, library, bound in µs): the
     library call timed the same way, or None, or for the backward pair the
     SDPA inputs (q, k, v, mask, dout) whose backward ``sdpa_backward_ms``
     times alone."""
@@ -216,6 +242,29 @@ def cases(torch, sa, fa):
     # padding bias (at least 8 live frames)
     yield small("dmae_temporal_128x8x12x64_framepad", 128, 8, 12, 64, True, lo=8)
 
+    def backward_rows(name, q, k, v, kb, out, stats, dout, delta, mask, causal, pairs):
+        """flash_dq, flash_dkv and the pair against SDPA's backward; bounds
+        from ``flash_bwd_bytes`` and the products over the ``pairs``
+        attended (query, key) pairs of all heads (6 and 8 multiply-adds ·2
+        per pair and head dimension); the pair's bound is their sum."""
+        B, H, Lq, D = q.shape
+        scale = D ** -0.5
+        dq_bytes, dkv_bytes = flash_bwd_bytes(kb, B, H, Lq, k.shape[2], D, causal)
+        dq_bound = bound_us(dq_bytes, 6 * D * pairs)
+        dkv_bound = bound_us(dkv_bytes, 8 * D * pairs)
+        yield ("flash_dq", name,
+               lambda: fa.flash_dq(q, k, v, kb, out, stats, dout, scale, causal), None, dq_bound)
+        yield ("flash_dkv", name,
+               lambda: fa.flash_dkv(q, k, v, kb, stats, dout, delta, scale, causal), None,
+               dkv_bound)
+
+        def backward():
+            _, dl = fa.flash_dq(q, k, v, kb, out, stats, dout, scale, causal)
+            fa.flash_dkv(q, k, v, kb, stats, dout, dl, scale, causal)
+
+        yield ("flash_dq+flash_dkv", name, backward, (q, k, v, mask, dout),
+               dq_bound + dkv_bound)
+
     def pairs(P, name, forward_only=False):
         """The cross-encoder's pair stream: up to 30 text tokens (ragged) then
         400 live frame tokens, P pairs."""
@@ -232,16 +281,8 @@ def cases(torch, sa, fa):
                         4 * 12 * 430 * live * 64))
         if forward_only:
             return
-        yield ("flash_dq", name,
-               lambda: fa.flash_dq(q, k, v, kb, out, stats, dout, scale, False), None, None)
-        yield ("flash_dkv", name,
-               lambda: fa.flash_dkv(q, k, v, kb, stats, dout, delta, scale, False), None, None)
-
-        def backward():
-            _, dl = fa.flash_dq(q, k, v, kb, out, stats, dout, scale, False)
-            fa.flash_dkv(q, k, v, kb, stats, dout, dl, scale, False)
-
-        yield ("flash_dq+flash_dkv", name, backward, (q, k, v, mask, dout), None)
+        yield from backward_rows(name, q, k, v, kb, out, stats, dout, delta, mask, False,
+                                 12 * 430 * live)
 
     def pink_train(B):
         """Pink's training step: causal, 16 heads of 128, k/v repeated from 4
@@ -264,16 +305,7 @@ def cases(torch, sa, fa):
         yield ("flash_fwd", name, lambda: fa.flash_fwd(q, k, v, kb, scale, True),
                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
                bound_us(4 * B * H * L * D * 2 + B * L * 4 + 2 * B * H * L * 4, 4 * D * pairs))
-        yield ("flash_dq", name,
-               lambda: fa.flash_dq(q, k, v, kb, out, stats, dout, scale, True), None, None)
-        yield ("flash_dkv", name,
-               lambda: fa.flash_dkv(q, k, v, kb, stats, dout, delta, scale, True), None, None)
-
-        def backward():
-            _, dl = fa.flash_dq(q, k, v, kb, out, stats, dout, scale, True)
-            fa.flash_dkv(q, k, v, kb, stats, dout, dl, scale, True)
-
-        yield ("flash_dq+flash_dkv", name, backward, (q, k, v, mask, dout), None)
+        yield from backward_rows(name, q, k, v, kb, out, stats, dout, delta, mask, True, pairs)
 
     # 64 mined pairs a cross-mined step; 128 pairs a pretraining VTM or MLM pass
     yield from pairs(64, "cross_64x12x430x64_ragged")

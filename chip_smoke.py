@@ -9,8 +9,10 @@ Phases, each printing JSON lines; a failing phase ends the script with a
 non-zero code and no result line:
 
 1. card and build: the GPU's name and power limit (``nvidia-smi``), the
-   kernels built from ``antmmf_torch/ops/csrc`` with ``nvcc``; TF32 is turned
-   off so fp32 checks are exact;
+   kernels built from ``antmmf_torch/ops/csrc`` with ``nvcc``, every
+   kernel's registers and spills from the compiler's ``-Xptxas -v`` report
+   (the D=128 ``flash_dq``/``flash_dkv`` kernels must not spill); TF32 is
+   turned off so fp32 checks are exact;
 2. kernel vs plain: ``small_attention`` against ``plain_small_attention`` on
    the same inputs at the serving path's shapes and at the edges of the bf16
    kernel's tiles (L 15 to 256, D 32 to 128, strided and biased, fully masked
@@ -29,8 +31,12 @@ non-zero code and no result line:
    around the forward's tile ring, query counts around the backward's,
    causal with a key bias, Pink's causal prefill shape, Pink's training
    step: causal [8, 16, 305, 128] with 49 vision keys and 8..256 live text
-   keys, k/v repeated from 4 kv heads), and the ``flash_attention``
-   Function against fp32 autograd of ``plain_flash_attention``, also as the
+   keys, k/v repeated from 4 kv heads; at D=128 [4, 16, L, 128] with L 63,
+   64, 65 and 129 around the backward's rings, causal Lq ≠ Lk both ways, a
+   fully masked sample, leading keys masked under causal, whole key blocks
+   masked with and without a fully masked row that sees them), and the
+   ``flash_attention`` Function against fp32 autograd of
+   ``plain_flash_attention``, also as the
    decoder calls it at D=128 (causal, the ragged bias, k/v repeated inside
    the graph, the gradients of the 4 kv heads); ``int4_gemv`` against ``plain_int4_gemv`` and
    against ``unpack_int4`` + matmul in fp32 on the decode path's five weight
@@ -217,20 +223,22 @@ non-zero code and no result line:
    the trainable gradients' cosines, held to the bounds ``--calibrate
    pink_train`` reads, and three planted faults outside them (labels not
    shifted, the frozen q/v projections' outputs detached, the decoder's
-   attention not causal); (b) ``antmmf_torch.run.main`` over 256 seeded
-   rows in the config's vqa, grounding and caption sources (naming the
-   repository's three fixture images where OpenCV reads them, else none:
-   black frames), written under ``build/`` and deleted: 5 iterations, the
-   final validation and a snapshot one micro-step into the third window; a
-   trainer resumed from it holds the saved state bit for bit, and the 6th
-   iteration from the resumed state and from the first run's gives the
-   same state bit for bit (3 updates); 11 K1 and 22 of each flash kernel an
-   iteration (22 / 44 / 44 / 44 an update), 11 and 22 forward an eval; the
-   first batch's loss under the final masters below the initial one;
-   optimizer-state bytes (12 a trainable parameter, none for a frozen one),
-   peak memory; (c) timed updates on one batch: p50 per update and per
-   micro-batch, tokens/s over all positions and over the supervised ones,
-   device-busy ms, flash ms and the idle share over 2 profiled updates.
+   attention not causal); (b) ``antmmf_torch.run.main`` at 4 of the 22
+   decoder layers over 256 seeded rows in the config's vqa, grounding and
+   caption sources (naming the repository's three fixture images where
+   OpenCV reads them, else none: black frames), written under ``build/``
+   and deleted: 5 iterations, the final validation and a snapshot one
+   micro-step into the third window; a trainer resumed from it holds the
+   saved state bit for bit, and the 6th iteration from the resumed state
+   and from the first run's gives the same state bit for bit (3 updates);
+   11 K1 and 4 of each flash kernel an iteration, 11 and 4 forward an eval;
+   the first batch's loss under the final masters below the initial one;
+   (c) the trainer at all 22 layers, loaded as ``run.main`` loads it: timed
+   updates of its step on its first batch (22 / 44 / 44 / 44 launches an
+   update), p50 per update and per micro-batch, tokens/s over all positions
+   and over the supervised ones, device-busy ms, flash ms and the idle
+   share over 2 profiled updates, optimizer-state bytes (12 a trainable
+   parameter, none for a frozen one), peak memory.
 
 Each path (serving, each training leg, each Pink request, the trainer, the
 pretraining step and trainer, each part of phase 14 but its card-vs-CPU
@@ -240,7 +248,9 @@ runs
 with the kernels' launch counts set to 0 just before it and read just after;
 launches made to compare a kernel with its plain version or to time it are
 not counted. The line before the last holds the kernel table, the last line
-the result. Without CUDA the script exits non-zero before printing anything.
+the result; the line before the kernel table gives each phase's seconds
+(``timeline``). Without CUDA the script exits non-zero before printing
+anything.
 """
 
 from __future__ import annotations
@@ -289,7 +299,11 @@ from antmmf_torch.ops.int4_matmul import (  # noqa: E402
     plain_int4_gemv,
     unpack_int4,
 )
-from antmmf_torch.ops.kernel_times import sdpa_backward_ms, sdpa_kernels  # noqa: E402
+from antmmf_torch.ops.kernel_times import (  # noqa: E402
+    flash_bwd_bytes,
+    sdpa_backward_ms,
+    sdpa_kernels,
+)
 from antmmf_torch.ops.small_attention import (  # noqa: E402
     key_bias,
     plain_small_attention,
@@ -511,6 +525,27 @@ def temporal_cases(gen, dtype):
         yield f"dmae_temporal_B{B}_L{L}_framepad_{tag}", q, k, v, bias
 
 
+# kernels phase 1 holds to no spills in the build's -Xptxas -v report
+NO_SPILL_KERNELS = ("flash_dq128_kernel", "flash_dkv128_kernel")
+
+
+def phase_build() -> None:
+    """Phase 1: build the kernels, then print every kernel's registers and
+    spills from the compiler's report beside the library."""
+    t0 = time.perf_counter()
+    lib = _build.build()
+    emit(phase="build", library=lib, seconds=time.perf_counter() - t0)
+    with open(lib + ".log") as f:
+        report = {name: [r["registers"], r["spill_stores"], r["spill_loads"]]
+                  for name, r in _build.ptxas_report(f.read()).items()
+                  if r["registers"] is not None}
+    emit(phase="build", part="ptxas", registers_spill_stores_spill_loads=report)
+    for want in NO_SPILL_KERNELS:
+        found = [r for name, r in report.items() if want in name]
+        check(len(found) == 1 and found[0][1] == found[0][2] == 0,
+              f"{want}: the compiler's report {found}; no spill allowed")
+
+
 def phase_kernels() -> float:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst_main = 0.0
@@ -655,6 +690,37 @@ def flash_cases(gen):
         proj(4, 200, 12, 64), ragged(4, 200, 1), True
     yield "pink_prefill_L113_d128_causal", proj(1, 113, 16, 128), proj(1, 113, 16, 128), \
         proj(1, 113, 16, 128), None, True
+    # the D=128 backward (Pink's width): its two-stage rings over keys (dQ)
+    # and queries (dK/dV) at one tile, exactly one, a one-row last tile and
+    # an odd count; causal with Lq != Lk both ways
+    for L in (63, 64, 65, 129):
+        yield f"d128_L{L}_ragged", proj(4, L, 16, 128), proj(4, L, 16, 128), \
+            proj(4, L, 16, 128), ragged(4, L, 1), False
+    yield "d128_causal_lq200_lk330_ragged", proj(4, 200, 16, 128), proj(4, 330, 16, 128), \
+        proj(4, 330, 16, 128), ragged(4, 330, 1), True
+    yield "d128_causal_lq330_lk200_ragged", proj(4, 330, 16, 128), proj(4, 200, 16, 128), \
+        proj(4, 200, 16, 128), ragged(4, 200, 1), True
+    # the tile skipping's cases: every key of sample 0 masked (uniform rows);
+    # leading keys masked under causal, so the first rows are fully masked (10
+    # rows in sample 0; 100 in sample 1, whose first key block is all masked
+    # and seen by them); whole key blocks masked with no fully masked row
+    # (49 live keys, then 0, 8, 80 and 256 live text keys), causal and not
+    masked = ragged(4, 300, 1)
+    masked[0] = fmin
+    yield "fully_masked_L300_d128", proj(4, 300, 16, 128), proj(4, 300, 16, 128), \
+        proj(4, 300, 16, 128), masked, False
+    lead = ragged(4, 300, 150)
+    lead[0, ..., :10] = fmin
+    lead[1, ..., :100] = fmin
+    yield "d128_causal_leading_keys_masked_L300", proj(4, 300, 16, 128), \
+        proj(4, 300, 16, 128), proj(4, 300, 16, 128), lead, True
+    text = torch.tensor([0, 8, 80, 256], device=dev)
+    live = torch.cat([torch.ones(4, PINK_PATCHES, dtype=torch.bool, device=dev),
+                      torch.arange(PINK_TRAIN_TEXT, device=dev)[None] < text[:, None]], 1)
+    L = PINK_PATCHES + PINK_TRAIN_TEXT
+    for causal in (True, False):
+        yield f"d128_dead_key_blocks_L{L}{'_causal' if causal else ''}", proj(4, L, 16, 128), \
+            proj(4, L, 16, 128), proj(4, L, 16, 128), make_attention_mask(live.long()), causal
     # Pink's training step (phase 17): 49 vision keys then 256 text keys with
     # ragged padding, causal, 16 heads of 128, k/v the 4 kv heads repeated
     q, k, v, bias = pink_train_qkv(gen, PINK_TRAIN_BATCH)
@@ -1386,9 +1452,10 @@ def flash_shape_times(pair_bias, gpu, case: str, qkv=None, causal: bool = False)
     ``qkv``'s shape) with that stream's key bias, q/k/v in the projections'
     layout, beside their plain versions and SDPA (with ``causal``, a boolean
     mask of the key bias and the causal triangle). The bound counts each
-    input read once and each output written once, and the products over the
-    (query, key) pairs each row attends (4, 6 and 8 multiply-adds ·2 per
-    pair and head dimension for forward, dQ, dK/dV)."""
+    input read once and each output written once (for dQ and dK/dV, K and V
+    of the keys these inputs need: ``flash_bwd_bytes``), and the products
+    over the (query, key) pairs each row attends (4, 6 and 8 multiply-adds
+    ·2 per pair and head dimension for forward, dQ, dK/dV)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     P, L = pair_bias.shape[0], pair_bias.shape[3]
     if qkv is None:
@@ -1410,6 +1477,7 @@ def flash_shape_times(pair_bias, gpu, case: str, qkv=None, causal: bool = False)
     pairs = H * int(attended.sum().item())  # (query, key) pairs attended, over heads
     tensor, rows = P * H * L * D * 2, P * H * L * 4  # one bf16 [P, H, L, D]; one fp32 row stat
     bias_b = P * L * 4
+    dq_bytes, dkv_bytes = flash_bwd_bytes(kb, P, H, L, L, D, causal)
     # SDPA's boolean form of the same attention
     mask = attended[:, None] if causal else pair_bias > torch.finfo(torch.float32).min / 2
     # SDPA's backward alone, device time per call, the library time of both
@@ -1426,14 +1494,12 @@ def flash_shape_times(pair_bias, gpu, case: str, qkv=None, causal: bool = False)
             ms=graph_ms(lambda i: flash_dq(q, k, v, kb, out, stats, dout, scale, causal), 20),
             plain_ms=cuda_ms(lambda: plain_flash_dq(q, k, v, kb, out, stats, dout, scale,
                                                     causal), iters=10),
-            library_ms=sdpa_bwd_ms,
-            **bound(6 * tensor + bias_b + 3 * rows, 6 * D * pairs)),
+            library_ms=sdpa_bwd_ms, **bound(dq_bytes, 6 * D * pairs)),
         "flash_dkv": dict(
             ms=graph_ms(lambda i: flash_dkv(q, k, v, kb, stats, dout, delta, scale, causal), 20),
             plain_ms=cuda_ms(lambda: plain_flash_dkv(q, k, v, kb, stats, dout, delta, scale,
                                                      causal), iters=10),
-            library_ms=sdpa_bwd_ms,
-            **bound(6 * tensor + bias_b + 3 * rows, 8 * D * pairs)),
+            library_ms=sdpa_bwd_ms, **bound(dkv_bytes, 8 * D * pairs)),
     }
     # SDPA forward and backward together, the yardstick for the three kernels
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -3913,14 +3979,20 @@ PINK_DATA = "task_attributes.pink_task.dataset_attributes.pink_instruct"
 PINK_ROWS = {"vqa": 128, "grounding": 64, "caption": 64}  # the seeded corpus, by format
 PINK_ACCUM, PINK_TRAIN_ITERS = 2, 6  # 3 optimizer updates
 PINK_CALIB_LAYERS = 4  # card vs CPU: full width at 4 of the 22 decoder layers
-# a trainer iteration (micro-batch): the frozen ViT's 11 layers forward on
-# K1, the 22 causal decoder layers on the flash forward and backward; an
-# eval forward runs no backward kernel
-PINK_ITER_LAUNCHES = {**NO_LAUNCHES, "small_attention": PINK_VIT_LAYERS,
-                      "flash_fwd": PINK_LAYERS, "flash_dq": PINK_LAYERS,
-                      "flash_dkv": PINK_LAYERS}
-PINK_UPDATE_LAUNCHES = {k: n * PINK_ACCUM for k, n in PINK_ITER_LAUNCHES.items()}
-PINK_EVAL_LAUNCHES = {**PINK_ITER_LAUNCHES, "flash_dq": 0, "flash_dkv": 0}
+PINK_RUN_LAYERS = 4  # run.main and its resume: full width at 4 of the 22 decoder layers
+
+
+def pink_iter_launches(layers: int) -> dict:
+    """A trainer iteration (micro-batch): the frozen ViT's 11 layers forward
+    on K1, the causal decoder layers on the flash forward and backward."""
+    return {**NO_LAUNCHES, "small_attention": PINK_VIT_LAYERS, "flash_fwd": layers,
+            "flash_dq": layers, "flash_dkv": layers}
+
+
+PINK_UPDATE_LAUNCHES = {k: n * PINK_ACCUM for k, n in pink_iter_launches(PINK_LAYERS).items()}
+PINK_RUN_ITER_LAUNCHES = pink_iter_launches(PINK_RUN_LAYERS)
+# an eval forward runs no backward kernel
+PINK_RUN_EVAL_LAUNCHES = {**PINK_RUN_ITER_LAUNCHES, "flash_dq": 0, "flash_dkv": 0}
 # card bf16 vs CPU fp32, the first micro-step at B=2 on the same fp32
 # masters (every lora_b drawn nonzero, so that every trainable gradient is
 # live): |Δ lm_loss| and the gradient cosines of the 22 trainable tensors
@@ -3998,12 +4070,25 @@ def write_pink_corpus(root: str, seed: int, images: bool) -> int:
     return n
 
 
-def pink_train_argv(root: str, *extra: str) -> list:
-    """The full-width run over ``write_pink_corpus``'s rows in bf16: the log
-    (with the cached val batch) every 2 iterations, no snapshot before the
-    end, no test inference."""
+def pink_layers(layers: int) -> str:
+    """The name of ``omni_1b`` at ``layers`` decoder layers (registered as a
+    preset; ``omni_1b`` itself at its 22)."""
+    from antmmf_torch.models import pink as pink_model
+
+    if layers == PINK_LAYERS:
+        return "omni_1b"
+    preset = f"omni_1b_{layers}_layers"
+    pink_model.LM_PRESETS[preset] = {**pink_model.LM_PRESETS["omni_1b"], "num_layers": layers}
+    return preset
+
+
+def pink_train_argv(root: str, *extra: str, layers: int = PINK_LAYERS) -> list:
+    """The full-width run (at ``layers`` decoder layers) over
+    ``write_pink_corpus``'s rows in bf16: the log (with the cached val batch)
+    every 2 iterations, no snapshot before the end, no test inference."""
     tp = "training_parameters"
-    return ["--config", PINK_TRAIN_CONFIG, *pink_train_opts(), "model_attributes.pink.dtype_str",
+    return ["--config", PINK_TRAIN_CONFIG, *pink_train_opts(pink_layers(layers)),
+            "model_attributes.pink.dtype_str",
             "bfloat16", f"{PINK_DATA}.data_root_dir", root,
             f"{tp}.max_iterations", str(PINK_TRAIN_ITERS), f"{tp}.log_interval", "2",
             f"{tp}.snapshot_interval", "1000", f"{tp}.run_type", "train",
@@ -4048,12 +4133,7 @@ def pink_train_twins(seed: int):
     as the trainer freezes it: fp32 on the CPU (plain versions) and bf16 on
     the card on the same fp32 masters, every ``lora_b`` drawn from N(0,
     0.02); a B=2 batch."""
-    from antmmf_torch.models import pink as pink_model
-
-    preset = f"omni_1b_{PINK_CALIB_LAYERS}_layers"
-    pink_model.LM_PRESETS[preset] = {**pink_model.LM_PRESETS["omni_1b"],
-                                     "num_layers": PINK_CALIB_LAYERS}
-    opts = pink_train_opts(preset)
+    opts = pink_train_opts(pink_layers(PINK_CALIB_LAYERS))
     cpu, cpu_state, _ = config_model(PINK_TRAIN_CONFIG, opts, device="cpu", dtype="float32",
                                      seed=seed)
     gen = torch.Generator().manual_seed(seed)
@@ -4190,11 +4270,10 @@ def pink_updates(step, state, batch, updates: int):
     return state, update_ms, micro_ms, counts, float(scalars["total_loss"])
 
 
-def pink_resumed(root: str, path: str):
-    """A trainer on ``pink_train_argv``'s config resumed from ``path``
-    (``run.main``'s build and load, without its train loop)."""
-    args = get_parser().parse_args(pink_train_argv(root, "training_parameters.resume_file",
-                                                   path))
+def pink_loaded(root: str, *extra: str, layers: int = PINK_LAYERS):
+    """A trainer on ``pink_train_argv``'s config (``run.main``'s build and
+    load, without its train loop)."""
+    args = get_parser().parse_args(pink_train_argv(root, *extra, layers=layers))
     trainer = build_trainer(build_config(args.config, args.config_override,
                                          [o for o in args.opts if o != "--"], args))
     trainer.load()
@@ -4202,15 +4281,18 @@ def pink_resumed(root: str, path: str):
 
 
 def pink_trainer(gpu: str) -> dict:
-    """Phase 17 (b)–(c): ``antmmf_torch.run.main`` on ``pink_instruct.local.yml``
-    at full width over the seeded corpus (under ``build/``, deleted at the
+    """Phase 17 (b)–(c). (b) ``antmmf_torch.run.main`` on
+    ``pink_instruct.local.yml`` at full width with PINK_RUN_LAYERS of the 22
+    decoder layers over the seeded corpus (under ``build/``, deleted at the
     end): 5 iterations at B=8 with accumulation 2, the final validation and
     the last snapshot at 5, one micro-step into the third window. A trainer
     resumed from that snapshot holds the state saved there bit for bit; the
     6th iteration on one batch, from the resumed state and from the first
-    run's own, closes the window (3 updates) to the same state bit for bit.
-    Then timed and profiled updates of the trainer's step on its first
-    batch. Returns the launches of the runs and the 6th iterations."""
+    run's own, closes the window (3 updates) to the same state bit for bit;
+    the first batch's loss falls. (c) The trainer at full width and depth,
+    loaded as ``run.main`` loads it: timed and profiled updates of its step
+    on its first batch. Returns the launches of (b)'s runs and 6th
+    iterations."""
     from torch.profiler import ProfilerActivity, profile
 
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
@@ -4222,87 +4304,92 @@ def pink_trainer(gpu: str) -> dict:
     except ImportError:
         images = False
     probe, snaps = TrainerProbe(), SnapshotProbe()
-    uninstall, unsnap = probe.install(), snaps.install()
     last = PINK_TRAIN_ITERS - 1
     try:
         rows = write_pink_corpus(root, SEED, images)
+        uninstall, unsnap = probe.install(), snaps.install()
+        try:
+            zero_counts()
+            t0 = time.perf_counter()
+            first = run.main(pink_train_argv(root, "training_parameters.max_iterations",
+                                             str(last), layers=PINK_RUN_LAYERS))
+            run_setup_s = first.timings["first_step_start"] - t0
+            first_step, state = probe.raw_train_step, first.state
+            loader_wait_ms = [t * 1e3 for t in first.timings["loader_wait_s"]]
+            iteration_ms = [t * 1e3 for t in first.timings["step_s"]]
+            mid_window = (state.step, state.opt_state["mini_step"], state.opt_state["count"])
+            masters0, batch = probe.first
+            # the resume: the state saved at the last snapshot, then the 6th
+            # iteration from it and from the first run's own state
+            probe.reference = types.SimpleNamespace(state=snaps.saved[last])
+            t1 = time.perf_counter()
+            resumed = pink_loaded(root, "training_parameters.resume_file",
+                                  os.path.join(root, "save", "models", f"model_{last}"),
+                                  layers=PINK_RUN_LAYERS)
+            resume_s = time.perf_counter() - t1
+            probe.reference = None
+            before = read_counts()
+            state_r, sixth_scalars = probe.raw_train_step(resumed.state, batch)
+            after = read_counts()
+            state, _ = first_step(state, batch)
+            sixth_loss = float(sixth_scalars["total_loss"])
+            counts = read_counts()  # the main path ends here
+            sixth = {k: after[k] - before[k] for k in after}
+            continued = states_equal(state_r, state)
+            # the first batch's loss under the initial masters and the final ones
+            shell = first.shell
+            with torch.inference_mode():
+                loss_after = float(shell.loss_fn(batch, deterministic=True)[0])
+            with torch.no_grad():
+                for n, t in state.params.items():
+                    t.copy_(masters0[n])
+            state.sync_model(frozen=True)
+            with torch.inference_mode():
+                loss_before = float(shell.loss_fn(batch, deterministic=True)[0])
+            probe.first = None
+            del first, state, shell, batch, resumed, state_r, masters0
+        finally:
+            unsnap()
+            uninstall()
         gc.collect()
         torch.cuda.empty_cache()
+        # (c) full width and depth: the trainer's own step on its first batch
         torch.cuda.reset_peak_memory_stats()
-        zero_counts()
-        t0 = time.perf_counter()
-        first = run.main(pink_train_argv(root, "training_parameters.max_iterations", str(last)))
-        setup_s = first.timings["first_step_start"] - t0
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        first_step, state = probe.raw_train_step, first.state
-        loader_wait_ms = [t * 1e3 for t in first.timings["loader_wait_s"]]
-        iteration_ms = [t * 1e3 for t in first.timings["step_s"]]
-        mid_window = (state.step, state.opt_state["mini_step"], state.opt_state["count"])
-        masters0, batch = probe.first
-        # the resume: the state saved at the last snapshot, then the 6th
-        # iteration from it and from the first run's own state
-        probe.reference = types.SimpleNamespace(state=snaps.saved[last])
         t1 = time.perf_counter()
-        resumed = pink_resumed(root, os.path.join(root, "save", "models", f"model_{last}"))
-        resume_s = time.perf_counter() - t1
-        probe.reference = None
-        before = read_counts()
-        state_r, sixth_scalars = probe.raw_train_step(resumed.state, batch)
-        after = read_counts()
-        state, _ = first_step(state, batch)
-        sixth_loss = float(sixth_scalars["total_loss"])
-        counts = read_counts()  # the main path ends here
-        sixth = {k: after[k] - before[k] for k in after}
-        continued = states_equal(state_r, state)
+        trainer = pink_loaded(root)
+        full_setup_s = time.perf_counter() - t1
+        step, state = trainer._train_step, trainer.state
+        batch = trainer._to_device(trainer._cached_first_batch)
         trainable = len(state.trainable)
         n_params = sum(t.numel() for t in state.params.values())
         n_trainable = sum(state.params[n].numel() for n in state.trainable)
         opt_bytes = state.optimizer_state_bytes()
-        # the first batch's loss under the initial masters and the final ones
-        shell = first.shell
-        with torch.inference_mode():
-            loss_after = float(shell.loss_fn(batch, deterministic=True)[0])
-        final = {n: t.clone() for n, t in state.params.items()}
-        with torch.no_grad():
-            for n, t in state.params.items():
-                t.copy_(masters0[n])
-        state.sync_model(frozen=True)
-        with torch.inference_mode():
-            loss_before = float(shell.loss_fn(batch, deterministic=True)[0])
-        with torch.no_grad():
-            for n, t in state.params.items():
-                t.copy_(final[n])
-        state.sync_model(frozen=True)
-        probe.first = None
-        del final, resumed, state_r, masters0
-        gc.collect()
-        torch.cuda.empty_cache()
-        # timed updates of the trainer's own step on its first batch
-        state, _, _, _, _ = pink_updates(first_step, state, batch, 2)
-        state, update_ms, micro_ms, bare_counts, _ = pink_updates(first_step, state, batch, 6)
+        state, _, _, _, _ = pink_updates(step, state, batch, 2)
+        state, update_ms, micro_ms, bare_counts, _ = pink_updates(step, state, batch, 6)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            state, _, _, _, _ = pink_updates(first_step, state, batch, 2)
+            state, _, _, _, _ = pink_updates(step, state, batch, 2)
             torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         busy, n_ops, top = device_busy(prof, 2)
         flash_ms = sum(ms for name, ms in device_ms_by_name(prof, 2)[0].items()
                        if "flash_" in name)
         supervised = int((batch["labels"][:, 1:] >= 0).sum().item())
         positions = PINK_TRAIN_BATCH * (PINK_PATCHES + PINK_TRAIN_TEXT)
-        del first, state, shell, batch, prof
+        del trainer, step, state, batch, prof
         gc.collect()
         torch.cuda.empty_cache()
     finally:
-        unsnap()
-        uninstall()
         shutil.rmtree(root, ignore_errors=True)
     losses = [float(x) for x in probe.losses] + [sixth_loss]
     upd_p50 = float(np.percentile(update_ms, 50))
     run1 = probe.train[:last]
     per_update = [{k: a[k] + b[k] for k in a} for a, b in zip(run1[0::2], run1[1::2])]
+    run_update = {k: n * PINK_ACCUM for k, n in PINK_RUN_ITER_LAUNCHES.items()}
     evals = probe.eval
     summary = dict(
         config=PINK_TRAIN_CONFIG, gpu=gpu, rows=rows, images="fixture images (cv2)" if images
         else "none: black frames (no cv2)", batch=PINK_TRAIN_BATCH, accumulation=PINK_ACCUM,
+        run_layers=PINK_RUN_LAYERS, timed_layers=PINK_LAYERS,
         losses=losses, first_batch_loss=dict(initial_masters=loss_before,
                                              final_masters=loss_after),
         update_p50_ms=upd_p50, update_p95_ms=float(np.percentile(update_ms, 95)),
@@ -4321,21 +4408,24 @@ def pink_trainer(gpu: str) -> dict:
         train_iterations=len(probe.train), eval_forwards=len(evals),
         snapshot_at=dict(zip(("step", "mini_step", "count"), mid_window)),
         resumed_state_equal=probe.resumed_equal, continued_state_equal=continued,
-        setup_s=setup_s, resume_s=resume_s, restore_s=probe.restores, saves_s_bytes=probe.saves)
+        run_setup_s=run_setup_s, full_width_setup_s=full_setup_s, resume_s=resume_s,
+        restore_s=probe.restores, saves_s_bytes=probe.saves)
     emit(phase="pink_train", part="trainer", **summary)
     check(all(np.isfinite(losses)) and len(losses) == PINK_TRAIN_ITERS,
           f"Pink trainer: losses {losses}")
     check(loss_after < loss_before,
           f"Pink trainer: the first batch's loss did not fall ({loss_before} → {loss_after})")
-    check(all(c == PINK_ITER_LAUNCHES for c in probe.train)
-          and all(c == PINK_EVAL_LAUNCHES for c in evals)
-          and all(c == PINK_UPDATE_LAUNCHES for c in per_update + bare_counts),
+    check(all(c == PINK_RUN_ITER_LAUNCHES for c in probe.train)
+          and all(c == PINK_RUN_EVAL_LAUNCHES for c in evals)
+          and all(c == run_update for c in per_update)
+          and all(c == PINK_UPDATE_LAUNCHES for c in bare_counts),
           f"Pink trainer: launches per iteration {probe.train[:1]}, per update "
-          f"{per_update[:1]}, per eval forward {evals[:1]}; expected {PINK_ITER_LAUNCHES}, "
-          f"{PINK_UPDATE_LAUNCHES}, {PINK_EVAL_LAUNCHES}")
-    check(sixth == PINK_ITER_LAUNCHES and all(
-        counts[k] == PINK_ITER_LAUNCHES[k] * (len(probe.train) + 2)  # the 6th, twice
-        + PINK_EVAL_LAUNCHES[k] * len(evals) for k in counts),
+          f"{per_update[:1]}, per eval forward {evals[:1]}, per full-depth update "
+          f"{bare_counts[:1]}; expected {PINK_RUN_ITER_LAUNCHES}, {run_update}, "
+          f"{PINK_RUN_EVAL_LAUNCHES}, {PINK_UPDATE_LAUNCHES}")
+    check(sixth == PINK_RUN_ITER_LAUNCHES and all(
+        counts[k] == PINK_RUN_ITER_LAUNCHES[k] * (len(probe.train) + 2)  # the 6th, twice
+        + PINK_RUN_EVAL_LAUNCHES[k] * len(evals) for k in counts),
           f"Pink trainer: the phase launched {counts}")
     check(mid_window == (last, 1, last // PINK_ACCUM),
           f"Pink trainer: the snapshot is not inside a window: {mid_window}")
@@ -4374,25 +4464,33 @@ SOURCES = {
 
 
 def main() -> None:
+    clock = [("start", time.perf_counter())]  # (phase, when it ended)
+
+    def done(name: str) -> None:
+        clock.append((name, time.perf_counter()))
+
     gpu = gpu_line()
     emit(phase="card", gpu=gpu, torch=torch.__version__, cuda=torch.version.cuda)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
-    lib = _build.build()
-    emit(phase="build", library=lib, seconds=time.perf_counter() - t0)
-
+    phase_build()
+    done("1_build")
     errs = {"small_attention": phase_kernels(), **phase_flash(), "int4_gemv": phase_int4()}
+    done("2_kernels")
     rng = np.random.default_rng(SEED)
     zero_counts()
     predictors, serving = phase_serving(rng)
     check(not any(fn.launches for fn in KERNELS[1:]),
           "UniVL serving launched a kernel it has no use for")
     check(serving > 0, "the serving path never launched the kernel")
+    done("3_serving")
     phase_card_vs_cpu(predictors[0], rng)
+    done("4_serving_card_vs_cpu")
     launches, pair_bias, bare_p50 = phase_training(gpu)
     launches["small_attention"] += serving
+    done("5_training")
     phase_train_card_vs_cpu()
+    done("6_training_card_vs_cpu")
     walls, timing = phase_times(predictors, rng, gpu)
     text = torch.as_tensor(pretrain_batch(PRETRAIN_BATCH, SEED + 1)["caption_input_mask"]).cuda()
     pretrain_bias = make_attention_mask(torch.cat(
@@ -4404,26 +4502,32 @@ def main() -> None:
     timing = {"small_attention": timing, **phase_flash_times(
         {"cross_mined": pair_bias, "pretraining": pretrain_bias}, gpu,
         {"stage2_chunk_32": stage2_bias})}
+    done("7_times")
     phase_trace(walls, gpu)
     del predictors, walls
+    done("8_trace")
     pink, pink_launches = phase_pink(rng, gpu)
     for name, n in pink_launches.items():
         launches[name] += n
+    done("9_pink")
     phase_pink_card_vs_cpu(pink, rng)
+    done("10_pink_card_vs_cpu")
     timing["int4_gemv"] = phase_int4_times(pink, gpu)
     del pink
     torch.cuda.empty_cache()
+    done("11_int4_times")
     launches["small_attention"] += phase_trainer(gpu, bare_p50)
-    for name, n in phase_pretraining(gpu).items():
-        launches[name] += n
-    for name, n in phase_retrieval_variants(gpu).items():
-        launches[name] += n
-    for name, n in phase_task_heads(gpu).items():
-        launches[name] += n
-    for name, n in phase_roi(gpu).items():
-        launches[name] += n
-    for name, n in phase_pink_train(gpu).items():
-        launches[name] += n
+    done("12_trainer")
+    for part, phase in (("13_pretraining", phase_pretraining),
+                        ("14_retrieval_variants", phase_retrieval_variants),
+                        ("15_task_heads", phase_task_heads), ("16_roi", phase_roi),
+                        ("17_pink_train", phase_pink_train)):
+        for name, n in phase(gpu).items():
+            launches[name] += n
+        done(part)
+    emit(phase="timeline", seconds={name: t - clock[i][1] for i, (name, t) in
+                                    enumerate(clock[1:])},
+         total_s=clock[-1][1] - clock[0][1])
 
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": SOURCES[name][0],

@@ -48,3 +48,22 @@ def test_quoted_includes_resolve_inside_csrc(name):
     with open(os.path.join(_build.CSRC, name)) as f:
         included = re.findall(r'^#include "([^"]+)"', f.read(), flags=re.M)
     assert all(os.path.exists(os.path.join(_build.CSRC, inc)) for inc in included)
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    log = """nvcc -gencode arch=compute_90a,code=sm_90a -c flash_attention.cu
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118flash_dq128_kernelE9FlashArgs' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118flash_dq128_kernelE9FlashArgs
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 180 registers, used 1 barriers, 448 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119flash_dkv128_kernelE9FlashArgs' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119flash_dkv128_kernelE9FlashArgs
+    24 bytes stack frame, 20 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 448 bytes cmem[0]
+"""
+    assert _build.ptxas_report(log) == {
+        "_ZN12_GLOBAL__N_118flash_dq128_kernelE9FlashArgs":
+            {"registers": 180, "spill_stores": 0, "spill_loads": 0},
+        "_ZN12_GLOBAL__N_119flash_dkv128_kernelE9FlashArgs":
+            {"registers": 255, "spill_stores": 20, "spill_loads": 16}}

@@ -19,6 +19,7 @@ import torch
 
 from antmmf_torch.modules import attention as t_attention
 from antmmf_torch.ops import flash_attention as port
+from antmmf_torch.ops.kernel_times import flash_bwd_bytes
 from antmmf_tpu.modules.attention import xla_attention_core
 from antmmf_tpu.ops.pallas.flash_attention import flash_attention as j_flash
 
@@ -27,16 +28,39 @@ B, H, D = 2, 2, 32
 FMIN = np.finfo(np.float32).min
 
 
-def _inputs(Lq, Lk, seed, masked_sample=False):
+def _inputs(Lq, Lk, seed, masked_sample=False, d=D):
     rng = np.random.default_rng(seed)
-    q = rng.standard_normal((B, H, Lq, D)).astype(np.float32)
-    k, v = (rng.standard_normal((B, H, Lk, D)).astype(np.float32) for _ in range(2))
+    q = rng.standard_normal((B, H, Lq, d)).astype(np.float32)
+    k, v = (rng.standard_normal((B, H, Lk, d)).astype(np.float32) for _ in range(2))
     lens = np.array([Lk, max(1, Lk - 7)])
     bias = np.where(np.arange(Lk)[None] < lens[:, None], 0.0, FMIN).astype(np.float32)
     if masked_sample:
         bias[0] = FMIN  # every key of sample 0 masked
-    w = rng.standard_normal((B, H, Lq, D)).astype(np.float32)  # cotangent weights
+    w = rng.standard_normal((B, H, Lq, d)).astype(np.float32)  # cotangent weights
     return q, k, v, bias, w
+
+
+def _d128_bias(keys, Lk):
+    """Key biases that pin what the D=128 backward's tile skipping must keep:
+    ``pink``: a live leading segment (Pink's vision keys), then ragged text
+    keys, sample 1's all masked; ``leading_masked``: the first keys masked
+    (5 in sample 0, more than one 64-key tile in sample 1 when Lk allows),
+    so under causal the first rows are fully masked; ``sample_masked``:
+    every key of sample 0 masked; ``ragged``: trailing padding."""
+    live = np.ones((B, Lk), bool)
+    if keys == "pink":
+        lead = min(10, Lk // 4)
+        live[0, lead + 3:] = False
+        live[1, lead:] = False
+    elif keys == "leading_masked":
+        live[0, :5] = False
+        live[1, :min(70, Lk - 1)] = False
+    elif keys == "sample_masked":
+        live[0] = False
+        live[1, Lk - 7:] = False
+    else:
+        live[1, max(1, Lk - 7):] = False
+    return np.where(live, 0.0, FMIN).astype(np.float32)
 
 
 def _port(q, k, v, bias, w, causal, bias_rank=2):
@@ -102,6 +126,49 @@ def test_matches_xla_core_at_tile_edges(Lq, Lk, causal):
     ref = _jax(lambda q, k, v: xla_attention_core(
         q, k, v, bias=jnp.asarray(mask + bias[:, None, None, :])), q, k, v, w)
     _close(_port(q, k, v, bias, w, causal), ref)
+
+
+# D=128, Pink's head width: causal, Pink-style key biases, a fully masked
+# sample, fully masked leading rows, Lq and Lk around 64 and 128
+@pytest.mark.parametrize("Lq,Lk,causal,keys", [
+    (70, 70, True, "ragged"), (130, 130, True, "pink"), (64, 128, True, "pink"),
+    (128, 64, False, "pink"), (129, 129, True, "leading_masked"),
+    (63, 65, False, "sample_masked")])
+def test_d128_matches_xla_core(Lq, Lk, causal, keys):
+    q, k, v, _, w = _inputs(Lq, Lk, seed=7 * Lq + Lk, d=128)
+    bias = _d128_bias(keys, Lk)
+    mask = np.zeros((1, 1, Lq, Lk), np.float32)
+    if causal:
+        mask = np.where(np.tril(np.ones((Lq, Lk), bool)), 0.0, -np.inf)[None, None]
+    ref = _jax(lambda q, k, v: xla_attention_core(
+        q, k, v, bias=jnp.asarray(mask + bias[:, None, None, :])), q, k, v, w)
+    _close(_port(q, k, v, bias, w, causal), ref)
+
+
+def test_d128_matches_pallas_interpret():
+    q, k, v, _, w = _inputs(64, 64, seed=128, d=128)
+    bias = _d128_bias("pink", 64)  # no fully masked row: the Pallas kernel zeroes those
+    ref = _jax(lambda q, k, v: j_flash(q, k, v, bias=jnp.asarray(bias), causal=True,
+                                       interpret=True, block_q=32, block_k=32), q, k, v, w)
+    _close(_port(q, k, v, bias, w, True), ref)
+
+
+@pytest.mark.parametrize("keys,causal,kv_rows", [
+    (None, False, 2 * 130),
+    ("ragged", False, 130 + 123),
+    ("pink", True, 13 + 10),          # the masked text keys are not needed
+    ("sample_masked", False, 130 + 123),  # sample 0 has fully masked rows: all its keys
+    ("leading_masked", False, 125 + 60),
+    ("leading_masked", True, 130 + 130),  # both samples' first rows are fully masked
+])
+def test_flash_bwd_bytes_counts_the_keys_the_inputs_need(keys, causal, kv_rows):
+    Lq, Lk, d = 70, 130, 128
+    kb = None if keys is None else torch.from_numpy(_d128_bias(keys, Lk))
+    dq, dkv = flash_bwd_bytes(kb, B, H, Lq, Lk, d, causal)
+    q, kv, k = B * H * Lq * d * 2, H * kv_rows * d * 2, B * H * Lk * d * 2
+    rows, bias = B * H * Lq * 4, 0 if kb is None else B * Lk * 4
+    assert dq == 4 * q + 2 * kv + bias + 3 * rows
+    assert dkv == 2 * q + 2 * kv + 2 * k + bias + 3 * rows
 
 
 @pytest.mark.parametrize("Lk", [40, 64])
