@@ -2,13 +2,15 @@
 
 Port of ``antmmf_tpu/common/build.py``: the priority is defaults < yaml <
 override file < command line, and the result is frozen. The defaults are
-the port's own copy of ``defaults/configs/base.yml``.
+the port's own copy of ``defaults/configs/base.yml``. ``overlay_opts`` lays
+sections of one config over another as command-line opts.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Any, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 from antmmf_torch.common.configuration import Configuration, load_yaml_with_includes
 
@@ -34,3 +36,27 @@ def build_config(config_path: Optional[str] = None, config_override: Optional[st
     if freeze:
         config.freeze()
     return config
+
+
+def overlay_opts(config_path: str, sections: Sequence[str]) -> List[str]:
+    """``key value`` opts that lay the dotted ``sections`` of the yaml at
+    ``config_path`` (for example ``model_attributes.pink``) over another
+    config: one opt a leaf, lists as JSON."""
+    config = Configuration(load_yaml_with_includes(config_path))
+    opts: List[str] = []
+
+    def walk(prefix: str, node: Any) -> None:
+        if isinstance(node, dict):
+            for key, value in node.items():
+                walk(f"{prefix}.{key}", value)
+        elif isinstance(node, (list, tuple)):
+            opts.extend([prefix, json.dumps(list(node))])
+        else:
+            opts.extend([prefix, str(node).lower() if isinstance(node, bool) else str(node)])
+
+    for section in sections:
+        node = config.get_dotted(section)
+        if node is None:
+            raise KeyError(f"{config_path} has no {section}")
+        walk(section, node.to_dict() if hasattr(node, "to_dict") else node)
+    return opts

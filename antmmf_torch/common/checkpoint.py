@@ -30,12 +30,15 @@ take part as ``moco/...`` and ``momentum/...`` leaves, as they do in the
 JAX package's variables, so a MoCo checkpoint loaded into a model without
 a queue reports them as unexpected; it reads the port's checkpoints
 and a ``params.npz`` of ``/``-joined flax paths in flax layout (the port's
-``model_dir`` format). ``resume`` applies ``resume``, ``resume_file`` and
-``restart``.
+``model_dir`` format) through ``read_weights``, which needs no
+``TrainState``. ``resume`` applies ``resume``, ``resume_file`` and
+``restart``. ``find_weights`` and ``load_weights`` serve a trainer's
+``save_dir`` (or a ``params.npz``) to a predictor.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 import re
@@ -47,7 +50,7 @@ import torch
 
 from antmmf_torch.common.configuration import Configuration, convert_to_config
 from antmmf_torch.modules.moco import queue_buffers
-from antmmf_torch.utils.weights import flax_paths, to_torch_layout
+from antmmf_torch.utils.weights import flax_paths, to_torch_layout, unstack_layers
 
 
 def merge_params_tolerant(target: Mapping[str, torch.Tensor], loaded: Mapping[str, Any],
@@ -86,6 +89,64 @@ def merge_params_tolerant(target: Mapping[str, torch.Tensor], loaded: Mapping[st
             for item in report[kind][:20]:
                 logger.write(f"checkpoint partial-load {kind}: {item}", level="warning")
     return merged, report
+
+
+def read_weights(path: str) -> Dict[str, torch.Tensor]:
+    """A weights file's leaves by flax path, in the port's layouts: a port
+    checkpoint's ``params`` with its ``moco/...`` and ``momentum/...``
+    collections, or a ``params.npz`` of flax-layout leaves (a scanned
+    decoder's stacked layers split into ``layer_{i}``)."""
+    if path.endswith(".npz"):
+        with np.load(path) as npz:
+            flat = unstack_layers({k: npz[k] for k in npz.files})
+        return {k: torch.from_numpy(to_torch_layout(k, v)) for k, v in flat.items()}
+    tree = torch.load(path, map_location="cpu", weights_only=True)
+    loaded = dict(tree["params"])
+    for collection in ("moco", "momentum"):
+        loaded.update({f"{collection}/{p}": t for p, t in tree.get(collection, {}).items()})
+    return loaded
+
+
+def _model_number(path: str) -> int:
+    return int(os.path.basename(path)[len("model_"):])
+
+
+def find_weights(model_dir: str) -> str:
+    """The file a ``model_dir`` serves, in the JAX predictor's order: a
+    trainer's ``<model_name>_final``, then ``models/best``, then the newest
+    ``models/model_<n>`` by number (``model_1000`` after ``model_999``); a
+    ``params.npz`` when the directory holds none of them."""
+    found = (sorted(glob.glob(os.path.join(model_dir, "*_final")))
+             or glob.glob(os.path.join(model_dir, "models", "best"))
+             or sorted((p for p in glob.glob(os.path.join(model_dir, "models", "model_*"))
+                        if re.fullmatch(r"model_\d+", os.path.basename(p))), key=_model_number)
+             or glob.glob(os.path.join(model_dir, "params.npz")))
+    if not found:
+        raise FileNotFoundError(f"No trainer checkpoint (*_final, models/best, models/model_<n>) "
+                                f"and no params.npz in model_dir {model_dir!r}")
+    return found[-1]
+
+
+@torch.no_grad()
+def load_weights(model: torch.nn.Module, path: str) -> None:
+    """Every parameter of ``model`` from ``read_weights(path)``, cast to its
+    dtype and device. A missing or unused parameter leaf, or one of another
+    shape, raises; a checkpoint's ``moco`` and ``momentum`` collections are
+    training state and are not read."""
+    loaded = {p: t for p, t in read_weights(path).items()
+              if p.split("/")[0] not in ("moco", "momentum")}
+    paths = flax_paths(model)
+    missing = sorted(p for p in paths.values() if p not in loaded)
+    unused = sorted(set(loaded) - set(paths.values()))
+    if missing or unused:
+        raise KeyError(f"{path} does not match the model: missing {missing[:8]}, "
+                       f"unused {unused[:8]}")
+    for name, param in model.named_parameters():
+        value = loaded[paths[name]]
+        if tuple(value.shape) != tuple(param.shape):
+            raise ValueError(f"{paths[name]}: shape {tuple(value.shape)} does not fit {name} "
+                             f"{tuple(param.shape)}")
+        param.copy_(value)
 
 
 def _git_provenance(repo_dir: str) -> Dict[str, str]:
@@ -210,16 +271,7 @@ class Checkpoint:
                            pretrained_mapping: Optional[Mapping[str, str]] = None):
         """Weights-only tolerant load (the restart / finetune path) from a
         port checkpoint or a ``params.npz`` of flax-layout leaves."""
-        if path.endswith(".npz"):
-            with np.load(path) as npz:
-                loaded = {k: torch.from_numpy(to_torch_layout(k, npz[k]))
-                          for k in npz.files}
-        else:
-            tree = torch.load(path, map_location="cpu", weights_only=True)
-            loaded = dict(tree["params"])
-            for collection in ("moco", "momentum"):
-                loaded.update({f"{collection}/{p}": t
-                               for p, t in tree.get(collection, {}).items()})
+        loaded = read_weights(path)
         names = flax_paths(state.model)
         target = {names[n]: t for n, t in state.params.items()}
         target.update({f"moco/{p}": t for p, t in queue_buffers(state.model).items()})

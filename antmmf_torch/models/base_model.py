@@ -46,9 +46,13 @@ class ModelShell:
         # a model that draws training randomness takes the trainer's generator
         self.takes_generator = "generator" in inspect.signature(module.forward).parameters
 
-    def init(self, seed: int = 0) -> None:
-        """Seeded random weights (flax's default initializers)."""
-        init_weights(self.module, torch.Generator().manual_seed(seed))
+    def init(self, seed: int = 0, on_device: bool = False) -> None:
+        """Seeded random weights (flax's default initializers), drawn on the
+        CPU, so that every device gets the same values from a seed, or with
+        ``on_device`` on the module's device (other values, in a fraction of
+        the time at billions of parameters)."""
+        device = self.device if on_device else "cpu"
+        init_weights(self.module, torch.Generator(device=device).manual_seed(seed))
 
     def to_device(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         """A batch of arrays (numpy or tensors) as tensors on the device."""

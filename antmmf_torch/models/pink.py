@@ -1,15 +1,23 @@
 """Pink: a vision prefix in front of a decoder LM, trained on answer tokens
 and served with a KV cache.
 
-Port of ``antmmf_tpu/models/pink.py``: ViT tower read at
-``clip_select_layer`` (fewer layers, no final norm) → ``vision_proj`` →
-``[vision tokens; text tokens]`` → ``DecoderLM`` (1D RoPE, q/v LoRA) →
-``output_adapter`` → ``lm_head`` (a ``QuantDense``, so int4 records serve it
-too). ``forward`` returns fp32 logits over the text positions and, given
-``labels``, the LM loss ``losses["lm_loss"]``: the logits at text position
-t predict the label at t + 1, labels below 0 are ignored, the negative
-log-softmax is summed over the rest and divided by their count (at least
-1). With ``lora_freeze_base`` the adapted projections are frozen at the
+Port of ``antmmf_tpu/models/pink.py``: a visual tower, the CLIP-style ViT
+read at ``clip_select_layer`` (fewer layers, no final norm) or, with
+``visual_tower: eva``, EVA-CLIP-g (``eva_preset``; its class token dropped
+as the ViT's is) → ``vision_proj`` → ``[vision tokens; text tokens]`` →
+``DecoderLM`` (1D RoPE) → ``output_adapter`` → ``lm_head`` (a
+``QuantDense``, so int4 records serve it too). ``adapter_style: lora`` puts
+LoRA on the decoder's q and v, a LoRA ``vision_proj`` and an
+``output_adapter``; ``adapter_style: pink`` is the reference scheme: serial
+adapters in every decoder layer (``adapter_dim``, ``adapter_mlp``,
+``adapter_non_linear``), no decoder LoRA, a plain ``vision_proj`` and no
+output adapter. ``remat`` recomputes the layers of both towers in the
+backward; ``scan_layers`` is the stacked weight layout of the decoder
+(``utils/weights.py``). ``forward`` returns fp32 logits over the text
+positions and, given ``labels``, the LM loss ``losses["lm_loss"]``: the
+logits at text position t predict the label at t + 1, labels below 0 are
+ignored, the negative log-softmax is summed over the rest and divided by
+their count (at least 1). With ``lora_freeze_base`` the adapted projections are frozen at the
 weight (``requires_grad_(False)``), so their inputs still get gradients.
 ``prefill``, ``decode_step`` and ``decode_chunk`` are the cached pieces;
 ``generate`` is greedy decoding as a Python loop over explicit tensors,
@@ -19,24 +27,27 @@ re-encoding the whole prefix per token, the anchor the cached path is held
 to.
 
 ``LM_PRESETS`` is the port's copy of ``antmmf_tpu/models/m2_omni.py``'s
-table. Beam search, sampling, speculative decoding, the int8 KV cache, the
-EVA tower, ``adapter_style: pink``, layer scan, sequence parallelism,
-chunked prefill and ``extend_cache`` raise until they are ported.
+table. Beam search, sampling, speculative decoding, the int8 KV cache,
+sequence parallelism, chunked prefill and ``extend_cache`` raise until they
+are ported.
 """
 
 from __future__ import annotations
 
 import inspect
-from typing import Any, Dict, Mapping, Optional, Tuple
+import os
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from antmmf_torch.common.build import overlay_opts
 from antmmf_torch.common.registry import registry
 from antmmf_torch.modules.llm import DecoderLM
 from antmmf_torch.modules.lora import LoRADense
 from antmmf_torch.modules.qdense import QuantDense
+from antmmf_torch.modules.vision.eva_vit import EVA_PRESETS, EvaVisionTransformer
 from antmmf_torch.modules.vision.vit import PRESETS as VIT_PRESETS, VisionTransformer
 
 LM_PRESETS = {
@@ -47,6 +58,21 @@ LM_PRESETS = {
     "omni_7b": dict(hidden=4096, num_layers=32, num_heads=32, num_kv_heads=8,
                     vocab_size=151936),
 }
+
+
+PINK_7B = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__)))), "projects", "pink", "configs", "pink_7b.yml")
+
+
+def recipe_opts(recipe: str = PINK_7B, **model: Any) -> List[str]:
+    """The opts that lay a Pink recipe (``pink_7b.yml``) over an instruction
+    tuning config (``pink_instruct.local.yml``): the recipe's
+    ``model_attributes.pink`` and ``optimizer_attributes``, then ``model``'s
+    keys of ``model_attributes.pink`` (presets, image size, dtype) on top."""
+    opts = overlay_opts(recipe, ("model_attributes.pink", "optimizer_attributes"))
+    for key, value in model.items():
+        opts += [f"model_attributes.pink.{key}", str(value)]
+    return opts
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -64,21 +90,25 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 @registry.register_model("pink")
 class PinkModel(nn.Module):
     def __init__(self, lm_preset: str = "omni_1b", visual_tower: str = "vit",
-                 vit_preset: str = "vit_base_patch32", image_size: int = 224,
-                 lora_rank: int = 8, lora_decoder: bool = True, lora_freeze_base: bool = True,
-                 adapter_style: str = "lora", clip_select_layer: int = -2,
-                 dtype_str: str = "bfloat16", scan_layers: bool = False,
+                 vit_preset: str = "vit_base_patch32", eva_preset: str = "eva_vit_g",
+                 image_size: int = 224, lora_rank: int = 8, lora_decoder: bool = True,
+                 lora_freeze_base: bool = True, adapter_style: str = "lora",
+                 adapter_dim: int = 8, adapter_mlp: bool = False,
+                 adapter_non_linear: bool = False, clip_select_layer: int = -2,
+                 dtype_str: str = "bfloat16", remat: bool = False, scan_layers: bool = False,
                  sequence_parallel: str = "none", kv_int8: bool = False,
                  vocab_override: int = 0, device=None):
         super().__init__()
-        for name, value, only in (("visual_tower", visual_tower, "vit"),
-                                  ("adapter_style", adapter_style, "lora"),
-                                  ("scan_layers", scan_layers, False),
-                                  ("sequence_parallel", sequence_parallel, "none"),
+        for name, value, only in (("sequence_parallel", sequence_parallel, "none"),
                                   ("kv_int8", kv_int8, False)):
             if value != only:
                 raise NotImplementedError(f"{name}={value!r} is not ported yet; only "
                                           f"{only!r} is")
+        if adapter_style not in ("lora", "pink"):
+            raise ValueError(f"adapter_style must be 'lora' or 'pink', got {adapter_style!r}")
+        if visual_tower not in ("vit", "eva"):
+            raise ValueError(f"visual_tower must be 'vit' or 'eva', got {visual_tower!r}")
+        pink_style = adapter_style == "pink"
         self.dtype = getattr(torch, dtype_str)
         p = LM_PRESETS[lm_preset]
         self.hidden = p["hidden"]
@@ -87,32 +117,43 @@ class PinkModel(nn.Module):
         self.token_embed = nn.Embedding(self.vocab_size, self.hidden, **kw)
         self.decoder = DecoderLM(
             self.hidden, p["num_layers"], p["num_heads"], p["num_kv_heads"],
-            lora_rank=lora_rank if lora_decoder else 0, lora_freeze_base=lora_freeze_base, **kw)
-        vit_kw = dict(VIT_PRESETS[vit_preset])
-        if not -vit_kw["num_layers"] <= clip_select_layer <= -1:
-            raise ValueError(f"clip_select_layer {clip_select_layer} out of range for a "
-                             f"{vit_kw['num_layers']}-layer tower")
-        # hidden_states[select] is the output of select + num_layers + 1
-        # encoder layers, with no final norm
-        vit_kw["num_layers"] += clip_select_layer + 1
-        self.num_patches = (image_size // vit_kw["patch_size"]) ** 2
-        self.vision_tower = VisionTransformer(image_size=image_size, final_norm=False,
-                                              **vit_kw, **kw)
-        if lora_rank <= 0:  # no adapters at all: a plain projection
-            self.vision_proj = nn.Linear(vit_kw["embed_dim"], self.hidden, **kw)
+            lora_rank=0 if pink_style else (lora_rank if lora_decoder else 0),
+            lora_freeze_base=lora_freeze_base, adapter_dim=adapter_dim if pink_style else 0,
+            adapter_mlp=adapter_mlp, adapter_non_linear=adapter_non_linear, remat=remat,
+            scan_layers=scan_layers, **kw)
+        if visual_tower == "eva":
+            eva_kw = EVA_PRESETS[eva_preset]
+            self.num_patches = (image_size // eva_kw["patch_size"]) ** 2
+            self.vision_tower = EvaVisionTransformer(image_size=image_size, remat=remat,
+                                                     **eva_kw, **kw)
+            width = eva_kw["embed_dim"]
+        else:
+            vit_kw = dict(VIT_PRESETS[vit_preset])
+            if not -vit_kw["num_layers"] <= clip_select_layer <= -1:
+                raise ValueError(f"clip_select_layer {clip_select_layer} out of range for a "
+                                 f"{vit_kw['num_layers']}-layer tower")
+            # hidden_states[select] is the output of select + num_layers + 1
+            # encoder layers, with no final norm
+            vit_kw["num_layers"] += clip_select_layer + 1
+            self.num_patches = (image_size // vit_kw["patch_size"]) ** 2
+            self.vision_tower = VisionTransformer(image_size=image_size, final_norm=False,
+                                                  remat=remat, **vit_kw, **kw)
+            width = vit_kw["embed_dim"]
+        if pink_style or lora_rank <= 0:  # the reference mm_projector, or no adapters
+            self.vision_proj = nn.Linear(width, self.hidden, **kw)
             self.output_adapter = None
         else:
-            self.vision_proj = LoRADense(vit_kw["embed_dim"], self.hidden, rank=lora_rank,
-                                         freeze_base=False, **kw)
+            self.vision_proj = LoRADense(width, self.hidden, rank=lora_rank, freeze_base=False,
+                                         **kw)
             self.output_adapter = LoRADense(self.hidden, self.hidden, rank=lora_rank,
                                             freeze_base=True, **kw)
         self.lm_head = QuantDense(self.hidden, self.vocab_size, **kw)
 
     @classmethod
     def from_config(cls, config: Mapping[str, Any], device=None) -> "PinkModel":
-        """From the JAX model's ``model_attributes``; keys that change nothing
-        here (remat, the EVA preset, the serial adapters' sizes) are ignored,
-        as the JAX ``from_config`` ignores unknown keys."""
+        """From the JAX model's ``model_attributes``; keys the constructor does
+        not take are ignored, as the JAX ``from_config`` ignores unknown
+        keys."""
         names = set(inspect.signature(cls.__init__).parameters) - {"self", "device"}
         return cls(device=device, **{k: v for k, v in dict(config).items() if k in names})
 
@@ -129,7 +170,10 @@ class PinkModel(nn.Module):
         if img is not None:
             if img.dim() == 5:
                 img = img[:, 0]
-            vtok = self.vision_proj(self.vision_tower(img)["sequence"][:, 1:])
+            seq = self.vision_tower(img)
+            if isinstance(seq, dict):  # the CLIP-style tower returns a dict
+                seq = seq["sequence"]
+            vtok = self.vision_proj(seq[:, 1:])
             segments.append(vtok)
             masks.append(torch.ones(vtok.shape[:2], dtype=mask.dtype, device=mask.device))
         segments.append(self.token_embed(input_ids))

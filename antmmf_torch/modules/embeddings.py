@@ -44,20 +44,17 @@ class TextEmbeddings(nn.Module):
         return self.layer_norm(x)
 
 
-class PatchEmbed(nn.Module):
-    """Image [B, H, W, 3] → patch tokens [B, N, C].
+class PatchConv(nn.Linear):
+    """The stride-p VALID convolution over images [B, H, W, 3] → patch
+    tokens [B, N, C], written as a reshape and one matrix product with
+    ``weight`` [C, p·p·3] (flax's HWIO kernel flattened in (h, w, in)
+    order): the same products, and no cuDNN convolution with its TF32
+    default for fp32."""
 
-    The stride-p VALID convolution is written as a reshape and one matrix
-    product with ``proj`` ([C, p·p·3], the HWIO kernel flattened in (h, w, in)
-    order): the same products, and no cuDNN convolution with its TF32 default
-    for fp32."""
-
-    def __init__(self, patch_size: int, embed_dim: int, dtype=torch.bfloat16,
-                 device=None):
-        super().__init__()
+    def __init__(self, patch_size: int, embed_dim: int, dtype=torch.bfloat16, device=None):
+        super().__init__(patch_size * patch_size * 3, embed_dim, dtype=dtype, device=device)
         self.patch_size = patch_size
         self.dtype = dtype
-        self.proj = nn.Linear(patch_size * patch_size * 3, embed_dim, dtype=dtype, device=device)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         B, H, W, C = images.shape
@@ -65,7 +62,21 @@ class PatchEmbed(nn.Module):
         h, w = H // p, W // p
         x = images[:, :h * p, :w * p].to(self.dtype)
         x = x.reshape(B, h, p, w, p, C).permute(0, 1, 3, 2, 4, 5)
-        return self.proj(x.reshape(B, h * w, p * p * C))
+        return super().forward(x.reshape(B, h * w, p * p * C))
+
+
+class PatchEmbed(nn.Module):
+    """Image [B, H, W, 3] → patch tokens [B, N, C] through ``proj``, a
+    ``PatchConv`` (flax scope ``proj``)."""
+
+    def __init__(self, patch_size: int, embed_dim: int, dtype=torch.bfloat16,
+                 device=None):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = PatchConv(patch_size, embed_dim, dtype, device)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        return self.proj(images)
 
 
 class VisualEmbeddings(nn.Module):

@@ -7,6 +7,8 @@ bias. ``Dropout`` draws its keep mask from an explicit ``torch.Generator``
 (the trainer's ``TrainState`` generator), only when the call is not
 deterministic. Linear weights are held in the compute dtype, which is exactly the
 JAX package's per-call cast of its fp32 kernels; norms keep fp32 parameters.
+``checkpointed`` runs a layer under activation recomputation, the port of
+the JAX package's ``nn.remat``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 class LayerNorm(nn.Module):
@@ -97,17 +100,18 @@ def make_attention_mask(pad_mask: torch.Tensor) -> torch.Tensor:
 
 def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
     """flax's ``lecun_normal``: truncated normal (±2σ) of variance 1/fan_in.
-    Drawn in fp32 on the CPU, then copied, so every device and dtype gets the
-    same values from one seed."""
+    Drawn in fp32 on the generator's device, then copied: a CPU generator
+    gives every device and dtype the same values from one seed."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    t = torch.empty(w.shape, dtype=torch.float32)
+    t = torch.empty(w.shape, dtype=torch.float32, device=generator.device)
     nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
     with torch.no_grad():
         w.copy_(t)
 
 
 def normal_(w: torch.Tensor, std: float, generator: torch.Generator) -> None:
-    t = torch.empty(w.shape, dtype=torch.float32).normal_(0.0, std, generator=generator)
+    t = torch.empty(w.shape, dtype=torch.float32, device=generator.device)
+    t.normal_(0.0, std, generator=generator)
     with torch.no_grad():
         w.copy_(t)
 
@@ -126,3 +130,18 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             normal_(m.weight, m.embedding_dim ** -0.5, generator)
         elif hasattr(m, "init_params"):
             m.init_params(generator)
+
+
+def checkpointed(layer: nn.Module, *args, **kwargs):
+    """``layer(*args, **kwargs)`` with its activations recomputed in the
+    backward instead of kept (the JAX package's ``nn.remat``), by the
+    non-reentrant ``torch.utils.checkpoint``: the reentrant form gives the
+    parameters no gradient when no input of the layer needs one (a frozen
+    tower, the first layer behind a frozen embedding). A layer that draws
+    (a ``Dropout`` above rate 0) is refused: its recompute would draw
+    another mask from the explicit generator, which ``preserve_rng_state``
+    does not restore."""
+    if any(isinstance(m, Dropout) and m.rate > 0 for m in layer.modules()):
+        raise ValueError(f"remat of a {type(layer).__name__} that holds a dropout above 0: "
+                         f"its recompute would draw another mask")
+    return checkpoint(layer, *args, use_reentrant=False, **kwargs)

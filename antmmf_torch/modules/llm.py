@@ -2,8 +2,9 @@
 attention with a KV cache, SwiGLU, and the decoder stack.
 
 Port of ``antmmf_tpu/modules/llm.py`` on the branches Pink training and
-decode serving run (loop layout, 1D RoPE, q/v LoRA, bf16 cache). The KV
-cache is a list
+decode serving run (1D RoPE, LoRA on any of the attention projections and
+on the MLP's, Pink's serial adapters, remat, the ``scan_layers`` weight
+layout, bf16 cache). The KV cache is a list
 with one ``{"k", "v"}`` dict per layer, each [B, n_kv_heads, T, head_dim]
 with keys stored after RoPE; it is preallocated and written in place (the
 JAX package returns updated copies). Two cached modes, as in JAX:
@@ -25,19 +26,31 @@ so the activation gradient still flows through it. Decode attention
 (1 to a few queries against T cached keys with a per-query validity bias)
 is plain tensor ops, as it is outside any kernel in the JAX package.
 
-3D RoPE, the int8 cache, layer scan, remat, serial adapters, LoRA on other
-projections than q and v, and sequence parallelism are not ported.
+LoRA (``lora_targets`` among q, k, v, o; ``lora_mlp`` on gate, up and
+down) adds ``(x · a · b) · alpha / rank`` in fp32 with fp32 ``<name>_lora_a``
+[in, r] and ``<name>_lora_b`` [r, out]; ``lora_freeze_base`` freezes the
+adapted projections at the weight. ``SerialAdapter`` (``x + up(act(down(x)))``)
+sits after ``input_norm`` (``adapter_attn``) and, with ``adapter_mlp``,
+after ``post_attn_norm`` (``adapter_mlp_layer``). ``remat`` recomputes each
+layer in the backward of the cache-free forward when gradients are on
+(``layers.checkpointed``), so under training the flash forward runs twice a
+layer. ``scan_layers`` is the JAX package's ``nn.scan`` over the layers: in
+one process a scan is only a layout, so the port keeps its ``layer_{i}``
+modules and the weight bridge (``utils/weights.py``) reads and writes the
+stacked ``layers`` tree.
+
+3D RoPE, the int8 cache and sequence parallelism are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from antmmf_torch.modules.layers import normal_
+from antmmf_torch.modules.layers import checkpointed, normal_
 from antmmf_torch.modules.qdense import QuantDense
 from antmmf_torch.ops.flash_attention import flash_attention
 
@@ -97,25 +110,33 @@ def apply_rope_cs(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torc
     return (xf * cos + _rotate_half(xf) * sin).to(x.dtype)
 
 
+def lora_delta(out: torch.Tensor, x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+               scaling: float) -> torch.Tensor:
+    """``out + (x · a · b) · scaling``, the delta in fp32, cast to out's dtype."""
+    return out + ((x.float() @ a @ b) * scaling).to(out.dtype)
+
+
 class GQAttention(nn.Module):
     """Grouped-query causal self-attention with rotary positions, optional
-    LoRA on the q and v projections (the Pink recipe: ``q_lora_a`` [in, r],
-    ``q_lora_b`` [r, out], fp32, the delta computed in fp32) and the cached
-    modes of the module docstring. With ``lora_freeze_base`` the adapted
-    base projections are frozen at the weight."""
-
-    LORA_TARGETS = ("q", "v")
+    LoRA on the projections of ``lora_targets`` (the Pink recipe q and v,
+    M2-omni's all four; ``q_lora_a`` [in, r], ``q_lora_b`` [r, out], fp32, the
+    delta computed in fp32) and the cached modes of the module docstring.
+    With ``lora_freeze_base`` the adapted base projections are frozen at the
+    weight."""
 
     def __init__(self, dim: int, num_heads: int, num_kv_heads: Optional[int] = None,
                  rope_theta: float = 10000.0, lora_rank: int = 0, lora_alpha: float = 16.0,
-                 lora_freeze_base: bool = True, dtype=torch.bfloat16, device=None):
+                 lora_freeze_base: bool = True, dtype=torch.bfloat16, device=None,
+                 lora_targets: Sequence[str] = ("q", "v")):
         super().__init__()
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads or num_heads
         self.head_dim = dim // num_heads
         self.rope_theta = rope_theta
         self.lora_scaling = lora_alpha / lora_rank if lora_rank > 0 else 0.0
-        self.lora_targets = self.LORA_TARGETS if lora_rank > 0 else ()
+        self.lora_targets = tuple(lora_targets) if lora_rank > 0 else ()
+        if set(self.lora_targets) - {"q", "k", "v", "o"}:
+            raise ValueError(f"lora_targets {lora_targets} are not among q, k, v, o")
         qf, kvf = num_heads * self.head_dim, self.num_kv_heads * self.head_dim
         for name, fin, fout in (("q", dim, qf), ("k", dim, kvf), ("v", dim, kvf), ("o", qf, dim)):
             frozen = name in self.lora_targets and lora_freeze_base
@@ -134,9 +155,8 @@ class GQAttention(nn.Module):
         out = getattr(self, f"{name}_proj")(x)
         if name not in self.lora_targets:
             return out
-        a, b = getattr(self, f"{name}_lora_a"), getattr(self, f"{name}_lora_b")
-        delta = (x.float() @ a @ b) * self.lora_scaling
-        return out + delta.to(out.dtype)
+        return lora_delta(out, x, getattr(self, f"{name}_lora_a"),
+                          getattr(self, f"{name}_lora_b"), self.lora_scaling)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 bias: Optional[torch.Tensor] = None,
@@ -189,56 +209,119 @@ class GQAttention(nn.Module):
 
 
 class SwiGLU(nn.Module):
-    def __init__(self, dim: int, hidden_dim: int, dtype=torch.bfloat16, device=None):
+    """down(silu(gate(x)) · up(x)); with ``lora_rank`` > 0 (``lora_mlp``)
+    LoRA on all three projections (``gate_lora_a`` ...), whose bases
+    ``lora_freeze_base`` freezes at the weight."""
+
+    def __init__(self, dim: int, hidden_dim: int, dtype=torch.bfloat16, device=None,
+                 lora_rank: int = 0, lora_alpha: float = 16.0, lora_freeze_base: bool = True):
         super().__init__()
-        self.gate_proj = QuantDense(dim, hidden_dim, dtype, device=device)
-        self.up_proj = QuantDense(dim, hidden_dim, dtype, device=device)
-        self.down_proj = QuantDense(hidden_dim, dim, dtype, device=device)
+        self.lora_scaling = lora_alpha / lora_rank if lora_rank > 0 else 0.0
+        self.lora_targets = ("gate", "up", "down") if lora_rank > 0 else ()
+        frozen = lora_rank > 0 and lora_freeze_base
+        for name, fin, fout in (("gate", dim, hidden_dim), ("up", dim, hidden_dim),
+                                ("down", hidden_dim, dim)):
+            setattr(self, f"{name}_proj", QuantDense(fin, fout, dtype, frozen, device))
+            if lora_rank > 0:
+                setattr(self, f"{name}_lora_a",
+                        nn.Parameter(torch.zeros(fin, lora_rank, device=device)))
+                setattr(self, f"{name}_lora_b",
+                        nn.Parameter(torch.zeros(lora_rank, fout, device=device)))
+
+    def init_params(self, generator: torch.Generator) -> None:
+        for name in self.lora_targets:  # the b matrices stay zero
+            normal_(getattr(self, f"{name}_lora_a"), 0.02, generator)
+
+    def _project(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        out = getattr(self, f"{name}_proj")(x)
+        if not self.lora_targets:
+            return out
+        return lora_delta(out, x, getattr(self, f"{name}_lora_a"),
+                          getattr(self, f"{name}_lora_b"), self.lora_scaling)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        return self._project("down", F.silu(self._project("gate", x)) * self._project("up", x))
+
+
+class SerialAdapter(nn.Module):
+    """Pink's bottleneck adapter: ``x + up(act(down(x)))``, biased ``down``
+    [dim → hidden_dim] and ``up``, the activation SiLU with ``non_linear``
+    and the identity without."""
+
+    def __init__(self, dim: int, hidden_dim: int = 8, non_linear: bool = False,
+                 dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.non_linear = non_linear
+        self.down = nn.Linear(dim, hidden_dim, dtype=dtype, device=device)
+        self.up = nn.Linear(hidden_dim, dim, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.down(x)
+        return x + self.up(F.silu(h) if self.non_linear else h)
 
 
 class DecoderLayer(nn.Module):
     def __init__(self, dim: int, num_heads: int, num_kv_heads: Optional[int] = None,
                  mlp_ratio: float = 2.6875, rope_theta: float = 10000.0, lora_rank: int = 0,
                  lora_alpha: float = 16.0, lora_freeze_base: bool = True,
-                 dtype=torch.bfloat16, device=None):
+                 dtype=torch.bfloat16, device=None, lora_targets: Sequence[str] = ("q", "v"),
+                 lora_mlp: bool = False, adapter_dim: int = 0, adapter_mlp: bool = False,
+                 adapter_non_linear: bool = False):
         super().__init__()
-        self.input_norm = RMSNorm(dim, dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=device)
+        self.input_norm = RMSNorm(dim, **kw)
+        self.adapter_attn = (SerialAdapter(dim, adapter_dim, adapter_non_linear, **kw)
+                             if adapter_dim else None)
         self.attention = GQAttention(dim, num_heads, num_kv_heads, rope_theta, lora_rank,
-                                     lora_alpha, lora_freeze_base, dtype, device)
-        self.post_attn_norm = RMSNorm(dim, dtype=dtype, device=device)
-        self.mlp = SwiGLU(dim, int(dim * mlp_ratio), dtype, device)
+                                     lora_alpha, lora_freeze_base, lora_targets=lora_targets,
+                                     **kw)
+        self.post_attn_norm = RMSNorm(dim, **kw)
+        self.adapter_mlp_layer = (SerialAdapter(dim, adapter_dim, adapter_non_linear, **kw)
+                                  if adapter_dim and adapter_mlp else None)
+        self.mlp = SwiGLU(dim, int(dim * mlp_ratio), lora_rank=lora_rank if lora_mlp else 0,
+                          lora_alpha=lora_alpha, lora_freeze_base=lora_freeze_base, **kw)
 
     def forward(self, x, positions, bias=None, cache=None, decode_pos=None, rope_cs=None):
-        attn = self.attention(self.input_norm(x), positions, bias, cache, decode_pos, rope_cs)
+        h = self.input_norm(x)
+        if self.adapter_attn is not None:
+            h = self.adapter_attn(h)
+        attn = self.attention(h, positions, bias, cache, decode_pos, rope_cs)
         if cache is not None:
             attn, cache = attn
         x = x + attn
-        out = x + self.mlp(self.post_attn_norm(x))
+        h = self.post_attn_norm(x)
+        if self.adapter_mlp_layer is not None:
+            h = self.adapter_mlp_layer(h)
+        out = x + self.mlp(h)
         return out if cache is None else (out, cache)
 
 
 class DecoderLM(nn.Module):
     """Causal decoder over embedded inputs [B, L, hidden] (the caller embeds
     tokens, so multimodal prefixes can be spliced in); layers ``layer_{i}``
-    and ``final_norm``."""
+    and ``final_norm``. ``remat`` and ``scan_layers`` as the module
+    docstring says."""
 
     def __init__(self, hidden: int, num_layers: int, num_heads: int,
                  num_kv_heads: Optional[int] = None, mlp_ratio: float = 2.6875,
                  rope_theta: float = 10000.0, lora_rank: int = 0, lora_alpha: float = 16.0,
-                 lora_freeze_base: bool = True, dtype=torch.bfloat16, device=None):
+                 lora_freeze_base: bool = True, dtype=torch.bfloat16, device=None,
+                 lora_targets: Sequence[str] = ("q", "v"), lora_mlp: bool = False,
+                 adapter_dim: int = 0, adapter_mlp: bool = False,
+                 adapter_non_linear: bool = False, remat: bool = False,
+                 scan_layers: bool = False):
         super().__init__()
         self.num_layers, self.num_heads = num_layers, num_heads
         self.num_kv_heads = num_kv_heads or num_heads
         self.head_dim = hidden // num_heads
         self.rope_theta = rope_theta
         self.dtype = dtype
+        self.remat, self.scan_layers = remat, scan_layers
         for i in range(num_layers):
             self.add_module(f"layer_{i}", DecoderLayer(
                 hidden, num_heads, num_kv_heads, mlp_ratio, rope_theta, lora_rank, lora_alpha,
-                lora_freeze_base, dtype, device))
+                lora_freeze_base, dtype, device, lora_targets, lora_mlp, adapter_dim,
+                adapter_mlp, adapter_non_linear))
         self.final_norm = RMSNorm(hidden, dtype=dtype, device=device)
 
     def forward(self, embeds: torch.Tensor, positions: torch.Tensor,
@@ -252,11 +335,14 @@ class DecoderLM(nn.Module):
         if decode_pos is None and attention_mask is not None:
             bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0, MASKED).float()
         rope_cs = rope_cos_sin(positions, self.head_dim, self.rope_theta)
+        remat = self.remat and cache is None and torch.is_grad_enabled()
         x = embeds
         for i in range(self.num_layers):
             layer = getattr(self, f"layer_{i}")
             if cache is not None:
                 x, _ = layer(x, positions, bias, cache[i], decode_pos, rope_cs)
+            elif remat:
+                x = checkpointed(layer, x, positions, bias, None, None, rope_cs)
             else:
                 x = layer(x, positions, bias, rope_cs=rope_cs)
         x = self.final_norm(x)

@@ -5,7 +5,9 @@ pre (ViT/CLIP) and post (BERT) norm style, and ``TransformerEncoder`` with its
 final LayerNorm (pre style) and the ToMe branch, whose proportional-attention key
 bias is log(token size). ``return_importance`` also returns the reference's
 word importance: over the layers, the sum of each layer's head-mean
-attention column mass (its probabilities from the einsum core). Layer scan, remat and pipelining are training and
+attention column mass (its probabilities from the einsum core). ``remat``
+recomputes each layer in the backward (``layers.checkpointed``, the JAX
+package's ``nn.remat``) when gradients are on. Layer scan and pipelining are
 scale-out levers of the JAX package and are not ported.
 """
 
@@ -17,7 +19,7 @@ import torch
 from torch import nn
 
 from antmmf_torch.modules.attention import MultiHeadAttention
-from antmmf_torch.modules.layers import LayerNorm, Mlp
+from antmmf_torch.modules.layers import LayerNorm, Mlp, checkpointed
 from antmmf_torch.modules.vision.token_merging import tome_merge
 
 
@@ -65,10 +67,10 @@ class TransformerEncoder(nn.Module):
     def __init__(self, dim: int, num_layers: int, num_heads: int,
                  mlp_ratio: float = 4.0, activation: str = "gelu",
                  norm_style: str = "pre", layer_norm_eps: float = 1e-5,
-                 token_merge_r: int = 0, final_norm: bool = True,
+                 token_merge_r: int = 0, final_norm: bool = True, remat: bool = False,
                  dtype=torch.bfloat16, device=None):
         super().__init__()
-        self.num_layers = num_layers
+        self.num_layers, self.remat = num_layers, remat
         self.token_merge_r = token_merge_r
         for i in range(num_layers):
             self.add_module(f"layer_{i}", TransformerLayer(
@@ -96,7 +98,8 @@ class TransformerEncoder(nn.Module):
                 contrib = probs.mean(dim=1).sum(dim=1)
                 importance = contrib if importance is None else importance + contrib
                 continue
-            x = layer(x, bias)
+            x = (checkpointed(layer, x, bias) if self.remat and torch.is_grad_enabled()
+                 else layer(x, bias))
             if self.token_merge_r > 0 and i < self.num_layers - 1:
                 x, size = tome_merge(x, size, self.token_merge_r)
                 bias = torch.log(size)[:, None, None, :]

@@ -21,9 +21,10 @@ take (each input read once, each output written once at 3.35 TB/s; the
 products over the attended (query, key) pairs at 989 TFLOP/s bf16; the
 larger of the two). For ``flash_dq`` and ``flash_dkv`` K and V count only
 the rows of live keys where no row is fully masked (``flash_bwd_bytes``);
-the pair's row carries the sum of the two. Pink's training step (causal,
-D=128, k/v repeated from 4 kv heads, a ragged text bias behind 49 vision
-keys) has rows of its own.
+the pair's row carries the sum of the two. Pink's training steps (causal,
+D=128, a ragged text bias: 16 heads, k/v repeated from 4 kv heads, behind
+49 vision keys; and ``pink_7b.yml``'s 32 heads, k/v from 8 kv heads, behind
+256 EVA tokens) have rows of their own.
 The backward pair is also timed as one row, ``flash_dq+flash_dkv``, against
 SDPA's backward alone (``sdpa_bwd``: the forward run once outside the graph,
 ``torch.autograd.grad`` captured), with the SDPA kernels that ran.
@@ -284,16 +285,19 @@ def cases(torch, sa, fa):
         yield from backward_rows(name, q, k, v, kb, out, stats, dout, delta, mask, False,
                                  12 * 430 * live)
 
-    def pink_train(B):
-        """Pink's training step: causal, 16 heads of 128, k/v repeated from 4
-        kv heads, 49 live vision keys then 8..256 live text keys; SDPA gets
-        the key mask and the causal triangle as one boolean [B, 1, L, L]."""
-        L, H, D = 49 + 256, 16, 128
+    def pink_train(B, H=16, kv_heads=4, vision=49):
+        """Pink's training step: causal, H heads of 128, k/v repeated from
+        ``kv_heads`` kv heads, ``vision`` live vision keys then 8..256 live
+        text keys (omni_1b behind ViT-B/32: 16, 4, 49; pink_7b.yml's omni_7b
+        behind EVA-CLIP-g: 32, 8, 256); SDPA gets the key mask and the causal
+        triangle as one boolean [B, 1, L, L]."""
+        L, D = vision + 256, 128
         q = proj(B, L, H, D)
-        k, v = (proj(B, L, 4, D).contiguous().repeat_interleave(4, dim=1) for _ in range(2))
+        k, v = (proj(B, L, kv_heads, D).contiguous().repeat_interleave(H // kv_heads, dim=1)
+                for _ in range(2))
         dout = torch.randn(B, H, L, D, generator=gen, device="cuda").to(torch.bfloat16)
         lens = torch.randint(8, 257, (B,), generator=gen, device="cuda")
-        live = torch.cat([torch.ones(B, 49, dtype=torch.bool, device="cuda"),
+        live = torch.cat([torch.ones(B, vision, dtype=torch.bool, device="cuda"),
                           torch.arange(256, device="cuda")[None] < lens[:, None]], 1)
         kb = torch.where(live, 0.0, fmin).float().contiguous()
         mask = live[:, None, None, :] & torch.ones(L, L, dtype=torch.bool, device="cuda").tril()
@@ -313,6 +317,7 @@ def cases(torch, sa, fa):
     # a stage-2 re-ranking chunk of 32 pairs (retrieval_trainer), forward only
     yield from pairs(32, "stage2_32x12x430x64_ragged", forward_only=True)
     yield from pink_train(8)
+    yield from pink_train(8, 32, 8, 256)
     pq, pk, pv = (proj(1, 113, 16, 128) for _ in range(3))
     yield ("flash_fwd", "pink_prefill_1x16x113x128_causal",
            lambda: fa.flash_fwd(pq, pk, pv, None, 128 ** -0.5, True),

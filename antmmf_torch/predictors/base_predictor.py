@@ -2,8 +2,11 @@
 
 Port of ``antmmf_tpu/predictors/base_predictor.py:27-167``: ``load()`` builds
 the model with seeded random weights (seed 0) and, given a ``model_dir``,
-loads its ``params.npz`` (flax parameter paths, see ``utils/weights.py``; a
-``config.yaml`` beside it replaces the config).
+loads its weights (a ``config.yaml`` there replaces the config): a
+trainer's ``save_dir`` in the JAX predictor's order (``*_final``, then
+``models/best``, then the newest ``models/model_<n>``), or a ``params.npz``
+of flax parameter paths (``utils/weights.py``); ``common.checkpoint.
+find_weights`` and ``load_weights``.
 ``predict`` runs processors → Sample → batch → forward → formatted result;
 ``BatchPredictor.predict_batch`` answers many requests with one forward.
 The model runs on ``predictor_parameters.device`` (default ``cuda``; without
@@ -33,8 +36,8 @@ class BasePredictor:
 
     # -------------------------------------------------------------------- load
     def load(self, with_ckpt: bool = True) -> "BasePredictor":
+        from antmmf_torch.common.checkpoint import find_weights, load_weights
         from antmmf_torch.models.base_model import build_model
-        from antmmf_torch.utils.weights import load_params_npz
 
         model_dir = self.pp.get("model_dir")
         cfg = self.config
@@ -42,12 +45,10 @@ class BasePredictor:
             cfg = Configuration.from_file(os.path.join(model_dir, "config.yaml"))
         self.model_config = cfg
         self.shell = build_model(cfg, device=self.pp.get("device", "cuda"))
-        self.shell.init()
+        # a checkpoint overwrites every parameter: its init is drawn on the device
+        self.shell.init(on_device=bool(with_ckpt and model_dir))
         if with_ckpt and model_dir:
-            path = os.path.join(model_dir, "params.npz")
-            if not os.path.exists(path):
-                raise FileNotFoundError(f"No params.npz in model_dir {model_dir!r}")
-            load_params_npz(self.shell.module, path)
+            load_weights(self.shell.module, find_weights(model_dir))
         self.processors = build_processors(self.pp.get("processors", (
             cfg.get("predictor_parameters", None) or {}).get("processors", {})))
         return self

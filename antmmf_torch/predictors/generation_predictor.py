@@ -2,8 +2,12 @@
 
 Port of ``antmmf_tpu/predictors/generation_predictor.py`` on its plain
 branch: render the conversation prompt, tokenise to ``max_prompt_len``,
-normalise the image, run the model's greedy KV-cache ``generate`` and
-detokenise. ``predictor_parameters.decode_quant: int4`` quantises the loaded
+normalise the image at the model's ``image_size`` (the ViT or the EVA
+tower), run the model's greedy KV-cache ``generate`` and detokenise. The
+model comes from ``model_dir`` as ``BasePredictor`` loads it: a trainer's
+``save_dir`` or a ``params.npz``, a ``scan_layers`` decoder's layers stacked
+or not; the cache stays a list of per-layer tensors (JAX stacks the same
+values under ``scan_layers``). ``predictor_parameters.decode_quant: int4`` quantises the loaded
 weights with ``quantize_for_decode(bits=4)`` and serves them through the
 int4 GEMV kernel (``QuantDense`` packed buffers).
 
@@ -64,7 +68,7 @@ class GenerationPredictor(BasePredictor):
         self.image_processor = NormalizedImageProcessor({"size": size})
         if dq:
             records = quantize_for_decode(
-                {"params": export_flax_params(module)}, bits=4,
+                {"params": export_flax_params(module, stacked=False)}, bits=4,
                 min_size=int(self.pp.get("decode_quant_min_size", 65536)))
             load_decode_records(module, records, module.dtype)
         return self

@@ -17,7 +17,10 @@ saves a snapshot at the next step boundary and ends the run
 (``checkpoint_on_preemption``).
 
 ``training_parameters.device``: ``auto`` (the default) and ``cuda`` run on
-the card and raise without CUDA; ``cpu`` runs on the CPU. The port runs one
+the card and raise without CUDA; ``cpu`` runs on the CPU. The port's own
+``training_parameters.init_on_device`` (off unless given) draws the seeded
+init on that device: other values than the CPU's draws from the same seed,
+in seconds for billions of parameters. The port runs one
 process on one device: on one device a data/model ``mesh`` computes what no
 mesh computes, so the mesh is recorded in the log and the whole global
 batch runs on the device. Knobs of paths that are not ported raise with the
@@ -140,7 +143,7 @@ class BaseTrainer:
         # loader; taking it here draws the same samples (and random frames)
         self._cached_first_batch = self._example_batch()
         t0 = time.time()
-        self.shell.init(self.seed)
+        self.shell.init(self.seed, on_device=bool(self.tp.get("init_on_device", False)))
         n_params = sum(p.numel() for p in self.shell.module.parameters())
         self.writer.write(f"model init in {time.time() - t0:.1f}s; params: {n_params:,}")
 

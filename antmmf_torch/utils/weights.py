@@ -20,6 +20,15 @@ dicts in place of a kernel) count as leaves of a tree:
 ``export_flax_params`` is the way back, a module's parameters as a flax-layout
 tree of fp32 arrays, which ``quantize_for_decode`` takes.
 
+A decoder built with ``scan_layers`` (the JAX package's ``nn.scan`` over
+its layers) keeps its ``layer_{i}`` modules in the port, and so do its
+parameter names, its ``flax_paths`` and its checkpoints. The bridge reads
+either layout: a ``layers`` scope whose leaves carry a leading [num_layers]
+dim is split into ``layer_0..layer_{N-1}`` in the order of that dim
+(``unstack_layers``, as ``unstack_decoder_layers`` does); and writes the
+stacked one for such a decoder (``stack_layers``), so that its
+``params.npz`` reloads in the JAX model.
+
 ``load_flax_variables`` carries a whole flax variables dict: ``params``, the
 model's ``moco`` collection (each queue's ``queue``, ``ptr`` and ``filled``
 into its ``MocoQueue`` buffers) and the trainer's ``momentum`` collection
@@ -27,8 +36,9 @@ into its ``MocoQueue`` buffers) and the trainer's ``momentum`` collection
 its inverse.
 
 A missing or unused key, or a shape mismatch, raises. ``params.npz`` files
-hold the flax leaves under ``/``-joined paths; they are the port's
-``model_dir`` format. ``flax_to_masters`` gives the same carry as fp32
+hold the flax leaves under ``/``-joined paths; they are one of the port's
+``model_dir`` formats (``common/checkpoint.py`` reads them beside a
+trainer's checkpoints). ``flax_to_masters`` gives the same carry as fp32
 tensors by parameter name, the master parameters a ``TrainState`` trains
 (the JAX package keeps fp32 params and casts at use); ``flax_paths`` is the
 inverse name map, which the optimizer's weight-decay and lr-multiplier
@@ -43,8 +53,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from antmmf_torch.modules.embeddings import PatchEmbed
+from antmmf_torch.modules.embeddings import PatchConv
 from antmmf_torch.modules.layers import LayerNorm
+from antmmf_torch.modules.llm import DecoderLM
 from antmmf_torch.modules.moco import queue_buffers
 from antmmf_torch.modules.qdense import QuantDense
 
@@ -68,6 +79,52 @@ def flatten_flax(params: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     return flat
 
 
+def _leading(leaf: Any, i: int) -> Any:
+    return {k: v[i] for k, v in leaf.items()} if isinstance(leaf, Mapping) else leaf[i]
+
+
+def unstack_layers(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """Flat leaves with each ``.../layers/...`` leaf [N, ...] (a scanned
+    stack) split into ``.../layer_{i}/...`` leaves, i = 0..N-1 in the order
+    of the leading dim; other leaves as they are."""
+    out: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        parts = path.split("/")
+        if "layers" not in parts:
+            out[path] = leaf
+            continue
+        at = parts.index("layers")
+        n = (leaf["scale"] if isinstance(leaf, Mapping) else leaf).shape[0]
+        for i in range(n):
+            out["/".join(parts[:at] + [f"layer_{i}"] + parts[at + 1:])] = _leading(leaf, i)
+    return out
+
+
+def stacked_scopes(model: nn.Module) -> list:
+    """The flax scopes of ``model``'s decoders built with ``scan_layers``."""
+    return [name.replace(".", "/") for name, mod in model.named_modules()
+            if isinstance(mod, DecoderLM) and mod.scan_layers]
+
+
+def stack_layers(flat: Mapping[str, Any], scopes) -> Dict[str, Any]:
+    """The inverse of ``unstack_layers`` under each scope of ``scopes``:
+    ``scope/layer_{i}/rest`` leaves stacked into ``scope/layers/rest`` along
+    a leading dim, layer 0 first."""
+    out, groups = {}, {}
+    for path, leaf in flat.items():
+        scope = next((sc for sc in scopes if path.startswith(f"{sc}/layer_")), None)
+        if scope is None:
+            out[path] = leaf
+            continue
+        layer, rest = path[len(scope) + 1:].split("/", 1)
+        groups.setdefault((scope, rest), {})[int(layer[len("layer_"):])] = leaf
+    for (scope, rest), by_layer in groups.items():
+        if sorted(by_layer) != list(range(len(by_layer))):
+            raise ValueError(f"{scope}: layers {sorted(by_layer)} of {rest} are not 0..N-1")
+        out[f"{scope}/layers/{rest}"] = np.stack([by_layer[i] for i in range(len(by_layer))])
+    return out
+
+
 def _torch_name(flax_path: str) -> str:
     parts = flax_path.split("/")
     if len(parts) >= 2 and parts[-2] == "LayerNorm_0":
@@ -86,6 +143,7 @@ def to_torch_layout(flax_path: str, value: np.ndarray) -> np.ndarray:
 def flax_paths(model: nn.Module) -> Dict[str, str]:
     """Each parameter's name → its flax path (``a/b/kernel``)."""
     leaves = {nn.Linear: {"weight": "kernel", "bias": "bias"},
+              PatchConv: {"weight": "kernel", "bias": "bias"},
               QuantDense: {"weight": "kernel"},
               nn.Embedding: {"weight": "embedding"},
               LayerNorm: {"weight": "LayerNorm_0/scale", "bias": "LayerNorm_0/bias"}}
@@ -100,9 +158,10 @@ def flax_paths(model: nn.Module) -> Dict[str, str]:
 
 
 def flax_to_masters(model: nn.Module, params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax ``variables["params"]`` (nested dict, or flat ``/``-joined keys)
-    → fp32 CPU tensors by ``model``'s parameter names, in its layouts."""
-    flat = flatten_flax(params)
+    """flax ``variables["params"]`` (nested dict, or flat ``/``-joined keys;
+    a decoder's layers stacked or not) → fp32 CPU tensors by ``model``'s
+    parameter names, in its layouts."""
+    flat = unstack_layers(flatten_flax(params))
     targets = dict(model.named_parameters())
     mapped = {_torch_name(path): path for path in flat}
     unused = sorted(path for name, path in mapped.items() if name not in targets)
@@ -133,28 +192,32 @@ def _nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
     return tree
 
 
-def _flax_tree(model: nn.Module, tensors: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+def _flax_tree(model: nn.Module, tensors: Mapping[str, torch.Tensor],
+               stacked: bool = True) -> Dict[str, Any]:
     """Tensors by ``model``'s parameter names → a nested flax-layout tree of
-    fp32 arrays (Dense kernels [in, out], the patch convolution HWIO)."""
-    patch = {f"{name}.proj.weight": mod.patch_size
-             for name, mod in model.named_modules() if isinstance(mod, PatchEmbed)}
+    fp32 arrays (Dense kernels [in, out], the patch convolution HWIO), a
+    ``scan_layers`` decoder's layers stacked unless ``stacked`` is off."""
+    patch = {f"{name}.weight": mod.patch_size
+             for name, mod in model.named_modules() if isinstance(mod, PatchConv)}
     paths = flax_paths(model)
     flat = {}
     for name, t in tensors.items():
-        value = t.detach().float().cpu().numpy()
+        t = t.detach().float()
         if paths[name].split("/")[-1] == "kernel":
-            value = value.T
-            if name in patch:
-                value = value.reshape(patch[name], patch[name], -1, value.shape[-1])
-        flat[paths[name]] = value.copy(order="C")  # ascontiguousarray would make 0-d leaves 1-d
-    return _nest(flat)
+            t = t.T.contiguous()  # transposed where the tensor lives (numpy's copy is serial)
+        value = t.to("cpu", copy=True).numpy()  # a copy: never a view of a live tensor
+        if name in patch:
+            value = value.reshape(patch[name], patch[name], -1, value.shape[-1])
+        flat[paths[name]] = value
+    return _nest(stack_layers(flat, stacked_scopes(model)) if stacked else flat)
 
 
-def export_flax_params(model: nn.Module) -> Dict[str, Any]:
+def export_flax_params(model: nn.Module, stacked: bool = True) -> Dict[str, Any]:
     """``model``'s parameters as a nested flax-layout tree of fp32 arrays
-    (Dense kernels [in, out], the patch convolution HWIO), the inverse of
+    (Dense kernels [in, out], the patch convolution HWIO; a ``scan_layers``
+    decoder's layers stacked unless ``stacked`` is off), the inverse of
     ``load_flax_params``."""
-    return _flax_tree(model, dict(model.named_parameters()))
+    return _flax_tree(model, dict(model.named_parameters()), stacked)
 
 
 def export_flax_variables(model: nn.Module, state=None) -> Dict[str, Any]:
@@ -228,9 +291,3 @@ def load_flax_params(model: nn.Module, params: Mapping[str, Any]) -> None:
     with torch.no_grad():
         for name, param in model.named_parameters():
             param.copy_(masters[name])
-
-
-def load_params_npz(model: nn.Module, path: str) -> None:
-    """Load a ``params.npz`` of ``/``-joined flax paths into ``model``."""
-    with np.load(path) as npz:
-        load_flax_params(model, {k: npz[k] for k in npz.files})

@@ -255,6 +255,8 @@ anything.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import gc
 import io
 import json
@@ -279,6 +281,8 @@ from antmmf_torch.common.build import build_config  # noqa: E402
 from antmmf_torch.common.checkpoint import Checkpoint  # noqa: E402
 from antmmf_torch.datasets.loader import DataLoader  # noqa: E402
 from antmmf_torch.models.base_model import build_model  # noqa: E402
+from antmmf_torch.models.pink import LM_PRESETS, recipe_opts  # noqa: E402
+from antmmf_torch.modules.vision.eva_vit import EVA_PRESETS  # noqa: E402
 from antmmf_torch.modules.layers import make_attention_mask  # noqa: E402
 from antmmf_torch.ops import _build  # noqa: E402
 from antmmf_torch.ops import flash_attention as fa  # noqa: E402
@@ -322,7 +326,14 @@ from antmmf_torch.trainers.retrieval_trainer import RetrievalTrainer  # noqa: E4
 from antmmf_torch.trainers.train_state import TrainState, make_train_step  # noqa: E402
 from antmmf_torch.utils.flags import get_parser  # noqa: E402
 from antmmf_torch.utils.lmdb_lite import LmdbLiteWriter  # noqa: E402
-from antmmf_torch.utils.weights import export_flax_params, flax_paths  # noqa: E402
+from antmmf_torch.utils import weights  # noqa: E402
+from antmmf_torch.utils.weights import (  # noqa: E402
+    export_flax_params,
+    export_flax_variables,
+    flatten_flax,
+    flax_paths,
+    flax_to_masters,
+)
 
 CONFIG = "projects/base_vtp/configs/serving.yml"
 FRAMES, SIZE, SEED = 8, 224, 0
@@ -725,39 +736,52 @@ def flash_cases(gen):
     # ragged padding, causal, 16 heads of 128, k/v the 4 kv heads repeated
     q, k, v, bias = pink_train_qkv(gen, PINK_TRAIN_BATCH)
     yield "pink_train_L305_d128_causal_ragged", q, k, v, bias, True
+    # pink_7b.yml's step (phase 18): 256 EVA keys then 256 text keys with
+    # ragged padding, causal, 32 heads of 128, k/v the 8 kv heads repeated
+    q, k, v, bias = pink_train_qkv(gen, PINK_TRAIN_BATCH, heads=PINK_7B_HEADS)
+    yield f"pink_7b_train_L{q.shape[2]}_h32_d128_causal_ragged", q, k, v, bias, True
 
 
-def pink_train_qkv(gen, B: int, kv_leaves: bool = False):
-    """q [B, 16, 305, 128] in the projection layout, k and v the [B, 4, 305,
-    128] kv heads repeated to 16 as the decoder repeats them (with
+# Pink's causal training shapes at D=128: (heads, kv heads, vision tokens)
+# of omni_1b behind ViT-B/32 (phase 17) and of pink_7b.yml's omni_7b behind
+# EVA-CLIP-g (phase 18), each before 256 text tokens
+PINK_1B_HEADS, PINK_7B_HEADS = (16, 4, PINK_PATCHES), (32, 8, (SIZE // 14) ** 2)
+
+
+def pink_train_qkv(gen, B: int, kv_leaves: bool = False, heads=PINK_1B_HEADS):
+    """q [B, H, L, 128] in the projection layout, k and v the [B, kv, L,
+    128] kv heads repeated to H as the decoder repeats them (with
     ``kv_leaves``, the kv heads themselves), and the key-padding bias [B, 1,
-    1, 305]: 49 live vision keys, then 256 text keys of which 8..256 live."""
-    dev, L = "cuda", PINK_PATCHES + PINK_TRAIN_TEXT
-    q = torch.randn(B, L, 16, 128, generator=gen, device=dev).to(torch.bfloat16).transpose(1, 2)
-    kv = [torch.randn(B, L, 4, 128, generator=gen, device=dev).to(torch.bfloat16)
+    1, L]: the vision keys live, then 256 text keys of which 8..256 live;
+    (H, kv, vision tokens) = ``heads``, L = vision + 256."""
+    (H, n_kv, vision), dev = heads, "cuda"
+    L = vision + PINK_TRAIN_TEXT
+    q = torch.randn(B, L, H, 128, generator=gen, device=dev).to(torch.bfloat16).transpose(1, 2)
+    kv = [torch.randn(B, L, n_kv, 128, generator=gen, device=dev).to(torch.bfloat16)
           .transpose(1, 2).contiguous() for _ in range(2)]
     lens = torch.randint(8, PINK_TRAIN_TEXT + 1, (B,), generator=gen, device=dev)
-    live = torch.cat([torch.ones(B, PINK_PATCHES, dtype=torch.bool, device=dev),
+    live = torch.cat([torch.ones(B, vision, dtype=torch.bool, device=dev),
                       torch.arange(PINK_TRAIN_TEXT, device=dev)[None] < lens[:, None]], 1)
     bias = make_attention_mask(live.long())
     if kv_leaves:
         return q, kv[0], kv[1], bias
-    return (q, *(t.repeat_interleave(4, dim=1) for t in kv), bias)
+    return (q, *(t.repeat_interleave(H // n_kv, dim=1) for t in kv), bias)
 
 
-def pink_gqa_gradients(gen) -> dict:
+def pink_gqa_gradients(gen, heads=PINK_1B_HEADS) -> dict:
     """The ``flash_attention`` Function as the decoder calls it (causal, the
-    ragged key bias, k/v repeated from 4 kv heads inside the graph) against
+    ragged key bias, k/v repeated from the kv heads inside the graph) against
     fp32 autograd of ``plain_flash_attention`` on the same graph: the output
-    and the gradients of q and of the 4 kv heads. A kv head's gradient sums
-    the 4 query heads of its group, each rounded to bf16 first, so it is
+    and the gradients of q and of the kv heads. A kv head's gradient sums
+    the query heads of its group (4), each rounded to bf16 first, so it is
     held to FLASH_AUTOGRAD_ULPS plus one rounding per summand."""
-    q, k4, v4, bias = pink_train_qkv(gen, 2, kv_leaves=True)
+    q, k4, v4, bias = pink_train_qkv(gen, 2, kv_leaves=True, heads=heads)
     dout = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    rep = heads[0] // heads[1]
 
     def run(leaves, fn):
         q_, k_, v_ = leaves
-        out = fn(q_, k_.repeat_interleave(4, dim=1), v_.repeat_interleave(4, dim=1),
+        out = fn(q_, k_.repeat_interleave(rep, dim=1), v_.repeat_interleave(rep, dim=1),
                  bias=bias, causal=True)
         out.backward(dout.to(out.dtype))
         return out
@@ -771,7 +795,7 @@ def pink_gqa_gradients(gen) -> dict:
                    ulps_tol(ref_leaves[0].grad, FLASH_AUTOGRAD_ULPS))}
     for i, n in ((1, "dk_kv_heads"), (2, "dv_kv_heads")):
         errs[n] = (max_err(leaves[i].grad, ref_leaves[i].grad),
-                   ulps_tol(ref_leaves[i].grad, FLASH_AUTOGRAD_ULPS + 4))
+                   ulps_tol(ref_leaves[i].grad, FLASH_AUTOGRAD_ULPS + rep))
     return errs
 
 
@@ -831,14 +855,15 @@ def phase_flash() -> dict:
                 main[kernel] = max(main.get(kernel, 0.0), err)
         if not ok:
             failed.append(name)
-    gqa = pink_gqa_gradients(gen)
-    ok = all(e <= t for e, t in gqa.values())
-    emit(phase="flash_check", case="pink_train_gqa_function_d128_causal_ragged",
-         q=[2, 16, PINK_PATCHES + PINK_TRAIN_TEXT, 128], kv_heads=4, causal=True,
-         vs_fp32_autograd={n: e for n, (e, _) in gqa.items()},
-         vs_fp32_autograd_tol={n: t for n, (_, t) in gqa.items()}, ok=ok)
-    if not ok:
-        failed.append("pink_train_gqa_function")
+    for case, heads in (("pink_train", PINK_1B_HEADS), ("pink_7b_train", PINK_7B_HEADS)):
+        gqa = pink_gqa_gradients(gen, heads)
+        ok = all(e <= t for e, t in gqa.values())
+        emit(phase="flash_check", case=f"{case}_gqa_function_d128_causal_ragged",
+             q=[2, heads[0], heads[2] + PINK_TRAIN_TEXT, 128], kv_heads=heads[1], causal=True,
+             vs_fp32_autograd={n: e for n, (e, _) in gqa.items()},
+             vs_fp32_autograd_tol={n: t for n, (_, t) in gqa.items()}, ok=ok)
+        if not ok:
+            failed.append(f"{case}_gqa_function")
     check(not failed, f"flash kernels disagree with their plain versions: {failed}")
     # a dtype the kernels do not take raises on the card, never runs plain
     x = torch.zeros(2, 2, 300, 64, device="cuda", dtype=torch.float16)
@@ -1562,19 +1587,22 @@ def flash_fwd_times(pair_bias, gpu, case: str) -> dict:
 
 def phase_flash_times(pair_biases: dict, gpu, eval_biases: dict) -> dict:
     """The flash kernels at each training path's pair stream (``case`` →
-    key bias), at Pink's training step (causal, D=128, k/v repeated from 4
-    kv heads, the ragged text bias behind 49 vision keys), the forward alone
+    key bias), at Pink's training steps (causal, D=128, the ragged text bias:
+    16 heads, k/v repeated from 4 kv heads, behind 49 vision keys; 32 heads
+    from 8 kv heads behind 256 EVA keys), the forward alone
     at each evaluation pair stream (``eval_biases``) and at Pink's causal
     prefill; returns the timing at the last training pair stream (the
     pretraining path's) for the kernel table."""
     for case, pair_bias in pair_biases.items():
         timing = flash_shape_times(pair_bias, gpu, case)
         torch.cuda.empty_cache()
-    q, k, v, bias = pink_train_qkv(torch.Generator(device="cuda").manual_seed(SEED + 7),
-                                   PINK_TRAIN_BATCH)
-    flash_shape_times(bias, gpu, "pink_train_causal_d128", (q, k, v), causal=True)
-    del q, k, v
-    torch.cuda.empty_cache()
+    for case, heads in (("pink_train_causal_d128", PINK_1B_HEADS),
+                        ("pink_7b_train_causal_h32_d128", PINK_7B_HEADS)):
+        q, k, v, bias = pink_train_qkv(torch.Generator(device="cuda").manual_seed(SEED + 7),
+                                       PINK_TRAIN_BATCH, heads=heads)
+        flash_shape_times(bias, gpu, case, (q, k, v), causal=True)
+        del q, k, v
+        torch.cuda.empty_cache()
     for case, pair_bias in eval_biases.items():
         flash_fwd_times(pair_bias, gpu, case)
     # the causal prefill of a Pink request: 113 tokens, 16 heads of 128
@@ -1778,8 +1806,10 @@ def pink_within_bound(res) -> bool:
 def pink_twins(card, seed: int):
     """An fp32 CPU model with weights of ``seed``, its int4 records loaded
     into it and into the card's bf16 model."""
-    cpu = pink_predictor("cpu", "float32", quant=False)
-    cpu.shell.init(seed)
+    with no_default_init():  # the predictor's seeded init sets every value
+        cpu = pink_predictor("cpu", "float32", quant=False)
+    if seed:  # the predictor drew seed 0
+        cpu.shell.init(seed)
     records = quantize_for_decode({"params": export_flax_params(cpu.shell.module)})
     load_decode_records(cpu.shell.module, records, torch.float32)
     load_decode_records(card.shell.module, records, torch.bfloat16)
@@ -1936,6 +1966,9 @@ TRAINER_SNAPSHOT, TRAINER_LOG = 4, 2
 TRAINER_LAUNCHES = {"small_attention": 24, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
                     "int4_gemv": 0}  # a train step or an eval forward: 12 ViT + 12 BERT layers
 FIRST_LOSS_ATOL = 1e-3  # trainer vs bare step when cuBLAS picks another algorithm
+# a trainer whose checks do not hold its first loss to a bare step's draws
+# its init on the card (seconds instead of tens at these sizes)
+INIT_ON_DEVICE = ["training_parameters.init_on_device", "true"]
 
 
 def write_msrvtt_layout(root: str, seed: int) -> int:
@@ -2681,6 +2714,26 @@ MOCO_MU, MOCO_QUEUE = 0.99, 4096
 MOCO_LAUNCHES = {**TRAINER_LAUNCHES, "small_attention": 48}
 MOCO_TRACKED = "base.img_fc.weight"  # the momentum tensor held against a host EMA
 RV_BATCH, RV_STEPS, RV_RESUMED_STEPS = 32, 6, 8
+# the DMAE and MoCo trainers (phase 14 (c), (d)): full width at 4 of the 12
+# ViT and BERT layers, initialised on the card (the bare steps and the
+# card-vs-CPU check keep all 12)
+RV_LAYERS = 4
+RV_DMAE_LAUNCHES = {**DMAE_LAUNCHES, "small_attention": 2 * RV_LAYERS + 4}  # + 4 temporal
+RV_MOCO_LAUNCHES = {**MOCO_LAUNCHES, "small_attention": 4 * RV_LAYERS}  # query and key towers
+RV_EVAL_LAUNCHES = {**TRAINER_LAUNCHES, "small_attention": 2 * RV_LAYERS}
+
+
+def cut_towers(model: str, layers: int = RV_LAYERS) -> list:
+    """Opts that cut ``model``'s ViT-B/32 and BERT-base to ``layers`` layers
+    (registered as presets) and draw its init on the card."""
+    from antmmf_torch.modules.encoders.text_encoder import PRESETS as BERT_PRESETS
+    from antmmf_torch.modules.vision.vit import PRESETS as VIT_PRESETS
+
+    vit, bert = f"vit_base_patch32_{layers}_layers", f"bert_base_{layers}_layers"
+    VIT_PRESETS[vit] = {**VIT_PRESETS["vit_base_patch32"], "num_layers": layers}
+    BERT_PRESETS[bert] = {**BERT_PRESETS["bert_base"], "num_layers": layers}
+    return [f"model_attributes.{model}.vit_preset", vit,
+            f"model_attributes.{model}.bert_preset", bert, *INIT_ON_DEVICE]
 STAGE2_TOPK, STAGE2_CHUNK = 8, 32
 # card bf16 vs CPU fp32, DMAE's first step at B=4 on the same fp32 masters
 # and padded batch (``--calibrate dmae`` reads the gap): each loss term's
@@ -2715,17 +2768,32 @@ def dmae_batch(B: int, seed: int, padded: bool = False) -> dict:
             "caption_segment_ids": np.zeros((B, DMAE_TEXT_LEN), np.int64)}
 
 
+@contextlib.contextmanager
+def no_default_init():
+    """Linear and Embedding modules built without torch's default init (a
+    second of CPU time per 100 M values), for models whose every value is
+    then set from masters."""
+    nn = torch.nn
+    saved = nn.Linear.reset_parameters, nn.Embedding.reset_parameters
+    nn.Linear.reset_parameters = nn.Embedding.reset_parameters = lambda self: None
+    try:
+        yield
+    finally:
+        nn.Linear.reset_parameters, nn.Embedding.reset_parameters = saved
+
+
 def config_model(config: str, opts=(), device: str = "cuda", dtype: str = "bfloat16",
-                 seed: int = SEED, masters=None, momentum: float = 0.0):
+                 seed: int = SEED, masters=None, momentum: float = 0.0, on_device: bool = False):
     """(shell, state, train_step) of ``config``'s only model and its
-    optimizer through the port's entry points; seeded random weights unless
-    fp32 ``masters`` are given; with ``momentum`` the state holds MoCo
-    momentum towers over ``base``."""
+    optimizer through the port's entry points; seeded random weights (drawn
+    on the device with ``on_device``) unless fp32 ``masters`` are given;
+    with ``momentum`` the state holds MoCo momentum towers over ``base``."""
     name = next(iter(build_config(config)["model_attributes"]))
     cfg = build_config(config, opts=[f"model_attributes.{name}.dtype_str", dtype, *opts])
-    shell = build_model(cfg, device=device)
+    with no_default_init():  # the init or the masters set every value
+        shell = build_model(cfg, device=device)
     if masters is None:
-        shell.init(seed)
+        shell.init(seed, on_device=on_device)
     tx, _ = build_optimizer(flax_paths(shell.module), cfg["optimizer_attributes"].to_dict(),
                             cfg["training_parameters"].to_dict())
     state = TrainState.create(shell.module, tx, masters)
@@ -2870,7 +2938,7 @@ def dmae_bare(gpu: str) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    shell, state, step = config_model(DMAE_CONFIG)
+    shell, state, step = config_model(DMAE_CONFIG, on_device=True)
     batch = shell.to_device(dmae_batch(DMAE_BATCH, SEED + 1))
     setup_s = time.perf_counter() - t0
     _, res = bare_steps("dmae_bare_step", gpu, shell, state, step, batch, DMAE_LAUNCHES,
@@ -2977,11 +3045,12 @@ def host_wti(w: dict, first: np.ndarray) -> np.ndarray:
 
 
 def dmae_trainer(gpu: str) -> dict:
-    """Phase 14 (c): ``msrvtt_retrieval.yml`` through ``retrieval_trainer``;
-    the L1 and L3 recalls of the final validation against a host
-    recomputation from the collected encode outputs."""
-    counts, probe, info, summary = rv_trainer(gpu, "dmae_trainer", DMAE_CONFIG, DMAE_LAUNCHES,
-                                              DMAE_LAUNCHES)
+    """Phase 14 (c): ``msrvtt_retrieval.yml`` through ``retrieval_trainer``
+    at RV_LAYERS of the towers' 12 layers; the L1 and L3 recalls of the final
+    validation against a host recomputation from the collected encode
+    outputs."""
+    counts, probe, info, summary = rv_trainer(gpu, "dmae_trainer", DMAE_CONFIG, RV_DMAE_LAUNCHES,
+                                              RV_DMAE_LAUNCHES, cut_towers("dmae_retrieval"))
     outs = [o for o, _ in info["encoded"]]
     vids = np.concatenate([v for _, v in info["encoded"]])
     cat = {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
@@ -3014,7 +3083,8 @@ def moco_bare(gpu: str) -> dict:
                                               ("moco", MOCO_OPTS, MOCO_MU, MOCO_LAUNCHES)):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        shell, state, step = config_model(TRAINER_CONFIG, leg_opts, momentum=momentum)
+        shell, state, step = config_model(TRAINER_CONFIG, leg_opts, momentum=momentum,
+                                          on_device=True)
         batch = shell.to_device(batch_np)
         extra = {"config": TRAINER_CONFIG, "leg": leg}
         state, res = bare_steps(f"moco_bare_step_{leg}", gpu, shell, state, step, batch,
@@ -3048,12 +3118,15 @@ def moco_bare(gpu: str) -> dict:
 
 
 def moco_trainer(gpu: str) -> dict:
-    """Phase 14 (d), second part: the trainer at B=32 with MoCo, 6 steps and
-    a resume to 8: ``ptr`` and ``filled`` after 6 steps, one momentum tensor
+    """Phase 14 (d), second part: the trainer at B=32 with MoCo at RV_LAYERS
+    of the towers' 12 layers, 6 steps and a resume to 8: ``ptr`` and
+    ``filled`` after 6 steps, one momentum tensor
     against a host EMA of the masters after each step, the queues and
     momentum restored bit for bit."""
-    counts, probe, info, summary = rv_trainer(gpu, "moco_trainer", TRAINER_CONFIG, MOCO_LAUNCHES,
-                                              TRAINER_LAUNCHES, MOCO_OPTS, track=MOCO_TRACKED)
+    counts, probe, info, summary = rv_trainer(gpu, "moco_trainer", TRAINER_CONFIG,
+                                              RV_MOCO_LAUNCHES, RV_EVAL_LAUNCHES,
+                                              MOCO_OPTS + cut_towers("univl_retrieval"),
+                                              track=MOCO_TRACKED)
     state = info["state"]
     masters0 = probe.first[0][MOCO_TRACKED].cpu().float()
     host = masters0.clone()
@@ -3160,12 +3233,15 @@ def phase_retrieval_variants(gpu: str) -> dict:
     del card, cpu, batch, ref
     torch.cuda.empty_cache()
     totals = dict.fromkeys(DMAE_LAUNCHES, 0)
+    seconds = {"dmae_card_vs_cpu": time.perf_counter() - t0}
     for part in (dmae_bare, dmae_trainer, moco_bare, moco_trainer, stage2_eval):
+        t1 = time.perf_counter()
         for k, n in part(gpu).items():
             totals[k] += n
         torch.cuda.empty_cache()
+        seconds[part.__name__] = time.perf_counter() - t1
     emit(phase="retrieval_variants", part="summary", seconds=time.perf_counter() - t0,
-         launches=totals)
+         part_seconds=seconds, launches=totals)
     return totals
 
 
@@ -4092,7 +4168,7 @@ def pink_train_argv(root: str, *extra: str, layers: int = PINK_LAYERS) -> list:
             "bfloat16", f"{PINK_DATA}.data_root_dir", root,
             f"{tp}.max_iterations", str(PINK_TRAIN_ITERS), f"{tp}.log_interval", "2",
             f"{tp}.snapshot_interval", "1000", f"{tp}.run_type", "train",
-            f"{tp}.num_workers", "4", f"{tp}.seed", "1",
+            f"{tp}.num_workers", "4", f"{tp}.seed", "1", *INIT_ON_DEVICE,
             f"{tp}.save_dir", os.path.join(root, "save"), *extra]
 
 
@@ -4270,14 +4346,98 @@ def pink_updates(step, state, batch, updates: int):
     return state, update_ms, micro_ms, counts, float(scalars["total_loss"])
 
 
-def pink_loaded(root: str, *extra: str, layers: int = PINK_LAYERS):
-    """A trainer on ``pink_train_argv``'s config (``run.main``'s build and
-    load, without its train loop)."""
-    args = get_parser().parse_args(pink_train_argv(root, *extra, layers=layers))
+def loaded_trainer(argv):
+    """A trainer on ``argv``'s config (``run.main``'s build and load, without
+    its train loop)."""
+    args = get_parser().parse_args(argv)
     trainer = build_trainer(build_config(args.config, args.config_override,
                                          [o for o in args.opts if o != "--"], args))
     trainer.load()
     return trainer
+
+
+def pink_loaded(root: str, *extra: str, layers: int = PINK_LAYERS):
+    """A trainer on ``pink_train_argv``'s config."""
+    return loaded_trainer(pink_train_argv(root, *extra, layers=layers))
+
+
+def pink_run_resume(probe, snaps, last: int, run_main, loaded, root: str, after_run=None):
+    """Phases 17 and 18 (b): ``run_main(*opts)`` (``run.main`` on the
+    composed argv) to ``last`` iterations, one micro-step into a window; a
+    trainer ``loaded(*opts)`` from the snapshot at ``last`` (its state held
+    against the one saved there by ``probe``); the next iteration on the
+    first batch from the resumed state and from the run's own; the first
+    batch's loss under the initial masters and the final ones.
+    ``after_run(trainer)`` sees the run's trainer before the next iteration.
+    Returns the readings."""
+    zero_counts()
+    t0 = time.perf_counter()
+    first = run_main("training_parameters.max_iterations", str(last))
+    r = types.SimpleNamespace(run_setup_s=first.timings["first_step_start"] - t0)
+    if after_run is not None:
+        after_run(first)
+    first_step, state = probe.raw_train_step, first.state
+    r.loader_wait_ms = [t * 1e3 for t in first.timings["loader_wait_s"]]
+    r.iteration_ms = [t * 1e3 for t in first.timings["step_s"]]
+    r.mid_window = (state.step, state.opt_state["mini_step"], state.opt_state["count"])
+    masters0, batch = probe.first
+    # the resume: the state saved at the last snapshot, then the next
+    # iteration from it and from the first run's own state
+    probe.reference = types.SimpleNamespace(state=snaps.saved[last])
+    t1 = time.perf_counter()
+    resumed = loaded("training_parameters.resume_file",
+                     os.path.join(root, "save", "models", f"model_{last}"))
+    r.resume_s = time.perf_counter() - t1
+    probe.reference = None
+    before = read_counts()
+    state_r, sixth_scalars = probe.raw_train_step(resumed.state, batch)
+    after = read_counts()
+    state, _ = first_step(state, batch)
+    r.sixth_loss = float(sixth_scalars["total_loss"])
+    r.counts = read_counts()  # the main path ends here
+    r.sixth = {k: after[k] - before[k] for k in after}
+    r.continued = states_equal(state_r, state)
+    # the first batch's loss under the initial masters and the final ones
+    shell = first.shell
+    with torch.inference_mode():
+        r.loss_after = float(shell.loss_fn(batch, deterministic=True)[0])
+    with torch.no_grad():
+        for n, t in state.params.items():
+            t.copy_(masters0[n])
+    state.sync_model(frozen=True)
+    with torch.inference_mode():
+        r.loss_before = float(shell.loss_fn(batch, deterministic=True)[0])
+    probe.first = None
+    return r
+
+
+def pink_timed_updates(trainer, warmup: int = 2, timed: int = 6, profiled: int = 2) -> dict:
+    """The trainer's own step on its first batch: ``warmup`` updates, then
+    ``timed`` (host ms ending in ``synchronize``, launches), then
+    ``profiled`` under the profiler (device-busy ms, device ops and the flash
+    family's ms an update); the peak memory since the caller's reset, the
+    parameter counts and the optimizer state's bytes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step, state = trainer._train_step, trainer.state
+    batch = trainer._to_device(trainer._cached_first_batch)
+    out = dict(trainable_tensors=len(state.trainable),
+               params=sum(t.numel() for t in state.params.values()),
+               trainable_params=sum(state.params[n].numel() for n in state.trainable),
+               optimizer_state_bytes=state.optimizer_state_bytes())
+    state, _, _, _, _ = pink_updates(step, state, batch, warmup)
+    state, out["update_ms"], out["micro_ms"], out["counts"], _ = pink_updates(step, state, batch,
+                                                                             timed)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _, _, _, _ = pink_updates(step, state, batch, profiled)
+        torch.cuda.synchronize()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["busy"], out["n_ops"], out["top"] = device_busy(prof, profiled)
+    out["flash_ms"] = sum(ms for name, ms in device_ms_by_name(prof, profiled)[0].items()
+                          if "flash_" in name)
+    out["supervised"] = int((batch["labels"][:, 1:] >= 0).sum().item())
+    trainer.state = state
+    return out
 
 
 def pink_trainer(gpu: str) -> dict:
@@ -4293,8 +4453,6 @@ def pink_trainer(gpu: str) -> dict:
     loaded as ``run.main`` loads it: timed and profiled updates of its step
     on its first batch. Returns the launches of (b)'s runs and 6th
     iterations."""
-    from torch.profiler import ProfilerActivity, profile
-
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(build, exist_ok=True)
     root = tempfile.mkdtemp(prefix="pink_smoke_", dir=build)
@@ -4309,45 +4467,10 @@ def pink_trainer(gpu: str) -> dict:
         rows = write_pink_corpus(root, SEED, images)
         uninstall, unsnap = probe.install(), snaps.install()
         try:
-            zero_counts()
-            t0 = time.perf_counter()
-            first = run.main(pink_train_argv(root, "training_parameters.max_iterations",
-                                             str(last), layers=PINK_RUN_LAYERS))
-            run_setup_s = first.timings["first_step_start"] - t0
-            first_step, state = probe.raw_train_step, first.state
-            loader_wait_ms = [t * 1e3 for t in first.timings["loader_wait_s"]]
-            iteration_ms = [t * 1e3 for t in first.timings["step_s"]]
-            mid_window = (state.step, state.opt_state["mini_step"], state.opt_state["count"])
-            masters0, batch = probe.first
-            # the resume: the state saved at the last snapshot, then the 6th
-            # iteration from it and from the first run's own state
-            probe.reference = types.SimpleNamespace(state=snaps.saved[last])
-            t1 = time.perf_counter()
-            resumed = pink_loaded(root, "training_parameters.resume_file",
-                                  os.path.join(root, "save", "models", f"model_{last}"),
-                                  layers=PINK_RUN_LAYERS)
-            resume_s = time.perf_counter() - t1
-            probe.reference = None
-            before = read_counts()
-            state_r, sixth_scalars = probe.raw_train_step(resumed.state, batch)
-            after = read_counts()
-            state, _ = first_step(state, batch)
-            sixth_loss = float(sixth_scalars["total_loss"])
-            counts = read_counts()  # the main path ends here
-            sixth = {k: after[k] - before[k] for k in after}
-            continued = states_equal(state_r, state)
-            # the first batch's loss under the initial masters and the final ones
-            shell = first.shell
-            with torch.inference_mode():
-                loss_after = float(shell.loss_fn(batch, deterministic=True)[0])
-            with torch.no_grad():
-                for n, t in state.params.items():
-                    t.copy_(masters0[n])
-            state.sync_model(frozen=True)
-            with torch.inference_mode():
-                loss_before = float(shell.loss_fn(batch, deterministic=True)[0])
-            probe.first = None
-            del first, state, shell, batch, resumed, state_r, masters0
+            r = pink_run_resume(
+                probe, snaps, last,
+                lambda *extra: run.main(pink_train_argv(root, *extra, layers=PINK_RUN_LAYERS)),
+                lambda *extra: pink_loaded(root, *extra, layers=PINK_RUN_LAYERS), root)
         finally:
             unsnap()
             uninstall()
@@ -4358,29 +4481,19 @@ def pink_trainer(gpu: str) -> dict:
         t1 = time.perf_counter()
         trainer = pink_loaded(root)
         full_setup_s = time.perf_counter() - t1
-        step, state = trainer._train_step, trainer.state
-        batch = trainer._to_device(trainer._cached_first_batch)
-        trainable = len(state.trainable)
-        n_params = sum(t.numel() for t in state.params.values())
-        n_trainable = sum(state.params[n].numel() for n in state.trainable)
-        opt_bytes = state.optimizer_state_bytes()
-        state, _, _, _, _ = pink_updates(step, state, batch, 2)
-        state, update_ms, micro_ms, bare_counts, _ = pink_updates(step, state, batch, 6)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            state, _, _, _, _ = pink_updates(step, state, batch, 2)
-            torch.cuda.synchronize()
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        busy, n_ops, top = device_busy(prof, 2)
-        flash_ms = sum(ms for name, ms in device_ms_by_name(prof, 2)[0].items()
-                       if "flash_" in name)
-        supervised = int((batch["labels"][:, 1:] >= 0).sum().item())
-        positions = PINK_TRAIN_BATCH * (PINK_PATCHES + PINK_TRAIN_TEXT)
-        del trainer, step, state, batch, prof
+        t = pink_timed_updates(trainer)
+        del trainer
         gc.collect()
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    losses = [float(x) for x in probe.losses] + [sixth_loss]
+    (update_ms, micro_ms, bare_counts, busy, n_ops, top, flash_ms, supervised, peak_gb,
+     n_params, n_trainable, trainable, opt_bytes) = (
+        t[k] for k in ("update_ms", "micro_ms", "counts", "busy", "n_ops", "top", "flash_ms",
+                       "supervised", "peak_gb", "params", "trainable_params",
+                       "trainable_tensors", "optimizer_state_bytes"))
+    positions = PINK_TRAIN_BATCH * (PINK_PATCHES + PINK_TRAIN_TEXT)
+    losses = [float(x) for x in probe.losses] + [r.sixth_loss]
     upd_p50 = float(np.percentile(update_ms, 50))
     run1 = probe.train[:last]
     per_update = [{k: a[k] + b[k] for k in a} for a, b in zip(run1[0::2], run1[1::2])]
@@ -4390,12 +4503,12 @@ def pink_trainer(gpu: str) -> dict:
         config=PINK_TRAIN_CONFIG, gpu=gpu, rows=rows, images="fixture images (cv2)" if images
         else "none: black frames (no cv2)", batch=PINK_TRAIN_BATCH, accumulation=PINK_ACCUM,
         run_layers=PINK_RUN_LAYERS, timed_layers=PINK_LAYERS,
-        losses=losses, first_batch_loss=dict(initial_masters=loss_before,
-                                             final_masters=loss_after),
+        losses=losses, first_batch_loss=dict(initial_masters=r.loss_before,
+                                             final_masters=r.loss_after),
         update_p50_ms=upd_p50, update_p95_ms=float(np.percentile(update_ms, 95)),
         micro_batch_p50_ms=float(np.percentile(micro_ms, 50)),
-        trainer_iteration_ms=iteration_ms,
-        loader_wait_p50_ms=float(np.percentile(loader_wait_ms, 50)),
+        trainer_iteration_ms=r.iteration_ms,
+        loader_wait_p50_ms=float(np.percentile(r.loader_wait_ms, 50)),
         tokens_per_s_all_positions=PINK_ACCUM * positions * 1e3 / upd_p50,
         tokens_per_s_supervised=PINK_ACCUM * supervised * 1e3 / upd_p50,
         device_busy_ms_per_update=busy if n_ops else "not measured",
@@ -4403,18 +4516,18 @@ def pink_trainer(gpu: str) -> dict:
         flash_device_ms_per_update=flash_ms if n_ops else "not measured",
         device_ops_per_update=n_ops, top_device_ops_ms=top, peak_mem_gb=peak_gb,
         params=n_params, trainable_params=n_trainable, trainable_tensors=trainable,
-        optimizer_state_bytes=opt_bytes, launches=counts, launches_per_update=per_update[0],
-        launches_per_timed_update=bare_counts[0], launches_sixth_iteration=sixth,
+        optimizer_state_bytes=opt_bytes, launches=r.counts, launches_per_update=per_update[0],
+        launches_per_timed_update=bare_counts[0], launches_sixth_iteration=r.sixth,
         train_iterations=len(probe.train), eval_forwards=len(evals),
-        snapshot_at=dict(zip(("step", "mini_step", "count"), mid_window)),
-        resumed_state_equal=probe.resumed_equal, continued_state_equal=continued,
-        run_setup_s=run_setup_s, full_width_setup_s=full_setup_s, resume_s=resume_s,
+        snapshot_at=dict(zip(("step", "mini_step", "count"), r.mid_window)),
+        resumed_state_equal=probe.resumed_equal, continued_state_equal=r.continued,
+        run_setup_s=r.run_setup_s, full_width_setup_s=full_setup_s, resume_s=r.resume_s,
         restore_s=probe.restores, saves_s_bytes=probe.saves)
     emit(phase="pink_train", part="trainer", **summary)
     check(all(np.isfinite(losses)) and len(losses) == PINK_TRAIN_ITERS,
           f"Pink trainer: losses {losses}")
-    check(loss_after < loss_before,
-          f"Pink trainer: the first batch's loss did not fall ({loss_before} → {loss_after})")
+    check(r.loss_after < r.loss_before,
+          f"Pink trainer: the first batch's loss did not fall ({r.loss_before} → {r.loss_after})")
     check(all(c == PINK_RUN_ITER_LAUNCHES for c in probe.train)
           and all(c == PINK_RUN_EVAL_LAUNCHES for c in evals)
           and all(c == run_update for c in per_update)
@@ -4423,20 +4536,20 @@ def pink_trainer(gpu: str) -> dict:
           f"{per_update[:1]}, per eval forward {evals[:1]}, per full-depth update "
           f"{bare_counts[:1]}; expected {PINK_RUN_ITER_LAUNCHES}, {run_update}, "
           f"{PINK_RUN_EVAL_LAUNCHES}, {PINK_UPDATE_LAUNCHES}")
-    check(sixth == PINK_RUN_ITER_LAUNCHES and all(
-        counts[k] == PINK_RUN_ITER_LAUNCHES[k] * (len(probe.train) + 2)  # the 6th, twice
-        + PINK_RUN_EVAL_LAUNCHES[k] * len(evals) for k in counts),
-          f"Pink trainer: the phase launched {counts}")
-    check(mid_window == (last, 1, last // PINK_ACCUM),
-          f"Pink trainer: the snapshot is not inside a window: {mid_window}")
+    check(r.sixth == PINK_RUN_ITER_LAUNCHES and all(
+        r.counts[k] == PINK_RUN_ITER_LAUNCHES[k] * (len(probe.train) + 2)  # the 6th, twice
+        + PINK_RUN_EVAL_LAUNCHES[k] * len(evals) for k in r.counts),
+          f"Pink trainer: the phase launched {r.counts}")
+    check(r.mid_window == (last, 1, last // PINK_ACCUM),
+          f"Pink trainer: the snapshot is not inside a window: {r.mid_window}")
     check(probe.resumed_equal is not None and all(probe.resumed_equal.values())
           and "acc" in probe.resumed_equal, f"Pink trainer: resume {probe.resumed_equal}")
-    check(all(continued.values()), f"Pink trainer: the resumed 6th iteration {continued}")
+    check(all(r.continued.values()), f"Pink trainer: the resumed 6th iteration {r.continued}")
     check(opt_bytes == 12 * n_trainable and n_trainable < 0.01 * n_params,
           f"Pink trainer: optimizer state {opt_bytes} bytes for {n_trainable} trainable of "
           f"{n_params} parameters")
     check(probe.devices == {"cuda"}, f"Pink trainer: ran on {probe.devices}")
-    return counts
+    return r.counts
 
 
 def phase_pink_train(gpu: str) -> dict:
@@ -4446,6 +4559,448 @@ def phase_pink_train(gpu: str) -> dict:
     pink_train_card_vs_cpu()
     counts = pink_trainer(gpu)
     emit(phase="pink_train", part="summary", seconds=time.perf_counter() - t0, launches=counts)
+    return counts
+
+
+# ------------------------------------------------ phase 18: pink_7b.yml
+PINK_7B_LAYERS, PINK_7B_EVA_LAYERS = 32, 39
+PINK_7B_TOKENS = PINK_7B_HEADS[2]  # 256 EVA tokens, the class token dropped
+# run.main and its resume, card vs CPU and serving: full width at 2 of the 32
+# decoder layers and 2 of the 39 EVA layers (a snapshot of ≈ 6.6 GB of fp32
+# masters instead of ≈ 32)
+PINK_7B_CUT = (2, 2)
+PINK_7B_REMAT_LAYERS = (8, 16)  # remat on against off at depths where off still fits
+PINK_7B_NEW_TOKENS = 8
+
+
+def pink_7b_iter_launches(layers: int) -> dict:
+    """A trainer iteration (micro-batch) under remat: the frozen EVA tower on
+    the einsum core (heads of 88), each causal decoder layer's flash forward
+    twice (the forward, then its recompute in the backward), dQ and dK/dV
+    once."""
+    return {**NO_LAUNCHES, "flash_fwd": 2 * layers, "flash_dq": layers, "flash_dkv": layers}
+
+
+PINK_7B_UPDATE_LAUNCHES = {k: n * PINK_ACCUM
+                           for k, n in pink_7b_iter_launches(PINK_7B_LAYERS).items()}
+PINK_7B_RUN_ITER_LAUNCHES = pink_7b_iter_launches(PINK_7B_CUT[0])
+# an eval forward (no gradients, no recompute) and a served request's prefill
+PINK_7B_FORWARD_LAUNCHES = {**NO_LAUNCHES, "flash_fwd": PINK_7B_CUT[0]}
+# card bf16 vs CPU fp32 at full width and PINK_7B_CUT depth, the first
+# micro-step at B=1 on the same fp32 masters carried through the stacked
+# layout (every lora_b drawn nonzero): |Δ lm_loss| and the gradient cosines of
+# the 14 trainable tensors; and the EVA tower alone in fp32 on the card
+# against the CPU's, the largest |Δ| over the largest |token value|, where a
+# change below bf16's rounding shows (``--calibrate pink_7b`` reads them).
+# Sound runs over three seeds stay below |Δ| 0.00099 and above cos 0.99994
+# (all), 0.99972 (least), with the EVA reading below 2.2e-6; EVA's GELU in
+# its tanh form reads |Δ| 0.0004–0.0006 and cos 0.99994 (below bf16's
+# rounding) but the EVA reading 1.31e-4–1.40e-4; the class token kept in
+# front of vision_proj |Δ| 0.0088–0.0142, cos 0.99927 (all), 0.9960–0.9962
+# (least); the bridge's layers reversed |Δ| 0.34–0.45, cos 0.12–0.17
+# (H100 readings)
+PINK_7B_DLOSS_MAX, PINK_7B_COS_ALL, PINK_7B_COS_MIN = 0.004, 0.9998, 0.999
+PINK_7B_EVA_DEV_MAX = 2e-5
+
+
+def pink_7b_presets(layers: int, eva_layers: int):
+    """The names of ``omni_7b`` at ``layers`` decoder layers and of
+    ``eva_vit_g`` at ``eva_layers`` (registered as presets; the full ones by
+    their own names)."""
+    lm, eva = "omni_7b", "eva_vit_g"
+    if layers != PINK_7B_LAYERS:
+        lm = f"omni_7b_{layers}_layers"
+        LM_PRESETS[lm] = {**LM_PRESETS["omni_7b"], "num_layers": layers}
+    if eva_layers != PINK_7B_EVA_LAYERS:
+        eva = f"eva_vit_g_{eva_layers}_layers"
+        EVA_PRESETS[eva] = {**EVA_PRESETS["eva_vit_g"], "num_layers": eva_layers}
+    return lm, eva
+
+
+def pink_7b_opts(layers: int = PINK_7B_LAYERS, eva_layers: int = PINK_7B_EVA_LAYERS,
+                 dtype: str = "bfloat16") -> list:
+    """``pink_instruct.local.yml`` with ``pink_7b.yml``'s model and optimizer
+    laid over (``recipe_opts``: omni_7b behind EVA-CLIP-g at 224², LoRA 16 on
+    q/v over a frozen base, remat, scan_layers, its frozen_params), cut to
+    ``layers`` and ``eva_layers``; the tokenizer's ids inside the preset's
+    vocabulary, the data at 224² and 256 text tokens, B=8, accumulation 2,
+    the clip on, the init drawn on the card."""
+    tp = "training_parameters"
+    lm, eva = pink_7b_presets(layers, eva_layers)
+    return recipe_opts(lm_preset=lm, eva_preset=eva, dtype_str=dtype) + [
+        "model_attributes.pink.vocab_override", "0",
+        f"{PINK_DATA}.image.size", str(SIZE), f"{PINK_DATA}.image.resize", "256",
+        f"{PINK_DATA}.conversation.max_length", str(PINK_TRAIN_TEXT),
+        f"{tp}.batch_size", str(PINK_TRAIN_BATCH), f"{tp}.test_batch_size", str(PINK_TRAIN_BATCH),
+        f"{tp}.gradient_accumulation_steps", str(PINK_ACCUM), f"{tp}.clip_gradients", "true",
+        *INIT_ON_DEVICE]
+
+
+def pink_7b_argv(root: str, *extra: str, layers: int = PINK_7B_LAYERS,
+                 eva_layers: int = PINK_7B_EVA_LAYERS) -> list:
+    """The composed run over ``write_pink_corpus``'s rows: the log (with the
+    cached val batch) every 2 iterations, no snapshot before the end, no
+    test inference."""
+    tp = "training_parameters"
+    return ["--config", PINK_TRAIN_CONFIG, *pink_7b_opts(layers, eva_layers),
+            f"{PINK_DATA}.data_root_dir", root, f"{tp}.max_iterations", str(PINK_TRAIN_ITERS),
+            f"{tp}.log_interval", "2", f"{tp}.snapshot_interval", "1000",
+            f"{tp}.run_type", "train", f"{tp}.num_workers", "4", f"{tp}.seed", "1",
+            f"{tp}.save_dir", os.path.join(root, "save"), *extra]
+
+
+def load_masters(state, masters) -> None:
+    """fp32 ``masters`` by name into the state, then the module."""
+    with torch.no_grad():
+        for n, t in state.params.items():
+            t.copy_(masters[n])
+    state.sync_model(frozen=True)
+
+
+def pink_7b_twins(seed: int):
+    """Phase 18 (a)'s models at full width and PINK_7B_CUT depth, frozen as
+    the trainer freezes them: bf16 on the card, seeded on the card with every
+    ``lora_b`` drawn from N(0, 0.02); its masters exported in the stacked
+    layout and read back through the bridge into the card's state and an
+    fp32 CPU twin (plain versions). Returns (card, card state, CPU, the
+    stacked tree, the masters, a B=1 batch)."""
+    layers, eva = PINK_7B_CUT
+    card, state, _ = config_model(PINK_TRAIN_CONFIG, pink_7b_opts(layers, eva), seed=seed,
+                                  on_device=True)
+    gen = torch.Generator(device=next(iter(state.params.values())).device).manual_seed(seed)
+    for name, t in state.params.items():
+        if name.endswith("lora_b"):
+            t.normal_(0.0, 0.02, generator=gen)
+    stacked = export_flax_variables(card.module, state)["params"]
+    masters = flax_to_masters(card.module, stacked)
+    load_masters(state, masters)
+    cpu, _, _ = config_model(PINK_TRAIN_CONFIG, pink_7b_opts(layers, eva, "float32"),
+                             device="cpu", dtype="float32", masters=masters)
+    card.eva32 = copy.deepcopy(cpu.module.vision_tower).to(state.params["lm_head.weight"].device)
+    return card, state, cpu, stacked, masters, pink_train_batch(1, SEED + 23)
+
+
+def eva_dev(card, cpu, batch) -> float:
+    """The EVA tower in fp32 on the card (``card.eva32``) against the CPU
+    twin's on the batch's image: the largest |Δ| over the largest |value|."""
+    img = torch.as_tensor(batch["image_data"][:, 0])
+    with torch.no_grad():
+        ref = cpu.module.vision_tower(img)
+        got = card.eva32(img.to(next(card.eva32.parameters()).device)).cpu()
+    if got.shape != ref.shape:
+        return float("inf")
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+def pink_7b_compare(card, cpu, batch, ref) -> dict:
+    return {**compare_steps(pink_first_step(card, batch), ref),
+            "eva_fp32_dev": eva_dev(card, cpu, batch)}
+
+
+def pink_7b_faults(card, state, stacked, masters):
+    """Faults planted on the card's model only, each undone after its step:
+    (name, plant, undo). EVA's MLP with tanh GELU; the class token kept in
+    front of ``vision_proj`` (257 vision tokens); the bridge reading the
+    stacked layers in reverse order."""
+    tower = card.module.vision_tower
+    mlps = [getattr(t, f"layer_{i}").mlp for t in (tower, card.eva32)
+            for i in range(tower.num_layers)]
+    real_leading = weights._leading
+
+    def tanh_gelu(on: bool):
+        for mlp in mlps:
+            mlp.act = (lambda x: F.gelu(x, approximate="tanh")) if on else F.gelu
+
+    def keep_cls():
+        real = type(tower).forward.__get__(tower)
+        tower.forward = lambda images: (lambda seq: torch.cat([seq[:, :1], seq], 1))(
+            real(images))
+
+    def reversed_bridge():
+        weights._leading = lambda leaf, i: real_leading(leaf, -1 - i)
+        try:
+            load_masters(state, flax_to_masters(card.module, stacked))
+        finally:
+            weights._leading = real_leading
+
+    return [("eva_tanh_gelu", lambda: tanh_gelu(True), lambda: tanh_gelu(False)),
+            ("eva_cls_not_dropped", keep_cls, lambda: tower.__dict__.pop("forward")),
+            ("bridge_layers_reversed", reversed_bridge, lambda: load_masters(state, masters))]
+
+
+def pink_7b_within_bound(res) -> bool:
+    return res["abs_dloss"] <= PINK_7B_DLOSS_MAX and res["grad_cos_all"] >= PINK_7B_COS_ALL \
+        and res["grad_cos_min"] >= PINK_7B_COS_MIN and res["eva_fp32_dev"] <= PINK_7B_EVA_DEV_MAX
+
+
+def pink_7b_readings(seed: int, faults: bool):
+    card, state, cpu, stacked, masters, batch = pink_7b_twins(seed)
+    ref = pink_first_step(cpu, batch)
+    out = {"sound": pink_7b_compare(card, cpu, batch, ref)}
+    for name, plant, undo in (pink_7b_faults(card, state, stacked, masters) if faults else ()):
+        plant()
+        try:
+            out[name] = pink_7b_compare(card, cpu, batch, ref)
+        finally:
+            undo()
+    del card, state, cpu, stacked, masters
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def calibrate_pink_7b(seeds=3) -> None:
+    """Phase 18 (a)'s readings: sound seeds, then planted faults at the last."""
+    for seed in range(seeds):
+        for name, res in pink_7b_readings(seed, seed == seeds - 1).items():
+            emit(phase="calibrate_pink_7b", kind="sound" if name == "sound" else "fault",
+                 fault=None if name == "sound" else name, seed=seed, **res,
+                 within_bound=pink_7b_within_bound(res))
+    emit(phase="calibrate_pink_7b", kind="bound", dloss_max=PINK_7B_DLOSS_MAX,
+         grad_cos_all=PINK_7B_COS_ALL, grad_cos_min=PINK_7B_COS_MIN,
+         eva_fp32_dev_max=PINK_7B_EVA_DEV_MAX)
+
+
+def pink_7b_card_vs_cpu() -> None:
+    """Phase 18 (a): the reading at seed 0 within the bounds, each planted
+    fault outside them."""
+    t0 = time.perf_counter()
+    readings = pink_7b_readings(SEED, True)
+    faults = {n: r for n, r in readings.items() if n != "sound"}
+    caught = {n: not pink_7b_within_bound(r) for n, r in faults.items()}
+    emit(phase="pink_7b", part="card_vs_cpu", batch=1, layers=PINK_7B_CUT[0],
+         eva_layers=PINK_7B_CUT[1], **readings["sound"], faults=faults, faults_caught=caught,
+         seconds=time.perf_counter() - t0,
+         bounds=dict(dloss_max=PINK_7B_DLOSS_MAX, grad_cos_all=PINK_7B_COS_ALL,
+                     grad_cos_min=PINK_7B_COS_MIN, eva_fp32_dev_max=PINK_7B_EVA_DEV_MAX))
+    check(pink_7b_within_bound(readings["sound"]),
+          "card and CPU pink_7b training steps disagree beyond the stated bound")
+    check(all(caught.values()), f"pink_7b: a planted fault passed the bound: {caught}")
+
+
+def pink_7b_serving(save_dir: str, npz_dir: str) -> dict:
+    """Phase 18 (e): ``generation_predictor`` on the card, given the run's
+    ``save_dir`` (its ``pink_final``) and given a ``params.npz`` exported
+    from the same masters in the stacked layout: one request each, greedy,
+    the same tokens. Returns the readings and the launches."""
+    request = pink_request(np.random.default_rng(SEED + 29))
+    out, counts = {}, []
+    for name, model_dir in (("save_dir", save_dir), ("params_npz", npz_dir)):
+        t0 = time.perf_counter()
+        pred = build_predictor(["--config", PINK_TRAIN_CONFIG, "--predictor",
+                                "generation_predictor", "--model_dir", model_dir,
+                                "predictor_parameters.max_new_tokens", str(PINK_7B_NEW_TOKENS),
+                                "predictor_parameters.max_prompt_len", "64"])[0]
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        before = read_counts()
+        t1 = time.perf_counter()
+        answer = pred.predict(request)
+        torch.cuda.synchronize()
+        request_ms = (time.perf_counter() - t1) * 1e3
+        after = read_counts()
+        counts.append({k: after[k] - before[k] for k in after})
+        out[name] = dict(load_s=load_s, request_ms=request_ms, ids=answer["generated_ids"],
+                         text=answer["generated_text"],
+                         device=next(pred.shell.module.parameters()).device.type)
+        del pred
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(readings=out, launches=counts)
+
+
+def pink_7b_remat_peaks(trainer) -> dict:
+    """Phase 18 (c): the peak memory of one update of the full-width trainer
+    run through its first decoder layers (the rest skipped), at each depth
+    of PINK_7B_REMAT_LAYERS, with remat on and off, beside the memory held
+    before the update."""
+    module = trainer.shell.module
+    decoder, full = module.decoder, module.decoder.num_layers
+    step, state = trainer._train_step, trainer.state
+    batch = trainer._to_device(trainer._cached_first_batch)
+    peaks = {}
+    try:
+        for layers in PINK_7B_REMAT_LAYERS:
+            decoder.num_layers = layers
+            for remat in (True, False):
+                decoder.remat = module.vision_tower.remat = remat
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated() / 1e9
+                state, update_ms, _, _, _ = pink_updates(step, state, batch, 1)
+                peaks[f"{layers}_layers_remat_{'on' if remat else 'off'}"] = dict(
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9, held_gb=held,
+                    update_ms=update_ms[0])
+    finally:
+        decoder.num_layers = full
+        decoder.remat = module.vision_tower.remat = True
+    trainer.state = state
+    return peaks
+
+
+def pink_7b_trainer(gpu: str) -> dict:
+    """Phase 18 (b)–(e). (b) ``antmmf_torch.run.main`` on the composed config
+    at full width and PINK_7B_CUT depth over the seeded corpus (under
+    ``build/``, deleted at the end), as phase 17 runs it: 5 iterations at B=8
+    with accumulation 2, a snapshot one micro-step into the third window,
+    the resume and the 6th iteration bit for bit, the first batch's loss
+    falls; after the run its masters are exported as a stacked
+    ``params.npz``. (e) The run's ``save_dir`` served. (c), (d) The trainer
+    at full width and depth, loaded as ``run.main`` loads it: the peak of
+    an update at PINK_7B_REMAT_LAYERS layers with remat on and off, then
+    timed and profiled updates at all 32. Returns the launches of (b) and
+    (e)."""
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="pink_7b_smoke_", dir=build)
+    try:
+        import cv2  # noqa: F401
+        images = True
+    except ImportError:
+        images = False
+    probe, snaps = TrainerProbe(), SnapshotProbe()
+    last = PINK_TRAIN_ITERS - 1
+    layers, eva = PINK_7B_CUT
+    save_dir, npz_dir = os.path.join(root, "save"), os.path.join(root, "npz")
+
+    def export_npz(trainer):  # the masters pink_final holds, in JAX's stacked layout
+        os.makedirs(npz_dir)
+        shutil.copy(os.path.join(save_dir, "config.yaml"), npz_dir)
+        params = flatten_flax(export_flax_variables(trainer.shell.module, trainer.state)["params"])
+        np.savez(os.path.join(npz_dir, "params.npz"), **params)
+
+    try:
+        rows = write_pink_corpus(root, SEED, images)
+        uninstall, unsnap = probe.install(), snaps.install()
+        try:
+            r = pink_run_resume(
+                probe, snaps, last,
+                lambda *e: run.main(pink_7b_argv(root, *e, layers=layers, eva_layers=eva)),
+                lambda *e: loaded_trainer(pink_7b_argv(root, *e, layers=layers,
+                                                       eva_layers=eva)),
+                root, after_run=export_npz)
+        finally:
+            unsnap()
+            uninstall()
+        snaps.saved.clear()
+        ckpt_gb = os.path.getsize(os.path.join(save_dir, "models", f"model_{last}")) / 1e9
+        gc.collect()
+        torch.cuda.empty_cache()
+        serving = pink_7b_serving(save_dir, npz_dir)
+        # (c), (d) full width and depth
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        trainer = loaded_trainer(pink_7b_argv(root))
+        torch.cuda.synchronize()
+        full_setup_s = time.perf_counter() - t1
+        load_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        remat = pink_7b_remat_peaks(trainer)
+        torch.cuda.reset_peak_memory_stats()
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        t = pink_timed_updates(trainer)
+        master_bytes = sum(x.numel() * x.element_size() for x in trainer.state.params.values())
+        module_bytes = sum(p.numel() * p.element_size()
+                           for p in trainer.shell.module.parameters())
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    losses = [float(x) for x in probe.losses] + [r.sixth_loss]
+    upd_p50 = float(np.percentile(t["update_ms"], 50))
+    run1 = probe.train[:last]
+    per_update = [{k: a[k] + b[k] for k in a} for a, b in zip(run1[0::2], run1[1::2])]
+    run_update = {k: n * PINK_ACCUM for k, n in PINK_7B_RUN_ITER_LAUNCHES.items()}
+    evals = probe.eval
+    positions = PINK_TRAIN_BATCH * (PINK_7B_TOKENS + PINK_TRAIN_TEXT)
+    capacity_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    served = serving["readings"]
+    summary = dict(
+        config=f"{PINK_TRAIN_CONFIG} + {PINK_7B_CONFIG}", gpu=gpu, rows=rows,
+        images="fixture images (cv2)" if images else "none: black frames (no cv2)",
+        batch=PINK_TRAIN_BATCH, accumulation=PINK_ACCUM, run_layers=layers, run_eva_layers=eva,
+        timed_layers=PINK_7B_LAYERS, timed_eva_layers=PINK_7B_EVA_LAYERS,
+        losses=losses, first_batch_loss=dict(initial_masters=r.loss_before,
+                                             final_masters=r.loss_after),
+        update_p50_ms=upd_p50, update_p95_ms=float(np.percentile(t["update_ms"], 95)),
+        micro_batch_p50_ms=float(np.percentile(t["micro_ms"], 50)),
+        trainer_iteration_ms=r.iteration_ms,
+        loader_wait_p50_ms=float(np.percentile(r.loader_wait_ms, 50)),
+        tokens_per_s_all_positions=PINK_ACCUM * positions * 1e3 / upd_p50,
+        tokens_per_s_supervised=PINK_ACCUM * t["supervised"] * 1e3 / upd_p50,
+        device_busy_ms_per_update=t["busy"] if t["n_ops"] else "not measured",
+        device_idle_share=1 - t["busy"] / upd_p50 if t["n_ops"] else "not measured",
+        flash_device_ms_per_update=t["flash_ms"] if t["n_ops"] else "not measured",
+        device_ops_per_update=t["n_ops"], top_device_ops_ms=t["top"],
+        peak_mem_gb_full_depth_remat_on=t["peak_gb"], held_gb_before_updates=held_gb,
+        load_peak_gb=load_peak_gb, device_capacity_gb=capacity_gb,
+        headroom_gb=capacity_gb - t["peak_gb"], fp32_master_gb=master_bytes / 1e9,
+        module_weight_gb=module_bytes / 1e9,
+        remat_peaks=remat,
+        params=t["params"], trainable_params=t["trainable_params"],
+        trainable_tensors=t["trainable_tensors"],
+        optimizer_state_bytes=t["optimizer_state_bytes"], launches=r.counts,
+        launches_per_update=per_update[0], launches_per_timed_update=t["counts"][0],
+        launches_sixth_iteration=r.sixth, launches_per_request=serving["launches"],
+        train_iterations=len(probe.train), eval_forwards=len(evals),
+        snapshot_at=dict(zip(("step", "mini_step", "count"), r.mid_window)),
+        snapshot_gb=ckpt_gb, resumed_state_equal=probe.resumed_equal,
+        continued_state_equal=r.continued, run_setup_s=r.run_setup_s,
+        full_width_setup_s=full_setup_s, resume_s=r.resume_s, restore_s=probe.restores,
+        saves_s_bytes=probe.saves,
+        serving={n: {k: v for k, v in x.items() if k != "ids"} for n, x in served.items()},
+        served_tokens=served["save_dir"]["ids"].tolist())
+    emit(phase="pink_7b", part="trainer", **summary)
+    check(all(np.isfinite(losses)) and len(losses) == PINK_TRAIN_ITERS,
+          f"pink_7b trainer: losses {losses}")
+    check(r.loss_after < r.loss_before, f"pink_7b trainer: the first batch's loss did not "
+          f"fall ({r.loss_before} → {r.loss_after})")
+    check(all(c == PINK_7B_RUN_ITER_LAUNCHES for c in probe.train)
+          and all(c == PINK_7B_FORWARD_LAUNCHES for c in evals)
+          and all(c == run_update for c in per_update)
+          and all(c == PINK_7B_UPDATE_LAUNCHES for c in t["counts"]),
+          f"pink_7b trainer: launches per iteration {probe.train[:1]}, per update "
+          f"{per_update[:1]}, per eval forward {evals[:1]}, per full-depth update "
+          f"{t['counts'][:1]}; expected {PINK_7B_RUN_ITER_LAUNCHES}, {run_update}, "
+          f"{PINK_7B_FORWARD_LAUNCHES}, {PINK_7B_UPDATE_LAUNCHES}")
+    check(r.sixth == PINK_7B_RUN_ITER_LAUNCHES and all(
+        r.counts[k] == PINK_7B_RUN_ITER_LAUNCHES[k] * (len(probe.train) + 2)  # the 6th, twice
+        + PINK_7B_FORWARD_LAUNCHES[k] * len(evals) for k in r.counts),
+          f"pink_7b trainer: the run launched {r.counts}")
+    check(r.mid_window == (last, 1, last // PINK_ACCUM),
+          f"pink_7b trainer: the snapshot is not inside a window: {r.mid_window}")
+    check(probe.resumed_equal is not None and all(probe.resumed_equal.values())
+          and "acc" in probe.resumed_equal, f"pink_7b trainer: resume {probe.resumed_equal}")
+    check(all(r.continued.values()), f"pink_7b trainer: the resumed 6th iteration {r.continued}")
+    check(t["optimizer_state_bytes"] == 12 * t["trainable_params"]
+          and t["trainable_params"] < 0.01 * t["params"],
+          f"pink_7b trainer: optimizer state {t['optimizer_state_bytes']} bytes for "
+          f"{t['trainable_params']} trainable of {t['params']} parameters")
+    check(probe.devices == {"cuda"}, f"pink_7b trainer: ran on {probe.devices}")
+    check(all(remat[f"{n}_layers_remat_off"]["peak_gb"] > remat[f"{n}_layers_remat_on"]["peak_gb"]
+              for n in PINK_7B_REMAT_LAYERS), f"pink_7b: remat saved no memory: {remat}")
+    check(np.array_equal(served["save_dir"]["ids"], served["params_npz"]["ids"])
+          and served["save_dir"]["text"] == served["params_npz"]["text"]
+          and all(x["device"] == "cuda" for x in served.values()),
+          f"pink_7b: the save_dir served other tokens than its params.npz: {served}")
+    check(all(c == PINK_7B_FORWARD_LAUNCHES for c in serving["launches"]),
+          f"pink_7b: launches per request {serving['launches']}")
+    counts = dict(r.counts)
+    for c in serving["launches"]:
+        for k in counts:
+            counts[k] += c[k]
+    return counts
+
+
+def phase_pink_7b(gpu: str) -> dict:
+    """Phase 18: (a) card vs CPU with planted faults, (b)–(e) the trainer and
+    serving its save_dir. Returns the launches of (b) and (e)."""
+    t0 = time.perf_counter()
+    pink_7b_card_vs_cpu()
+    counts = pink_7b_trainer(gpu)
+    emit(phase="pink_7b", part="summary", seconds=time.perf_counter() - t0, launches=counts)
     return counts
 
 
@@ -4521,7 +5076,7 @@ def main() -> None:
     for part, phase in (("13_pretraining", phase_pretraining),
                         ("14_retrieval_variants", phase_retrieval_variants),
                         ("15_task_heads", phase_task_heads), ("16_roi", phase_roi),
-                        ("17_pink_train", phase_pink_train)):
+                        ("17_pink_train", phase_pink_train), ("18_pink_7b", phase_pink_7b)):
         for name, n in phase(gpu).items():
             launches[name] += n
         done(part)
@@ -4542,7 +5097,7 @@ def main() -> None:
 CALIBRATIONS = {"serving": calibrate, "training": calibrate_training, "pink": calibrate_pink,
                 "pretraining": calibrate_pretraining, "dmae": calibrate_dmae,
                 "task_heads": calibrate_task_heads, "roi": calibrate_roi,
-                "pink_train": calibrate_pink_train}
+                "pink_train": calibrate_pink_train, "pink_7b": calibrate_pink_7b}
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--calibrate"] and set(sys.argv[2:]) <= set(CALIBRATIONS):

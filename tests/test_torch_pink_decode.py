@@ -374,8 +374,14 @@ def test_generate_refuses_what_is_not_ported(pink_tiny, kw):
         shell.module.generate(shell.to_device(batch), **kw)
 
 
-@pytest.mark.parametrize("kw", [dict(visual_tower="eva"), dict(adapter_style="pink"),
-                                dict(kv_int8=True), dict(scan_layers=True),
+EVA_TINY = dict(visual_tower="eva", eva_preset="eva_tiny_test", image_size=28)
+
+
+# the int8 cache and sequence parallelism stay refused, on the EVA tower,
+# the serial adapters and the stacked layout too
+@pytest.mark.parametrize("kw", [dict(kv_int8=True, **EVA_TINY),
+                                dict(sequence_parallel="ulysses", adapter_style="pink"),
+                                dict(kv_int8=True), dict(sequence_parallel="ring", scan_layers=True),
                                 dict(sequence_parallel="ring")])
 def test_pink_refuses_what_is_not_ported(kw):
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -7,7 +7,8 @@
   that raises before any data is read: it never becomes a CPU run;
 * knobs of paths that are not ported raise with the key's name:
   ``steps_per_dispatch`` 2, a nonzero ``dropout``, a world size of 2,
-  Pink's ``scan_layers`` and ``visual_tower: eva``;
+  Pink's ``sequence_parallel`` beside ``scan_layers`` and ``kv_int8`` beside
+  ``visual_tower: eva``;
 * the retrieval variants run to the end on the CPU: the MoCo config
   (``video_retrieval_moco.local.yml``), DMAE through ``retrieval_trainer``
   (``dmae_vtp/configs/msrvtt_retrieval.local.yml``), ``loss_type``
@@ -74,8 +75,10 @@ def test_default_device_is_the_card(tmp_path, device):
      "training_parameters.remat_policy"),
     (CFG, ("model_attributes.univl_retrieval.dropout", "0.1"), "dropout 0.1"),
     (CFG, ("training_parameters.num_nodes", "2"), "world size 2"),
-    (PINK, ("model_attributes.pink.scan_layers", "true"), "scan_layers"),
-    (PINK, ("model_attributes.pink.visual_tower", "eva"), "visual_tower"),
+    (PINK, ("model_attributes.pink.scan_layers", "true",
+            "model_attributes.pink.sequence_parallel", "ring"), "sequence_parallel"),
+    (PINK, ("model_attributes.pink.visual_tower", "eva",
+            "model_attributes.pink.kv_int8", "true"), "kv_int8"),
 ], ids=["steps_per_dispatch", "remat_policy", "dropout", "num_nodes", "pink_scan_layers",
         "pink_eva"])
 def test_unported_knobs_raise(tmp_path, config, extra, key):
