@@ -91,15 +91,20 @@ def merge_params_tolerant(target: Mapping[str, torch.Tensor], loaded: Mapping[st
     return merged, report
 
 
-def read_weights(path: str) -> Dict[str, torch.Tensor]:
+def read_weights(path: str, shapes: Optional[Mapping[str, Any]] = None
+                 ) -> Dict[str, torch.Tensor]:
     """A weights file's leaves by flax path, in the port's layouts: a port
     checkpoint's ``params`` with its ``moco/...`` and ``momentum/...``
     collections, or a ``params.npz`` of flax-layout leaves (a scanned
-    decoder's stacked layers split into ``layer_{i}``)."""
+    decoder's stacked layers split into ``layer_{i}``; ``shapes``, the
+    target parameters' shapes by flax path, tells a 4-D ``nn.Conv2d`` kernel
+    from a patch convolution's)."""
     if path.endswith(".npz"):
         with np.load(path) as npz:
             flat = unstack_layers({k: npz[k] for k in npz.files})
-        return {k: torch.from_numpy(to_torch_layout(k, v)) for k, v in flat.items()}
+        shapes = shapes or {}
+        return {k: torch.from_numpy(to_torch_layout(k, v, shapes.get(k)))
+                for k, v in flat.items()}
     tree = torch.load(path, map_location="cpu", weights_only=True)
     loaded = dict(tree["params"])
     for collection in ("moco", "momentum"):
@@ -133,9 +138,10 @@ def load_weights(model: torch.nn.Module, path: str) -> None:
     dtype and device. A missing or unused parameter leaf, or one of another
     shape, raises; a checkpoint's ``moco`` and ``momentum`` collections are
     training state and are not read."""
-    loaded = {p: t for p, t in read_weights(path).items()
-              if p.split("/")[0] not in ("moco", "momentum")}
     paths = flax_paths(model)
+    shapes = {paths[n]: p.shape for n, p in model.named_parameters()}
+    loaded = {p: t for p, t in read_weights(path, shapes).items()
+              if p.split("/")[0] not in ("moco", "momentum")}
     missing = sorted(p for p in paths.values() if p not in loaded)
     unused = sorted(set(loaded) - set(paths.values()))
     if missing or unused:
@@ -271,9 +277,9 @@ class Checkpoint:
                            pretrained_mapping: Optional[Mapping[str, str]] = None):
         """Weights-only tolerant load (the restart / finetune path) from a
         port checkpoint or a ``params.npz`` of flax-layout leaves."""
-        loaded = read_weights(path)
         names = flax_paths(state.model)
         target = {names[n]: t for n, t in state.params.items()}
+        loaded = read_weights(path, {p: t.shape for p, t in target.items()})
         target.update({f"moco/{p}": t for p, t in queue_buffers(state.model).items()})
         if state.momentum is not None:
             target.update({f"momentum/{names[n]}": t for n, t in state.momentum.items()})

@@ -1,6 +1,7 @@
 # importing the model modules registers the models
 from antmmf_torch.models import (  # noqa: F401
     dmae,
+    m2_omni,
     pink,
     univl,
     univl_caption,

@@ -89,6 +89,8 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 @registry.register_model("pink")
 class PinkModel(nn.Module):
+    DECODE_QUANT = ("int4",)  # the predictor's decode_quant modes this model serves
+
     def __init__(self, lm_preset: str = "omni_1b", visual_tower: str = "vit",
                  vit_preset: str = "vit_base_patch32", eva_preset: str = "eva_vit_g",
                  image_size: int = 224, lora_rank: int = 8, lora_decoder: bool = True,

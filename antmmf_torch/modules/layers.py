@@ -40,6 +40,23 @@ class LayerNorm(nn.Module):
                             self.epsilon).to(self.dtype)
 
 
+class ScaleLayerNorm(nn.Module):
+    """``LayerNorm`` under flax ``nn.LayerNorm``'s own leaf names ``scale``
+    and ``bias``, for the towers whose flax modules name their LayerNorms
+    directly (``norm1/scale``; Qwen2-ViT, SANM)."""
+
+    def __init__(self, dim: int, epsilon: float = 1e-6, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.scale.shape, self.scale, self.bias,
+                            self.epsilon).to(self.dtype)
+
+
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
@@ -123,6 +140,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     for m in model.modules():
         if isinstance(m, nn.Linear):
             lecun_normal_(m.weight, m.in_features, generator)
+            if m.bias is not None:
+                with torch.no_grad():
+                    m.bias.zero_()
+        elif isinstance(m, nn.Conv2d):
+            lecun_normal_(m.weight, m.weight[0].numel(), generator)
             if m.bias is not None:
                 with torch.no_grad():
                     m.bias.zero_()

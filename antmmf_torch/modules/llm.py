@@ -1,10 +1,10 @@
-"""Decoder-only LM blocks: RMSNorm, 1D rotary embeddings, grouped-query
-attention with a KV cache, SwiGLU, and the decoder stack.
+"""Decoder-only LM blocks: RMSNorm, 1D and 3D rotary embeddings,
+grouped-query attention with a KV cache, SwiGLU, and the decoder stack.
 
-Port of ``antmmf_tpu/modules/llm.py`` on the branches Pink training and
-decode serving run (1D RoPE, LoRA on any of the attention projections and
-on the MLP's, Pink's serial adapters, remat, the ``scan_layers`` weight
-layout, bf16 cache). The KV cache is a list
+Port of ``antmmf_tpu/modules/llm.py`` on the branches Pink training,
+decode serving and M2-omni serving run (1D RoPE, M2-omni's 3D mRoPE, LoRA
+on any of the attention projections and on the MLP's, Pink's serial
+adapters, remat, the ``scan_layers`` weight layout, bf16 cache). The KV cache is a list
 with one ``{"k", "v"}`` dict per layer, each [B, n_kv_heads, T, head_dim]
 with keys stored after RoPE; it is preallocated and written in place (the
 JAX package returns updated copies). Two cached modes, as in JAX:
@@ -39,7 +39,18 @@ one process a scan is only a layout, so the port keeps its ``layer_{i}``
 modules and the weight bridge (``utils/weights.py``) reads and writes the
 stacked ``layers`` tree.
 
-3D RoPE, the int8 cache and sequence parallelism are not ported.
+With ``rope_3d`` the positions are int[B, L, 3] (t, h, w) streams (text
+tokens carry (p, p, p)) and the D/2 frequency channels split into the
+``mrope_sections`` bands (16, 24, 24 at D=128), band i taking its angles
+from axis i mod 3 (``rope_cos_sin_3d``); a text token's rotation is then
+exactly the 1D rotation at p. Without ``rope_3d``, 3D streams are read at
+their temporal channel (the JAX package's 1D ablation). ``DecoderLM``
+computes either table once a forward and passes it to every layer (the
+recompute of remat included), so the flag stops there; the JAX package
+also threads it through its attention for standalone use. In decode the rotary position and the cache slot are two
+arguments: M2-omni's RoPE position of a generated token is not its slot.
+
+The int8 cache and sequence parallelism are not ported.
 """
 
 from __future__ import annotations
@@ -96,6 +107,42 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float = 10000.0
     freqs = positions[:, :, None].float() * inv
     emb = torch.cat([freqs, freqs], dim=-1)[:, None]
     return torch.cos(emb), torch.sin(emb)
+
+
+def mrope_sections(half: int) -> tuple:
+    """The temporal/height/width split of the D/2 frequency channels, the
+    Qwen2-VL ratio (16/24/24 of 64): h = w = round(3·half/8), t the rest."""
+    hw = max(1, round(3 * half / 8))
+    return (half - 2 * hw, hw, hw)
+
+
+def rope_cos_sin_3d(positions: torch.Tensor, head_dim: int, theta: float = 10000.0,
+                    sections: Optional[Sequence[int]] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) tables [B, 1, L, D] fp32 for 3D positions int[B, L, 3]:
+    one inverse-frequency table over the head width, its channels in
+    ``sections`` bands, band i rotated by the positions of axis i mod 3."""
+    half = head_dim // 2
+    sections = tuple(sections) if sections else mrope_sections(half)
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {sections} do not sum to {half}")
+    inv = rope_frequencies(head_dim, theta, positions.device)
+    axis = torch.cat([torch.full((s,), i % 3, dtype=torch.long)
+                      for i, s in enumerate(sections)]).to(positions.device)
+    freqs = positions[..., axis].float() * inv  # [B, L, half]
+    emb = torch.cat([freqs, freqs], dim=-1)[:, None]
+    return torch.cos(emb), torch.sin(emb)
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float, rope_3d: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 3D tables with ``rope_3d``; else the 1D tables, of the temporal
+    channel when the positions are 3D streams."""
+    if rope_3d:
+        return rope_cos_sin_3d(positions, head_dim, theta)
+    if positions.dim() == 3:
+        positions = positions[..., 0]
+    return rope_cos_sin(positions, head_dim, theta)
 
 
 def _rotate_half(x: torch.Tensor) -> torch.Tensor:
@@ -163,7 +210,8 @@ class GQAttention(nn.Module):
                 cache: Optional[Dict[str, torch.Tensor]] = None,
                 decode_pos: Optional[torch.Tensor] = None,
                 rope_cs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
-        """x [B, L, C], positions int[B, L], ``bias`` the additive key-padding
+        """x [B, L, C], positions int[B, L] (read only without ``rope_cs``,
+        the tables ``DecoderLM`` hoists), ``bias`` the additive key-padding
         bias [B, 1, 1, L] (ignored in decode mode, which builds its own
         validity bias). Returns the output, and the cache when one is given."""
         B, L, _ = x.shape
@@ -299,8 +347,8 @@ class DecoderLayer(nn.Module):
 class DecoderLM(nn.Module):
     """Causal decoder over embedded inputs [B, L, hidden] (the caller embeds
     tokens, so multimodal prefixes can be spliced in); layers ``layer_{i}``
-    and ``final_norm``. ``remat`` and ``scan_layers`` as the module
-    docstring says."""
+    and ``final_norm``. ``rope_3d``, ``remat`` and ``scan_layers`` as the
+    module docstring says."""
 
     def __init__(self, hidden: int, num_layers: int, num_heads: int,
                  num_kv_heads: Optional[int] = None, mlp_ratio: float = 2.6875,
@@ -309,8 +357,9 @@ class DecoderLM(nn.Module):
                  lora_targets: Sequence[str] = ("q", "v"), lora_mlp: bool = False,
                  adapter_dim: int = 0, adapter_mlp: bool = False,
                  adapter_non_linear: bool = False, remat: bool = False,
-                 scan_layers: bool = False):
+                 scan_layers: bool = False, rope_3d: bool = False):
         super().__init__()
+        self.rope_3d = rope_3d
         self.num_layers, self.num_heads = num_layers, num_heads
         self.num_kv_heads = num_kv_heads or num_heads
         self.head_dim = hidden // num_heads
@@ -330,11 +379,12 @@ class DecoderLM(nn.Module):
                 decode_pos: Optional[torch.Tensor] = None):
         """Without ``cache``: the causal forward (returns hidden). With
         ``cache``: ``(hidden, cache)``, prefill when ``decode_pos`` is None,
-        an L-token decode chunk at ``decode_pos`` otherwise."""
+        an L-token decode chunk at cache slot ``decode_pos`` otherwise; the
+        rotary positions are ``positions`` in every mode."""
         bias = None
         if decode_pos is None and attention_mask is not None:
             bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0, MASKED).float()
-        rope_cs = rope_cos_sin(positions, self.head_dim, self.rope_theta)
+        rope_cs = rope_tables(positions, self.head_dim, self.rope_theta, self.rope_3d)
         remat = self.remat and cache is None and torch.is_grad_enabled()
         x = embeds
         for i in range(self.num_layers):

@@ -24,7 +24,9 @@ the rows of live keys where no row is fully masked (``flash_bwd_bytes``);
 the pair's row carries the sum of the two. Pink's training steps (causal,
 D=128, a ragged text bias: 16 heads, k/v repeated from 4 kv heads, behind
 49 vision keys; and ``pink_7b.yml``'s 32 heads, k/v from 8 kv heads, behind
-256 EVA tokens) have rows of their own.
+256 EVA tokens) have rows of their own, as have M2-omni's prefill
+([1, 32, 640, 128], causal, right-padded, k/v from 8 kv heads) and its conv
+audio tower's K1 ([1, 4, 64, 128]).
 The backward pair is also timed as one row, ``flash_dq+flash_dkv``, against
 SDPA's backward alone (``sdpa_bwd``: the forward run once outside the graph,
 ``torch.autograd.grad`` captured), with the SDPA kernels that ran.
@@ -242,6 +244,8 @@ def cases(torch, sa, fa):
     # DMAE's temporal encoder at B=128: 12 frames, 8 heads of 64, a frame
     # padding bias (at least 8 live frames)
     yield small("dmae_temporal_128x8x12x64_framepad", 128, 8, 12, 64, True, lo=8)
+    # M2-omni's conv audio tower: 4 heads of 128 over 64 frames, one request
+    yield small("m2_audio_1x4x64x128", 1, 4, 64, 128, False)
 
     def backward_rows(name, q, k, v, kb, out, stats, dout, delta, mask, causal, pairs):
         """flash_dq, flash_dkv and the pair against SDPA's backward; bounds
@@ -323,6 +327,19 @@ def cases(torch, sa, fa):
            lambda: fa.flash_fwd(pq, pk, pv, None, 128 ** -0.5, True),
            lambda: F.scaled_dot_product_attention(pq, pk, pv, is_causal=True),
            bound_us(4 * pq.numel() * 2 + 2 * 16 * 113 * 4, 4 * 128 * 16 * 113 * 114 // 2))
+    # M2-omni's prefill: a prompt of 640 slots, 430 of them live (right
+    # padding), causal, 32 heads of 128, k/v repeated from 8 kv heads
+    mq = proj(1, 640, 32, 128)
+    mk, mv = (proj(1, 640, 8, 128).contiguous().repeat_interleave(4, dim=1) for _ in range(2))
+    m_live = torch.arange(640, device="cuda")[None] < 430
+    m_kb = torch.where(m_live, 0.0, fmin).float().contiguous()
+    m_mask = m_live[:, None, None, :] & torch.ones(640, 640, dtype=torch.bool,
+                                                   device="cuda").tril()
+    yield ("flash_fwd", "m2_prefill_1x32x640x128_causal_padded",
+           lambda: fa.flash_fwd(mq, mk, mv, m_kb, 128 ** -0.5, True),
+           lambda: F.scaled_dot_product_attention(mq, mk, mv, attn_mask=m_mask),
+           bound_us(4 * mq.numel() * 2 + 640 * 4 + 2 * 32 * 640 * 4,
+                    4 * 128 * 32 * int(m_mask.sum().item())))
 
 
 def time_attention(args, gpu, torch, sa, fa, only) -> None:

@@ -1,7 +1,9 @@
 """Online-serving predictors.
 
 Port of ``antmmf_tpu/predictors/base_predictor.py:27-167``: ``load()`` builds
-the model with seeded random weights (seed 0) and, given a ``model_dir``,
+the model with seeded random weights (seed 0; drawn on the CPU, or on the
+model's device with ``predictor_parameters.init_on_device``, which takes a
+fraction of the time at billions of parameters) and, given a ``model_dir``,
 loads its weights (a ``config.yaml`` there replaces the config): a
 trainer's ``save_dir`` in the JAX predictor's order (``*_final``, then
 ``models/best``, then the newest ``models/model_<n>``), or a ``params.npz``
@@ -45,8 +47,10 @@ class BasePredictor:
             cfg = Configuration.from_file(os.path.join(model_dir, "config.yaml"))
         self.model_config = cfg
         self.shell = build_model(cfg, device=self.pp.get("device", "cuda"))
-        # a checkpoint overwrites every parameter: its init is drawn on the device
-        self.shell.init(on_device=bool(with_ckpt and model_dir))
+        # a checkpoint overwrites every parameter: its init is drawn on the
+        # device, as it is when predictor_parameters.init_on_device asks
+        self.shell.init(on_device=bool(with_ckpt and model_dir)
+                        or bool(self.pp.get("init_on_device", False)))
         if with_ckpt and model_dir:
             load_weights(self.shell.module, find_weights(model_dir))
         self.processors = build_processors(self.pp.get("processors", (

@@ -5,6 +5,9 @@ layer_0.attention.q_proj``), so the carry is a name map plus transposes:
 
 * ``Dense`` ``kernel`` [in, out] → ``Linear.weight`` [out, in];
 * ``Conv`` ``kernel`` HWIO [p, p, 3, C] → the patch-matmul weight [C, p·p·3];
+  a ``Conv`` the port keeps as an ``nn.Conv2d`` (M2-omni's audio
+  ``subsample0``/``subsample1``) HWIO → OIHW;
+* SANM's ``fsmn_kernel`` [k, 1, d] → the depthwise ``Conv1d`` weight [d, 1, k];
 * ``LayerNorm_0/scale`` and ``LayerNorm_0/bias`` → ``weight`` and ``bias``;
 * ``Embed`` ``embedding`` → ``weight``;
 * everything else (``pos_embedding``, ``cls_token``, the ``logit_scale``
@@ -134,10 +137,28 @@ def _torch_name(flax_path: str) -> str:
     return ".".join(parts)
 
 
-def to_torch_layout(flax_path: str, value: np.ndarray) -> np.ndarray:
-    if flax_path.split("/")[-1] == "kernel":
+def to_torch_layout(flax_path: str, value: np.ndarray, shape=None) -> np.ndarray:
+    """A flax leaf in the layout of the port's parameter (of ``shape``, which
+    tells a 4-D ``nn.Conv2d`` weight from a patch-matmul weight)."""
+    leaf = flax_path.split("/")[-1]
+    if leaf == "kernel":
+        if value.ndim == 4 and shape is not None and len(shape) == 4:
+            return value.transpose(3, 2, 0, 1)  # Conv2d: HWIO → OIHW
         return value.reshape(-1, value.shape[-1]).T  # Dense [in,out] or Conv HWIO
+    if leaf == "fsmn_kernel":
+        return value.transpose(2, 1, 0)  # [k, 1, d] → the depthwise Conv1d's [d, 1, k]
     return value
+
+
+def to_flax_layout(flax_path: str, t: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``to_torch_layout`` for every leaf but the patch
+    convolution's (``_flax_tree`` reshapes that one)."""
+    leaf = flax_path.split("/")[-1]
+    if leaf == "kernel":
+        return t.permute(2, 3, 1, 0) if t.dim() == 4 else t.T
+    if leaf == "fsmn_kernel":
+        return t.permute(2, 1, 0)
+    return t
 
 
 def flax_paths(model: nn.Module) -> Dict[str, str]:
@@ -145,6 +166,7 @@ def flax_paths(model: nn.Module) -> Dict[str, str]:
     leaves = {nn.Linear: {"weight": "kernel", "bias": "bias"},
               PatchConv: {"weight": "kernel", "bias": "bias"},
               QuantDense: {"weight": "kernel"},
+              nn.Conv2d: {"weight": "kernel", "bias": "bias"},
               nn.Embedding: {"weight": "embedding"},
               LayerNorm: {"weight": "LayerNorm_0/scale", "bias": "LayerNorm_0/bias"}}
     paths = {}
@@ -172,7 +194,7 @@ def flax_to_masters(model: nn.Module, params: Mapping[str, Any]) -> Dict[str, to
     masters = {}
     for name, param in targets.items():
         path = mapped[name]
-        value = to_torch_layout(path, flat[path])
+        value = to_torch_layout(path, flat[path], param.shape)
         if tuple(value.shape) != tuple(param.shape):
             raise ValueError(f"{path}: shape {value.shape} does not fit {name} "
                              f"{tuple(param.shape)}")
@@ -202,9 +224,8 @@ def _flax_tree(model: nn.Module, tensors: Mapping[str, torch.Tensor],
     paths = flax_paths(model)
     flat = {}
     for name, t in tensors.items():
-        t = t.detach().float()
-        if paths[name].split("/")[-1] == "kernel":
-            t = t.T.contiguous()  # transposed where the tensor lives (numpy's copy is serial)
+        # transposed where the tensor lives (numpy's copy is serial)
+        t = to_flax_layout(paths[name], t.detach().float()).contiguous()
         value = t.to("cpu", copy=True).numpy()  # a copy: never a view of a live tensor
         if name in patch:
             value = value.reshape(patch[name], patch[name], -1, value.shape[-1])
@@ -276,7 +297,7 @@ def load_flax_variables(model: nn.Module, variables: Mapping[str, Any], state=No
                            f"missing {sorted(set(by_path) - set(flat))[:8]}")
         with torch.no_grad():
             for path, name in by_path.items():
-                value = to_torch_layout(path, flat[path])
+                value = to_torch_layout(path, flat[path], state.momentum[name].shape)
                 if tuple(value.shape) != tuple(state.momentum[name].shape):
                     raise ValueError(f"momentum/{path}: shape {value.shape} does not fit "
                                      f"{name}")

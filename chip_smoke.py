@@ -3,7 +3,8 @@
     python3 chip_smoke.py              # from the repository root, on a machine with CUDA
     python3 chip_smoke.py --calibrate  # the card-vs-CPU readings: seeds and planted faults
     python3 chip_smoke.py --calibrate dmae  # one part: serving, training, pink, pretraining,
-                                            # dmae, task_heads, roi, pink_train
+                                            # dmae, task_heads, roi, pink_train, pink_7b,
+                                            # m2_omni
 
 Phases, each printing JSON lines; a failing phase ends the script with a
 non-zero code and no result line:
@@ -153,16 +154,18 @@ non-zero code and no result line:
    ``--calibrate dmae`` reads, and three planted faults (WTI masked with
    finfo.min instead of zero, token weights softmaxed over padding,
    NegNCE's hard mask in one direction) each outside them; (b) the bare
-   DMAE step at its B=128 on one repeated batch (28 ``small_attention``
-   launches a step: 12 ViT, 12 BERT, 4 temporal; p50/p95, pairs/s,
-   device-busy time, idle share, device ops, peak memory); (c)
+   DMAE step at its B=128 on one repeated batch, since PR 17 at 2 of the 12
+   ViT and BERT layers (``RV_LAYERS``; 8 ``small_attention`` launches a
+   step: 2 ViT, 2 BERT, 4 temporal; p50/p95, pairs/s, device-busy time,
+   idle share, device ops, peak memory); (c)
    ``antmmf_torch.run.main`` on it through ``retrieval_trainer`` at B=32
    over phase 12's dataset: 6 steps, the final validation's L1 and L3
    corpus recalls equal to a host recomputation from the encode outputs,
    a resume to 8 bit for bit; (d) MoCo on ``video_retrieval.yml``
    (``with_queue``, ``with_momentum``, momentum 0.99, queue 4096): the bare
-   step at B=128 beside the plain step on the same batch (48 launches a
-   MoCo step: 24 online, 24 key forward), the key forward and the EMA
+   step at B=128 beside the plain step on the same batch, both at
+   ``RV_LAYERS`` (8 launches a MoCo step: 4 online, 4 key forward), the
+   key forward and the EMA
    timed alone; the trainer at B=32 for 6 steps (``ptr`` 192, ``filled``
    4096, one momentum tensor against a host EMA of the masters after each
    step) and a resume to 8 with the queues, momentum towers and key module
@@ -239,11 +242,42 @@ non-zero code and no result line:
    and over the supervised ones, device-busy ms, flash ms and the idle
    share over 2 profiled updates, optimizer-state bytes (12 a trainable
    parameter, none for a frozen one), peak memory.
+18. Pink 7B (``pink_7b.yml`` laid over ``pink_instruct.local.yml`` by
+   ``recipe_opts``: omni_7b behind EVA-CLIP-g, LoRA 16 on q/v, remat,
+   ``scan_layers``): card bf16 vs CPU fp32 at 2 of 32 decoder and 2 of 39
+   EVA layers with three planted faults, ``run.main`` at 1 and 1 with a
+   resume inside an accumulation window, its ``save_dir`` and a stacked
+   ``params.npz`` served to the same tokens, then the trainer at full
+   depth (remat on against off, timed and profiled updates).
+19. M2-omni serving (``m2_omni_7b.yml`` with ``serving_opts``: omni_7b
+   behind Qwen2-ViT at 32 blocks of 1280 and the conv audio tower at 512,
+   bf16, prompts of 640 tokens, images at 448² pixels, seeded weights drawn
+   on the card): (a) ``generation_predictor`` through the CLI's code at
+   full depth, three requests (a conversation with a 500×375 image; that
+   image, 2.6 s of audio and text; a conversation with a video of 4 frames
+   at 448²), each launching ``flash_fwd`` 32 times (the causal prefill,
+   k/v repeated from 8 kv heads) and K1 4 times with audio (the conv
+   tower at [1, 4, 64, 128]); prefill ms with the towers' share, ms a
+   token, tokens/s, the idle share, peak memory; (b) one request with
+   ``audio_tower: sanm`` (50 blocks, 85 audio tokens); (c) at 2 of 32
+   decoder layers and 2 of 32 blocks, the weights written as a stacked
+   ``params.npz`` and served by ``antmmf_torch.predictors.cli.main
+   --model_dir`` to the in-process predictor's tokens; (d) card bf16 vs
+   CPU fp32 at that depth on requests (a) and (b): the logits at the last
+   prompt token and the first decode step, the towers' modal tokens in
+   fp32 on the card, the 3D positions equal to the CPU's and to the
+   reference recurrence, held to the bounds ``--calibrate m2_omni`` reads
+   and five planted faults outside them (the mRoPE bands on the wrong
+   axes, image slots at sequential positions, the PatchMerger grouping in
+   raster order, the L2 normalisation dropped, the audio convolutions
+   padded (1, 1)). Phase 2 holds ``flash_fwd`` at its prefill [1, 32, 640,
+   128] and K1 at [1, 4, 64, 128]; phase 7 times both beside SDPA.
 
 Each path (serving, each training leg, each Pink request, the trainer, the
 pretraining step and trainer, each part of phase 14 but its card-vs-CPU
 comparison, each caption request, bare step and trainer run of phase 15,
-each bare step and trainer run of phase 16, phase 17's trainer runs)
+each bare step and trainer run of phase 16, phase 17's trainer runs,
+phase 18's runs and served requests, phase 19's requests)
 runs
 with the kernels' launch counts set to 0 just before it and read just after;
 launches made to compare a kernel with its plain version or to time it are
@@ -283,6 +317,7 @@ from antmmf_torch.datasets.loader import DataLoader  # noqa: E402
 from antmmf_torch.models.base_model import build_model  # noqa: E402
 from antmmf_torch.models.pink import LM_PRESETS, recipe_opts  # noqa: E402
 from antmmf_torch.modules.vision.eva_vit import EVA_PRESETS  # noqa: E402
+from antmmf_torch.modules.vision.qwen2_vit import QWEN2_VIT_PRESETS  # noqa: E402
 from antmmf_torch.modules.layers import make_attention_mask  # noqa: E402
 from antmmf_torch.ops import _build  # noqa: E402
 from antmmf_torch.ops import flash_attention as fa  # noqa: E402
@@ -315,6 +350,11 @@ from antmmf_torch.ops.small_attention import (  # noqa: E402
 )
 from antmmf_torch.optimizer.build import build_optimizer  # noqa: E402
 from antmmf_torch.predictors.cli import build_predictor  # noqa: E402
+from antmmf_torch.predictors.m2_omni_serving import (  # noqa: E402
+    M2_OMNI_7B,
+    SERVING_SEQ_LEN,
+    serving_opts,
+)
 from antmmf_torch.predictors.quantization import (  # noqa: E402
     load_decode_records,
     quantize_for_decode,
@@ -483,6 +523,8 @@ def kernel_cases(gen):
         yield f"d32_L200_pad_{tag}", *qkv(8, 8, 200, 32, dtype), pad_bias(8, 200, 1)
         if dtype == torch.bfloat16:  # fp32 at D=128 stops at L=215 and its stage is larger
             yield f"d128_L200_pad_{tag}", *qkv(8, 6, 200, 128, dtype), pad_bias(8, 200, 1)
+            # M2-omni's conv audio tower: 4 heads of 128 over 64 frames, no bias
+            yield f"m2_audio_L64_d128_{tag}", *qkv(1, 4, 64, 128, dtype, strided=True), None
         yield (f"L256_strided_pad_{tag}", *qkv(8, 12, 256, 64, dtype, strided=True),
                pad_bias(8, 256, 1))
         for L in (50, 130):
@@ -732,6 +774,10 @@ def flash_cases(gen):
     for causal in (True, False):
         yield f"d128_dead_key_blocks_L{L}{'_causal' if causal else ''}", proj(4, L, 16, 128), \
             proj(4, L, 16, 128), proj(4, L, 16, 128), make_attention_mask(live.long()), causal
+    # M2-omni's prefill (phase 19): one right-padded prompt of 640 tokens,
+    # causal, 32 heads of 128, k/v the 8 kv heads repeated
+    q, k, v, bias = m2_prefill_qkv(gen)
+    yield "m2_prefill_L640_h32_d128_causal_padded", q, k, v, bias, True
     # Pink's training step (phase 17): 49 vision keys then 256 text keys with
     # ragged padding, causal, 16 heads of 128, k/v the 4 kv heads repeated
     q, k, v, bias = pink_train_qkv(gen, PINK_TRAIN_BATCH)
@@ -766,6 +812,19 @@ def pink_train_qkv(gen, B: int, kv_leaves: bool = False, heads=PINK_1B_HEADS):
     if kv_leaves:
         return q, kv[0], kv[1], bias
     return (q, *(t.repeat_interleave(H // n_kv, dim=1) for t in kv), bias)
+
+
+def m2_prefill_qkv(gen, live: int = 430):
+    """M2-omni's causal prefill at its serving length: q [1, 32, 640, 128] in
+    the projection layout, k and v the 8 kv heads repeated to 32 as the
+    decoder repeats them, and the key-padding bias [1, 1, 1, 640] of a
+    right-padded prompt of ``live`` tokens."""
+    dev, L = "cuda", SERVING_SEQ_LEN
+    q = torch.randn(1, L, 32, 128, generator=gen, device=dev).to(torch.bfloat16).transpose(1, 2)
+    kv = [torch.randn(1, L, 8, 128, generator=gen, device=dev).to(torch.bfloat16)
+          .transpose(1, 2).repeat_interleave(4, dim=1) for _ in range(2)]
+    bias = make_attention_mask((torch.arange(L, device=dev)[None] < live).long())
+    return (q, *kv, bias)
 
 
 def pink_gqa_gradients(gen, heads=PINK_1B_HEADS) -> dict:
@@ -1438,7 +1497,8 @@ def small_attention_times(gpu) -> dict:
                                        ("pink_vit_b1", (1, 12, 50, 64), None),
                                        ("dmae_temporal_b128_framepad", (128, 8, 12, 64), "pad"),
                                        ("roi_cross_b128_holes", (ROI_BATCH, 12, roi_L, 64),
-                                        "roi")):
+                                        "roi"),
+                                       ("m2_audio_conv_b1", (1, 4, 64, 128), None)):
         q, k, v = (torch.randn(B, L, H, D, generator=gen, device="cuda")
                    .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
         bias = mask = None
@@ -1620,7 +1680,37 @@ def phase_flash_times(pair_biases: dict, gpu, eval_biases: dict) -> dict:
         fn.launches = saved[fn.__name__]
     emit(phase="times", exp="flash_fwd", case="pink_prefill_causal", shape=[1, 16, 113, 128],
          dtype="bf16", gpu=gpu, **prefill, bound_share=prefill["bound_ms"] / prefill["ms"])
+    m2_prefill_times(gpu)
     return timing
+
+
+def m2_prefill_times(gpu) -> dict:
+    """The flash forward at M2-omni's prefill ([1, 32, 640, 128], causal, a
+    right-padded prompt of 430 tokens, k/v repeated from 8 kv heads) beside
+    its plain version and SDPA given the same attention as a boolean mask;
+    the bound counts q, k, v and the output once, the bias and the row
+    statistics, and 4·D multiply-adds·2 over the (query, key) pairs each row
+    attends."""
+    q, k, v, bias = m2_prefill_qkv(torch.Generator(device="cuda").manual_seed(SEED + 8))
+    B, H, L, D = q.shape
+    kb, scale = key_bias(bias, B, L), D ** -0.5
+    live = kb > torch.finfo(torch.float32).min / 2
+    attended = live[:, None, :].expand(B, L, L) & torch.ones(L, L, dtype=torch.bool,
+                                                            device="cuda").tril()
+    pairs = H * int(attended.sum().item())
+    saved = read_counts()
+    row = dict(
+        ms=graph_ms(lambda i: flash_fwd(q, k, v, kb, scale, True), 20),
+        plain_ms=cuda_ms(lambda: plain_flash_fwd(q, k, v, kb, scale, True), iters=10),
+        library_ms=graph_ms(lambda i: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=attended[:, None]), 20),
+        **bound(4 * q.numel() * 2 + B * L * 4 + 2 * B * H * L * 4, 4 * D * pairs))
+    for fn in KERNELS:
+        fn.launches = saved[fn.__name__]
+    emit(phase="times", exp="flash_fwd", case="m2_prefill_causal_padded", shape=[B, H, L, D],
+         dtype="bf16", gpu=gpu, live_keys=int(live.sum().item()), attended_pairs=pairs, **row,
+         bound_share=row["bound_ms"] / row["ms"])
+    return row
 
 
 # ------------------------------------------------------------------ phase 8
@@ -2714,10 +2804,10 @@ MOCO_MU, MOCO_QUEUE = 0.99, 4096
 MOCO_LAUNCHES = {**TRAINER_LAUNCHES, "small_attention": 48}
 MOCO_TRACKED = "base.img_fc.weight"  # the momentum tensor held against a host EMA
 RV_BATCH, RV_STEPS, RV_RESUMED_STEPS = 32, 6, 8
-# the DMAE and MoCo trainers (phase 14 (c), (d)): full width at 4 of the 12
-# ViT and BERT layers, initialised on the card (the bare steps and the
-# card-vs-CPU check keep all 12)
-RV_LAYERS = 4
+# the DMAE and MoCo bare steps and trainers (phase 14 (b)–(d)): full width
+# at 2 of the 12 ViT and BERT layers, initialised on the card (the
+# card-vs-CPU check and stage 2 keep all 12)
+RV_LAYERS = 2
 RV_DMAE_LAUNCHES = {**DMAE_LAUNCHES, "small_attention": 2 * RV_LAYERS + 4}  # + 4 temporal
 RV_MOCO_LAUNCHES = {**MOCO_LAUNCHES, "small_attention": 4 * RV_LAYERS}  # query and key towers
 RV_EVAL_LAUNCHES = {**TRAINER_LAUNCHES, "small_attention": 2 * RV_LAYERS}
@@ -2934,16 +3024,18 @@ def bare_steps(name: str, gpu: str, shell, state, step, batch, launches: dict, e
 
 def dmae_bare(gpu: str) -> dict:
     """Phase 14 (b): the bare DMAE step at the config's B=128, 12 frames at
-    224², L=32, on one repeated batch."""
+    224², L=32, on one repeated batch, at RV_LAYERS of the towers' 12
+    layers."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    shell, state, step = config_model(DMAE_CONFIG, on_device=True)
+    shell, state, step = config_model(DMAE_CONFIG, cut_towers("dmae_retrieval"), on_device=True)
     batch = shell.to_device(dmae_batch(DMAE_BATCH, SEED + 1))
     setup_s = time.perf_counter() - t0
-    _, res = bare_steps("dmae_bare_step", gpu, shell, state, step, batch, DMAE_LAUNCHES,
+    _, res = bare_steps("dmae_bare_step", gpu, shell, state, step, batch, RV_DMAE_LAUNCHES,
                         dict(config=DMAE_CONFIG, frames=DMAE_FRAMES, text_len=DMAE_TEXT_LEN,
-                             vit_images=DMAE_BATCH * DMAE_FRAMES, setup_s=setup_s))
+                             vit_images=DMAE_BATCH * DMAE_FRAMES, setup_s=setup_s,
+                             tower_layers=RV_LAYERS))
     del shell, state, step, batch
     torch.cuda.empty_cache()
     return res["totals"]
@@ -3074,13 +3166,16 @@ def dmae_trainer(gpu: str) -> dict:
 def moco_bare(gpu: str) -> dict:
     """Phase 14 (d), first part: ``video_retrieval.yml`` with MoCo (momentum
     0.99, the model's queue of 4096) at its B=128 beside the plain step of
-    the same config on the same batch; the key forward and the EMA timed
-    alone."""
+    the same config on the same batch, both at RV_LAYERS of the towers' 12
+    layers; the key forward and the EMA timed alone."""
     batch_np = train_batch(128, SEED + 1)
     totals = dict.fromkeys(MOCO_LAUNCHES, 0)
     results = {}
-    for leg, leg_opts, momentum, launches in (("plain", [], 0.0, TRAINER_LAUNCHES),
-                                              ("moco", MOCO_OPTS, MOCO_MU, MOCO_LAUNCHES)):
+    cut = cut_towers("univl_retrieval")
+    # a plain step launches K1 as an eval forward does: once a tower layer
+    for leg, leg_opts, momentum, launches in (("plain", cut, 0.0, RV_EVAL_LAUNCHES),
+                                              ("moco", MOCO_OPTS + cut, MOCO_MU,
+                                               RV_MOCO_LAUNCHES)):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         shell, state, step = config_model(TRAINER_CONFIG, leg_opts, momentum=momentum,
@@ -4565,10 +4660,11 @@ def phase_pink_train(gpu: str) -> dict:
 # ------------------------------------------------ phase 18: pink_7b.yml
 PINK_7B_LAYERS, PINK_7B_EVA_LAYERS = 32, 39
 PINK_7B_TOKENS = PINK_7B_HEADS[2]  # 256 EVA tokens, the class token dropped
-# run.main and its resume, card vs CPU and serving: full width at 2 of the 32
-# decoder layers and 2 of the 39 EVA layers (a snapshot of ≈ 6.6 GB of fp32
-# masters instead of ≈ 32)
-PINK_7B_CUT = (2, 2)
+# card vs CPU: full width at 2 of the 32 decoder layers and 2 of the 39 EVA
+# layers (its planted faults include the bridge's layers reversed); run.main,
+# its resume and serving (since PR 17): at 1 and 1 (a snapshot of ≈ 5.9 GB
+# of fp32 masters instead of ≈ 32)
+PINK_7B_CUT, PINK_7B_RUN_CUT = (2, 2), (1, 1)
 PINK_7B_REMAT_LAYERS = (8, 16)  # remat on against off at depths where off still fits
 PINK_7B_NEW_TOKENS = 8
 
@@ -4583,9 +4679,9 @@ def pink_7b_iter_launches(layers: int) -> dict:
 
 PINK_7B_UPDATE_LAUNCHES = {k: n * PINK_ACCUM
                            for k, n in pink_7b_iter_launches(PINK_7B_LAYERS).items()}
-PINK_7B_RUN_ITER_LAUNCHES = pink_7b_iter_launches(PINK_7B_CUT[0])
+PINK_7B_RUN_ITER_LAUNCHES = pink_7b_iter_launches(PINK_7B_RUN_CUT[0])
 # an eval forward (no gradients, no recompute) and a served request's prefill
-PINK_7B_FORWARD_LAUNCHES = {**NO_LAUNCHES, "flash_fwd": PINK_7B_CUT[0]}
+PINK_7B_FORWARD_LAUNCHES = {**NO_LAUNCHES, "flash_fwd": PINK_7B_RUN_CUT[0]}
 # card bf16 vs CPU fp32 at full width and PINK_7B_CUT depth, the first
 # micro-step at B=1 on the same fp32 masters carried through the stacked
 # layout (every lora_b drawn nonzero): |Δ lm_loss| and the gradient cosines of
@@ -4842,7 +4938,7 @@ def pink_7b_remat_peaks(trainer) -> dict:
 
 def pink_7b_trainer(gpu: str) -> dict:
     """Phase 18 (b)–(e). (b) ``antmmf_torch.run.main`` on the composed config
-    at full width and PINK_7B_CUT depth over the seeded corpus (under
+    at full width and PINK_7B_RUN_CUT depth over the seeded corpus (under
     ``build/``, deleted at the end), as phase 17 runs it: 5 iterations at B=8
     with accumulation 2, a snapshot one micro-step into the third window,
     the resume and the 6th iteration bit for bit, the first batch's loss
@@ -4862,7 +4958,7 @@ def pink_7b_trainer(gpu: str) -> dict:
         images = False
     probe, snaps = TrainerProbe(), SnapshotProbe()
     last = PINK_TRAIN_ITERS - 1
-    layers, eva = PINK_7B_CUT
+    layers, eva = PINK_7B_RUN_CUT
     save_dir, npz_dir = os.path.join(root, "save"), os.path.join(root, "npz")
 
     def export_npz(trainer):  # the masters pink_final holds, in JAX's stacked layout
@@ -5004,6 +5100,537 @@ def phase_pink_7b(gpu: str) -> dict:
     return counts
 
 
+# ----------------------------------------------------------------- phase 19
+# M2-omni served at m2_omni_7b.yml's width through the composed serving
+# config (``serving_opts``: prompts of 640 tokens, images and frame pairs at
+# 448² pixels, the conv tower's 64 audio tokens): omni_7b (32 layers, 32
+# heads of 128 over 8 kv heads, vocabulary 151,936) behind Qwen2-ViT (32
+# blocks at 1280, 16 heads of 80, the merger into 8192, vision_proj to 4096)
+# and the conv audio tower at 512, bf16, seeded weights drawn on the card
+M2_NEW_TOKENS = 24
+M2_LAYERS, M2_VIT_BLOCKS, M2_AUDIO_LAYERS = 32, 32, 4
+# the model_dir and card-vs-CPU parts: full width at 2 of the 32 decoder
+# layers and 2 of the 32 Qwen2-ViT blocks
+M2_CUT = (2, 2)
+M2_REQUESTS = ("image_conversation", "image_audio_text", "video_conversation")
+
+
+def m2_launches(layers: int, audio: bool) -> dict:
+    """A request: the causal prefill's flash forward once a decoder layer
+    (decode attention is plain tensor ops), K1 once a conv audio layer at
+    [1, 4, 64, 128] when ``audio`` (the request's audio through the conv
+    tower); Qwen2-ViT's heads of 80 and SANM take plain tensor ops."""
+    return {**NO_LAUNCHES, "flash_fwd": layers,
+            "small_attention": M2_AUDIO_LAYERS if audio else 0}
+
+
+# card bf16 vs CPU fp32 at full width and M2_CUT depth, on the same weights
+# (the card's bf16 values, exact in fp32): the prompt's last-token logits
+# and the first decode step's (teacher-forced with the CPU's token; its RoPE
+# position is not its cache slot), cosine and the largest |Δ| over the CPU
+# logits' spread; and the modal tokens of the towers (Qwen2-ViT +
+# vision_proj + L2, the conv tower + audio_proj) in fp32 on the card
+# against the CPU's, the largest |Δ| over the largest |value|, where a fault
+# below bf16's rounding shows (``--calibrate m2_omni`` reads them). Sound
+# runs over three seeds stay above cos 0.999964 and below 0.0404 of the
+# spread, the towers below 5.6e-6; the mildest planted faults read cos
+# 0.9918 and 0.593 of the spread (the mRoPE bands on the wrong axes, which
+# the towers cannot see), the raster-order merger 1.1 and the (1, 1) audio
+# padding 0.60 in the fp32 towers (H100 readings)
+M2_COS_MIN, M2_DLOGIT_MAX, M2_TOWER_DEV_MAX = 0.9995, 0.1, 2e-5
+
+
+def m2_presets(layers: int, blocks: int):
+    """The names of omni_7b at ``layers`` decoder layers and of qwen2_vit at
+    ``blocks`` blocks (registered as presets; the full ones by their own
+    names)."""
+    lm, vit = "omni_7b", "qwen2_vit"
+    if layers != M2_LAYERS:
+        lm = f"omni_7b_{layers}_layers"
+        LM_PRESETS[lm] = {**LM_PRESETS["omni_7b"], "num_layers": layers}
+    if blocks != M2_VIT_BLOCKS:
+        vit = f"qwen2_vit_{blocks}_blocks"
+        QWEN2_VIT_PRESETS[vit] = {**QWEN2_VIT_PRESETS["qwen2_vit"], "depth": blocks}
+    return lm, vit
+
+
+def m2_opts(layers: int = M2_LAYERS, blocks: int = M2_VIT_BLOCKS, dtype: str = "bfloat16",
+            **model) -> list:
+    """``serving_opts`` on ``m2_omni_7b.yml``, cut to ``layers`` and
+    ``blocks``; greedy, 24 new tokens, the seeded init drawn on the device."""
+    lm, vit = m2_presets(layers, blocks)
+    return [*serving_opts(lm_preset=lm, qwen2_preset=vit, dtype_str=dtype, **model),
+            "predictor_parameters.max_new_tokens", str(M2_NEW_TOKENS),
+            "predictor_parameters.init_on_device", "true"]
+
+
+def m2_argv(*args, model_dir=None, **kw) -> list:
+    """The CLI's arguments on the card: ``m2_opts``, seeded weights or those
+    of ``model_dir``."""
+    return ["--config", M2_OMNI_7B, "--predictor", "generation_predictor", "--device", "cuda",
+            *(["--model_dir", model_dir] if model_dir else ["--no_ckpt"]), *m2_opts(*args, **kw)]
+
+
+def m2_predictor(*args, **kw):
+    with no_default_init():  # the seeded init or the model_dir sets every value
+        return build_predictor(m2_argv(*args, **kw))[0]
+
+
+def m2_requests(seed: int = SEED) -> dict:
+    """(a) a conversation with one image of 500×375, (b) that image, 2.6 s
+    of audio and text, (c) a conversation with a video of 4 frames at 448²;
+    seeded noise."""
+    rng = np.random.default_rng(seed)
+    image = rng.integers(0, 256, (375, 500, 3), dtype=np.uint8)
+    wave = (rng.standard_normal(int(16000 * 2.6)) * 0.1).astype(np.float32)
+    frames = [rng.integers(0, 256, (448, 448, 3), dtype=np.uint8) for _ in range(4)]
+
+    def chat(media, text):
+        return {"conversation": [{"role": "user", "content": [media,
+                                                              {"type": "text", "text": text}]}]}
+
+    return {"image_conversation": chat({"type": "image", "image": image},
+                                       "describe the image in detail."),
+            "image_audio_text": {"text": "<image> what is in the picture, and what do you hear "
+                                         "in <audio> ?", "images": [image], "waveform": wave},
+            "video_conversation": chat({"type": "video", "video": frames},
+                                       "what happens in the video?")}
+
+
+def rope_positions_numpy(ids, image_id: int, audio_id: int, grid) -> np.ndarray:
+    """The reference ``get_rope_index`` loop over one row: a text slot
+    takes (base, base, base) and advances the base by 1; an image run takes
+    base + (t, h, w) over its grid in raster order and advances the base by
+    max(t, h, w); an audio run of n slots takes base + k on all three axes
+    and advances it by n."""
+    pos, base, i = [], 0, 0
+    while i < len(ids):
+        if ids[i] == image_id:
+            t, h, w = grid
+            pos += [(base + a, base + b, base + c)
+                    for a in range(t) for b in range(h) for c in range(w)]
+            base, i = base + max(t, h, w), i + t * h * w
+        elif ids[i] == audio_id:
+            n = 0
+            while i + n < len(ids) and ids[i + n] == audio_id:
+                n += 1
+            pos += [(base + k,) * 3 for k in range(n)]
+            base, i = base + n, i + n
+        else:
+            pos.append((base,) * 3)
+            base, i = base + 1, i + 1
+    return np.array(pos)
+
+
+def m2_grid(pred, request) -> tuple:
+    """The merged (t, h, w) grid of the request's image or video."""
+    out = pred.unified(request)
+    grids = out.get("image_grid_thw", out.get("video_grid_thw"))
+    m = pred.unified.image_processor.merge_size
+    t, h, w = (int(g) for g in np.asarray(grids).reshape(-1, 3)[0])
+    return t, h // m, w // m
+
+
+def m2_towers_ms(pred, arrays) -> float:
+    """The towers, the splice and the 3D positions alone, timed once (the
+    prefill runs them again inside)."""
+    module = pred.shell.module
+    batch = pred.shell.to_device(arrays)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        module._assemble_spliced(batch, batch["input_ids"])
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def m2_walk(pred, arrays, steps: int, sync: bool = True):
+    """The prefill (the towers inside) and ``steps`` greedy decode steps
+    through the model's cached entry points: RoPE position ``next_p + t``,
+    cache slot ``lens_full + t``. Returns (prefill ms, per-step ms, last
+    logits); with ``sync`` the device is waited for after each part, as a
+    streaming server would."""
+    module = pred.shell.module
+    batch = pred.shell.to_device(arrays)
+    wait = torch.cuda.synchronize if sync else (lambda: None)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache, lens_full, next_p = module.prefill(batch, steps + 1)
+        wait()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        step_ms = []
+        for t in range(steps):
+            t0 = time.perf_counter()
+            logits, cache = module.decode_step(logits.argmax(dim=-1), next_p + t, lens_full + t,
+                                               cache)
+            wait()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return prefill_ms, step_ms, logits
+
+
+def m2_serve(pred, requests: dict, layers: int) -> tuple:
+    """Each request through ``predict`` with the launch counts set to 0
+    just before it and read just after. Returns ({name: the readings},
+    summed launches)."""
+    totals, out = dict(NO_LAUNCHES), {}
+    conv = pred.shell.module.audio_tower == "conv"
+    for name, request in requests.items():
+        audio = "waveform" in request and conv
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        answer = pred.predict(request)
+        torch.cuda.synchronize()
+        request_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        for k, n in counts.items():
+            totals[k] += n
+        ids = np.asarray(answer["generated_ids"])
+        arrays = pred.build_sample(request).arrays()
+        n_prompt = int(arrays["input_mask"].sum())
+        new = ids[0, n_prompt: n_prompt + M2_NEW_TOKENS]
+        out[name] = dict(request_ms=request_ms, launches=counts, prompt_tokens=n_prompt,
+                         image_slots=int((arrays["input_ids"] == pred.unified.special_token_ids[
+                             "<imagePatch>"]).sum()),
+                         audio_slots=int((arrays["input_ids"] == pred.unified.special_token_ids[
+                             "<audioPatch>"]).sum()),
+                         ids=ids, new_tokens=new.tolist(), text=answer["generated_text"])
+        want = m2_launches(layers, audio)
+        check(counts == want, f"m2_omni {name}: launches {counts}; expected {want}")
+        check(n_prompt < SERVING_SEQ_LEN, f"m2_omni {name}: a prompt of {n_prompt} tokens is cut")
+        check(ids.shape == (1, SERVING_SEQ_LEN + M2_NEW_TOKENS)
+              and bool(((new >= 0) & (new < LM_PRESETS["omni_7b"]["vocab_size"])).all()),
+              f"m2_omni {name}: generated ids {ids.shape}, {new.tolist()}")
+    return out, totals
+
+
+def m2_full_depth(gpu: str) -> dict:
+    """Phase 19 (a): the three requests at full width and depth through
+    ``predict`` after a warm-up with image and audio, launches counted and the whole
+    request timed; then for each the towers alone (once), one walk of the
+    prefill and 23 decode steps (the tokens after the prefill's), and the
+    device's idle share over a prefill and four decode steps launched
+    without waiting (one untraced, one profiled); peak memory. Returns the
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pred = m2_predictor()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    module = pred.shell.module
+    params = sum(p.numel() for p in module.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in module.parameters())
+    emit(phase="m2_omni", part="load", gpu=gpu, load_s=load_s, params=params,
+         weight_gb=weight_bytes / 1e9, decode_step_bytes_bound_ms=weight_bytes / HBM_BYTES_PER_S
+         * 1e3, mem_after_load_gb=torch.cuda.memory_allocated() / 1e9,
+         device=next(module.parameters()).device.type)
+    check(next(module.parameters()).is_cuda, "m2_omni: the model is not on the card")
+    requests = m2_requests()
+    pred.predict(requests["image_audio_text"])  # warm-up: the image and the audio convs
+    served, totals = m2_serve(pred, requests, M2_LAYERS)
+    for name, request in requests.items():
+        arrays = pred.build_sample(request).arrays()
+        towers = m2_towers_ms(pred, arrays)
+        prefill, steps, logits = m2_walk(pred, arrays, M2_NEW_TOKENS - 1)
+        check(bool(torch.isfinite(logits).all().item()), f"m2_omni {name}: non-finite logits")
+        wall = host_ms(lambda: m2_walk(pred, arrays, 4, sync=False), 1, warmup=0)[0]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            m2_walk(pred, arrays, 4, sync=False)
+        busy, n_ops, top = device_busy(prof, 1)
+        reading = served[name]
+        emit(phase="m2_omni", part="request", request=name, gpu=gpu,
+             prompt_tokens=reading["prompt_tokens"], image_slots=reading["image_slots"],
+             audio_slots=reading["audio_slots"], launches=reading["launches"],
+             request_ms=reading["request_ms"],
+             new_tokens_per_s=M2_NEW_TOKENS * 1e3 / reading["request_ms"],
+             prefill_ms=prefill, towers_ms=towers, decoder_prefill_ms=prefill - towers,
+             decode_step_ms=pct(steps), decode_tokens_per_s=1e3 / float(np.median(steps)),
+             profiled="one prefill (the towers inside) and four decode steps",
+             untraced_wall_ms=wall, device_busy_ms=busy if n_ops else "not measured",
+             device_idle_share=1 - busy / wall if n_ops else "not measured", device_ops=n_ops,
+             top_device_ops_ms=top, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+             new_tokens=reading["new_tokens"], text=reading["text"])
+    del pred, module
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def m2_sanm(gpu: str) -> dict:
+    """Phase 19 (b): ``audio_tower: sanm`` (bailing2_audio: 50 blocks, LFR
+    560 → 512, 85 tokens after compression by 3) laid over the same model,
+    one request with image and audio at full width and depth. Returns the
+    launches."""
+    t0 = time.perf_counter()
+    pred = m2_predictor(audio_tower="sanm")
+    load_s = time.perf_counter() - t0
+    request = {"image_audio_text": m2_requests()["image_audio_text"]}
+    served, totals = m2_serve(pred, request, M2_LAYERS)
+    check(totals == m2_launches(M2_LAYERS, False), f"m2_omni sanm: launches {totals}")
+    reading = served["image_audio_text"]
+    emit(phase="m2_omni", part="sanm_request", gpu=gpu, load_s=load_s,
+         audio_slots=reading["audio_slots"], prompt_tokens=reading["prompt_tokens"],
+         request_ms=reading["request_ms"], launches=reading["launches"],
+         new_tokens=reading["new_tokens"], text=reading["text"],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(reading["audio_slots"] == 85, f"m2_omni sanm: {reading['audio_slots']} audio slots")
+    del pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def m2_modal_tokens(module, batch) -> list:
+    with torch.inference_mode():
+        out = [module._encode_visual_streams(batch["image_data"])[0]]
+        if "audio" in batch:
+            out.append(module._audio_tokens(batch))
+    return [t.float().cpu() for t in out]
+
+
+def m2_logits(module, batch, token=None):
+    """fp32 logits at the prompt's last token and at the first decode step,
+    which is fed ``token`` (default: this model's own greedy token), and
+    the 3D positions."""
+    with torch.inference_mode():
+        _, positions, _ = module._assemble_spliced(batch, batch["input_ids"])
+        first, cache, lens_full, next_p = module.prefill(batch, 1)
+        token = first.argmax(dim=-1) if token is None else token.to(first.device)
+        second, _ = module.decode_step(token, next_p, lens_full, cache)
+    return first[0].float().cpu(), second[0].float().cpu(), token.cpu(), positions.cpu()
+
+
+def m2_twins(seed: int):
+    """Phase 19 (c)/(d)'s models at full width and M2_CUT depth: the card's
+    bf16 predictor seeded on the card, its weights exported as an fp32 flax
+    tree (stacked decoder layers), and fp32 models from that tree on the
+    CPU and on the card (whose towers give the fp32 reading). Returns (card
+    predictor, CPU module, card fp32 module, the tree)."""
+    card = m2_predictor(*M2_CUT)
+    if seed != SEED:  # the predictor drew seed 0
+        card.shell.init(seed, on_device=True)
+    tree = export_flax_params(card.shell.module)
+    cfg = build_config(M2_OMNI_7B, opts=m2_opts(*M2_CUT, dtype="float32"))
+    twins = []
+    for device in ("cpu", "cuda"):
+        with no_default_init():
+            shell = build_model(cfg, device=device)
+        weights.load_flax_params(shell.module, tree)
+        twins.append(shell.module)
+    return card, *twins, tree
+
+
+def m2_faults(card, card32, audio: bool):
+    """Faults planted on the card's models only (the CPU's readings are
+    taken before), each undone after its reading: (name, plant, undo).
+    The mRoPE bands read from the wrong axes; image slots given sequential
+    positions; the PatchMerger grouping tokens in raster order; the L2
+    normalisation dropped; with ``audio``, the audio convolutions padded
+    (1, 1)."""
+    from antmmf_torch.models import m2_omni as m2_mod
+    from antmmf_torch.modules import llm as llm_mod
+
+    module = card.shell.module
+    real_tables, real_norm, real_pad = llm_mod.rope_tables, m2_mod._l2_normalize, m2_mod._same_pad
+    tower_pairs = [module.vision_tower, card32.vision_tower]
+
+    def wrong_axes(positions, head_dim, theta, rope_3d):
+        return real_tables(positions[..., [1, 2, 0]] if positions.dim() == 3 else positions,
+                           head_dim, theta, rope_3d)
+
+    def sequential(modal_mask, run_start, rel):
+        return m2_mod.M2Omni.get_rope_index(torch.zeros_like(modal_mask),
+                                            torch.zeros_like(run_start), torch.zeros_like(rel))
+
+    def raster(tower):
+        real = type(tower).patches.__get__(tower)
+
+        def patches(frames):
+            x, (t, h, w) = real(frames)
+            B, L, P = x.shape
+            m = tower.merge
+            # undo the merge order (t, h/m, w/m, m, m) into raster (t, h, w)
+            x = x.view(B, t, h // m, w // m, m, m, P).permute(0, 1, 2, 4, 3, 5, 6)
+            return x.reshape(B, L, P), (t, h, w)
+
+        tower.patches = patches
+
+    def setattr_on(obj, name, value):
+        return lambda: setattr(obj, name, value)
+
+    faults = [
+        ("mrope_bands_wrong_axes", setattr_on(llm_mod, "rope_tables", wrong_axes),
+         setattr_on(llm_mod, "rope_tables", real_tables)),
+        ("image_slots_sequential", setattr_on(module, "get_rope_index", sequential),
+         lambda: module.__dict__.pop("get_rope_index")),
+        ("merger_raster_order", lambda: [raster(t) for t in tower_pairs],
+         lambda: [t.__dict__.pop("patches") for t in tower_pairs]),
+        ("l2_norm_dropped", setattr_on(m2_mod, "_l2_normalize", lambda x: x),
+         setattr_on(m2_mod, "_l2_normalize", real_norm))]
+    if audio:
+        faults.append(("audio_conv_padded_1_1", setattr_on(m2_mod, "_same_pad", lambda n: (1, 1)),
+                       setattr_on(m2_mod, "_same_pad", real_pad)))
+    return faults
+
+
+def m2_compare(card, card32, batch, ref) -> dict:
+    first, second, _, positions = m2_logits(card.shell.module, batch, ref["token"])
+    tokens = m2_modal_tokens(card32, batch)
+    dev = max(((a - b).abs().max() / b.abs().max()).item() if a.shape == b.shape
+              else float("inf") for a, b in zip(tokens, ref["tokens"]))
+    return dict(prefill=compare_logits(first, ref["first"]),
+                decode_step=compare_logits(second, ref["second"]), tower_fp32_dev=dev,
+                positions_equal_cpu=bool(torch.equal(positions, ref["positions"])),
+                positions_equal_recurrence=bool(np.array_equal(positions[0].numpy(),
+                                                               ref["recurrence"])))
+
+
+def m2_within_bound(res) -> bool:
+    return all(r["cos"] >= M2_COS_MIN and r["max_abs_d_over_std"] <= M2_DLOGIT_MAX
+               for r in (res["prefill"], res["decode_step"])) \
+        and res["tower_fp32_dev"] <= M2_TOWER_DEV_MAX
+
+
+def m2_readings(seed: int, faults: bool, model_dir=None):
+    """Card vs CPU on requests (a) and (b): the sound reading and, with
+    ``faults``, each planted fault's; with ``model_dir`` (a directory under
+    build/), phase 19 (c) in between. Returns ({request: {reading: ...}},
+    the model_dir part's readings or None, the launches of its requests)."""
+    card, cpu, card32, tree = m2_twins(seed)
+    requests = {k: v for k, v in m2_requests(seed).items() if k != "video_conversation"}
+    out, totals = {}, dict(NO_LAUNCHES)
+    for name, request in requests.items():
+        arrays = card.build_sample(request).arrays()
+        cpu_batch = {k: torch.as_tensor(v) for k, v in arrays.items()}
+        first, second, token, positions = m2_logits(cpu, cpu_batch)
+        sp = card.unified.special_token_ids
+        ref = dict(first=first, second=second, token=token, positions=positions,
+                   tokens=m2_modal_tokens(cpu, cpu_batch),
+                   recurrence=rope_positions_numpy(arrays["input_ids"][0], sp["<imagePatch>"],
+                                                   sp["<audioPatch>"], m2_grid(card, request)))
+        batch = card.shell.to_device(arrays)
+        res = {"sound": m2_compare(card, card32, batch, ref)}
+        planted = m2_faults(card, card32, "waveform" in request) if faults else ()
+        for fault, plant, undo in planted:
+            plant()
+            try:
+                res[fault] = m2_compare(card, card32, batch, ref)
+            finally:
+                undo()
+        out[name] = res
+    served = None
+    if model_dir is not None:
+        served, totals = m2_model_dir(card, tree, requests["image_audio_text"], model_dir)
+    del card, cpu, card32, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, served, totals
+
+
+def m2_model_dir(card, tree, request, root: str):
+    """Phase 19 (c): the cut model's weights written as a ``params.npz``
+    (fp32 flax leaves, decoder layers stacked) and served by
+    ``python -m antmmf_torch.predictors.cli --model_dir`` on request (b),
+    driven in-process through ``cli.main``; the tokens against the
+    in-process predictor's on the same weights."""
+    from antmmf_torch.predictors import cli
+
+    npz_dir = os.path.join(root, "npz")
+    os.makedirs(npz_dir)
+    t0 = time.perf_counter()
+    np.savez(os.path.join(npz_dir, "params.npz"), **flatten_flax(tree))
+    save_s = time.perf_counter() - t0
+    path = os.path.join(root, "request.json")
+    with open(path, "w") as f:  # the image as a list of one frame: a list is read as frames
+        json.dump({"text": request["text"], "images": [[request["images"][0].tolist()]],
+                   "waveform": request["waveform"].tolist()}, f)
+    zero_counts()
+    in_process = card.predict(request)
+    counts = [read_counts()]
+    zero_counts()
+    t1 = time.perf_counter()
+    stdout = io.StringIO()
+    with contextlib.redirect_stdout(stdout), no_default_init():
+        cli.main(m2_argv(*M2_CUT, model_dir=npz_dir) + ["--input", path])
+    served_s = time.perf_counter() - t1
+    counts.append(read_counts())
+    answer = json.loads(stdout.getvalue().strip().splitlines()[-1])
+    totals = {k: counts[0][k] + counts[1][k] for k in counts[0]}
+    n_prompt = int(card.build_sample(request).arrays()["input_mask"].sum())
+    return dict(save_s=save_s, prompt_tokens=n_prompt, npz_gb=os.path.getsize(os.path.join(npz_dir, "params.npz")) / 1e9,
+                load_and_request_s=served_s, launches=counts,
+                in_process_ids=np.asarray(in_process["generated_ids"]),
+                served_ids=np.asarray(answer["generated_ids"]),
+                same_text=answer["generated_text"] == in_process["generated_text"]), totals
+
+
+def calibrate_m2_omni(seeds=3) -> None:
+    """Phase 19 (d)'s readings: sound seeds, then planted faults at the last."""
+    for seed in range(seeds):
+        readings, _, _ = m2_readings(seed, seed == seeds - 1)
+        for request, by_name in readings.items():
+            for name, res in by_name.items():
+                emit(phase="calibrate_m2_omni", kind="sound" if name == "sound" else "fault",
+                     fault=None if name == "sound" else name, seed=seed, request=request, **res,
+                     within_bound=m2_within_bound(res))
+    emit(phase="calibrate_m2_omni", kind="bound", cos_min=M2_COS_MIN,
+         dlogit_max=M2_DLOGIT_MAX, tower_fp32_dev_max=M2_TOWER_DEV_MAX)
+
+
+def m2_cut_depth(gpu: str) -> dict:
+    """Phase 19 (c) and (d) at full width and M2_CUT depth; returns the
+    launches of (c)'s requests."""
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="m2_omni_smoke_", dir=build)
+    t0 = time.perf_counter()
+    try:
+        readings, served, totals = m2_readings(SEED, True, model_dir=root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    same = bool(np.array_equal(served["in_process_ids"], served["served_ids"]))
+    emit(phase="m2_omni", part="model_dir", gpu=gpu, layers=M2_CUT[0], vit_blocks=M2_CUT[1],
+         **{k: v for k, v in served.items() if not k.endswith("_ids")}, same_tokens=same,
+         tokens=served["served_ids"][0, served["prompt_tokens"]:][:M2_NEW_TOKENS].tolist())
+    check(same and served["same_text"], "m2_omni: the model_dir served other tokens")
+    want = m2_launches(M2_CUT[0], True)
+    check(all(c == want for c in served["launches"]),
+          f"m2_omni model_dir: launches {served['launches']}; expected {want}")
+    for request, res in readings.items():
+        faults = {n: r for n, r in res.items() if n != "sound"}
+        caught = {n: not m2_within_bound(r) for n, r in faults.items()}
+        emit(phase="m2_omni", part="card_vs_cpu", request=request, layers=M2_CUT[0],
+             vit_blocks=M2_CUT[1], **res["sound"], faults=faults, faults_caught=caught,
+             bounds=dict(cos_min=M2_COS_MIN, dlogit_max=M2_DLOGIT_MAX,
+                         tower_fp32_dev_max=M2_TOWER_DEV_MAX))
+        check(m2_within_bound(res["sound"]), f"m2_omni {request}: card and CPU disagree "
+              f"beyond the stated bound")
+        check(res["sound"]["positions_equal_cpu"] and res["sound"]["positions_equal_recurrence"],
+              f"m2_omni {request}: the 3D positions on the card differ")
+        check(all(caught.values()), f"m2_omni {request}: a planted fault passed: {caught}")
+    emit(phase="m2_omni", part="cut_depth", seconds=time.perf_counter() - t0)
+    return totals
+
+
+def phase_m2_omni(gpu: str) -> dict:
+    """Phase 19: (a) the three requests at full width and depth, (b) the
+    SANM tower, (c) the predictor from a model_dir and (d) card vs CPU with
+    planted faults at cut depth. Returns the launches of (a), (b), (c)."""
+    t0 = time.perf_counter()
+    counts = dict(NO_LAUNCHES)
+    for part in (m2_full_depth, m2_sanm, m2_cut_depth):
+        for k, n in part(gpu).items():
+            counts[k] += n
+    emit(phase="m2_omni", part="summary", seconds=time.perf_counter() - t0, launches=counts)
+    return counts
+
+
 SOURCES = {
     "small_attention": ("antmmf_torch/ops/csrc/small_attention.cu",
                         "antmmf_tpu/ops/pallas/small_attention.py:62"),
@@ -5076,7 +5703,8 @@ def main() -> None:
     for part, phase in (("13_pretraining", phase_pretraining),
                         ("14_retrieval_variants", phase_retrieval_variants),
                         ("15_task_heads", phase_task_heads), ("16_roi", phase_roi),
-                        ("17_pink_train", phase_pink_train), ("18_pink_7b", phase_pink_7b)):
+                        ("17_pink_train", phase_pink_train), ("18_pink_7b", phase_pink_7b),
+                        ("19_m2_omni", phase_m2_omni)):
         for name, n in phase(gpu).items():
             launches[name] += n
         done(part)
@@ -5097,7 +5725,8 @@ def main() -> None:
 CALIBRATIONS = {"serving": calibrate, "training": calibrate_training, "pink": calibrate_pink,
                 "pretraining": calibrate_pretraining, "dmae": calibrate_dmae,
                 "task_heads": calibrate_task_heads, "roi": calibrate_roi,
-                "pink_train": calibrate_pink_train, "pink_7b": calibrate_pink_7b}
+                "pink_train": calibrate_pink_train, "pink_7b": calibrate_pink_7b,
+                "m2_omni": calibrate_m2_omni}
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--calibrate"] and set(sys.argv[2:]) <= set(CALIBRATIONS):
