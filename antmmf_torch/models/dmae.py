@@ -25,14 +25,14 @@ from __future__ import annotations
 
 import inspect
 import math
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 from torch import nn
 
 from antmmf_torch.common.registry import registry
 from antmmf_torch.models.univl import UnivlVideoBase, l2_normalize
-from antmmf_torch.modules.layers import make_attention_mask
+from antmmf_torch.modules.layers import draws, make_attention_mask
 from antmmf_torch.modules.losses.contrastive import NEG_INF, neg_nce_dmae, symmetric_cross_en
 from antmmf_torch.modules.transformers.base import TransformerEncoder
 
@@ -67,7 +67,9 @@ class TokenWeightHead(nn.Module):
 class DmaeForVideoTextRetrieval(nn.Module):
     """``from_config`` takes the JAX model's ``model_attributes``; keys that
     change neither the forward nor the loss here (``remat``, ``use_pallas``,
-    ``max_text_len``) are ignored. Dropout raises until it is ported."""
+    ``max_text_len``) are ignored. ``dropout`` reaches the towers, not the
+    temporal encoder, as in JAX; a training forward draws its masks from the
+    ``generator`` it is given."""
 
     def __init__(self, vit_preset: str = "vit_base_patch32", image_size: int = 224,
                  bert_preset: str = "bert_base", embed_dim: int = 512, n_clips: int = 1,
@@ -75,13 +77,11 @@ class DmaeForVideoTextRetrieval(nn.Module):
                  neg_nce_weight: float = 1.0, l3_weight: float = 1.0,
                  init_logit_scale: float = 2.6592, dtype_str: str = "bfloat16", device=None):
         super().__init__()
-        if dropout:
-            raise NotImplementedError(f"dropout {dropout} is not ported yet; only 0 is")
         dtype = getattr(torch, dtype_str)
         self.neg_nce_margin, self.neg_nce_weight, self.l3_weight = \
             neg_nce_margin, neg_nce_weight, l3_weight
         self.base = UnivlVideoBase(vit_preset, image_size, bert_preset, embed_dim, n_clips,
-                                   dtype=dtype, device=device)
+                                   dtype=dtype, device=device, dropout=dropout)
         visual_hidden, text_hidden = self.base.img_fc.in_features, self.base.text_fc.in_features
         self.temporal_encoder = TransformerEncoder(
             embed_dim, temporal_layers, max(1, embed_dim // 64), norm_style="pre",
@@ -100,8 +100,12 @@ class DmaeForVideoTextRetrieval(nn.Module):
         names = set(inspect.signature(cls.__init__).parameters) - {"self", "device"}
         return cls(device=device, **{k: v for k, v in dict(config).items() if k in names})
 
-    def forward(self, batch: Mapping[str, torch.Tensor],
-                deterministic: bool = True) -> Dict[str, Any]:
+    def forward(self, batch: Mapping[str, torch.Tensor], deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        with draws(generator, active=not deterministic):
+            return self._forward(batch)
+
+    def _forward(self, batch: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         text = self.base.forward_text_encoder(batch["caption_input_ids"],
                                               batch["caption_input_mask"],
                                               batch.get("caption_segment_ids"))

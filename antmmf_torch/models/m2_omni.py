@@ -33,6 +33,11 @@ cache slot; greedy ``generate`` decodes token t at RoPE position
 ``next_p + t`` into slot ``lens_full + t``. The cache is the port's list of
 per-layer tensors.
 
+``recipe_opts`` lays the LoRA finetune of the JAX package's bench leg over
+``m2_omni_7b.yml`` for one card: adapters on the decoder's seven
+projections and on Qwen2-ViT's blocks; only they, ``vision_proj`` and
+``audio_proj`` train (``frozen_params``).
+
 The conv tower's ``proj`` reads fbank frames of ``AUDIO_FEATURES`` (80
 mels × LFR 7 = 560, the audio processor's), which flax infers from the
 first batch and the port builds with. ``max_vision_tokens`` is accepted
@@ -44,12 +49,15 @@ until they are ported.
 
 from __future__ import annotations
 
+import functools
 import inspect
-from typing import Any, Dict, Mapping, Optional, Tuple
+import json
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from antmmf_torch.common.registry import registry
 from antmmf_torch.models.pink import LM_PRESETS
@@ -62,6 +70,27 @@ from antmmf_torch.modules.vision.vit import PRESETS as VIT_PRESETS, VisionTransf
 
 
 AUDIO_FEATURES = 80 * 7  # the fbank width: 80 mels stacked 7 frames deep
+# the parameters the LoRA finetune trains (``bench_llm_train.py``'s m2omni
+# leg: its ``is_trainable``): every flax path without one of these freezes
+LORA_TRAINABLE = ("lora", "vision_proj", "audio_proj")
+
+
+def recipe_opts(**model: Any) -> List[str]:
+    """The opts that lay the LoRA finetune over ``m2_omni_7b.yml`` (pass
+    them to ``build_config`` with that file): LoRA of rank 8 on all
+    seven decoder projections and on every Qwen2-ViT block, a
+    ``frozen_params`` that leaves only ``LORA_TRAINABLE`` to train, one
+    device; the yml's remat, scan_layers, AdamW (lr 2e-5, a bf16 first
+    moment) and accumulation over 2 micro-batches stay. ``model``'s keys of
+    ``model_attributes.m2_omni`` go on top (presets, dtype)."""
+    m = "model_attributes.m2_omni"
+    frozen = [f"^(?!.*({'|'.join(LORA_TRAINABLE)}))"]
+    opts = [f"{m}.llm_lora_rank", "8", f"{m}.llm_lora_targets", "all",
+            f"{m}.vit_lora_rank", "8", "optimizer_attributes.frozen_params", json.dumps(frozen),
+            "training_parameters.mesh.data", "1", "training_parameters.mesh.fsdp", "1"]
+    for key, value in model.items():
+        opts += [f"{m}.{key}", str(value)]
+    return opts
 
 
 def audio_token_count(audio_tower: str, audio_compress: int, max_frames: int) -> int:
@@ -393,20 +422,30 @@ class M2Omni(nn.Module):
                          chunk: int = 2048) -> Dict[str, Any]:
         """``_lm_loss(lm_head(hidden), labels)`` with the logits made
         ``chunk`` positions at a time: the sums of each slice's masked
-        negative log-likelihood, hits and count, then one division."""
+        negative log-likelihood, hits and count, then one division. Each
+        slice runs under ``torch.utils.checkpoint``, so its fp32 [B, chunk,
+        V] logits and log-softmax are recomputed in the backward and never
+        saved: forward and backward hold O(B·chunk·V), as JAX's
+        ``jax.checkpoint`` of each slice does."""
         h, y = hidden[:, :-1], labels[:, 1:]
+        run = self._slice_stats
+        if torch.is_grad_enabled():
+            run = functools.partial(checkpoint, self._slice_stats, use_reentrant=False)
         nll = hits = count = 0
         for s in range(0, h.shape[1], chunk):
-            logits = self.lm_head(h[:, s:s + chunk]).float()
-            yc = y[:, s:s + chunk]
-            valid = yc >= 0
-            safe = torch.where(valid, yc, 0).long()
-            lp = torch.gather(torch.log_softmax(logits, -1), -1, safe[..., None])[..., 0]
-            nll = nll + torch.where(valid, -lp, 0.0).sum()
-            hits = hits + (valid & (logits.argmax(-1) == safe)).sum()
-            count = count + valid.sum()
+            stats = run(h[:, s:s + chunk], y[:, s:s + chunk])
+            nll, hits, count = nll + stats[0], hits + stats[1], count + stats[2]
         denom = torch.as_tensor(count).clamp(min=1)
         return {"losses": {"lm_loss": nll / denom}, "metrics": {"lm_acc": hits / denom}}
+
+    def _slice_stats(self, h: torch.Tensor, y: torch.Tensor):
+        """(masked nll sum, hits, count) of one slice of positions."""
+        logits = self.lm_head(h).float()
+        valid = y >= 0
+        safe = torch.where(valid, y, 0).long()
+        lp = torch.gather(torch.log_softmax(logits, -1), -1, safe[..., None])[..., 0]
+        hits = (valid & (logits.argmax(-1) == safe)).sum()
+        return torch.where(valid, -lp, 0.0).sum(), hits, valid.sum()
 
     def forward(self, batch: Mapping[str, torch.Tensor],
                 deterministic: bool = True) -> Dict[str, Any]:

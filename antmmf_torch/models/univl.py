@@ -12,9 +12,11 @@ or over the full B×B pair grid. Outputs ``l1_simi``, ``sim``, ``text_embed``,
 ``visual_embed``, ``logits`` and ``losses`` (plus the L2 outputs).
 ``loss_type`` ``mil_nce`` (identity positives) and ``neg_nce`` (symmetric)
 replace the L1 loss; ``with_queue`` replaces it with MoCo InfoNCE against
-text and video queues held in buffers (``moco.MocoQueue``). Dropout and
-sequence parallelism raise until they are ported. ``univl_auto`` dispatches
-on ``training_stage`` to the family's models.
+text and video queues held in buffers (``moco.MocoQueue``). ``dropout``
+reaches the ViT, BERT and the cross-encoder as in JAX; a training forward
+(``deterministic=False``) draws its masks from the ``generator`` it is
+given (``layers.draws``). Sequence parallelism raises until it is ported.
+``univl_auto`` dispatches on ``training_stage`` to the family's models.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from torch import nn
 
 from antmmf_torch.common.registry import registry
 from antmmf_torch.modules.encoders.text_encoder import PRESETS as BERT_PRESETS, BertEncoder
-from antmmf_torch.modules.layers import make_attention_mask
+from antmmf_torch.modules.layers import draws, make_attention_mask
 from antmmf_torch.modules import moco
 from antmmf_torch.modules.losses.contrastive import NEG_INF, mil_nce, neg_nce, symmetric_cross_en
 from antmmf_torch.modules.transformers.base import TransformerEncoder
@@ -59,7 +61,7 @@ class UnivlVideoBase(nn.Module):
                  token_merge_r: int = 0, with_cross_encoder: bool = False,
                  cross_layers: int = 2, dtype=torch.bfloat16, device=None,
                  cross_sim_head: bool = True, with_text: bool = True,
-                 with_visual: bool = True):
+                 with_visual: bool = True, dropout: float = 0.0):
         super().__init__()
         self.n_clips = n_clips
         vit_kw = VIT_PRESETS[vit_preset]
@@ -69,13 +71,15 @@ class UnivlVideoBase(nn.Module):
         if with_visual:
             self.img_encoder = VisionTransformer(image_size=image_size,
                                                  token_merge_r=token_merge_r,
-                                                 dtype=dtype, device=device, **vit_kw)
+                                                 dtype=dtype, device=device, dropout=dropout,
+                                                 **vit_kw)
         bert_kw = BERT_PRESETS[bert_preset]
         kw = dict(dtype=dtype, device=device)
         text_hidden, self.visual_hidden = bert_kw["hidden_size"], vit_kw["embed_dim"]
         self.vocab_size = bert_kw["vocab_size"]
         if with_text:
-            self.text_encoder = BertEncoder(dtype=dtype, device=device, **bert_kw)
+            self.text_encoder = BertEncoder(dtype=dtype, device=device, dropout=dropout,
+                                            **bert_kw)
         if with_visual:
             self.img_fc = nn.Linear(self.visual_hidden, embed_dim, bias=False, **kw)
         if with_text:
@@ -88,7 +92,7 @@ class UnivlVideoBase(nn.Module):
             self.cross_type_embed = nn.Embedding(2, width, **kw)
             self.cross_encoder = TransformerEncoder(
                 width, cross_layers, max(1, width // 64), norm_style="post",
-                final_norm=False, dtype=dtype, device=device)
+                final_norm=False, dtype=dtype, device=device, dropout=dropout)
             self.cross_pooler = nn.Linear(width, width, **kw)
             if cross_sim_head:
                 # the trained L2 match score, computed in fp32 (flax creates
@@ -215,8 +219,6 @@ class UnivlForVideoTextRetrieval(nn.Module):
             raise NotImplementedError("sequence parallelism is not ported yet")
         if loss_type not in ("cross_en", "mil_nce", "neg_nce"):
             raise ValueError(f"loss_type {loss_type!r}: cross_en, mil_nce or neg_nce")
-        if dropout:
-            raise NotImplementedError(f"dropout {dropout} is not ported yet; only 0 is")
         self.dtype = getattr(torch, dtype_str)
         self.hard_mining_k = hard_mining_k
         self.loss_type = loss_type
@@ -226,7 +228,7 @@ class UnivlForVideoTextRetrieval(nn.Module):
         self.training_head_only = training_head_only
         self.base = UnivlVideoBase(vit_preset, image_size, bert_preset, embed_dim, n_clips,
                                    token_merge_r, with_cross_encoder, cross_layers,
-                                   self.dtype, device)
+                                   self.dtype, device, dropout=dropout)
         self.logit_scale = nn.Parameter(
             torch.tensor(init_logit_scale, dtype=torch.float32, device=device))
         if with_queue:
@@ -272,8 +274,12 @@ class UnivlForVideoTextRetrieval(nn.Module):
             out.update(text_seq=text["sequence_output"], visual_tokens=video["visual_tokens"])
         return out
 
-    def forward(self, batch: Mapping[str, torch.Tensor],
-                deterministic: bool = True) -> Dict[str, Any]:
+    def forward(self, batch: Mapping[str, torch.Tensor], deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        with draws(generator, active=not deterministic):
+            return self._forward(batch, deterministic)
+
+    def _forward(self, batch: Mapping[str, torch.Tensor], deterministic: bool) -> Dict[str, Any]:
         text = self.base.forward_text_encoder(batch["caption_input_ids"],
                                               batch["caption_input_mask"],
                                               batch.get("caption_segment_ids"))

@@ -30,7 +30,8 @@ from torch import nn
 
 from antmmf_torch.common.registry import registry
 from antmmf_torch.models.univl import UnivlVideoBase, config_keys
-from antmmf_torch.modules.decoders import LanguageDecoder, refuse_dropout
+from antmmf_torch.modules.decoders import LanguageDecoder
+from antmmf_torch.modules.layers import draws
 from antmmf_torch.utils.text_utils import beam_search, beam_search_cached
 
 
@@ -41,14 +42,14 @@ class UnivlForVideoCaptioning(nn.Module):
                  decoder_layers: int = 3, decoder_heads: int = 8, max_caption_len: int = 40,
                  dropout: float = 0.0, dtype_str: str = "bfloat16", device=None):
         super().__init__()
-        refuse_dropout(dropout, "univl_caption")
         self.dtype = getattr(torch, dtype_str)
         self.decoder_heads, self.max_caption_len = decoder_heads, max_caption_len
         self.base = UnivlVideoBase(vit_preset, image_size, bert_preset, embed_dim, n_clips,
-                                   dtype=self.dtype, device=device, with_text=False)
+                                   dtype=self.dtype, device=device, with_text=False,
+                                   dropout=dropout)
         self.decoder = LanguageDecoder(self.base.vocab_size, self.base.visual_hidden,
                                        decoder_layers, decoder_heads, max_caption_len,
-                                       dtype=self.dtype, device=device)
+                                       dropout, dtype=self.dtype, device=device)
 
     @classmethod
     def from_config(cls, config: Mapping[str, Any], device=None) -> "UnivlForVideoCaptioning":
@@ -68,11 +69,15 @@ class UnivlForVideoCaptioning(nn.Module):
     def _first(batch: Mapping[str, Any], *keys: str):
         return next((batch[k] for k in keys if k in batch), None)
 
-    def forward(self, batch: Mapping[str, torch.Tensor], deterministic: bool = True) -> Dict:
-        memory, memory_mask = self._memory(batch)
-        tokens = self._first(batch, "generation_input_ids", "caption_raw_input_ids",
-                             "caption_input_ids")
-        logits = self.decoder(tokens, memory, memory_mask)  # fp32 [B, L, V]
+    def forward(self, batch: Mapping[str, torch.Tensor], deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> Dict:
+        """The teacher-forced loss; a training forward (``deterministic``
+        False) draws its dropout masks from ``generator``."""
+        with draws(generator, active=not deterministic):
+            memory, memory_mask = self._memory(batch)
+            tokens = self._first(batch, "generation_input_ids", "caption_raw_input_ids",
+                                 "caption_input_ids")
+            logits = self.decoder(tokens, memory, memory_mask)  # fp32 [B, L, V]
         out: Dict[str, Any] = {"logits": logits}
         mask = self._first(batch, "generation_input_mask", "caption_input_mask")
         if mask is not None:

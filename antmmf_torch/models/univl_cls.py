@@ -25,7 +25,7 @@ class UnivlForClassification(UnivlForVideoTextRetrieval):
         self.cls_head = ClassifierLayer("mlp", 4 * embed_dim, num_labels, num_layers=2,
                                         dtype=self.dtype, device=device)
 
-    def forward(self, batch: Mapping[str, torch.Tensor], deterministic: bool = True) -> Dict:
+    def _forward(self, batch: Mapping[str, torch.Tensor], deterministic: bool) -> Dict:
         t = self.base.forward_text_encoder(batch["caption_input_ids"],
                                            batch["caption_input_mask"],
                                            batch.get("caption_segment_ids"))["text_embed"]

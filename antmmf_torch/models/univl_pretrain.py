@@ -38,8 +38,9 @@ on the towers and cross-encoder of ``models/univl.py``:
 
 The output holds ``losses``, ``metrics``, ``text_embed``, ``visual_embed``
 and, with their objectives, ``sim``/``l1_simi``, ``itm_logits`` and
-``mlm_logits``; ``logits`` is ``sim`` (else the first loss). Dropout
-raises until it is ported.
+``mlm_logits``; ``logits`` is ``sim`` (else the first loss). ``dropout``
+reaches the towers and the cross-encoder, its masks drawn in training from
+the same generator.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from torch import nn
 
 from antmmf_torch.common.registry import registry
 from antmmf_torch.models.univl import UnivlVideoBase, clip_similarity
+from antmmf_torch.modules.layers import draws
 from antmmf_torch.modules.losses.contrastive import symmetric_cross_en
 from antmmf_torch.modules.transformers.heads.fom import FOMHead
 from antmmf_torch.modules.transformers.heads.itm import ITMHead
@@ -77,8 +79,6 @@ class UnivlForVideoPretraining(nn.Module):
                  fom_shuffle_prob: float = 0.15, init_logit_scale: float = 2.6592,
                  dtype_str: str = "bfloat16", device=None):
         super().__init__()
-        if dropout:
-            raise NotImplementedError(f"dropout {dropout} is not ported yet; only 0 is")
         dtype = getattr(torch, dtype_str)
         self.with_vtc, self.with_vtm, self.with_mlm = with_vtc, with_vtm, with_mlm
         self.dual_mlm, self.with_fom, self.fom_shuffle_prob = dual_mlm, with_fom, fom_shuffle_prob
@@ -86,7 +86,8 @@ class UnivlForVideoPretraining(nn.Module):
         self.mask_token_id = mask_token_id
         self.base = UnivlVideoBase(vit_preset, image_size, bert_preset, embed_dim, n_clips,
                                    with_cross_encoder=True, cross_layers=cross_layers,
-                                   dtype=dtype, device=device, cross_sim_head=False)
+                                   dtype=dtype, device=device, cross_sim_head=False,
+                                   dropout=dropout)
         self.logit_scale = nn.Parameter(
             torch.tensor(init_logit_scale, dtype=torch.float32, device=device))
         emb = self.base.text_encoder.embeddings.word_embeddings
@@ -164,6 +165,11 @@ class UnivlForVideoPretraining(nn.Module):
 
     def forward(self, batch: Mapping[str, torch.Tensor], deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        with draws(generator, active=not deterministic):
+            return self._forward(batch, deterministic, generator)
+
+    def _forward(self, batch: Mapping[str, torch.Tensor], deterministic: bool,
+                 generator: Optional[torch.Generator]) -> Dict[str, Any]:
         losses: Dict[str, torch.Tensor] = {}
         metrics: Dict[str, torch.Tensor] = {}
         input_ids, input_mask = batch["caption_input_ids"], batch["caption_input_mask"]

@@ -20,8 +20,10 @@ batch's ``itm_labels`` (else ``arange(B) % 2``; ``itm_loss``, ``itm_acc``)
 and, with ``with_mrc``, MRC over the region positions, right after the
 caption's (``masked_region_classification``, ``mrc_acc``). ``logits`` is
 the MLM's, else the ITM's. Without the grid stream the ViT is not built,
-as the JAX tree has no parameters for it. Dropout > 0 in the towers and the
-cross-encoder raises until it is ported.
+as the JAX tree has no parameters for it. ``dropout`` reaches the towers,
+the OCR embeddings and the cross-encoder, not the region encoder (which
+keeps its own 0.1, as in JAX); a training forward draws every mask from
+the same generator.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from antmmf_torch.common.registry import registry
 from antmmf_torch.models.layoutlm import LayoutEmbeddings
 from antmmf_torch.models.univl import UnivlVideoBase
 from antmmf_torch.modules.encoders.image_feature_encoder import ImageFeatureEncoder
+from antmmf_torch.modules.layers import draws
 from antmmf_torch.modules.transformers.heads.itm import ITMHead
 from antmmf_torch.modules.transformers.heads.mlm import MLMHead
 from antmmf_torch.modules.transformers.heads.mrc import MRCHead
@@ -56,16 +59,13 @@ class UnivlRoiModel(nn.Module):
                  ocr_layout_max_position: int = 1024, dropout: float = 0.0,
                  dtype_str: str = "bfloat16", device=None):
         super().__init__()
-        if dropout:
-            raise NotImplementedError(f"dropout {dropout} in the towers and the cross-encoder "
-                                      f"is not ported yet; only 0 is")
         dtype = getattr(torch, dtype_str)
         self.with_grid_stream, self.with_mlm, self.with_itm = with_grid_stream, with_mlm, with_itm
         self.with_mrc, self.ocr_layout = with_mrc, ocr_layout
         self.base = UnivlVideoBase(vit_preset, image_size, bert_preset, embed_dim, n_clips,
                                    with_cross_encoder=True, cross_layers=cross_layers,
                                    dtype=dtype, device=device, cross_sim_head=False,
-                                   with_visual=with_grid_stream)
+                                   with_visual=with_grid_stream, dropout=dropout)
         emb = self.base.text_encoder.embeddings.word_embeddings
         vocab, text_hidden = emb.num_embeddings, emb.embedding_dim
         cross_width = self.base.cross_pooler.in_features
@@ -123,6 +123,11 @@ class UnivlRoiModel(nn.Module):
 
     def forward(self, batch: Mapping[str, torch.Tensor], deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        with draws(generator, active=not deterministic):
+            return self._forward(batch, deterministic, generator)
+
+    def _forward(self, batch: Mapping[str, torch.Tensor], deterministic: bool,
+                 generator: Optional[torch.Generator]) -> Dict[str, Any]:
         ids, mask = batch["caption_input_ids"], batch["caption_input_mask"]
         B, Lt = ids.shape
         text = self.base.forward_text_encoder(ids, mask, batch.get("caption_segment_ids"))

@@ -16,6 +16,9 @@ before any kernel is tried:
 * the same biases past 256 tokens, or Lq ≠ Lk: ``ops.flash_attention`` (the
   flash forward, dQ and dK/dV kernels).
 
+``dropout`` acts on the heads' attention output before ``out_proj``, as the
+JAX module drops it (not the probabilities), so the kernels see no dropout.
+
 A call that asks for the attention probabilities (``return_probs``, the
 word-importance pass) takes the einsum core by structure, as the JAX
 module takes its XLA core for them: the kernels return no probabilities.
@@ -34,6 +37,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from antmmf_torch.modules.layers import Dropout
 from antmmf_torch.ops.flash_attention import flash_attention
 from antmmf_torch.ops.small_attention import HEAD_DIMS, MAX_L, einsum_attention, small_attention
 
@@ -87,9 +91,14 @@ class MultiHeadAttention(nn.Module):
       row attends to slots <= its position, and the call returns
       (out, cache);
     * ``return_probs``: (out, probabilities [B, H, Lq, Lk]) from the einsum
-      core."""
+      core.
 
-    def __init__(self, dim: int, num_heads: int, dtype=torch.bfloat16, device=None):
+    ``dropout`` drops the attention output of the self- and cross-attention
+    calls (not of the decode branches), in a training forward's ``draws``
+    scope."""
+
+    def __init__(self, dim: int, num_heads: int, dtype=torch.bfloat16, device=None,
+                 dropout: float = 0.0):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"width {dim} is not divisible by {num_heads} heads")
@@ -99,6 +108,7 @@ class MultiHeadAttention(nn.Module):
         self.k_proj = nn.Linear(dim, dim, **kw)
         self.v_proj = nn.Linear(dim, dim, **kw)
         self.out_proj = nn.Linear(dim, dim, **kw)
+        self.dropout = Dropout(dropout)
 
     def _heads(self, t: torch.Tensor) -> torch.Tensor:
         # a strided [B, H, L, D] view of [B, L, H, D]: the kernels read it in
@@ -137,5 +147,6 @@ class MultiHeadAttention(nn.Module):
         k, v = self._heads(self.k_proj(kv)), self._heads(self.v_proj(kv))
         if return_probs:
             probs = attention_probs(q, k, bias)
-            return self._out(torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)), probs
-        return self._out(attention_core(q, k, v, bias=bias))
+            out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
+            return self._out(self.dropout(out)), probs
+        return self._out(self.dropout(attention_core(q, k, v, bias=bias)))

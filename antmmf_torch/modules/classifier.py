@@ -18,7 +18,9 @@ parameter names:
 
 Dense layers compute in ``dtype`` (their input is cast to it, as flax's
 Dense casts); the raw parameters (``weight``, ``scale``, ``queries``) stay
-fp32, cast at use. Dropout raises with its rate until it is ported.
+fp32, cast at use. ``dropout`` drops after each ``mlp`` layer's gelu, the
+``bert`` head's input and inside the ``transformer_decoder``'s decoder, as
+the JAX module does.
 """
 
 from __future__ import annotations
@@ -28,8 +30,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from antmmf_torch.modules.decoders import TransformerDecoder, refuse_dropout
-from antmmf_torch.modules.layers import ACTIVATIONS, LayerNorm, normal_
+from antmmf_torch.modules.decoders import TransformerDecoder
+from antmmf_torch.modules.layers import ACTIVATIONS, Dropout, LayerNorm, normal_
 
 TYPES = ("logit", "mlp", "weight_norm", "bert", "transformer_decoder")
 
@@ -41,7 +43,7 @@ class ClassifierLayer(nn.Module):
         super().__init__()
         if classifier_type not in TYPES:
             raise ValueError(f"Unknown classifier type {classifier_type!r}")
-        refuse_dropout(dropout, f"ClassifierLayer {classifier_type}")
+        self.dropout = Dropout(dropout)
         self.classifier_type, self.num_layers, self.dtype = classifier_type, num_layers, dtype
         kw = dict(dtype=dtype, device=device)
         if classifier_type == "logit":
@@ -63,7 +65,7 @@ class ClassifierLayer(nn.Module):
         else:
             self.queries = nn.Parameter(torch.empty(1, in_dim, device=device))
             self.decoder = TransformerDecoder(in_dim, num_layers, max(1, in_dim // 64),
-                                              dtype=dtype, device=device)
+                                              dropout=dropout, dtype=dtype, device=device)
             self.out = nn.Linear(in_dim, num_labels, **kw)
 
     def init_params(self, generator: torch.Generator) -> None:
@@ -84,7 +86,7 @@ class ClassifierLayer(nn.Module):
         if kind == "mlp":
             x = x.to(self.dtype)
             for i in range(self.num_layers):
-                x = gelu(getattr(self, f"fc{i}")(x))
+                x = self.dropout(gelu(getattr(self, f"fc{i}")(x)))
             return self.out(x)
         if kind == "weight_norm":
             x = self.LayerNorm_0(x)
@@ -93,7 +95,7 @@ class ClassifierLayer(nn.Module):
             # the matmul in x's dtype; the fp32 scale promotes, as in JAX
             return (x @ w.to(x.dtype)).float() * self.scale
         if kind == "bert":
-            x = gelu(self.transform(x.to(self.dtype)))
+            x = gelu(self.transform(self.dropout(x).to(self.dtype)))
             return self.out(self.transform_ln(x))
         B = x.shape[0]
         memory = x[:, None] if x.dim() == 2 else x

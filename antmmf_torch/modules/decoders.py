@@ -14,8 +14,9 @@ row against per-layer self-attention caches {"k", "v"} [B, H, T, D], which
 each layer writes in place at the row's position. The decoder's attention
 goes to the einsum core wherever its head width is outside the kernels'
 (the captioning decoder's 768 over 8 heads is 96 wide), and its decode
-calls always do, as the JAX package sends them to XLA. Dropout raises with
-its rate until it is ported.
+calls always do, as the JAX package sends them to XLA. ``dropout`` drops
+the self- and cross-attention outputs and the MLP's activations of the
+teacher-forced pass; the decode branches never draw.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 from torch import nn
 
 from antmmf_torch.modules.attention import MASKED, MultiHeadAttention
-from antmmf_torch.modules.layers import LayerNorm, Mlp, make_attention_mask
+from antmmf_torch.modules.layers import LayerNorm, Mlp, draws, make_attention_mask
 
 Cache = Dict[str, torch.Tensor]
 MemKV = Tuple[torch.Tensor, torch.Tensor]
@@ -38,19 +39,13 @@ def causal_bias(length: int, device=None) -> torch.Tensor:
     return torch.where(mask, 0.0, MASKED)[None, None]
 
 
-def refuse_dropout(dropout: float, where: str) -> None:
-    if dropout:
-        raise NotImplementedError(f"{where}: dropout {dropout} is not ported yet; only 0 is")
-
-
 class TransformerDecoderLayer(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, dropout: float = 0.0,
                  dtype=torch.bfloat16, device=None):
         super().__init__()
-        refuse_dropout(dropout, "TransformerDecoderLayer")
-        self.self_attention = MultiHeadAttention(dim, num_heads, dtype, device)
-        self.cross_attention = MultiHeadAttention(dim, num_heads, dtype, device)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), "gelu", dtype, device)
+        self.self_attention = MultiHeadAttention(dim, num_heads, dtype, device, dropout)
+        self.cross_attention = MultiHeadAttention(dim, num_heads, dtype, device, dropout)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), "gelu", dtype, device, dropout)
         self.norm1, self.norm2, self.norm3 = (LayerNorm(dim, dtype=dtype, device=device)
                                               for _ in range(3))
 
@@ -68,7 +63,8 @@ class TransformerDecoderLayer(nn.Module):
                                                 decode_pos=decode_pos)
             x = x + a
             x = x + self.cross_attention(self.norm2(x), cross_bias, cached_kv=mem_kv)
-            return x + self.mlp(self.norm3(x)), self_cache
+            with draws(None, active=False):
+                return x + self.mlp(self.norm3(x)), self_cache
         x = x + self.self_attention(self.norm1(x), self_bias)
         x = x + self.cross_attention(self.norm2(x), cross_bias, kv=memory)
         return x + self.mlp(self.norm3(x))

@@ -2,9 +2,10 @@
 
 Port of ``antmmf_tpu/modules/embeddings.py``: ``TextEmbeddings`` (word +
 position + token type, plus an optional additive ``extra`` such as
-LayoutLM's box embeddings, then fp32 LayerNorm), ``PatchEmbed`` (the stride-p
-VALID convolution over NHWC images with an HWIO kernel) and
-``VisualEmbeddings`` (patches + CLS token + learned positions).
+LayoutLM's box embeddings, then fp32 LayerNorm and dropout), ``PatchEmbed``
+(the stride-p VALID convolution over NHWC images with an HWIO kernel) and
+``VisualEmbeddings`` (patches + CLS token + learned positions, then
+dropout). The dropout rates default to the JAX modules' (0.1 and 0).
 """
 
 from __future__ import annotations
@@ -14,21 +15,24 @@ from typing import Optional
 import torch
 from torch import nn
 
-from antmmf_torch.modules.layers import LayerNorm, normal_
+from antmmf_torch.modules.layers import Dropout, LayerNorm, normal_
 
 
 class TextEmbeddings(nn.Module):
-    """BERT-style: word + learned position + token type, then LayerNorm."""
+    """BERT-style: word + learned position + token type, then LayerNorm and
+    dropout."""
 
     def __init__(self, vocab_size: int, hidden_size: int,
                  max_position_embeddings: int = 512, type_vocab_size: int = 2,
-                 layer_norm_eps: float = 1e-12, dtype=torch.bfloat16, device=None):
+                 layer_norm_eps: float = 1e-12, dtype=torch.bfloat16, device=None,
+                 dropout: float = 0.1):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.word_embeddings = nn.Embedding(vocab_size, hidden_size, **kw)
         self.position_embeddings = nn.Embedding(max_position_embeddings, hidden_size, **kw)
         self.token_type_embeddings = nn.Embedding(type_vocab_size, hidden_size, **kw)
         self.layer_norm = LayerNorm(hidden_size, layer_norm_eps, dtype, device)
+        self.dropout = Dropout(dropout)
 
     def forward(self, input_ids: torch.Tensor, segment_ids: Optional[torch.Tensor] = None,
                 extra: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -41,7 +45,7 @@ class TextEmbeddings(nn.Module):
              + self.token_type_embeddings(segment_ids))
         if extra is not None:
             x = x + extra.to(x.dtype)
-        return self.layer_norm(x)
+        return self.dropout(self.layer_norm(x))
 
 
 class PatchConv(nn.Linear):
@@ -85,9 +89,11 @@ class VisualEmbeddings(nn.Module):
     bilinear resize of the position table, which is not ported."""
 
     def __init__(self, image_size: int = 224, patch_size: int = 32,
-                 embed_dim: int = 768, dtype=torch.bfloat16, device=None):
+                 embed_dim: int = 768, dtype=torch.bfloat16, device=None,
+                 dropout: float = 0.0):
         super().__init__()
         self.image_size = image_size
+        self.dropout = Dropout(dropout)
         self.patch_embed = PatchEmbed(patch_size, embed_dim, dtype, device)
         n = (image_size // patch_size) ** 2 + 1
         self.pos_embedding = nn.Parameter(torch.zeros(n, embed_dim, dtype=dtype, device=device))
@@ -104,4 +110,4 @@ class VisualEmbeddings(nn.Module):
                              f"sizes is not ported)")
         tokens = self.patch_embed(images)
         cls = self.cls_token.expand(B, 1, tokens.shape[-1])
-        return torch.cat([cls, tokens], dim=1) + self.pos_embedding
+        return self.dropout(torch.cat([cls, tokens], dim=1) + self.pos_embedding)

@@ -3,9 +3,13 @@
 Port of ``antmmf_tpu/modules/layers.py``: ``LayerNorm`` computes in fp32 and
 casts back to the compute dtype, ``Mlp`` is fc1 → activation → fc2, and
 ``make_attention_mask`` turns a 1/0 validity mask into an additive fp32 key
-bias. ``Dropout`` draws its keep mask from an explicit ``torch.Generator``
-(the trainer's ``TrainState`` generator), only when the call is not
-deterministic. Linear weights are held in the compute dtype, which is exactly the
+bias. ``Dropout`` (inverted dropout) and ``DropPath`` (stochastic depth:
+one keep draw a sample) draw from an explicit ``torch.Generator`` (the
+trainer's ``TrainState`` generator), only when the call is not
+deterministic. A model's training forward opens ``draws(generator)``; a
+``Dropout`` or ``DropPath`` called inside it without its own
+``deterministic`` draws from that generator, and outside any such scope it
+is the identity, as the JAX modules are with ``deterministic=True``. Linear weights are held in the compute dtype, which is exactly the
 JAX package's per-call cast of its fp32 kernels; norms keep fp32 parameters.
 ``checkpointed`` runs a layer under activation recomputation, the port of
 the JAX package's ``nn.remat``.
@@ -13,8 +17,10 @@ the JAX package's ``nn.remat``.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Optional
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -68,11 +74,96 @@ ACTIVATIONS = {
 }
 
 
+# the innermost ``draws`` scope of this thread or task: (active, generator),
+# a context variable as torch keeps its grad mode
+_DRAWS: contextvars.ContextVar[Tuple[bool, Optional[torch.Generator]]] = \
+    contextvars.ContextVar("draws", default=(False, None))
+
+
+@contextlib.contextmanager
+def draws(generator: Optional[torch.Generator], active: bool = True) -> Iterator[None]:
+    """The scope of a forward: with ``active`` (a training forward, the JAX
+    package's ``deterministic=False``) the ``Dropout`` and ``DropPath``
+    calls inside draw from ``generator``; without, they are the identity (a
+    pass the JAX package runs with ``deterministic=True`` inside a training
+    forward, such as the word-importance pass)."""
+    token = _DRAWS.set((active, generator))
+    try:
+        yield
+    finally:
+        _DRAWS.reset(token)
+
+
+def _draw_args(deterministic: Optional[bool], generator: Optional[torch.Generator]):
+    """(deterministic, generator) of a call: its own, else the innermost
+    ``draws`` scope's; outside any scope, deterministic."""
+    if deterministic is not None:
+        return deterministic, generator
+    active, scoped = _DRAWS.get()
+    return not active, generator if generator is not None else scoped
+
+
+class _Drop(nn.Module):
+    """A training draw at ``rate`` in [0, 1): at rate 0 a call returns its
+    input before the module call's hooks, so the path costs one check."""
+
+    def __init__(self, rate: float, what: str):
+        super().__init__()
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(f"{what} rate {rate} is not in [0, 1)")
+        self.rate = rate
+
+    def __call__(self, x: torch.Tensor, *args, **kwargs) -> torch.Tensor:
+        return x if self.rate == 0.0 else super().__call__(x, *args, **kwargs)
+
+
+class Dropout(_Drop):
+    """Inverted dropout at ``rate``: each entry is kept with probability
+    1 − rate and scaled by 1 / (1 − rate). ``forward(x, deterministic,
+    generator)`` is the identity when deterministic (evaluation) or at rate
+    0, and otherwise draws one uniform an entry from the generator (both
+    from the ``draws`` scope where the call does not pass them). flax draws
+    its mask from the ``dropout`` rng stream, which torch cannot reproduce:
+    the masks agree with JAX's by their statistics only."""
+
+    def __init__(self, rate: float):
+        super().__init__(rate, "dropout")
+
+    def forward(self, x: torch.Tensor, deterministic: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        deterministic, generator = _draw_args(deterministic, generator)
+        if deterministic or self.rate == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - self.rate
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+
+
+class DropPath(_Drop):
+    """Stochastic depth at ``rate`` (``antmmf_tpu/modules/layers.py``
+    ``DropPath``): the whole residual branch of a sample is kept with
+    probability 1 − rate and scaled by 1 / (1 − rate), one uniform a sample
+    (a keep mask of shape (B, 1, …)). Deterministic and drawn as
+    ``Dropout``."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__(rate, "drop_path")
+
+    def forward(self, x: torch.Tensor, deterministic: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        deterministic, generator = _draw_args(deterministic, generator)
+        if deterministic or self.rate == 0.0:
+            return x
+        keep_prob = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        keep = torch.rand(shape, generator=generator, device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
 class Mlp(nn.Module):
-    """Transformer FFN: fc1 → activation → fc2."""
+    """Transformer FFN: fc1 → activation → dropout → fc2 → dropout."""
 
     def __init__(self, dim: int, hidden_dim: int, activation: str = "gelu",
-                 dtype=torch.bfloat16, device=None):
+                 dtype=torch.bfloat16, device=None, dropout: float = 0.0):
         super().__init__()
         if activation not in ACTIVATIONS:
             raise ValueError(f"Unknown activation {activation!r}; known: "
@@ -80,31 +171,10 @@ class Mlp(nn.Module):
         self.act = ACTIVATIONS[activation]
         self.fc1 = nn.Linear(dim, hidden_dim, dtype=dtype, device=device)
         self.fc2 = nn.Linear(hidden_dim, dim, dtype=dtype, device=device)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.act(self.fc1(x)))
-
-
-class Dropout(nn.Module):
-    """Inverted dropout at ``rate``: each entry is kept with probability
-    1 − rate and scaled by 1 / (1 − rate). ``forward(x, deterministic,
-    generator)`` is the identity when ``deterministic`` (evaluation) or at
-    rate 0, and otherwise draws one uniform a entry from ``generator``. flax
-    draws its mask from the ``dropout`` rng stream, which torch cannot
-    reproduce: the masks agree with JAX's by their statistics only."""
-
-    def __init__(self, rate: float):
-        super().__init__()
-        if not 0.0 <= rate < 1.0:
-            raise ValueError(f"dropout rate {rate} is not in [0, 1)")
-        self.rate = rate
-
-    def forward(self, x: torch.Tensor, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if deterministic or self.rate == 0.0:
-            return x
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - self.rate
-        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+        return self.dropout(self.fc2(self.dropout(self.act(self.fc1(x)))))
 
 
 def make_attention_mask(pad_mask: torch.Tensor) -> torch.Tensor:
@@ -160,10 +230,10 @@ def checkpointed(layer: nn.Module, *args, **kwargs):
     non-reentrant ``torch.utils.checkpoint``: the reentrant form gives the
     parameters no gradient when no input of the layer needs one (a frozen
     tower, the first layer behind a frozen embedding). A layer that draws
-    (a ``Dropout`` above rate 0) is refused: its recompute would draw
-    another mask from the explicit generator, which ``preserve_rng_state``
-    does not restore."""
-    if any(isinstance(m, Dropout) and m.rate > 0 for m in layer.modules()):
+    (a ``Dropout`` or ``DropPath`` above rate 0) is refused: its recompute
+    would draw another mask from the explicit generator, which
+    ``preserve_rng_state`` does not restore."""
+    if any(isinstance(m, _Drop) and m.rate > 0 for m in layer.modules()):
         raise ValueError(f"remat of a {type(layer).__name__} that holds a dropout above 0: "
                          f"its recompute would draw another mask")
     return checkpoint(layer, *args, use_reentrant=False, **kwargs)

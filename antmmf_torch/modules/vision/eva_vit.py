@@ -13,7 +13,10 @@ product only when ``image_size`` is a multiple of the patch, so other sizes
 are refused. Head width 88 is in neither kernel family's ``HEAD_DIMS``:
 attention takes the einsum core by structure, as JAX takes its XLA core at
 these lengths. ``remat`` recomputes each layer in the backward (training
-with gradients only). Dropout is not ported (ROADMAP A4c).
+with gradients only). ``dropout`` drops after the positions and inside each
+layer, as JAX's tower does (a training forward's ``draws`` scope); Pink
+never passes one, so its tower runs at 0. remat refuses a layer that draws
+(``layers.checkpointed``).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 from torch import nn
 
 from antmmf_torch.modules.embeddings import PatchConv
-from antmmf_torch.modules.layers import checkpointed, normal_
+from antmmf_torch.modules.layers import Dropout, checkpointed, normal_
 from antmmf_torch.modules.transformers.base import TransformerLayer
 
 EVA_PRESETS = {
@@ -42,18 +45,17 @@ class EvaVisionTransformer(nn.Module):
         if image_size % patch_size:
             raise ValueError(f"image_size {image_size} is not a multiple of the patch "
                              f"{patch_size}: flax pads SAME there, the port only VALID")
-        if dropout:
-            raise NotImplementedError(f"EVA dropout {dropout} is not ported yet")
         self.image_size, self.num_layers, self.remat = image_size, num_layers, remat
         self.patch_embed = PatchConv(patch_size, embed_dim, dtype, device)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim, dtype=dtype, device=device))
+        self.dropout = Dropout(dropout)
         n_tokens = (image_size // patch_size) ** 2 + 1
         self.pos_embed = nn.Parameter(torch.zeros(1, n_tokens, embed_dim, dtype=dtype,
                                                   device=device))
         for i in range(num_layers):
             self.add_module(f"layer_{i}", TransformerLayer(
                 embed_dim, num_heads, mlp_ratio, "gelu_exact", "pre", layer_norm_eps, dtype,
-                device))
+                device, dropout=dropout))
 
     def init_params(self, generator: torch.Generator) -> None:
         normal_(self.cls_token, 0.02, generator)
@@ -67,6 +69,7 @@ class EvaVisionTransformer(nn.Module):
                              f"got {H}x{W}")
         x = self.patch_embed(images)
         x = torch.cat([self.cls_token.expand(B, 1, x.shape[-1]), x], dim=1) + self.pos_embed
+        x = self.dropout(x)
         remat = self.remat and torch.is_grad_enabled()
         for i in range(self.num_layers):
             layer = getattr(self, f"layer_{i}")

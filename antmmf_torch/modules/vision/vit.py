@@ -4,8 +4,10 @@ Port of ``antmmf_tpu/modules/vision/vit.py``: NHWC images → patch embeddings
 → ``pre_norm`` → pre-LN encoder (quick-GELU, final LayerNorm unless
 ``final_norm`` is off) → CLS pooling. A tower read at an inner layer (Pink's
 ``clip_select_layer``) is built with fewer layers and no final norm;
-``remat`` recomputes its layers in the backward. The JAX
-module's output projection and activation switch are not ported.
+``remat`` recomputes its layers in the backward. ``dropout`` drops after
+the embeddings and inside the stack, ``drop_path`` ramps over the layers
+(uniform with ``scan_layers``; ``TransformerEncoder``). The JAX module's
+output projection and activation switch are not ported.
 """
 
 from __future__ import annotations
@@ -31,13 +33,16 @@ class VisionTransformer(nn.Module):
     def __init__(self, image_size: int = 224, patch_size: int = 32,
                  embed_dim: int = 768, num_layers: int = 12, num_heads: int = 12,
                  token_merge_r: int = 0, final_norm: bool = True, remat: bool = False,
-                 dtype=torch.bfloat16, device=None):
+                 dtype=torch.bfloat16, device=None, dropout: float = 0.0,
+                 drop_path: float = 0.0, scan_layers: bool = False):
         super().__init__()
-        self.embeddings = VisualEmbeddings(image_size, patch_size, embed_dim, dtype, device)
+        self.embeddings = VisualEmbeddings(image_size, patch_size, embed_dim, dtype, device,
+                                           dropout)
         self.pre_norm = LayerNorm(embed_dim, 1e-5, dtype, device)
         self.encoder = TransformerEncoder(
             embed_dim, num_layers, num_heads, 4.0, "quick_gelu", "pre", 1e-5,
-            token_merge_r, final_norm, remat, dtype=dtype, device=device)
+            token_merge_r, final_norm, remat, dtype=dtype, device=device, dropout=dropout,
+            drop_path=drop_path, scan_layers=scan_layers)
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """images float[B, H, W, 3] → dict(sequence [B, N, C], pooled [B, C])."""

@@ -4,7 +4,7 @@
     python3 chip_smoke.py --calibrate  # the card-vs-CPU readings: seeds and planted faults
     python3 chip_smoke.py --calibrate dmae  # one part: serving, training, pink, pretraining,
                                             # dmae, task_heads, roi, pink_train, pink_7b,
-                                            # m2_omni
+                                            # m2_omni, m2_train
 
 Phases, each printing JSON lines; a failing phase ends the script with a
 non-zero code and no result line:
@@ -272,12 +272,35 @@ non-zero code and no result line:
    raster order, the L2 normalisation dropped, the audio convolutions
    padded (1, 1)). Phase 2 holds ``flash_fwd`` at its prefill [1, 32, 640,
    128] and K1 at [1, 4, 64, 128]; phase 7 times both beside SDPA.
+20. M2-omni LoRA training (``m2_omni_7b.yml`` under ``recipe_opts`` of
+   ``models/m2_omni.py``: LoRA 8 on the decoder's seven projections and on
+   every Qwen2-ViT block, only the adapters, ``vision_proj`` and
+   ``audio_proj`` train; remat, ``scan_layers``, AdamW lr 2e-5 with a bf16
+   first moment, accumulation 2), seeded on the card, through
+   ``build_optimizer`` and ``make_train_step``: (a) at full width and depth,
+   updates of two micro-batches of 4 conversations of 640 slots from the
+   unified processor (images, two of them with audio and text; then 4-frame
+   videos at 392²), labels over the assistant's answer: 2 warm-up, 4 timed and 2
+   profiled updates (p50/p95 ms, tokens/s, busy and idle share, flash ms,
+   peak memory, optimizer-state bytes, 128 ``flash_fwd``, 64 ``flash_dq``,
+   64 ``flash_dkv`` and 4 K1 launches an update asserted), finite losses,
+   every trainable master moved and every frozen one bit-unchanged; (b) one
+   update of B=1 conversations with a 16-frame video (2,048 video slots of
+   2,304), so the LM loss takes its chunked path, and its peak memory; (c)
+   card bf16 vs CPU fp32 at 2 of 32 decoder layers and 2 of 32 blocks, B=1
+   (the loss and the trainable gradients' cosines), held to the bounds
+   ``--calibrate m2_train`` reads and three planted faults outside them
+   (the decoder's LoRA scaling doubled, the vision tokens detached, the
+   audio convolutions padded (1, 1)). Phase 2 holds the flash family at its
+   micro-batch [4, 32, 640, 128] (causal, right-padded), phase 7 times it
+   beside SDPA's backward.
 
 Each path (serving, each training leg, each Pink request, the trainer, the
 pretraining step and trainer, each part of phase 14 but its card-vs-CPU
 comparison, each caption request, bare step and trainer run of phase 15,
 each bare step and trainer run of phase 16, phase 17's trainer runs,
-phase 18's runs and served requests, phase 19's requests)
+phase 18's runs and served requests, phase 19's requests, phase 20's
+warm-up updates and its chunked-loss update)
 runs
 with the kernels' launch counts set to 0 just before it and read just after;
 launches made to compare a kernel with its plain version or to time it are
@@ -315,6 +338,10 @@ from antmmf_torch.common.build import build_config  # noqa: E402
 from antmmf_torch.common.checkpoint import Checkpoint  # noqa: E402
 from antmmf_torch.datasets.loader import DataLoader  # noqa: E402
 from antmmf_torch.models.base_model import build_model  # noqa: E402
+from antmmf_torch.datasets.processors.m2omni_processing import (  # noqa: E402
+    M2OmniUnifiedProcessor,
+)
+from antmmf_torch.models.m2_omni import recipe_opts as m2_recipe_opts  # noqa: E402
 from antmmf_torch.models.pink import LM_PRESETS, recipe_opts  # noqa: E402
 from antmmf_torch.modules.vision.eva_vit import EVA_PRESETS  # noqa: E402
 from antmmf_torch.modules.vision.qwen2_vit import QWEN2_VIT_PRESETS  # noqa: E402
@@ -352,6 +379,7 @@ from antmmf_torch.optimizer.build import build_optimizer  # noqa: E402
 from antmmf_torch.predictors.cli import build_predictor  # noqa: E402
 from antmmf_torch.predictors.m2_omni_serving import (  # noqa: E402
     M2_OMNI_7B,
+    SERVING_PIXELS,
     SERVING_SEQ_LEN,
     serving_opts,
 )
@@ -778,6 +806,10 @@ def flash_cases(gen):
     # causal, 32 heads of 128, k/v the 8 kv heads repeated
     q, k, v, bias = m2_prefill_qkv(gen)
     yield "m2_prefill_L640_h32_d128_causal_padded", q, k, v, bias, True
+    # M2-omni's training micro-batch (phase 20): 4 right-padded conversations
+    # of 640 slots, causal, 32 heads of 128, k/v the 8 kv heads repeated
+    q, k, v, bias = m2_train_qkv(gen)
+    yield "m2_train_L640_h32_d128_causal_ragged", q, k, v, bias, True
     # Pink's training step (phase 17): 49 vision keys then 256 text keys with
     # ragged padding, causal, 16 heads of 128, k/v the 4 kv heads repeated
     q, k, v, bias = pink_train_qkv(gen, PINK_TRAIN_BATCH)
@@ -824,6 +856,20 @@ def m2_prefill_qkv(gen, live: int = 430):
     kv = [torch.randn(1, L, 8, 128, generator=gen, device=dev).to(torch.bfloat16)
           .transpose(1, 2).repeat_interleave(4, dim=1) for _ in range(2)]
     bias = make_attention_mask((torch.arange(L, device=dev)[None] < live).long())
+    return (q, *kv, bias)
+
+
+def m2_train_qkv(gen, B: int = 4, lo: int = 300):
+    """M2-omni's training micro-batch at its 640 slots: q [B, 32, 640, 128]
+    in the projection layout, k and v the 8 kv heads repeated to 32, and the
+    key-padding bias [B, 1, 1, 640] of right-padded conversations of ``lo``
+    to 640 live slots."""
+    dev, L = "cuda", SERVING_SEQ_LEN
+    q = torch.randn(B, L, 32, 128, generator=gen, device=dev).to(torch.bfloat16).transpose(1, 2)
+    kv = [torch.randn(B, L, 8, 128, generator=gen, device=dev).to(torch.bfloat16)
+          .transpose(1, 2).repeat_interleave(4, dim=1) for _ in range(2)]
+    lens = torch.randint(lo, L + 1, (B,), generator=gen, device=dev)
+    bias = make_attention_mask((torch.arange(L, device=dev)[None] < lens[:, None]).long())
     return (q, *kv, bias)
 
 
@@ -1259,7 +1305,7 @@ def phase_training(gpu: str):
         timed = times[TRAIN_WARMUP:]
         p50 = float(np.percentile(timed, 50))
         p50s[leg] = p50
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(2):
                 state, _ = step(state, batch)
             torch.cuda.synchronize()
@@ -1649,7 +1695,8 @@ def phase_flash_times(pair_biases: dict, gpu, eval_biases: dict) -> dict:
     """The flash kernels at each training path's pair stream (``case`` →
     key bias), at Pink's training steps (causal, D=128, the ragged text bias:
     16 heads, k/v repeated from 4 kv heads, behind 49 vision keys; 32 heads
-    from 8 kv heads behind 256 EVA keys), the forward alone
+    from 8 kv heads behind 256 EVA keys), at M2-omni's training micro-batch
+    ([4, 32, 640, 128], causal, right-padded), the forward alone
     at each evaluation pair stream (``eval_biases``) and at Pink's causal
     prefill; returns the timing at the last training pair stream (the
     pretraining path's) for the kernel table."""
@@ -1663,6 +1710,11 @@ def phase_flash_times(pair_biases: dict, gpu, eval_biases: dict) -> dict:
         flash_shape_times(bias, gpu, case, (q, k, v), causal=True)
         del q, k, v
         torch.cuda.empty_cache()
+    # M2-omni's training micro-batch (phase 20)
+    q, k, v, bias = m2_train_qkv(torch.Generator(device="cuda").manual_seed(SEED + 9))
+    flash_shape_times(bias, gpu, "m2_omni_train_causal_h32_d128", (q, k, v), causal=True)
+    del q, k, v
+    torch.cuda.empty_cache()
     for case, pair_bias in eval_biases.items():
         flash_fwd_times(pair_bias, gpu, case)
     # the causal prefill of a Pink request: 113 tokens, 16 heads of 128
@@ -1719,7 +1771,7 @@ def phase_trace(walls, gpu, iters=5):
 
     for r in (8, 0):
         full, wall_ms = walls[(r, 32)]
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 full()
         busy_ms, n_ops, top = device_busy(prof, iters)
@@ -1847,7 +1899,7 @@ def phase_pink(rng, gpu):
     # the device's share of one prefill and four steps launched without waiting
     walk_ms = float(np.median(host_ms(lambda: decode_walk(pred, arrays, 4, sync=False), 3,
                                       warmup=1)))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         decode_walk(pred, arrays, 4, sync=False)
     busy, n_ops, top = device_busy(prof, 1)
     step_p50 = float(np.percentile(steps, 50))
@@ -2365,7 +2417,7 @@ def phase_trainer(gpu: str, bare_p50_ms: float) -> int:
             second.state, _ = probe.raw_train_step(second.state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t1) * 1e3 / 2
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(2):
                 second.state, _ = probe.raw_train_step(second.state, batch)
             torch.cuda.synchronize()
@@ -2618,7 +2670,7 @@ def pretrain_bare(gpu: str) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     timed = times[TRAIN_WARMUP:]
     p50 = float(np.percentile(timed, 50))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(2):
             state, _ = step(state, batch)
         torch.cuda.synchronize()
@@ -3001,7 +3053,7 @@ def bare_steps(name: str, gpu: str, shell, state, step, batch, launches: dict, e
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     timed = times[TRAIN_WARMUP:]
     p50 = float(np.percentile(timed, 50))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(2):
             state, _ = step(state, batch)
         torch.cuda.synchronize()
@@ -3459,7 +3511,7 @@ def caption_serving(gpu: str) -> dict:
 
     prime_ms = pct(host_ms(lambda: (prime(), torch.cuda.synchronize()), 10, 2))["p50_ms"]
     p50 = float(np.percentile(timed, 50))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         pred.predict(reqs[1])
         torch.cuda.synchronize()
     busy, n_ops, top = device_busy(prof, 1)
@@ -4523,7 +4575,7 @@ def pink_timed_updates(trainer, warmup: int = 2, timed: int = 6, profiled: int =
     state, _, _, _, _ = pink_updates(step, state, batch, warmup)
     state, out["update_ms"], out["micro_ms"], out["counts"], _ = pink_updates(step, state, batch,
                                                                              timed)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         state, _, _, _, _ = pink_updates(step, state, batch, profiled)
         torch.cuda.synchronize()
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -5340,7 +5392,7 @@ def m2_full_depth(gpu: str) -> dict:
         prefill, steps, logits = m2_walk(pred, arrays, M2_NEW_TOKENS - 1)
         check(bool(torch.isfinite(logits).all().item()), f"m2_omni {name}: non-finite logits")
         wall = host_ms(lambda: m2_walk(pred, arrays, 4, sync=False), 1, warmup=0)[0]
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             m2_walk(pred, arrays, 4, sync=False)
         busy, n_ops, top = device_busy(prof, 1)
         reading = served[name]
@@ -5631,6 +5683,368 @@ def phase_m2_omni(gpu: str) -> dict:
     return counts
 
 
+# ----------------------------------------------------------------- phase 20
+# M2-omni LoRA training at m2_omni_7b.yml's width: ``recipe_opts`` of
+# models/m2_omni.py (LoRA of rank 8 on the decoder's seven projections and
+# on every Qwen2-ViT block; only the adapters, vision_proj and audio_proj
+# train; the yml's remat, scan_layers, AdamW at lr 2e-5 with a bf16 first
+# moment, accumulation over 2 micro-batches), seeded on the card, driven
+# through build_optimizer and make_train_step. An update is two micro-batches
+# of M2_TRAIN_BATCH conversations of phase 19's 640 slots built by the
+# port's unified processor, labels -100 up to the assistant's answer: image
+# conversations (two with audio and text too), then 4-frame videos. A
+# 4-frame video at phase 19's 448² takes 635 of the 640 slots before any
+# answer, so the training videos are resized to 392² (392 video slots)
+M2_TRAIN_BATCH, M2_ACCUM = 4, 2
+M2_TRAIN_WARMUP, M2_TRAIN_TIMED, M2_TRAIN_PROFILED = 2, 4, 2
+M2_VIDEO_FRAMES, M2_VIDEO_PIXELS = 4, 392 * 392
+M2_LONG_FRAMES, M2_LONG_SEQ_LEN = 16, 2304
+M2_ANSWER = "a person walks across a kitchen and opens the window while a radio plays."
+M2_TRAIN_CUT = (2, 2)  # card vs CPU: 2 of the 32 decoder layers and 2 of the 32 tower blocks
+
+
+def m2_train_launches(layers: int, audio: bool) -> dict:
+    """A micro-batch under remat: each causal decoder layer's flash forward
+    twice (the forward, then its recompute in the backward), dQ and dK/dV
+    once; the conv audio tower's 4 layers through K1 when the batch carries
+    audio (the tower is frozen: no recompute); Qwen2-ViT's heads of 80 take
+    plain tensor ops."""
+    return {**NO_LAUNCHES, "flash_fwd": 2 * layers, "flash_dq": layers, "flash_dkv": layers,
+            "small_attention": M2_AUDIO_LAYERS if audio else 0}
+
+
+M2_UPDATE_LAUNCHES = {k: m2_train_launches(M2_LAYERS, True)[k]
+                      + m2_train_launches(M2_LAYERS, False)[k] for k in NO_LAUNCHES}
+# card bf16 vs CPU fp32 at full width and M2_TRAIN_CUT depth, the first
+# micro-step at B=1 (an image + audio + text conversation) on the same fp32
+# masters carried through the stacked layout (every lora_b drawn nonzero):
+# |Δ lm_loss| and the gradient cosines of the 48 trainable tensors (all
+# together, the least; ``--calibrate m2_train`` reads them). Sound runs over
+# three seeds stay below |Δ| 0.0032 and above cos 0.999938 (all), 0.99976
+# (least); the decoder's LoRA scaling doubled reads |Δ| 0.141, cos 0.845 /
+# 0.725; the vision tokens detached cos 0 (no gradient reaches the tower);
+# the audio convolutions padded (1, 1) |Δ| 0.0133, cos 0.966 / 0.803 (H100
+# readings)
+M2_TRAIN_DLOSS_MAX, M2_TRAIN_COS_ALL, M2_TRAIN_COS_MIN = 0.006, 0.9998, 0.999
+
+
+def m2_train_opts(layers: int = M2_LAYERS, blocks: int = M2_VIT_BLOCKS) -> list:
+    """``recipe_opts`` on ``m2_omni_7b.yml`` at ``layers`` decoder layers and
+    ``blocks`` tower blocks."""
+    lm, vit = m2_presets(layers, blocks)
+    return m2_recipe_opts(lm_preset=lm, qwen2_preset=vit)
+
+
+def m2_train_processor(seq_len: int, video_pixels: int = SERVING_PIXELS
+                       ) -> M2OmniUnifiedProcessor:
+    """Phase 19's serving block (``serving_opts``) as a processor of
+    ``seq_len`` slots and video frames of ``video_pixels``, the patch ids
+    the model's splice ids (a video's at the image id), as the generation
+    predictor builds it."""
+    up = "predictor_parameters.unified_processor"
+    cfg = build_config(M2_OMNI_7B, opts=serving_opts() + [
+        f"{up}.text.max_seq_length", str(seq_len), f"{up}.video.min_pixels", str(video_pixels),
+        f"{up}.video.max_pixels", str(video_pixels)])
+    block = cfg.get_dotted(up).to_dict()
+    model = cfg["model_attributes"]["m2_omni"]
+    block["special_token_ids"] = {"<imagePatch>": int(model["image_token_id"]),
+                                  "<videoPatch>": int(model["image_token_id"]),
+                                  "<audioPatch>": int(model["audio_token_id"])}
+    return M2OmniUnifiedProcessor(block)
+
+
+def m2_train_row(proc, rng, kind: str, frames: int = M2_VIDEO_FRAMES) -> dict:
+    """One training conversation of ``kind`` (image, image_audio, video of
+    ``frames`` frames of 448², which the processor resizes), seeded noise, and the assistant's answer:
+    the processor's ids over the whole conversation, labels -100 up to the
+    answer and the answer's ids after it (the prompt's ids are the
+    conversation's first ones)."""
+    if kind == "video":
+        media = [{"type": "video", "video": [rng.integers(0, 256, (448, 448, 3), dtype=np.uint8)
+                                             for _ in range(frames)]}]
+        question = "what happens in the video?"
+    else:
+        media = [{"type": "image", "image": rng.integers(0, 256, (448, 448, 3), dtype=np.uint8)}]
+        question = "describe the image in detail."
+        if kind == "image_audio":
+            media.append({"type": "audio",
+                          "audio": (rng.standard_normal(int(16000 * 2.6)) * 0.1).astype(
+                              np.float32)})
+            question = "what is in the picture, and what do you hear?"
+    user = [{"role": "user", "content": media + [{"type": "text", "text": question}]}]
+    reply = [{"role": "assistant", "content": [{"type": "text", "text": M2_ANSWER}]}]
+    prompt = proc({"conversation": user})
+    full = proc({"conversation": user + reply, "add_generation_prompt": False})
+    n_p, n, L = int(prompt["input_mask"].sum()), int(full["input_mask"].sum()), proc.max_seq_length
+    check(n_p < n < L and np.array_equal(full["input_ids"][:n_p], prompt["input_ids"][:n_p]),
+          f"m2_train {kind}: the prompt ({n_p}) is not the conversation's ({n} of {L}) start")
+    visual = full.get("video_data") or full.get("image_data")
+    row = {"input_ids": full["input_ids"], "input_mask": full["input_mask"],
+           "labels": np.where((np.arange(L) >= n_p) & (full["input_mask"] > 0),
+                              full["input_ids"], -100),
+           "image_data": np.asarray(visual[0], np.float32)}
+    if "fbank" in full:
+        row["audio"] = np.asarray(full["fbank"], np.float32)
+        row["audio_mask"] = np.asarray(full["fbank_mask"], np.int32)
+    return row
+
+
+def m2_train_batch(proc, rng, kinds) -> dict:
+    """The rows of ``kinds`` stacked; a row without audio in a batch that
+    has some carries zero fbank frames, fully masked (no placeholder reads
+    them)."""
+    rows = [m2_train_row(proc, rng, kind) for kind in kinds]
+    with_audio = [r for r in rows if "audio" in r]
+    for r in rows:
+        if with_audio and "audio" not in r:
+            r["audio"] = np.zeros_like(with_audio[0]["audio"])
+            r["audio_mask"] = np.zeros_like(with_audio[0]["audio_mask"])
+    return {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+def m2_train_batches(seed: int = SEED) -> list:
+    """An update's two micro-batches: image conversations (the 2nd and 4th
+    with audio and text too), then 4-frame video conversations."""
+    rng = np.random.default_rng(seed)
+    proc = m2_train_processor(SERVING_SEQ_LEN, M2_VIDEO_PIXELS)
+    return [m2_train_batch(proc, rng, ("image", "image_audio", "image", "image_audio")),
+            m2_train_batch(proc, rng, ("video",) * M2_TRAIN_BATCH)]
+
+
+def frozen_checksums(state) -> dict:
+    """An exact reading of every frozen master: the sum of its fp32 bit
+    patterns as int64."""
+    frozen = [n for n in state.params if n not in set(state.trainable)]
+    return {n: int(state.params[n].view(torch.int32).sum(dtype=torch.int64).item())
+            for n in frozen}
+
+
+def m2_train_updates(step, state, batches, updates: int):
+    """``updates`` optimizer updates (one micro-step a batch of ``batches``):
+    per update the host ms ending in ``synchronize``, the launches and the
+    losses."""
+    update_ms, counts, losses = [], [], []
+    for _ in range(updates):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in batches:
+            state, scalars = step(state, batch)
+            losses.append(scalars["total_loss"])
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+        counts.append(read_counts())
+    return state, update_ms, counts, [float(x) for x in losses]
+
+
+def m2_train_full_depth(gpu: str) -> dict:
+    """Phase 20 (a)–(b). (a) ``m2_omni_7b.yml``'s model under the recipe at
+    full width and depth, seeded on the card: M2_TRAIN_WARMUP updates (the
+    path's launches counted), M2_TRAIN_TIMED timed and M2_TRAIN_PROFILED
+    profiled (busy and idle share, device ops, the flash family's ms), peak
+    memory, the optimizer state's bytes; finite losses, the trainable
+    masters moved and every frozen one bit-unchanged. (b) one more update of
+    B=1 micro-batches over a conversation with a 16-frame video (2,048 video
+    slots of 2,304), so the LM loss takes its chunked path, its peak
+    memory. Returns the launches of (a)'s warm-up and of (b)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    shell, state, step = config_model(M2_OMNI_7B, m2_train_opts(), on_device=True)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in state.params.values())
+    n_trainable = sum(state.params[n].numel() for n in state.trainable)
+    frozen_before = frozen_checksums(state)
+    trainable_before = {n: state.params[n].clone() for n in state.trainable}
+    t1 = time.perf_counter()
+    batches = [shell.to_device(b) for b in m2_train_batches()]
+    batch_s = time.perf_counter() - t1
+    state, warm_ms, warm_counts, warm_losses = m2_train_updates(step, state, batches,
+                                                                 M2_TRAIN_WARMUP)
+    path = {k: sum(c[k] for c in warm_counts) for k in NO_LAUNCHES}
+    state, update_ms, counts, losses = m2_train_updates(step, state, batches, M2_TRAIN_TIMED)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, prof_ms, _, prof_losses = m2_train_updates(step, state, batches,
+                                                          M2_TRAIN_PROFILED)
+    busy, n_ops, top = device_busy(prof, M2_TRAIN_PROFILED)
+    flash_ms = sum(ms for name, ms in device_ms_by_name(prof, M2_TRAIN_PROFILED)[0].items()
+                   if "flash_" in name)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    opt_bytes = state.optimizer_state_bytes()
+    frozen_same = frozen_checksums(state) == frozen_before
+    moved = sum(not torch.equal(state.params[n], t) for n, t in trainable_before.items())
+    del trainable_before
+    positions = sum(int(b["input_mask"].sum().item()) for b in batches)
+    supervised = sum(int((b["labels"][:, 1:] >= 0).sum().item()) for b in batches)
+    upd_p50 = float(np.percentile(update_ms, 50))
+    all_losses = warm_losses + losses + prof_losses
+    emit(phase="m2_train", part="full_depth", gpu=gpu, batch=M2_TRAIN_BATCH,
+         accumulation=M2_ACCUM, seq_len=SERVING_SEQ_LEN, setup_s=setup_s, batch_build_s=batch_s,
+         params=n_params, trainable_params=n_trainable, trainable_tensors=len(state.trainable),
+         optimizer_state_bytes=opt_bytes, losses=all_losses, warmup_update_ms=warm_ms,
+         update_p50_ms=upd_p50, update_p95_ms=float(np.percentile(update_ms, 95)),
+         update_ms=update_ms, tokens_per_s_all_positions=positions * 1e3 / upd_p50,
+         tokens_per_s_supervised=supervised * 1e3 / upd_p50,
+         profiled_update_ms=prof_ms,
+         device_busy_ms_per_update=busy if n_ops else "not measured",
+         device_idle_share=1 - busy / upd_p50 if n_ops else "not measured",
+         flash_device_ms_per_update=flash_ms if n_ops else "not measured",
+         device_ops_per_update=n_ops, top_device_ops_ms=top, peak_mem_gb=peak_gb,
+         launches_per_update=counts[0], frozen_masters_unchanged=frozen_same,
+         trainable_tensors_moved=moved, seconds=time.perf_counter() - t0)
+    check(all(np.isfinite(all_losses)), f"m2_train: losses {all_losses}")
+    check(all(c == M2_UPDATE_LAUNCHES for c in warm_counts + counts),
+          f"m2_train: launches per update {counts[:1]}; expected {M2_UPDATE_LAUNCHES}")
+    check(frozen_same, "m2_train: a frozen master changed")
+    check(moved == len(state.trainable), f"m2_train: {moved} of {len(state.trainable)} "
+                                         f"trainable tensors moved")
+    check(opt_bytes == 10 * n_trainable and n_trainable < 0.02 * n_params,
+          f"m2_train: optimizer state {opt_bytes} bytes for {n_trainable} trainable of "
+          f"{n_params} parameters")
+    check(next(shell.module.parameters()).is_cuda, "m2_train: the model is not on the card")
+    # (b) the chunked LM loss: B=1, (L - 1)·V past 2^28 logits
+    t1 = time.perf_counter()
+    del batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    proc = m2_train_processor(M2_LONG_SEQ_LEN)
+    rng = np.random.default_rng(SEED + 31)
+    rows = proc.max_seq_length
+    long_rows = [m2_train_row(proc, rng, "video", M2_LONG_FRAMES) for _ in range(M2_ACCUM)]
+    long = [shell.to_device({k: v[None] for k, v in r.items()}) for r in long_rows]
+    slots = [int(b["input_mask"].sum().item()) for b in long]
+    chunked = (rows - 1) * shell.module.vocab_size > 2 ** 28
+    state, long_ms, long_counts, long_losses = m2_train_updates(step, state, long, 1)
+    emit(phase="m2_train", part="chunked_loss", gpu=gpu, batch=1, seq_len=rows,
+         video_frames=M2_LONG_FRAMES, live_slots=slots, chunked_path=chunked,
+         update_ms=long_ms[0], losses=long_losses, launches=long_counts[0],
+         mem_before_gb=base_gb, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         seconds=time.perf_counter() - t1)
+    check(chunked and all(np.isfinite(long_losses)) and min(slots) > 2048,
+          f"m2_train chunked: {slots} slots, losses {long_losses}")
+    check(long_counts[0] == {k: 2 * m2_train_launches(M2_LAYERS, False)[k] for k in NO_LAUNCHES},
+          f"m2_train chunked: launches {long_counts[0]}")
+    check(frozen_checksums(state) == frozen_before, "m2_train: a frozen master changed")
+    del shell, state, step, long
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: path[k] + long_counts[0][k] for k in NO_LAUNCHES}
+
+
+def m2_train_twins(seed: int):
+    """Phase 20 (c)'s models at full width and M2_TRAIN_CUT depth, frozen as
+    the recipe freezes them: bf16 on the card, seeded on the card with every
+    ``lora_b`` drawn from N(0, 0.02); its masters exported in the stacked
+    layout and read back through the bridge into the card's state and an
+    fp32 CPU twin (plain versions). Returns (card, card state, CPU, masters,
+    a B=1 image + audio + text batch)."""
+    card, state, _ = config_model(M2_OMNI_7B, m2_train_opts(*M2_TRAIN_CUT), seed=seed,
+                                  on_device=True)
+    gen = torch.Generator(device=next(iter(state.params.values())).device).manual_seed(seed)
+    for name, t in state.params.items():
+        if name.endswith("lora_b"):
+            t.normal_(0.0, 0.02, generator=gen)
+    stacked = export_flax_variables(card.module, state)["params"]
+    masters = flax_to_masters(card.module, stacked)
+    load_masters(state, masters)
+    cpu, _, _ = config_model(M2_OMNI_7B, m2_train_opts(*M2_TRAIN_CUT), device="cpu",
+                             dtype="float32", masters=masters)
+    proc = m2_train_processor(SERVING_SEQ_LEN)
+    batch = m2_train_batch(proc, np.random.default_rng(seed + 41), ("image_audio",))
+    return card, state, cpu, masters, batch
+
+
+def m2_train_faults(card):
+    """Faults planted on the card's model only, each undone after its step:
+    (name, plant, undo). The decoder's LoRA scaling doubled; the vision
+    tokens detached before the splice (no gradient reaches the tower's
+    adapters or vision_proj); the audio convolutions padded (1, 1)."""
+    from antmmf_torch.models import m2_omni as m2_mod
+
+    module = card.module
+    adapted = [m for m in module.decoder.modules() if getattr(m, "lora_targets", ())]
+    real_pad = m2_mod._same_pad
+
+    def scaling(factor):
+        for m in adapted:
+            m.lora_scaling *= factor
+
+    def detach_vision():
+        real = type(module)._vision_tokens.__get__(module)
+        module._vision_tokens = lambda images: (lambda t, p: (t.detach(), p))(*real(images))
+
+    return [("lora_scaling_doubled", lambda: scaling(2.0), lambda: scaling(0.5)),
+            ("vision_tokens_detached", detach_vision,
+             lambda: module.__dict__.pop("_vision_tokens")),
+            ("audio_conv_padded_1_1", lambda: setattr(m2_mod, "_same_pad", lambda n: (1, 1)),
+             lambda: setattr(m2_mod, "_same_pad", real_pad))]
+
+
+def m2_train_within_bound(res) -> bool:
+    return res["abs_dloss"] <= M2_TRAIN_DLOSS_MAX and res["grad_cos_all"] >= M2_TRAIN_COS_ALL \
+        and res["grad_cos_min"] >= M2_TRAIN_COS_MIN
+
+
+def m2_train_readings(seed: int, faults: bool) -> dict:
+    card, state, cpu, masters, batch = m2_train_twins(seed)
+    ref = pink_first_step(cpu, batch)
+    out = {"sound": compare_steps(pink_first_step(card, batch), ref)}
+    for name, plant, undo in (m2_train_faults(card) if faults else ()):
+        plant()
+        try:
+            out[name] = compare_steps(pink_first_step(card, batch), ref)
+        finally:
+            undo()
+    del card, state, cpu, masters
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def calibrate_m2_train(seeds=3) -> None:
+    """Phase 20 (c)'s readings: sound seeds, then planted faults at the last."""
+    for seed in range(seeds):
+        for name, res in m2_train_readings(seed, seed == seeds - 1).items():
+            emit(phase="calibrate_m2_train", kind="sound" if name == "sound" else "fault",
+                 fault=None if name == "sound" else name, seed=seed, **res,
+                 within_bound=m2_train_within_bound(res))
+    emit(phase="calibrate_m2_train", kind="bound", dloss_max=M2_TRAIN_DLOSS_MAX,
+         grad_cos_all=M2_TRAIN_COS_ALL, grad_cos_min=M2_TRAIN_COS_MIN)
+
+
+def m2_train_card_vs_cpu() -> None:
+    """Phase 20 (c): the reading at seed 0 within the bounds, each planted
+    fault outside them."""
+    t0 = time.perf_counter()
+    readings = m2_train_readings(SEED, True)
+    faults = {n: r for n, r in readings.items() if n != "sound"}
+    caught = {n: not m2_train_within_bound(r) for n, r in faults.items()}
+    emit(phase="m2_train", part="card_vs_cpu", batch=1, layers=M2_TRAIN_CUT[0],
+         vit_blocks=M2_TRAIN_CUT[1], **readings["sound"], faults=faults, faults_caught=caught,
+         seconds=time.perf_counter() - t0,
+         bounds=dict(dloss_max=M2_TRAIN_DLOSS_MAX, grad_cos_all=M2_TRAIN_COS_ALL,
+                     grad_cos_min=M2_TRAIN_COS_MIN))
+    check(m2_train_within_bound(readings["sound"]),
+          "card and CPU M2-omni training steps disagree beyond the stated bound")
+    check(all(caught.values()), f"m2_train: a planted fault passed the bound: {caught}")
+
+
+def phase_m2_train(gpu: str) -> dict:
+    """Phase 20: (a)–(b) at full width and depth, (c) card vs CPU with planted
+    faults at cut depth. Returns the launches of (a)'s warm-up and (b)."""
+    t0 = time.perf_counter()
+    counts = m2_train_full_depth(gpu)
+    m2_train_card_vs_cpu()
+    emit(phase="m2_train", part="summary", seconds=time.perf_counter() - t0, launches=counts)
+    return counts
+
+
 SOURCES = {
     "small_attention": ("antmmf_torch/ops/csrc/small_attention.cu",
                         "antmmf_tpu/ops/pallas/small_attention.py:62"),
@@ -5704,7 +6118,7 @@ def main() -> None:
                         ("14_retrieval_variants", phase_retrieval_variants),
                         ("15_task_heads", phase_task_heads), ("16_roi", phase_roi),
                         ("17_pink_train", phase_pink_train), ("18_pink_7b", phase_pink_7b),
-                        ("19_m2_omni", phase_m2_omni)):
+                        ("19_m2_omni", phase_m2_omni), ("20_m2_train", phase_m2_train)):
         for name, n in phase(gpu).items():
             launches[name] += n
         done(part)
@@ -5726,7 +6140,7 @@ CALIBRATIONS = {"serving": calibrate, "training": calibrate_training, "pink": ca
                 "pretraining": calibrate_pretraining, "dmae": calibrate_dmae,
                 "task_heads": calibrate_task_heads, "roi": calibrate_roi,
                 "pink_train": calibrate_pink_train, "pink_7b": calibrate_pink_7b,
-                "m2_omni": calibrate_m2_omni}
+                "m2_omni": calibrate_m2_omni, "m2_train": calibrate_m2_train}
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--calibrate"] and set(sys.argv[2:]) <= set(CALIBRATIONS):

@@ -29,6 +29,7 @@ from antmmf_torch.utils.weights import export_flax_params, load_flax_params
 from antmmf_tpu.models.base_model import build_model as j_build
 from antmmf_tpu.models.univl_pretrain import UnivlForVideoPretraining as JPretrain
 from antmmf_tpu.modules.encoders.text_encoder import BertEncoder as JBert
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 ATOL = 1e-5
 B, L, N_MASK = 4, 30, 4
@@ -59,7 +60,7 @@ def _uniform(seed):
 def test_word_importance_matches_jax():
     c = _caption(0)
     j_bert = JBert(hidden_size=64, num_layers=2, num_heads=2, dtype=jnp.float32)
-    variables = j_bert.init(jax.random.PRNGKey(0), c["raw"])
+    variables = jax.jit(j_bert.init)(jax.random.PRNGKey(0), c["raw"])
     t_bert = TBert(hidden_size=64, num_layers=2, num_heads=2, dtype=torch.float32)
     load_flax_params(t_bert, variables["params"])
     j_imp = j_bert.apply(variables, c["raw"], c["mask"], c["seg"], method=JBert.word_importance)

@@ -26,6 +26,7 @@ import torch
 
 from antmmf_torch.utils import text_utils as t_text
 from antmmf_tpu.utils import text_utils as j_text
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 V, T, B, BOS, EOS = 12, 7, 3, 1, 2
 SCORE_ATOL = 1e-5

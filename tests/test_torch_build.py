@@ -11,6 +11,7 @@ import shutil
 import pytest
 
 from antmmf_torch.ops import _build
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 FILES = sorted(os.listdir(_build.CSRC))
 

@@ -48,6 +48,8 @@ from antmmf_tpu.modules.metrics.evaluators import build_evaluator as j_evaluator
 from antmmf_tpu.predictors.caption_predictor import CaptionPredictor as JPredictor
 from antmmf_tpu.predictors.caption_predictor import ids_to_caption as j_ids_to_caption
 from antmmf_tpu.utils.tokenization import BertTokenizer as JTok
+from test_torch_trainer import jitted_jax_init
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 ATOL, GRAD_RTOL, GRAD_FLOOR, SCORE_ATOL = 1e-5, 1e-4, 1e-2, 1e-5
 VOCAB = "tests/data/vocabs/bert-base-uncased_30522_vocab.txt"
@@ -249,7 +251,8 @@ def test_caption_predictor_through_the_cli(runs, tmp_path, capsys):
     t_cli.main(["--config", str(config), "--predictor", "caption_predictor", "--device", "cpu",
                 "--model_dir", str(model_dir), "--input", str(request)])
     got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    pred = JPredictor(cfg).load(with_ckpt=False)
+    with jitted_jax_init():  # its init is replaced by r's params below
+        pred = JPredictor(cfg).load(with_ckpt=False)
     pred.variables = {"params": jax.tree_util.tree_map(np.asarray, r["params"])}
     ref = pred.predict({"image_data": frames})
     assert isinstance(got["caption"], str) and got["caption"] == ref["caption"]
@@ -258,5 +261,15 @@ def test_caption_predictor_through_the_cli(runs, tmp_path, capsys):
 
 
 def test_caption_dropout_raises_with_its_rate():
-    with pytest.raises(NotImplementedError, match="dropout 0.1"):
-        t_build({"model_attributes": {"univl_caption": {**TINY, "dropout": 0.1}}}, device="cpu")
+    """Dropout is ported: the model builds at 0.1 and the rate reaches the
+    ViT and every decoder layer (self- and cross-attention, MLP), as JAX
+    passes it."""
+    from antmmf_torch.modules.layers import Dropout
+
+    module = t_build({"model_attributes": {"univl_caption": {**TINY, "dropout": 0.1}}},
+                     device="cpu").module
+    for tower in (module.base.img_encoder, module.decoder):
+        assert {m.rate for m in tower.modules() if isinstance(m, Dropout)} == {0.1}
+    for layer in module.decoder.decoder.layers():
+        assert layer.self_attention.dropout.rate == layer.cross_attention.dropout.rate == \
+            layer.mlp.dropout.rate == 0.1

@@ -45,6 +45,7 @@ from antmmf_tpu.modules.metrics.evaluators import \
 from antmmf_tpu.modules.metrics.metrics import Metrics as JMetrics
 from antmmf_tpu.trainers.build import build_trainer as _registers_jax  # noqa: F401
 from antmmf_tpu.utils.lmdb_lite import LmdbLiteWriter as JWriter
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, "projects", "base_vtp", "configs", "video_retrieval.local.yml")

@@ -38,6 +38,7 @@ from antmmf_torch.utils.weights import flatten_flax, flax_paths, load_flax_param
 from antmmf_tpu.modules import attention as j_attention
 from antmmf_tpu.modules import decoders as j_dec
 from antmmf_tpu.modules.layers import make_attention_mask as j_mask
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 ATOL, GRAD_RTOL, GRAD_FLOOR = 1e-5, 1e-4, 1e-2
 F32 = torch.float32
@@ -333,5 +334,11 @@ def test_causal_bias_matches_jax():
                                       (t_dec.TransformerDecoder, (32, 2, 4)),
                                       (t_dec.LanguageDecoder, (50, 32, 2, 4, 9))])
 def test_decoder_dropout_raises_with_its_rate(cls, args):
-    with pytest.raises(NotImplementedError, match="dropout 0.1"):
-        cls(*args, dropout=0.1)
+    """Dropout is ported: each decoder layer drops its self- and
+    cross-attention output and its MLP's activations at the given rate."""
+    from antmmf_torch.modules.layers import Dropout
+
+    module = cls(*args, dropout=0.1)
+    drops = [m for m in module.modules() if isinstance(m, Dropout)]
+    layers = [m for m in module.modules() if isinstance(m, t_dec.TransformerDecoderLayer)]
+    assert layers and len(drops) == 3 * len(layers) and {m.rate for m in drops} == {0.1}

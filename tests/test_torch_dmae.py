@@ -18,7 +18,7 @@
   model's paths and shapes. Outputs and losses at atol 1e-5; a gradient
   within 1e-5 of its largest JAX entry, floored at 1e-6 of the model's
   largest.
-* ``dropout`` raises with its name.
+* ``dropout`` reaches both towers (ported), not the temporal encoder.
 """
 
 import jax
@@ -42,6 +42,7 @@ from antmmf_tpu.models.base_model import build_model as j_build
 from antmmf_tpu.models.dmae import TokenWeightHead as JWeight
 from antmmf_tpu.models.dmae import wti_similarity as j_wti
 from antmmf_tpu.trainers.retrieval_trainer import RetrievalTrainer as JRetrieval
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 ATOL, GRAD_RTOL, GRAD_FLOOR, GRID_ATOL = 1e-5, 1e-5, 1e-6, 1e-6
 TINY = dict(vit_preset="vit_tiny_test", bert_preset="bert_tiny_test", image_size=32,
@@ -111,7 +112,7 @@ def test_token_weight_head_matches_jax():
     tokens = rng.normal(size=(3, 9, 16)).astype(np.float32)
     mask = (np.arange(9)[None] < np.array([9, 4, 1])[:, None]).astype(np.int64)
     head = JWeight()
-    params = head.init(jax.random.PRNGKey(0), tokens, mask)["params"]
+    params = jax.jit(head.init)(jax.random.PRNGKey(0), tokens, mask)["params"]
     j_out, j_vjp = jax.vjp(lambda p, x: head.apply({"params": p}, x, mask), params,
                            jnp.asarray(tokens))
     cot = rng.normal(size=j_out.shape).astype(np.float32)
@@ -202,5 +203,11 @@ def test_dmae_gradients_match_jax(runs):
 
 
 def test_dmae_dropout_raises():
-    with pytest.raises(NotImplementedError, match="dropout"):
-        t_build(_config({**TINY, "embed_dim": 32, "dropout": 0.1}), device="cpu")
+    """Dropout is ported: 0.1 reaches both towers; the temporal encoder,
+    which JAX builds without it, keeps 0."""
+    from antmmf_torch.modules.layers import Dropout
+
+    module = t_build(_config({**TINY, "embed_dim": 32, "dropout": 0.1}), device="cpu").module
+    for tower, rate in ((module.base.img_encoder, 0.1), (module.base.text_encoder, 0.1),
+                        (module.temporal_encoder, 0.0)):
+        assert {m.rate for m in tower.modules() if isinstance(m, Dropout)} == {rate}

@@ -24,6 +24,7 @@ from antmmf_torch.modules.vision.eva_vit import EvaVisionTransformer as TEva
 from antmmf_torch.utils.weights import export_flax_params, flatten_flax, load_flax_params
 from antmmf_tpu.modules.vision.eva_vit import EVA_PRESETS as J_EVA_PRESETS
 from antmmf_tpu.modules.vision.eva_vit import EvaVisionTransformer as JEva
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 SIZE, ATOL = 28, 1e-5
 TINY = J_EVA_PRESETS["eva_tiny_test"]

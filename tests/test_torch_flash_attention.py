@@ -22,6 +22,7 @@ from antmmf_torch.ops import flash_attention as port
 from antmmf_torch.ops.kernel_times import flash_bwd_bytes
 from antmmf_tpu.modules.attention import xla_attention_core
 from antmmf_tpu.ops.pallas.flash_attention import flash_attention as j_flash
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 ATOL, GRAD_ATOL = 2e-5, 3e-4
 B, H, D = 2, 2, 32

@@ -5,6 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 torch = pytest.importorskip("torch")
 
@@ -58,7 +59,7 @@ def test_import_covers_all_our_params(hf_pair):
     model, ours = hf_pair
     sd = {k: v.detach().numpy() for k, v in model.state_dict().items()}
     params = bert_state_dict_to_params(sd, num_layers=2)
-    init = ours.init(jax.random.PRNGKey(0), jnp.zeros((1, 4), jnp.int32))
+    init = jax.jit(ours.init)(jax.random.PRNGKey(0), jnp.zeros((1, 4), jnp.int32))
     ref_paths = {"/".join(str(k.key) for k in path)
                  for path, _ in jax.tree_util.tree_flatten_with_path(
                      init["params"])[0]}
@@ -87,7 +88,7 @@ def test_clip_vit_outputs_match_after_import():
                              num_layers=2, num_heads=2, quick_gelu=True,
                              dtype=jnp.float32)
     # structural check against a fresh init
-    init = ours.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))
+    init = jax.jit(ours.init)(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))
     ref_paths = {"/".join(str(k.key) for k in p)
                  for p, _ in jax.tree_util.tree_flatten_with_path(
                      init["params"])[0]}

@@ -28,6 +28,7 @@ from antmmf_torch.utils.weights import load_flax_params
 from antmmf_tpu.modules.qdense import QuantDense as JQuantDense
 from antmmf_tpu.ops.pallas import int4_matmul as j_int4
 from antmmf_tpu.predictors import quantization as j_quant
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 REL = 1e-4
 GEMV_SHAPES = [(2048, 512, 128), (2048, 2048, 128), (4096, 1024, 128), (2048, 2560, 64)]

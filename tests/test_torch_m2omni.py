@@ -46,6 +46,7 @@ from antmmf_torch.models.m2_omni import AUDIO_FEATURES, M2Omni as TM
 from antmmf_torch.utils.weights import export_flax_params, flatten_flax, load_flax_params
 from antmmf_tpu.models.m2_omni import M2Omni as JM
 from test_torch_qwen2_vit import assert_close, random_params
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 TINY = dict(lm_preset="omni_tiny_test", dtype_str="float32")
 QWEN2 = dict(visual_tower="qwen2", qwen2_preset="qwen2_vit_tiny_test")

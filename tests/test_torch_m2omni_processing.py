@@ -37,6 +37,7 @@ from antmmf_tpu.datasets.processors import audio_processors as j_ap
 from antmmf_tpu.datasets.processors import m2omni_processing as j_mp
 from test_torch_m2omni import load_reached
 from test_torch_qwen2_vit import random_params
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 # enough words of the prompts and the system template for a tiny vocabulary
 WORDS = ("you are a helpful language , vision and audio assistant . able to understand the "

@@ -33,6 +33,7 @@ from antmmf_torch.utils.weights import (
 )
 from antmmf_tpu.models.base_model import build_model as j_build
 from antmmf_tpu.modules import moco as j_moco
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 ATOL, QUEUE_ATOL = 1e-5, 1e-5
 TINY = dict(vit_preset="vit_tiny_test", bert_preset="bert_tiny_test", image_size=32,

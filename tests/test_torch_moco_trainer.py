@@ -32,6 +32,7 @@ from antmmf_torch.utils.weights import (
 )
 from antmmf_tpu.common.build import build_config as j_build_config
 from antmmf_tpu.trainers.build import build_trainer as j_build_trainer
+from test_torch_trainer import jitted_jax_init
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, "projects", "base_vtp", "configs", "video_retrieval_moco.local.yml")
@@ -55,7 +56,8 @@ def one_torch_thread():
 def runs(tmp_path_factory):
     jdir, tdir = (str(tmp_path_factory.mktemp(n)) for n in ("jax", "port"))
     jt = j_build_trainer(j_build_config(CFG, opts=OPTS + ["training_parameters.save_dir", jdir]))
-    jt.load()
+    with jitted_jax_init():
+        jt.load()
     init = jax.device_get(jt.state.variables)
     npz = os.path.join(jdir, "params.npz")
     np.savez(npz, **flatten_flax(init["params"]))

@@ -28,6 +28,7 @@ from antmmf_tpu.modules import embeddings as j_emb
 from antmmf_tpu.modules import layers as j_layers
 from antmmf_tpu.modules.transformers.base import TransformerLayer as JLayer
 from antmmf_tpu.modules.vision.token_merging import tome_merge as j_tome
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 ATOL = 1e-5
 F32 = torch.float32

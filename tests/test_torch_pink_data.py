@@ -38,6 +38,7 @@ from antmmf_tpu.datasets import pink_instruct_dataset as j_ds
 from antmmf_tpu.datasets.processors import pink_conversation as j_conv
 from antmmf_tpu.datasets.processors import pink_processors as j_pp
 from antmmf_tpu.trainers import build as _j_registrations  # noqa: F401
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, "projects", "pink", "configs", "pink_instruct.local.yml")

@@ -36,6 +36,8 @@ from antmmf_tpu.modules.vision.vit import VisionTransformer as JViT
 from antmmf_tpu.predictors import quantization as j_quant
 from antmmf_tpu.predictors.generation_predictor import GenerationPredictor as JGenPredictor
 from antmmf_tpu.scripts.pink_eval import build_prompt as j_build_prompt
+from test_torch_trainer import jitted_jax_init
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 F32 = torch.float32
 TINY = dict(lm_preset="omni_tiny_test", vit_preset="vit_tiny_test", image_size=32,
@@ -404,11 +406,12 @@ def jax_generation(tmp_path_factory):
     ``decode_quant: int4``, its float weights (the same seeded init, before
     quantisation) dumped as params.npz, and its answers."""
     cfg = JConfiguration.from_file(PINK_CFG).override_with_opts(TINY_OPTS).to_dict()
-    pred = JGenPredictor(cfg).load(with_ckpt=False)
-    assert j_quant.is_decode_quantized(pred.variables)
     cfg_float = JConfiguration.from_file(PINK_CFG).override_with_opts(TINY_OPTS).to_dict()
     del cfg_float["predictor_parameters"]["decode_quant"]
-    float_vars = JGenPredictor(cfg_float).load(with_ckpt=False).variables
+    with jitted_jax_init():
+        pred = JGenPredictor(cfg).load(with_ckpt=False)
+        float_vars = JGenPredictor(cfg_float).load(with_ckpt=False).variables
+    assert j_quant.is_decode_quantized(pred.variables)
     tmp = tmp_path_factory.mktemp("pink_serving")
     np.savez(tmp / "params.npz", **flatten_flax(jax.device_get(float_vars["params"])))
     rng = np.random.default_rng(8)

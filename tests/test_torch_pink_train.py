@@ -51,6 +51,7 @@ from antmmf_torch.utils.weights import (
 from antmmf_tpu.models.pink import PinkModel as JPink
 from antmmf_tpu.modules import llm as j_llm
 from antmmf_tpu.optimizer.build import build_optimizer as j_build_optimizer
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 TINY = dict(lm_preset="omni_tiny_test", vit_preset="vit_tiny_test", image_size=32,
             lora_rank=2, dtype_str="float32")

@@ -27,6 +27,7 @@ from antmmf_torch.utils.weights import flatten_flax
 from antmmf_tpu.common.build import build_config as j_build_config
 from antmmf_tpu.trainers.build import build_trainer as j_build_trainer
 from test_torch_task_trainer import _record_validations, one_torch_thread  # noqa: F401
+from test_torch_trainer import jitted_jax_init
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, "projects", "pink", "configs", "pink_instruct.local.yml")
@@ -63,7 +64,8 @@ def trainer_runs(tmp_path_factory, *extra, port_extra=()):
     jdir, tdir = (str(tmp_path_factory.mktemp(n)) for n in ("jax", "port"))
     jt = j_build_trainer(j_build_config(CFG, opts=OPTS + list(extra)
                                         + ["training_parameters.save_dir", jdir]))
-    jt.load()
+    with jitted_jax_init():
+        jt.load()
     npz = os.path.join(jdir, "params.npz")
     np.savez(npz, **flatten_flax(jax.device_get(jt.state.variables["params"])))
     j_vals = _record_validations(jt)

@@ -47,6 +47,7 @@ from antmmf_tpu.models.base_model import build_model as j_build
 from antmmf_tpu.modules.transformers.heads.fom import FOMHead as JFOM
 from antmmf_tpu.modules.transformers.heads.itm import ITMHead as JITM
 from antmmf_tpu.modules.transformers.heads.mlm import MLMHead as JMLM
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 ATOL, GRAD_RTOL, GRAD_FLOOR = 1e-5, 1e-4, 1e-3
 TINY = dict(vit_preset="vit_tiny_test", bert_preset="bert_tiny_test", embed_dim=32,
@@ -232,13 +233,24 @@ def test_bridge_carries_the_whole_tree(jax_runs, port_runs):
 
 def test_attentive_masking_raises_with_its_name():
     """Attentive masking is ported: the model builds with it and keeps its
-    ratio; what is still refused, dropout, raises with its name."""
+    ratio; with dropout, which is ported too, the word-importance pass
+    draws nothing inside a training forward (JAX runs it deterministic)."""
+    from antmmf_torch.modules.layers import draws
+
     module = t_build(_config({**TINY, "image_size": 32, "attentive_masking": True}),
                      device="cpu").module
     assert module.attentive_masking and module.attentive_mask_ratio == 0.15
-    with pytest.raises(NotImplementedError, match="dropout"):
-        t_build(_config({**TINY, "image_size": 32, "attentive_masking": True, "dropout": 0.1}),
-                device="cpu")
+    module = t_build(_config({**TINY, "image_size": 32, "attentive_masking": True,
+                              "dropout": 0.1}), device="cpu").module
+    ids = torch.as_tensor(np.random.default_rng(0).integers(1000, 30000, (2, 9)))
+    mask = torch.ones_like(ids)
+    gen = torch.Generator().manual_seed(0)
+    state = gen.get_state()
+    with torch.no_grad():
+        plain = module.base.text_encoder.word_importance(ids, mask)
+        with draws(gen):
+            inside = module.base.text_encoder.word_importance(ids, mask)
+    assert torch.equal(plain, inside) and torch.equal(gen.get_state(), state)
 
 
 # ---------------------------------------------------------------------- heads
@@ -267,7 +279,7 @@ def test_head_and_loss_metric_match_jax(kind):
     """Logits, loss and metric, the gradient of the loss with respect to the
     head's parameters and its inputs (and the tied table)."""
     j_head, t_head, inputs, targets = _head_case(kind, seed=len(kind))
-    variables = j_head.init(jax.random.PRNGKey(0), *inputs)
+    variables = jax.jit(j_head.init)(jax.random.PRNGKey(0), *inputs)
     load_flax_params(t_head, variables["params"])
 
     def j_loss(params, *xs):

@@ -42,6 +42,8 @@ from antmmf_tpu.common.build import build_config as j_build_config
 from antmmf_tpu.common.task_loader import TaskLoader as JTaskLoader
 from antmmf_tpu.datasets.processors.text_processors import MaskedTokenProcessor as JProc
 from antmmf_tpu.trainers.build import build_trainer as j_build_trainer
+from test_torch_trainer import jitted_jax_init
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(REPO, "tests", "data")
@@ -147,7 +149,8 @@ def _record_validations(trainer):
 def runs(tmp_path_factory):
     jdir, tdir = (str(tmp_path_factory.mktemp(n)) for n in ("jax", "port"))
     jt = j_build_trainer(j_build_config(CFG, opts=OPTS + ["training_parameters.save_dir", jdir]))
-    jt.load()
+    with jitted_jax_init():
+        jt.load()
     npz = os.path.join(jdir, "params.npz")
     np.savez(npz, **flatten_flax(jax.device_get(jt.state.variables["params"])))
     j_vals = _record_validations(jt)

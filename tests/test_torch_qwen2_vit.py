@@ -33,6 +33,7 @@ from antmmf_tpu.models import m2_omni as j_m2
 from antmmf_tpu.modules import llm as j_llm
 from antmmf_tpu.modules.encoders import sanm_audio as j_sanm
 from antmmf_tpu.modules.vision import qwen2_vit as j_q2
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 RTOL = 1e-5  # of the reference's largest magnitude
 

@@ -26,6 +26,7 @@ from antmmf_torch.models.univl import clip_similarity
 from antmmf_torch.modules.losses import contrastive as T
 from antmmf_tpu.models.univl import UnivlForVideoTextRetrieval as JUnivl
 from antmmf_tpu.modules.losses import contrastive as J
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 ATOL = 1e-6
 

@@ -51,6 +51,7 @@ from antmmf_tpu.models.base_model import build_model as j_build
 from antmmf_tpu.modules.metrics.evaluators import _ranks_with_multi_gt as j_ranks
 from antmmf_tpu.trainers.build import build_trainer as j_build_trainer
 from antmmf_tpu.trainers.retrieval_trainer import RetrievalTrainer as JRetrieval
+from test_torch_trainer import jitted_jax_init
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, "projects", "base_vtp", "configs", "video_retrieval.local.yml")
@@ -77,7 +78,8 @@ def one_torch_thread():
 def _jax_trainer(opts, save_dir):
     jt = j_build_trainer(j_build_config(CFG, opts=opts + ["training_parameters.save_dir",
                                                           save_dir]))
-    jt.load()
+    with jitted_jax_init():
+        jt.load()
     npz = os.path.join(save_dir, "params.npz")
     np.savez(npz, **flatten_flax(jax.device_get(jt.state.variables["params"])))
     return jt, npz
@@ -260,7 +262,8 @@ def anchor():
         "vit_preset": "vit_tiny_test", "bert_preset": "bert_tiny_test", "image_size": SIZE,
         "embed_dim": 32, "dtype_str": "float32"}}}
     corpus = _corpus()
-    params = j_build(config).init(jax.random.PRNGKey(0), _batch(corpus, np.arange(2)))["params"]
+    params = jax.jit(j_build(config).init)(jax.random.PRNGKey(0),
+                                           _batch(corpus, np.arange(2)))["params"]
     shell = t_build(config, device="cpu")
     load_flax_params(shell.module, jax.device_get(params))
     names = [n for n, _ in shell.module.named_parameters()]

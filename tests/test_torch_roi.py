@@ -50,6 +50,7 @@ from antmmf_tpu.models.layoutlm import LayoutEmbeddings as JLayout
 from antmmf_tpu.modules.encoders.image_feature_encoder import ImageFeatureEncoder as JEncoder
 from antmmf_tpu.modules.encoders.text_encoder import BertEncoder as JBert
 from antmmf_tpu.modules.transformers.heads.mrc import MRCHead as JMRC
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 ATOL, GRAD_RTOL, GRAD_FLOOR = 1e-5, 1e-4, 1e-3
 TINY = dict(vit_preset="vit_tiny_test", bert_preset="bert_tiny_test", image_size=32,
@@ -98,7 +99,7 @@ def test_image_feature_encoder_matches_jax(kind, box_dim):
         boxes = np.concatenate([boxes, rng.uniform(size=(2, 4, 1))], -1)
     boxes = boxes.astype(np.float32)
     j_enc = JEncoder(encoder_type=kind, out_dim=8)
-    variables = j_enc.init(jax.random.PRNGKey(0), feats, boxes)
+    variables = jax.jit(j_enc.init)(jax.random.PRNGKey(0), feats, boxes)
     t_enc = TEncoder(kind, 16, 8, box_dim)
     if kind != "identity":
         load_flax_params(t_enc, variables["params"])
@@ -137,7 +138,7 @@ def test_layout_embeddings_match_jax_with_clipping():
     bbox[0, 0] = [900, 10, 100, 5]      # negative width and height: rows 0
     bbox[0, 1] = [1023, 1500, 2000, 2000]
     j_mod = JLayout(hidden_size=8, dtype=jnp.float32)
-    variables = j_mod.init(jax.random.PRNGKey(0), bbox)
+    variables = jax.jit(j_mod.init)(jax.random.PRNGKey(0), bbox)
     t_mod = TLayout(8, dtype=torch.float32)
     load_flax_params(t_mod, variables["params"])
     weights = rng.standard_normal((2, 9, 8)).astype(np.float32)
@@ -166,7 +167,7 @@ def test_embeddings_extra_is_summed_before_the_layer_norm():
     ids = rng.integers(1, 30522, (2, 7))
     extra = rng.standard_normal((2, 7, 64)).astype(np.float32)
     j_bert = JBert(hidden_size=64, num_layers=1, num_heads=2, dtype=jnp.float32)
-    variables = j_bert.init(jax.random.PRNGKey(0), ids)
+    variables = jax.jit(j_bert.init)(jax.random.PRNGKey(0), ids)
     t_bert = TBert(hidden_size=64, num_layers=1, num_heads=2, dtype=torch.float32)
     load_flax_params(t_bert, variables["params"])
     j_out = j_bert.apply(variables, ids, None, True, jnp.asarray(extra),
@@ -193,7 +194,7 @@ def _mrc_case(seed, masked=True):
 def test_mrc_head_matches_jax(masked):
     x, to_predict, p = _mrc_case(3, masked)
     j_head = JMRC(vocab_size=4, hidden_size=16, dtype=jnp.float32)
-    variables = j_head.init(jax.random.PRNGKey(0), x)
+    variables = jax.jit(j_head.init)(jax.random.PRNGKey(0), x)
     t_head = TMRC(16, 4, dtype=torch.float32)
     load_flax_params(t_head, variables["params"])
 
@@ -393,5 +394,15 @@ def test_univl_auto_roi_stage_builds_univl_roi():
 
 
 def test_tower_dropout_still_raises_with_its_name():
-    with pytest.raises(NotImplementedError, match="dropout 0.1"):
-        t_build({"model_attributes": {"univl_roi": {**TINY, "dropout": 0.1}}}, device="cpu")
+    """Tower dropout is ported: 0.1 reaches the ViT, BERT and the
+    cross-encoder; the region encoder keeps its own default 0.1, which
+    ``UnivlRoiModel`` never sets (JAX's quirk, kept)."""
+    from antmmf_torch.modules.layers import Dropout
+
+    module = t_build({"model_attributes": {"univl_roi": {**TINY, "dropout": 0.1}}},
+                     device="cpu").module
+    for tower in (module.base.img_encoder, module.base.text_encoder, module.base.cross_encoder):
+        assert {m.rate for m in tower.modules() if isinstance(m, Dropout)} == {0.1}
+    off = t_build({"model_attributes": {"univl_roi": {**TINY, "dropout": 0.0}}},
+                  device="cpu").module
+    assert module.region_encoder.dropout.rate == off.region_encoder.dropout.rate == 0.1

@@ -28,6 +28,7 @@ from antmmf_tpu.common.build import build_config as j_build_config
 from antmmf_tpu.common.task_loader import TaskLoader as JTaskLoader
 from antmmf_tpu.datasets.processors import region_processors as j_rp
 from antmmf_tpu.trainers import build as _j_registrations  # noqa: F401
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROI_LOCAL = os.path.join(REPO, "projects", "base_vtp", "configs", "roi_pretrain.local.yml")

@@ -6,7 +6,8 @@
 * without it the trainer asks for the card, and on a machine without CUDA
   that raises before any data is read: it never becomes a CPU run;
 * knobs of paths that are not ported raise with the key's name:
-  ``steps_per_dispatch`` 2, a nonzero ``dropout``, a world size of 2,
+  ``steps_per_dispatch`` 2, ``sequence_parallel`` beside a (ported)
+  nonzero ``dropout``, a world size of 2,
   Pink's ``sequence_parallel`` beside ``scan_layers`` and ``kv_int8`` beside
   ``visual_tower: eva``;
 * the retrieval variants run to the end on the CPU: the MoCo config
@@ -73,7 +74,9 @@ def test_default_device_is_the_card(tmp_path, device):
      "training_parameters.steps_per_dispatch"),
     (CFG, ("training_parameters.remat_policy", "dots_saveable"),
      "training_parameters.remat_policy"),
-    (CFG, ("model_attributes.univl_retrieval.dropout", "0.1"), "dropout 0.1"),
+    (CFG, ("model_attributes.univl_retrieval.dropout", "0.1",
+           "model_attributes.univl_retrieval.sequence_parallel", "ulysses"),
+     "sequence parallelism"),
     (CFG, ("training_parameters.num_nodes", "2"), "world size 2"),
     (PINK, ("model_attributes.pink.scan_layers", "true",
             "model_attributes.pink.sequence_parallel", "ring"), "sequence_parallel"),

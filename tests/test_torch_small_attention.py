@@ -18,6 +18,7 @@ import torch
 
 from antmmf_torch.ops import small_attention as port
 from antmmf_tpu.modules.attention import xla_attention_core
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 ATOL = 2e-5
 B, H, D = 2, 3, 32

@@ -50,6 +50,7 @@ from antmmf_tpu.common.task_loader import TaskLoader as JTaskLoader
 from antmmf_tpu.models.base_model import build_model as j_build
 from antmmf_tpu.modules.classifier import ClassifierLayer as JClassifier
 from antmmf_tpu.trainers import build as _j_registrations  # noqa: F401
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 ATOL, GRAD_RTOL, GRAD_FLOOR = 1e-5, 1e-4, 1e-2
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -123,8 +124,8 @@ def test_classifier_layer_matches_jax(kind):
 def test_classifier_refusals():
     with pytest.raises(ValueError, match="Unknown classifier type"):
         TClassifier("hierarchical", 8, 2)
-    with pytest.raises(NotImplementedError, match="dropout 0.1"):
-        TClassifier("bert", 8, 2, dropout=0.1)
+    # dropout is ported: the bert head drops its input at the given rate
+    assert TClassifier("bert", 8, 2, dropout=0.1).dropout.rate == 0.1
 
 
 # ------------------------------------------------------------ the models
@@ -251,6 +252,15 @@ def test_univl_auto_refuses_an_unknown_stage():
 
 
 def test_task_models_refuse_dropout():
+    """Dropout is ported: each task model builds at 0.1 and its ViT takes
+    the rate; the classification head, which JAX builds without one, keeps
+    0."""
+    from antmmf_torch.modules.layers import Dropout
+
     for name in ("univl_classification", "univl_mcqa", "univl_caption"):
-        with pytest.raises(NotImplementedError, match="dropout 0.1"):
-            t_build({"model_attributes": {name: {**TINY, "dropout": 0.1}}}, device="cpu")
+        module = t_build({"model_attributes": {name: {**TINY, "dropout": 0.1}}},
+                         device="cpu").module
+        vit = module.base.img_encoder
+        assert {m.rate for m in vit.modules() if isinstance(m, Dropout)} == {0.1}, name
+        if name == "univl_classification":
+            assert module.cls_head.dropout.rate == 0.0

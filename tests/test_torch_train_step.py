@@ -35,6 +35,7 @@ from antmmf_tpu.models.base_model import build_model as j_build
 from antmmf_tpu.optimizer.build import build_lr_schedule as j_schedule
 from antmmf_tpu.optimizer.build import build_optimizer as j_optimizer
 from antmmf_tpu.trainers.train_state import TrainState as JTrainState
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 STEPS, LOSS_ATOL = 6, 1e-4
 TINY = dict(vit_preset="vit_tiny_test", bert_preset="bert_tiny_test", embed_dim=32,
@@ -75,7 +76,7 @@ def _jax_run(name):
     model, B, F, size = MODELS[name]
     cfg, batch = _config(model), _batch(B, F, size, seed=len(name))
     shell = j_build(cfg)
-    variables = shell.init(jax.random.PRNGKey(0), batch)
+    variables = jax.jit(shell.init)(jax.random.PRNGKey(0), batch)
     tx, _ = j_optimizer(variables["params"], OPTIMIZER, TRAINING)
     state = JTrainState.create(variables, tx, jax.random.PRNGKey(1))
 
@@ -236,11 +237,13 @@ def test_weight_decay_mask_and_multipliers_follow_flax_paths():
 
 def test_unported_training_options_raise():
     """What the port still refuses (``loss_type`` mil_nce/neg_nce and the
-    MoCo queue are ported: ``tests/test_torch_moco.py``); an unknown
+    MoCo queue are ported: ``tests/test_torch_moco.py``; so is ``dropout``,
+    which builds and leaves the refusal beside it standing); an unknown
     ``loss_type`` is an error."""
-    for key, value in (("dropout", 0.1), ("sequence_parallel", "ring")):
+    t_build(_config({**MODELS["flagship"][0], "dropout": 0.1}), device="cpu")
+    for extra in ({"dropout": 0.1, "sequence_parallel": "ring"}, {"sequence_parallel": "ring"}):
         with pytest.raises(NotImplementedError):
-            t_build(_config({**MODELS["flagship"][0], key: value}), device="cpu")
+            t_build(_config({**MODELS["flagship"][0], **extra}), device="cpu")
     with pytest.raises(ValueError, match="loss_type"):
         t_build(_config({**MODELS["flagship"][0], "loss_type": "triplet"}), device="cpu")
     with pytest.raises(NotImplementedError):

@@ -16,6 +16,8 @@ schedule); the full validation's recalls exactly (ranks of 4 captions over
 AdamW moments and the generator bit for bit.
 """
 
+import contextlib
+import functools
 import os
 
 import jax
@@ -29,7 +31,34 @@ from antmmf_torch.trainers.build import build_trainer as t_build_trainer
 from antmmf_torch.utils.weights import flatten_flax
 from antmmf_tpu.common.build import build_config as j_build_config
 from antmmf_tpu.common.checkpoint import merge_params_tolerant
+from antmmf_tpu.models.base_model import ModelShell as JModelShell
 from antmmf_tpu.trainers.build import build_trainer as j_build_trainer
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the port's side: the suite runs several test
+    processes side by side, whose thread pools would contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@contextlib.contextmanager
+def jitted_jax_init():
+    """The JAX trainer's model init (``ModelShell.init``) under ``jax.jit``:
+    the same initialisers, keys and example batch compiled once, where the
+    eager init compiles several hundred small operations one by one (the
+    parameters agree with the eager ones to a few fp32 ulps)."""
+    real = JModelShell.init
+
+    def init(self, rng, example_batch):
+        return jax.jit(functools.partial(real, self))(rng, example_batch)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JModelShell, "init", init)
+        yield
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, "projects", "base_vtp", "configs", "video_retrieval.local.yml")
@@ -57,7 +86,8 @@ def _record_validations(trainer):
 def runs(tmp_path_factory):
     jdir, tdir = (str(tmp_path_factory.mktemp(n)) for n in ("jax", "port"))
     jt = j_build_trainer(j_build_config(CFG, opts=OPTS + ["training_parameters.save_dir", jdir]))
-    jt.load()
+    with jitted_jax_init():
+        jt.load()
     init = flatten_flax(jax.device_get(jt.state.variables["params"]))
     npz = os.path.join(jdir, "params.npz")
     np.savez(npz, **init)

@@ -25,6 +25,8 @@ from antmmf_tpu.common.configuration import Configuration as JConfiguration
 from antmmf_tpu.datasets.processors.text_processors import MaskedTokenProcessor as JProc
 from antmmf_tpu.models.univl import UnivlForVideoTextRetrieval as JUnivl
 from antmmf_tpu.predictors.base_predictor import BatchPredictor as JBatchPredictor
+from test_torch_trainer import jitted_jax_init
+from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 ATOL = 1e-4
 SERVING = "projects/base_vtp/configs/serving.yml"
@@ -83,7 +85,8 @@ def jax_serving(tmp_path_factory):
     """The JAX BatchPredictor on serving.yml (tiny overrides), its params
     dumped as params.npz, and its answers to a request file."""
     cfg = JConfiguration.from_file(SERVING).override_with_opts(TINY)
-    pred = JBatchPredictor(cfg.to_dict()).load(with_ckpt=False)
+    with jitted_jax_init():
+        pred = JBatchPredictor(cfg.to_dict()).load(with_ckpt=False)
     tmp = tmp_path_factory.mktemp("serving")
     np.savez(tmp / "params.npz", **flatten_flax(jax.device_get(pred.variables["params"])))
     rng = np.random.default_rng(7)
