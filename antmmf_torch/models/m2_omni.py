@@ -30,8 +30,11 @@ the vocabulary in chunks, ``_lm_loss_chunked``, when the [B, L, V] logits
 would pass 2²⁸ entries). ``prefill`` writes the KV cache and returns the
 next RoPE position (the largest valid position + 1), which is not the next
 cache slot; greedy ``generate`` decodes token t at RoPE position
-``next_p + t`` into slot ``lens_full + t``. The cache is the port's list of
-per-layer tensors.
+``next_p + t`` into slot ``lens_full + t``. ``decode_chunk`` and
+``extend_cache`` append a text turn or prompt chunk at ``rope0 + k`` on
+all three axes from cache slot ``slot0`` (the serving engine's sessions,
+prefixes and chunked admission). The cache is the port's list of
+per-layer tensors, int8 under ``kv_int8`` (``modules/llm.py``).
 
 ``recipe_opts`` lays the LoRA finetune of the JAX package's bench leg over
 ``m2_omni_7b.yml`` for one card: adapters on the decoder's seven
@@ -42,8 +45,8 @@ The conv tower's ``proj`` reads fbank frames of ``AUDIO_FEATURES`` (80
 mels × LFR 7 = 560, the audio processor's), which flax infers from the
 first batch and the port builds with. ``max_vision_tokens`` is accepted
 and unused, as in JAX.
-Beams, sampling, speculative decoding, ``kv_int8``, ``sequence_parallel``
-and the predictor's ``decode_quant`` (``DECODE_QUANT`` is empty) raise
+Beams, sampling, speculative decoding, ``sequence_parallel`` and the
+predictor's ``decode_quant`` (``DECODE_QUANT`` is empty) raise
 until they are ported.
 """
 
@@ -154,7 +157,6 @@ def _gather_tokens(tokens: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 @registry.register_model("m2_omni")
 class M2Omni(nn.Module):
-    NOT_PORTED = {"sequence_parallel": "none", "kv_int8": False}
     DECODE_QUANT = ()  # no decode_quant mode: K8 at its shapes is not ported
 
     def __init__(self, lm_preset: str = "omni_1b", visual_tower: str = "vit",
@@ -170,10 +172,10 @@ class M2Omni(nn.Module):
                  rope_3d: bool = True, dtype_str: str = "bfloat16", kv_int8: bool = False,
                  device=None):
         super().__init__()
-        for name, value in (("sequence_parallel", sequence_parallel), ("kv_int8", kv_int8)):
-            if value != self.NOT_PORTED[name]:
-                raise NotImplementedError(f"m2_omni {name}={value!r} is not ported yet; only "
-                                          f"{self.NOT_PORTED[name]!r} is")
+        if sequence_parallel != "none":
+            raise NotImplementedError(f"m2_omni sequence_parallel={sequence_parallel!r} is not "
+                                      f"ported yet; only 'none' is")
+        self.kv_int8 = bool(kv_int8)
         if llm_lora_targets not in ("qv", "all"):
             raise ValueError(f"llm_lora_targets must be 'qv' or 'all', got {llm_lora_targets!r}")
         self.dtype = getattr(torch, dtype_str)
@@ -480,7 +482,8 @@ class M2Omni(nn.Module):
         else:
             embeds, positions, full_mask = self._assemble_prefix(batch, input_ids, text_mask)
         B, L, _ = embeds.shape
-        cache = self.decoder.make_cache(B, L + extra_slots, device=embeds.device)
+        cache = self.decoder.make_cache(B, L + extra_slots, device=embeds.device,
+                                        quantized=self.kv_int8)
         hidden, cache = self.decoder(embeds, positions, full_mask, cache=cache)
         lens_full = full_mask.sum(-1)
         last = hidden[torch.arange(B, device=hidden.device), (lens_full - 1).clamp(0, L - 1)]
@@ -497,6 +500,28 @@ class M2Omni(nn.Module):
         hidden, cache = self.decoder(self.token_embed(token[:, None]), pos3, cache=cache,
                                      decode_pos=slot)
         return self.lm_head(hidden[:, 0]).float(), cache
+
+    def decode_chunk(self, tokens: torch.Tensor, rope0: torch.Tensor, slot0: torch.Tensor,
+                     cache):
+        """K text tokens per row at cache slots ``slot0..slot0+K-1`` and RoPE
+        positions ``rope0..rope0+K-1`` on all three axes. Returns (logits
+        fp32 [B, K, V], cache)."""
+        pos = rope0[:, None] + torch.arange(tokens.shape[1], device=tokens.device)[None]
+        hidden, cache = self.decoder(self.token_embed(tokens), pos[..., None].expand(-1, -1, 3),
+                                     cache=cache, decode_pos=slot0)
+        return self.lm_head(hidden).float(), cache
+
+    def extend_cache(self, tokens: torch.Tensor, mask: torch.Tensor, rope0: torch.Tensor,
+                     slot0: torch.Tensor, cache):
+        """Append a right-padded text turn ``tokens`` [B, Lt] (valid per
+        ``mask``) from cache slot ``slot0`` at RoPE continuation ``rope0``.
+        Returns (the last valid token's logits fp32 [B, V], cache, ``rope0``
+        + turn lengths, ``slot0`` + turn lengths)."""
+        logits, cache = self.decode_chunk(tokens, rope0, slot0, cache)
+        tlen = mask.sum(-1)
+        last = logits[torch.arange(tokens.shape[0], device=logits.device),
+                      (tlen - 1).clamp(min=0)]
+        return last, cache, rope0 + tlen, slot0 + tlen
 
     @torch.inference_mode()
     def generate(self, batch: Mapping[str, torch.Tensor], eos_id: int = 2,

@@ -19,7 +19,10 @@ logits at text position t predict the label at t + 1, labels below 0 are
 ignored, the negative log-softmax is summed over the rest and divided by
 their count (at least 1). With ``lora_freeze_base`` the adapted projections are frozen at the
 weight (``requires_grad_(False)``), so their inputs still get gradients.
-``prefill``, ``decode_step`` and ``decode_chunk`` are the cached pieces;
+``prefill``, ``decode_step``, ``decode_chunk`` and ``extend_cache`` (a
+new turn or prompt chunk appended from per-row slots, the serving engine's
+sessions, prefixes and chunked admission) are the cached pieces; with
+``kv_int8`` every cache is the int8 one (``modules/llm.py``).
 ``generate`` is greedy decoding as a Python loop over explicit tensors,
 with the KV cache (one prefill, then one single-token step per new token;
 the last token needs no trailing step) or, with ``use_cache=False``, by
@@ -27,9 +30,8 @@ re-encoding the whole prefix per token, the anchor the cached path is held
 to.
 
 ``LM_PRESETS`` is the port's copy of ``antmmf_tpu/models/m2_omni.py``'s
-table. Beam search, sampling, speculative decoding, the int8 KV cache,
-sequence parallelism, chunked prefill and ``extend_cache`` raise until they
-are ported.
+table. Beam search, sampling, speculative decoding, sequence parallelism
+and ``prefill_chunked`` raise until they are ported.
 """
 
 from __future__ import annotations
@@ -101,11 +103,10 @@ class PinkModel(nn.Module):
                  sequence_parallel: str = "none", kv_int8: bool = False,
                  vocab_override: int = 0, device=None):
         super().__init__()
-        for name, value, only in (("sequence_parallel", sequence_parallel, "none"),
-                                  ("kv_int8", kv_int8, False)):
-            if value != only:
-                raise NotImplementedError(f"{name}={value!r} is not ported yet; only "
-                                          f"{only!r} is")
+        if sequence_parallel != "none":
+            raise NotImplementedError(f"sequence_parallel={sequence_parallel!r} is not ported "
+                                      f"yet; only 'none' is")
+        self.kv_int8 = bool(kv_int8)
         if adapter_style not in ("lora", "pink"):
             raise ValueError(f"adapter_style must be 'lora' or 'pink', got {adapter_style!r}")
         if visual_tower not in ("vit", "eva"):
@@ -237,6 +238,22 @@ class PinkModel(nn.Module):
                                      decode_pos=pos0)
         return self._head(hidden), cache
 
+    def extend_cache(self, tokens: torch.Tensor, mask: torch.Tensor, start: torch.Tensor, cache):
+        """Append right-padded ``tokens`` [B, Lt] (valid per ``mask``) from
+        per-row slot ``start`` int[B]; pad writes past a row's turn sit beyond
+        the validity horizon until later steps overwrite them. Returns (the
+        last valid token's logits fp32 [B, V], cache, ``start`` + turn
+        lengths)."""
+        logits, cache = self.decode_chunk(tokens, start, cache)
+        tlen = mask.sum(-1)
+        last = logits[torch.arange(tokens.shape[0], device=logits.device),
+                      (tlen - 1).clamp(min=0)]
+        return last, cache, start + tlen
+
+    def make_cache(self, batch: int, max_len: int, device=None):
+        """The decoder's cache, int8 under ``kv_int8``."""
+        return self.decoder.make_cache(batch, max_len, device=device, quantized=self.kv_int8)
+
     @torch.inference_mode()
     def generate(self, batch: Mapping[str, torch.Tensor], eos_id: int = 102,
                  max_length: Optional[int] = None, num_beams: int = 1, use_cache: bool = True,
@@ -280,7 +297,7 @@ class PinkModel(nn.Module):
             return tokens, lens
 
         Lv = self.num_vision_tokens(batch)
-        cache = self.decoder.make_cache(B, Lv + total, device=ids.device)
+        cache = self.make_cache(B, Lv + total, device=ids.device)
         logits, cache = self.prefill(fwd_batch(tokens[:, :Lp], mask), cache, lens)
         for t in range(max_new):
             nxt, done = emit(t, logits, done)

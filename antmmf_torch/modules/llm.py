@@ -4,10 +4,11 @@ grouped-query attention with a KV cache, SwiGLU, and the decoder stack.
 Port of ``antmmf_tpu/modules/llm.py`` on the branches Pink training,
 decode serving and M2-omni serving run (1D RoPE, M2-omni's 3D mRoPE, LoRA
 on any of the attention projections and on the MLP's, Pink's serial
-adapters, remat, the ``scan_layers`` weight layout, bf16 cache). The KV cache is a list
-with one ``{"k", "v"}`` dict per layer, each [B, n_kv_heads, T, head_dim]
-with keys stored after RoPE; it is preallocated and written in place (the
-JAX package returns updated copies). Two cached modes, as in JAX:
+adapters, remat, the ``scan_layers`` weight layout, bf16 and int8 caches).
+The KV cache is a list with one ``{"k", "v"}`` dict per layer, each [B,
+n_kv_heads, T, head_dim] with keys stored after RoPE; it is preallocated
+and written in place (the JAX package returns updated copies). Two cached
+modes, as in JAX:
 
 * prefill (``cache`` given, ``decode_pos`` None): the padded prompt chunk
   runs the normal causal forward and its k/v land at slots 0..L-1;
@@ -50,7 +51,14 @@ recompute of remat included), so the flag stops there; the JAX package
 also threads it through its attention for standalone use. In decode the rotary position and the cache slot are two
 arguments: M2-omni's RoPE position of a generated token is not its slot.
 
-The int8 cache and sequence parallelism are not ported.
+The int8 cache (``make_cache(quantized=True)``, the models' ``kv_int8``)
+holds int8 ``k``, ``v`` and fp32 ``k_scale``, ``v_scale`` [B, n_kv, T, 1],
+one max-abs/127 scale a (row, head, slot) (``quantize_kv``). Prefill writes
+the quantised chunk and attends over its unquantised k/v, as JAX's does;
+decode reads the int8 rows and folds the scales in JAX's order: the logits
+times ``k_scale`` before the 1/√D, the probabilities (in the compute dtype)
+times ``v_scale`` (``int8_scale_rows``). Sequence parallelism is not
+ported.
 """
 
 from __future__ import annotations
@@ -69,13 +77,36 @@ MASKED = -1e30  # additive bias of a masked key, the JAX package's value
 
 
 def init_decoder_cache(num_layers: int, batch: int, num_kv_heads: int, max_len: int,
-                       head_dim: int, dtype=torch.bfloat16, device=None
-                       ) -> List[Dict[str, torch.Tensor]]:
-    """Zeroed per-layer KV cache for ``DecoderLM`` prefill and decode."""
+                       head_dim: int, dtype=torch.bfloat16, device=None,
+                       quantized: bool = False) -> List[Dict[str, torch.Tensor]]:
+    """Zeroed per-layer KV cache for ``DecoderLM`` prefill and decode; with
+    ``quantized`` int8 ``k``/``v`` and fp32 ``k_scale``/``v_scale``
+    [B, n_kv, T, 1]."""
     shape = (batch, num_kv_heads, max_len, head_dim)
+    if quantized:
+        sshape = shape[:-1] + (1,)
+        return [{"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                 "k_scale": torch.zeros(sshape, device=device),
+                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                 "v_scale": torch.zeros(sshape, device=device)}
+                for _ in range(num_layers)]
     return [{"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
             for _ in range(num_layers)]
+
+
+def quantize_kv(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 per (row, head, slot): [..., D] → (int8 [..., D], fp32
+    scale [..., 1]), the scale max|t|/127 floored at 1e-8/127."""
+    tf = t.float()
+    scale = tf.abs().amax(dim=-1, keepdim=True).clamp(min=1e-8) / 127.0
+    return torch.round(tf / scale).clamp(-127, 127).to(torch.int8), scale
+
+
+def int8_scale_rows(cache: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The int8 cache's key and value scales as rows [B, n_kv, 1, T], which
+    decode attention folds into its logits and probabilities."""
+    return cache["k_scale"][..., 0][:, :, None], cache["v_scale"][..., 0][:, :, None]
 
 
 class RMSNorm(nn.Module):
@@ -227,8 +258,12 @@ class GQAttention(nn.Module):
             rope_cs = rope_cos_sin(positions, D, self.rope_theta)
         q, k = apply_rope_cs(q, *rope_cs), apply_rope_cs(k, *rope_cs)
 
+        quant = cache is not None and "k_scale" in cache
         if decode_pos is None:
-            if cache is not None:  # prefill: the chunk lands at slots 0..L-1
+            if quant:  # prefill attends over the unquantised chunk, as JAX's does
+                for name, t in (("k", k), ("v", v)):
+                    cache[name][:, :, :L], cache[f"{name}_scale"][:, :, :L] = quantize_kv(t)
+            elif cache is not None:  # prefill: the chunk lands at slots 0..L-1
                 cache["k"][:, :, :L] = k
                 cache["v"][:, :, :L] = v
             rep = H // n_kv
@@ -241,15 +276,25 @@ class GQAttention(nn.Module):
             T = cache["k"].shape[2]
             slots = decode_pos[:, None] + torch.arange(L, device=x.device)[None]  # [B, L]
             rows = torch.arange(B, device=x.device)[:, None]
-            cache["k"][rows, :, slots] = k.transpose(1, 2).to(cache["k"].dtype)
-            cache["v"][rows, :, slots] = v.transpose(1, 2).to(cache["v"].dtype)
+            for name, t in (("k", k), ("v", v)):
+                if quant:
+                    tq, scale = quantize_kv(t)
+                    cache[name][rows, :, slots] = tq.transpose(1, 2)
+                    cache[f"{name}_scale"][rows, :, slots] = scale.transpose(1, 2)
+                else:
+                    cache[name][rows, :, slots] = t.transpose(1, 2).to(cache[name].dtype)
             valid = torch.arange(T, device=x.device)[None, None] <= slots[:, :, None]
             step_bias = torch.where(valid, 0.0, MASKED)[:, None, None]  # [B, 1, 1, L, T]
             # grouped: the queries of a kv head's group share its cache rows
             qg = q.reshape(B, n_kv, H // n_kv, L, D)
             logits = torch.einsum("bgrqd,bgkd->bgrqk", qg.float(), cache["k"].float())
+            if quant:
+                k_row, v_row = int8_scale_rows(cache)
+                logits = logits * k_row[:, :, None]
             logits = logits * D ** -0.5 + step_bias
             probs = torch.softmax(logits, dim=-1).to(x.dtype)
+            if quant:
+                probs = probs * v_row[:, :, None].to(probs.dtype)
             out = torch.einsum("bgrqk,bgkd->bgrqd", probs, cache["v"].to(x.dtype))
             out = out.reshape(B, H, L, D)
         out = self._project("o", out.transpose(1, 2).reshape(B, L, H * D))
@@ -398,6 +443,7 @@ class DecoderLM(nn.Module):
         x = self.final_norm(x)
         return x if cache is None else (x, cache)
 
-    def make_cache(self, batch: int, max_len: int, dtype=None, device=None):
+    def make_cache(self, batch: int, max_len: int, dtype=None, device=None,
+                   quantized: bool = False):
         return init_decoder_cache(self.num_layers, batch, self.num_kv_heads, max_len,
-                                  self.head_dim, dtype or self.dtype, device)
+                                  self.head_dim, dtype or self.dtype, device, quantized)

@@ -65,13 +65,16 @@ def pack_int4(w: np.ndarray, group: int = DEFAULT_GROUP) -> Tuple[np.ndarray, np
     fin, fout = w.shape
     if not packable(w.shape, group):
         raise ValueError(f"shape {w.shape} not packable (group={group})")
-    g = w.astype(np.float32).reshape(fin // group, group, fout)
-    scale = np.maximum(np.abs(g).max(axis=1), 1e-12) / 7.0
-    q = np.clip(np.round(g / scale[:, None]), -7, 7).astype(np.int8).reshape(fin, fout)
+    # torch's CPU ops on all threads; the same IEEE fp32 quotients and
+    # round-half-to-even as the JAX package's numpy, so the same bytes
+    g = torch.from_numpy(np.ascontiguousarray(w, dtype=np.float32)).reshape(
+        fin // group, group, fout)
+    scale = g.abs().amax(dim=1).clamp(min=1e-12) / 7.0
+    q = torch.round(g / scale[:, None]).clamp(-7, 7).to(torch.int8).reshape(fin, fout)
     half = fin // 2
-    lo = (q[:half] + 8).astype(np.uint8)
-    hi = q[half:].view(np.uint8) & 0x0F
-    return lo | (hi << 4), scale.astype(np.float32)
+    lo = (q[:half] + 8).view(torch.uint8)
+    hi = q[half:].view(torch.uint8) & 0x0F
+    return (lo | (hi << 4)).numpy(), scale.numpy()
 
 
 def _pick_tiles(fin: int, fout: int, group: int) -> Optional[Tuple[int, int]]:

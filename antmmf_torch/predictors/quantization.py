@@ -99,10 +99,10 @@ def quantize_for_decode(variables: Any, min_size: int = 65536, bits: int = 4,
                     [arr, np.zeros((fin_pad - arr.shape[0], arr.shape[1]), arr.dtype)], axis=0)
                 g = best_group(fin_pad, arr.shape[1], group)
         if g is None:  # conv kernels, odd shapes: int8 per output channel
-            flat = arr.reshape(-1, arr.shape[-1]).astype(np.float32)
-            scale = np.maximum(np.abs(flat).max(axis=0), 1e-12) / 127.0
-            q = np.clip(np.round(arr.astype(np.float32) / scale), -127, 127).astype(np.int8)
-            return {"q": q, "scale": scale.astype(np.float32)}
+            t = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
+            scale = t.reshape(-1, t.shape[-1]).abs().amax(dim=0).clamp(min=1e-12) / 127.0
+            q = torch.round(t / scale).clamp(-127, 127).to(torch.int8)
+            return {"q": q.numpy(), "scale": scale.numpy()}
         packed, scale = pack_int4(arr, group=g)
         return {"q4": packed, "scale": scale}
 

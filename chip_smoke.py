@@ -4,7 +4,7 @@
     python3 chip_smoke.py --calibrate  # the card-vs-CPU readings: seeds and planted faults
     python3 chip_smoke.py --calibrate dmae  # one part: serving, training, pink, pretraining,
                                             # dmae, task_heads, roi, pink_train, pink_7b,
-                                            # m2_omni, m2_train
+                                            # m2_omni, m2_train, engine
 
 Phases, each printing JSON lines; a failing phase ends the script with a
 non-zero code and no result line:
@@ -98,14 +98,39 @@ non-zero code and no result line:
    prefill time, decode time per token, tokens/s, peak memory and the
    device's idle share over profiled decode steps;
 10. card vs CPU (Pink): one set of int4 records loaded into the card's bf16
-   model and an fp32 CPU model: the logits at prefill and at the first
-   decode step (teacher-forced), held to the bound that ``--calibrate``
-   reads from sound seeds and planted faults;
-11. ``int4_gemv`` timed on the served model's own records at 1, 8 and 32
-   rows of bf16 x, cycling through copies so that no launch finds its
+   model and an fp32 CPU model (the records phase 9's predictor made from
+   its bf16 weights, not a second quantisation of the CPU's): the logits at
+   prefill and at the first decode step (teacher-forced), held to the bound
+   that ``--calibrate`` reads from sound seeds and planted faults;
+11. ``int4_gemv`` timed on the served model's own records at 1, 8, 16 and
+   32 rows of bf16 x (8: the engine's pooled decode step; 16: its chunked
+   extend), cycling through copies so that no launch finds its
    weights in the L2 cache, beside its bound, its plain version (1 row) and
    bf16 ``torch.matmul`` on the dequantised weight, and summed over a decode
    step's 155 launches for each row count;
+11b. the continuous-batching engine (``predictors/serving_engine.py``):
+   (a) on phase 9's Pink int4 module, 8 slots, windows of 8 tokens, 16
+   requests with an image (two text-only) of 16..64 prompt tokens and
+   8..24 new tokens, two of them sampled (top_p 0.9, temperature 0.8), one
+   with a stop token, one cancelled after the first window, one evicted by
+   its deadline: greedy tokens against sequential ``generate`` on the same
+   module (a first differing position must be a near-tie of the sequential
+   logits, ``ENGINE_TIE_MAX``), the sampled ones again in another order;
+   then the same requests with ``prefill_chunk`` 16, a prefix (the image and
+   16 tokens) registered once with 4 suffixes against their full prompts,
+   a two-turn session against a full re-prefill, and a pass with
+   ``kv_int8``; every window launches K8 8 x 155 times and nothing else,
+   every admission 22 ``flash_fwd``, K8 once and 11 K1 with an image, every
+   extend K8 155 times; tokens/s against sequential ``generate`` over the
+   same requests, TTFT and TPOT p50/p99, slot use, peak memory, the idle
+   share over two profiled windows; (c) the int8 cache card bf16 vs CPU
+   fp32 at full width and 2 decoder layers (3 decode steps teacher-forced
+   with the CPU's tokens), held to the bounds ``--calibrate engine`` reads,
+   and two planted faults outside them (the key scales read one slot off,
+   the value scales not applied); (d) ``python -m
+   antmmf_torch.predictors.cli --engine`` through ``cli.main`` on four
+   text-only requests at 2 decoder layers seeded on the card, its tokens
+   against an in-process engine on the same model;
 12. trainer: ``python -m antmmf_torch.run`` driven in-process
    (``antmmf_torch.run.main``) on ``projects/base_vtp/configs/
    video_retrieval.yml`` at full width over a seeded synthetic dataset in
@@ -271,7 +296,14 @@ non-zero code and no result line:
    axes, image slots at sequential positions, the PatchMerger grouping in
    raster order, the L2 normalisation dropped, the audio convolutions
    padded (1, 1)). Phase 2 holds ``flash_fwd`` at its prefill [1, 32, 640,
-   128] and K1 at [1, 4, 64, 128]; phase 7 times both beside SDPA.
+   128] and K1 at [1, 4, 64, 128]; phase 7 times both beside SDPA; (e)
+   the engine on (a)'s model: 4 slots, windows of 8, the three requests
+   twice against (a)'s tokens under the near-tie rule (32 ``flash_fwd`` an
+   admission, 4 K1 with audio, no launch in a window), the RoPE position and
+   the cache slot advancing apart, a two-turn text session against a full
+   re-prefill, the idle share over two windows; (d)'s twins with the int8
+   cache on request (a), held to the int8 bounds with the same two faults
+   outside them.
 20. M2-omni LoRA training (``m2_omni_7b.yml`` under ``recipe_opts`` of
    ``models/m2_omni.py``: LoRA 8 on the decoder's seven projections and on
    every Qwen2-ViT block, only the adapters, ``vision_proj`` and
@@ -299,8 +331,9 @@ Each path (serving, each training leg, each Pink request, the trainer, the
 pretraining step and trainer, each part of phase 14 but its card-vs-CPU
 comparison, each caption request, bare step and trainer run of phase 15,
 each bare step and trainer run of phase 16, phase 17's trainer runs,
-phase 18's runs and served requests, phase 19's requests, phase 20's
-warm-up updates and its chunked-loss update)
+phase 18's runs and served requests, phase 19's requests, each engine
+pass of phases 11b and 19, phase 20's warm-up updates and its chunked-loss
+update)
 runs
 with the kernels' launch counts set to 0 just before it and read just after;
 launches made to compare a kernel with its plain version or to time it are
@@ -386,6 +419,11 @@ from antmmf_torch.predictors.m2_omni_serving import (  # noqa: E402
 from antmmf_torch.predictors.quantization import (  # noqa: E402
     load_decode_records,
     quantize_for_decode,
+)
+from antmmf_torch.predictors.serving_engine import (  # noqa: E402
+    ContinuousBatchingEngine,
+    M2OmniAdapter,
+    PinkAdapter,
 )
 from antmmf_torch.modules.moco import queue_buffers  # noqa: E402
 from antmmf_torch.trainers.base_trainer import BaseTrainer  # noqa: E402
@@ -1794,9 +1832,18 @@ def pink_predictor(device: str = "cuda", dtype: str = "bfloat16", quant: bool = 
         opts += [f"model_attributes.pink.{key}", str(value)]
     if quant:
         opts += ["predictor_parameters.decode_quant", "int4"]
-    predictor, _ = build_predictor(["--config", PINK_CONFIG, "--predictor",
-                                    "generation_predictor", "--no_ckpt", "--device", device,
-                                    *opts])
+    from antmmf_torch.predictors import generation_predictor as gp
+
+    made = []
+    real = gp.quantize_for_decode
+    gp.quantize_for_decode = lambda *a, **kw: made.append(real(*a, **kw)) or made[-1]
+    try:
+        predictor, _ = build_predictor(["--config", PINK_CONFIG, "--predictor",
+                                        "generation_predictor", "--no_ckpt", "--device", device,
+                                        *opts])
+    finally:
+        gp.quantize_for_decode = real
+    predictor.records = made[0] if made else None  # the int4 records it loaded
     return predictor
 
 
@@ -1946,15 +1993,19 @@ def pink_within_bound(res) -> bool:
 
 
 def pink_twins(card, seed: int):
-    """An fp32 CPU model with weights of ``seed``, its int4 records loaded
-    into it and into the card's bf16 model."""
+    """An fp32 CPU model with weights of ``seed`` and one set of int4 records
+    in it and in the card's bf16 model: at the card's seed the records the
+    card's predictor made and loaded (from its bf16 weights), else records
+    of the CPU's weights, loaded into both."""
     with no_default_init():  # the predictor's seeded init sets every value
         cpu = pink_predictor("cpu", "float32", quant=False)
     if seed:  # the predictor drew seed 0
         cpu.shell.init(seed)
-    records = quantize_for_decode({"params": export_flax_params(cpu.shell.module)})
+    records = card.records if seed == SEED and card.records is not None else None
+    if records is None:
+        records = quantize_for_decode({"params": export_flax_params(cpu.shell.module)})
+        load_decode_records(card.shell.module, records, torch.bfloat16)
     load_decode_records(cpu.shell.module, records, torch.float32)
-    load_decode_records(card.shell.module, records, torch.bfloat16)
     return cpu
 
 
@@ -2058,7 +2109,7 @@ def phase_int4_times(pred, gpu) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     saved = read_counts()
     steps = {rows: dict(ms=0.0, library_ms=0.0, bound_ms=0.0, bytes=0)
-             for rows in (1, 8, 32)}
+             for rows in (1, ENGINE_SLOTS, ENGINE_CHUNK, 32)}
     steps[1].update(eager_ms=0.0, plain_ms=0.0)
     for name, (mod, per_step) in modules.items():
         packed, scale = mod.kernel_q4, mod.kernel_scale
@@ -2097,6 +2148,771 @@ def phase_int4_times(pred, gpu) -> dict:
     return dict(ms=step["ms"] / GEMVS_PER_STEP, plain_ms=step["plain_ms"] / GEMVS_PER_STEP,
                 library_ms=step["library_ms"] / GEMVS_PER_STEP,
                 bound_ms=step["bound_ms"] / GEMVS_PER_STEP, bound_by="bytes")
+
+
+# ------------------------------------------------------------ phase 11b
+# The continuous-batching engine (predictors/serving_engine.py) on phase
+# 9's Pink int4 module: 8 slots, windows of 8 tokens, 16 requests (16..64
+# prompt tokens, 8..24 new tokens; by index: 1 and 2 sampled at top_p 0.9,
+# temperature 0.8; 3 with a stop token; 4 cancelled after the first
+# window; 5 with a deadline of 0.05 s; 14 and 15 text-only; the rest greedy
+# with an image). A window decodes the pool's 8 rows through 155 K8
+# launches a step; an admission prefills one request (22 flash_fwd, 11 K1
+# with an image, K8 once for lm_head on the last prompt token); an extend
+# of W <= 32 tokens (chunks, prefix suffixes, session turns) 155 K8.
+ENGINE_SLOTS, ENGINE_WINDOW, ENGINE_REQUESTS = 8, 8, 16
+ENGINE_CHUNK, ENGINE_PREFIX, ENGINE_SUFFIXES = 16, 16, 4
+ENGINE_ROLES = {1: "sampled", 2: "sampled", 3: "stop", 4: "cancel", 5: "deadline",
+                14: "text_only", 15: "text_only"}
+ENGINE_TURN = 8  # a session's second turn, in tokens
+ENGINE_SHORT = 8  # new tokens of a prefix suffix and of each session turn
+ENGINE_EXTRA = ENGINE_TURN + PINK_NEW_TOKENS  # cache slots a session's second turn needs
+M2_ENGINE_SLOTS = 4
+CLI_LAYERS, CLI_REQUESTS, CLI_NEW = 2, 4, 8
+# greedy tokens on the engine (S rows through cuBLAS and K8) against
+# sequential generate (one row): where they differ, the first differing
+# position must be a near-tie of the sequential logits, |l[seq] - l[engine]|
+# over the logits' standard deviation at most ENGINE_TIE_MAX
+# (``--calibrate engine``). Three sound seeds (33 requests, 12 of them
+# differing) read 0 (the bf16 logits tie exactly), 0.0217 and at most
+# 0.0433; an admission copied into slot 0 reads 0.197 to 4.44 on all 11
+# requests, the decode slot one ahead up to 0.196 on 10 of 11 (H100 readings)
+ENGINE_TIE_MAX = 0.1
+# kv_int8, card bf16 vs CPU fp32 on the same weights (Pink at 2 decoder
+# layers, M2-omni at M2_CUT): the logits of INT8_STEPS decode steps over the
+# int8 cache, teacher-forced with the CPU's tokens; cosine and the largest
+# |Δ| over the spread (``--calibrate engine``). Sound runs over three seeds
+# stay above cos 0.99994 and below 0.054 (Pink; M2-omni 0.99997, 0.040);
+# the key scales read one slot off read cos 0.9928 and 0.55 (M2-omni 0.9932,
+# 0.53), the value scales not applied cos 0.69 and 3.5 (H100 readings)
+INT8_STEPS = 3
+INT8_COS_MIN, INT8_DLOGIT_MAX = 0.999, 0.25
+
+
+def engine_pink_requests(seed: int = SEED) -> list:
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(ENGINE_REQUESTS):
+        n = int(rng.integers(16, PINK_PROMPT_LEN + 1))
+        ids = np.zeros(PINK_PROMPT_LEN, np.int64)
+        ids[0], ids[1:n] = 101, rng.integers(1000, 30000, n - 1)
+        data = {"input_ids": ids, "input_mask": (np.arange(PINK_PROMPT_LEN) < n).astype(np.int64),
+                "max_new": int(rng.integers(8, PINK_NEW_TOKENS + 1))}
+        if ENGINE_ROLES.get(i) != "text_only":
+            data["image_data"] = rng.standard_normal((SIZE, SIZE, 3)).astype(np.float32)
+        if ENGINE_ROLES.get(i) == "sampled":
+            data.update(do_sample=True, top_p=0.9, temperature=0.8, seed=i)
+        if ENGINE_ROLES.get(i) == "deadline":  # admitted in the first step, evicted after it
+            data["deadline_s"] = 0.05
+        reqs.append((f"p{i}", data))
+    return reqs
+
+
+def truncate_at_eos(toks, eos: int) -> list:
+    out = []
+    for t in toks:
+        out.append(int(t))
+        if t == eos:
+            break
+    return out
+
+
+def sequential_tokens(module, eng, data, max_new: int) -> list:
+    """``generate`` on one request (B=1), cut after EOS."""
+    batch = {"input_ids": torch.as_tensor(data["input_ids"])[None].cuda(),
+             "input_mask": torch.as_tensor(data["input_mask"])[None].cuda(),
+             **eng._extras_of(data)}
+    tokens, lens = module.generate(batch, eos_id=eng.eos_id, max_length=max_new)
+    n = int(lens[0])
+    return truncate_at_eos(tokens[0, n:n + max_new].tolist(), eng.eos_id)
+
+
+def tie_margin(eng, data, got: list, seq: list, j: int) -> float:
+    """|l[seq_j] - l[got_j]| / std(l) of the one-row logits at position j,
+    teacher-forced on seq[:j] through the adapter's prefill and decode."""
+    ad = eng.ad
+    with torch.inference_mode():
+        logits, cache, slot0, rope0 = ad.prefill1(*eng._prompt(data), eng._extras_of(data))
+        for t in range(j):
+            logits, cache = ad.decode(torch.tensor([seq[t]], device="cuda"), rope0 + t,
+                                      slot0 + t, cache)
+    lg = logits[0].float()
+    return float((lg[seq[j]] - lg[got[j]]).abs() / lg.std())
+
+
+def agree(eng, data, got: list, seq: list) -> dict:
+    """Engine tokens against sequential ones: equal, or the first differing
+    position (or a length difference) and its near-tie margin."""
+    j = next((i for i, (a, b) in enumerate(zip(got, seq)) if a != b), None)
+    if j is None:
+        same = len(got) == len(seq)
+        return dict(equal=same, first_diff=None if same else min(len(got), len(seq)),
+                    margin=0.0 if same else float("inf"))
+    return dict(equal=False, first_diff=j, margin=tie_margin(eng, data, got, seq, j))
+
+
+def agrees(res: dict) -> bool:
+    return res["equal"] or res["margin"] <= ENGINE_TIE_MAX
+
+
+class LaunchLog:
+    """The kernels' launches of each engine window and each admission or
+    extend, read around the adapter's and the engine's calls (no sync), and
+    each call's host milliseconds (a window's end in its one host read, so
+    its time holds the device work queued before it)."""
+
+    def __init__(self, eng):
+        self.windows, self.prefills, self.extends = [], [], []
+        self.ms = {"window": [], "prefill": [], "extend": []}
+        for obj, name, log, key in ((eng, "_window", self.windows, "window"),
+                                    (eng.ad, "prefill1", self.prefills, "prefill"),
+                                    (eng.ad, "extend", self.extends, "extend")):
+            setattr(obj, name, self.wrap(getattr(obj, name), log, self.ms[key]))
+
+    def host_ms(self) -> dict:
+        return {k: pct(v) for k, v in self.ms.items() if v}
+
+    @staticmethod
+    def undo(eng):
+        eng.__dict__.pop("_window", None)
+        eng.ad.__dict__.pop("prefill1", None)
+        eng.ad.__dict__.pop("extend", None)
+
+    @staticmethod
+    def wrap(fn, log, ms):
+        def counted(*args, **kw):
+            before, t0 = read_counts(), time.perf_counter()
+            out = fn(*args, **kw)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            after = read_counts()
+            log.append({k: after[k] - before[k] for k in after})
+            return out
+        return counted
+
+
+def window_launches(gemvs_per_step: int) -> dict:
+    return {**NO_LAUNCHES, "int4_gemv": ENGINE_WINDOW * gemvs_per_step}
+
+
+def engine_pass(eng, requests, cancel=(), chunk=None) -> tuple:
+    """One workload through ``eng`` (reset first): the launch counts set to 0
+    just before and read just after; ``cancel`` ids cancelled after the
+    first window; with ``chunk``, chunked admission appending up to a chunk
+    a slot between windows. Returns (stats, launches, the LaunchLog)."""
+    eng.reset()
+    eng.chunk, eng.chunks_per_step = chunk, eng.S
+    log = LaunchLog(eng)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for rid, data in requests:
+        eng.submit(rid, data)
+    eng.step()
+    for rid in cancel:
+        check(eng.cancel(rid), f"engine: {rid} could not be cancelled")
+    while eng._queue or any(r is not None for r in eng._slot_req) \
+            or any(p is not None for p in eng._slot_pending):
+        eng.step()
+    torch.cuda.synchronize()
+    stats = eng.stats(time.perf_counter() - t0)
+    counts = read_counts()
+    log.undo(eng)
+    eng.chunk, eng.chunks_per_step = None, 1
+    return stats, counts, log
+
+
+def stats_line(stats) -> dict:
+    return {k: v for k, v in stats.items() if k not in ("outputs", "cancelled", "evicted")}
+
+
+def engine_idle(eng, requests, gpu) -> dict:
+    """Device-busy time over two windows of a full pool (admitted before,
+    the engine's budget of new tokens each), against the same two windows
+    untraced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def two_windows(profiled: bool):
+        eng.reset()
+        for rid, data in requests[:eng.S]:
+            eng.submit(rid, {**data, "max_new": eng.max_new, "deadline_s": None})
+        eng.step()
+        torch.cuda.synchronize()
+        ctx = profile(activities=[ProfilerActivity.CUDA]) if profiled \
+            else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with ctx as prof:
+            eng.step()
+            eng.step()
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, prof
+
+    wall, _ = two_windows(False)
+    _, prof = two_windows(True)
+    eng.reset()
+    busy, n_ops, top = device_busy(prof, 2)
+    return dict(profiled="two decode windows of a full pool", untraced_window_ms=wall / 2,
+                device_busy_ms=busy if n_ops else "not measured",
+                device_idle_share=1 - 2 * busy / wall if n_ops else "not measured",
+                device_ops=n_ops, top_device_ops_ms=top)
+
+
+def decode_step_ms(module, rows: int, steps: int = 10) -> dict:
+    """One ``decode_step`` over ``rows`` cache rows, the device waited for
+    after each (host and device together), as the engine's window and
+    sequential decoding call it."""
+    T = module.num_patches + PINK_PROMPT_LEN + PINK_NEW_TOKENS
+    with torch.inference_mode():
+        cache = module.make_cache(rows, T, device="cuda")
+        tok = torch.full((rows,), 1000, device="cuda")
+        pos = torch.full((rows,), T // 2, device="cuda")
+
+        def step():
+            module.decode_step(tok, pos, cache)
+            torch.cuda.synchronize()
+
+        saved = read_counts()
+        out = pct(host_ms(step, steps, warmup=3))
+    for fn in KERNELS:  # timing launches are not path launches
+        fn.launches = saved[fn.__name__]
+    return out
+
+
+def pink_engine(pred, gpu) -> dict:
+    """Phase 11b: the engine on phase 9's module; returns the launches of
+    its passes."""
+    t_phase = time.perf_counter()
+    module = pred.shell.module
+    ad = PinkAdapter(module, PINK_PROMPT_LEN, PINK_NEW_TOKENS, has_image=True,
+                     extra_slots=ENGINE_EXTRA)
+    eng = ContinuousBatchingEngine(ad, slots=ENGINE_SLOTS, max_new_tokens=PINK_NEW_TOKENS,
+                                   eos_id=pred.eos_id, step_tokens=ENGINE_WINDOW)
+    reqs = engine_pink_requests()
+    by_id = dict(reqs)
+    # sequential generate over the same requests (greedy: generate does not sample)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = {rid: sequential_tokens(module, eng, d, d["max_new"]) for rid, d in reqs}
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    k = next((i for i, t in enumerate(seq["p3"]) if i >= 2 and t not in seq["p3"][:i]), 0)
+    by_id["p3"]["stop"] = [[seq["p3"][k]]]
+    totals = dict(NO_LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    stats, counts, log = engine_pass(eng, reqs, cancel=("p4",))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for key, n in counts.items():
+        totals[key] += n
+    out = stats["outputs"]
+    greedy = [rid for i, (rid, _) in enumerate(reqs) if ENGINE_ROLES.get(i) in (None, "text_only")]
+    readings = {rid: agree(eng, by_id[rid], out[rid], seq[rid]) for rid in greedy}
+    stop = out["p3"]
+    readings["p3"] = agree(eng, by_id["p3"], stop, seq["p3"][:k]) if stop != seq["p3"][:k] \
+        else dict(equal=True, first_diff=None, margin=0.0)
+    seq_tokens = sum(len(t) for t in seq.values())
+    emit(phase="engine", part="pink_pass", gpu=gpu, slots=ENGINE_SLOTS, window=ENGINE_WINDOW,
+         requests=ENGINE_REQUESTS, **stats_line(stats), peak_mem_gb=peak,
+         sequential_s=seq_s, sequential_tokens=seq_tokens,
+         sequential_tokens_per_s=seq_tokens / seq_s,
+         speedup_tokens_per_s=stats["tokens_per_s"] / (seq_tokens / seq_s),
+         launches=counts, windows=len(log.windows), admissions=len(log.prefills),
+         host_ms=log.host_ms(), agreement=readings, tie_max=ENGINE_TIE_MAX, cancelled=sorted(stats["cancelled"]),
+         evicted=sorted(stats["evicted"]), outputs={r: out[r] for r in ("p1", "p2", "p3", "p4",
+                                                                        "p5")})
+    check(all(w == window_launches(GEMVS_PER_STEP) for w in log.windows),
+          f"engine windows launched {log.windows[:3]}; expected "
+          f"{window_launches(GEMVS_PER_STEP)} each")
+    admission = {**NO_LAUNCHES, "flash_fwd": PINK_LAYERS, "int4_gemv": 1}
+    kinds = [0 if got == admission else 1 if got == {**admission,
+                                                      "small_attention": PINK_VIT_LAYERS} else -1
+             for got in log.prefills]
+    check(sorted(kinds) == [0, 0] + [1] * (ENGINE_REQUESTS - 2) and not log.extends,
+          f"engine admissions launched {log.prefills}; expected {admission}, with "
+          f"{PINK_VIT_LAYERS} K1 for an image")
+    check(all(agrees(r) for r in readings.values()), f"engine tokens differ from sequential "
+          f"generate beyond a near-tie: {readings}")
+    check(stats["cancelled"] == {"p4"} and len(out["p4"]) <= ENGINE_WINDOW, "engine: cancel")
+    check(stats["evicted"] == {"p5"} and len(out["p5"]) < by_id["p5"]["max_new"],
+          "engine: deadline")
+    check(seq["p3"][k] not in stop, "engine: the stop token was emitted")
+    for rid in ("p1", "p2"):
+        check(0 < len(out[rid]) <= by_id[rid]["max_new"] and all(0 <= t < PINK_VOCAB
+                                                                  for t in out[rid]),
+              f"engine: sampled {rid}")
+
+    # the sampled requests again, in another order beside other requests
+    again, counts, _ = engine_pass(eng, [reqs[0], reqs[15], reqs[2], reqs[1]])
+    for key, n in counts.items():
+        totals[key] += n
+    same_draws = all(again["outputs"][r] == out[r] for r in ("p1", "p2"))
+    emit(phase="engine", part="pink_sampling_reordered", same_tokens=same_draws,
+         outputs={r: again["outputs"][r] for r in ("p1", "p2")})
+    check(same_draws, "engine: sampled tokens depend on the schedule")
+
+    # chunked admission of the same requests: chunk 0 prefilled, the rest
+    # of each prompt appended 16 tokens at a time, up to 8 chunks between
+    # windows
+    plain = [(rid, {k: v for k, v in d.items() if k not in ("deadline_s",)}) for rid, d in reqs
+             if ENGINE_ROLES.get(int(rid[1:])) in (None, "text_only")]
+    chunked, counts, log = engine_pass(eng, plain, chunk=ENGINE_CHUNK)
+    for key, n in counts.items():
+        totals[key] += n
+    creadings = {rid: agree(eng, d, chunked["outputs"][rid], seq[rid]) for rid, d in plain}
+    emit(phase="engine", part="pink_chunked", chunk=ENGINE_CHUNK, **stats_line(chunked),
+         launches=counts, extends=len(log.extends), host_ms=log.host_ms(), agreement=creadings)
+    check(all(e == {**NO_LAUNCHES, "int4_gemv": GEMVS_PER_STEP} for e in log.extends)
+          and log.extends, f"engine chunked extends launched {log.extends[:3]}")
+    check(all(agrees(r) for r in creadings.values()), f"engine chunked tokens: {creadings}")
+
+    # a prefix (the image and 16 tokens) registered once, 4 suffixes forked
+    rng = np.random.default_rng(SEED + 31)
+    img = rng.standard_normal((SIZE, SIZE, 3)).astype(np.float32)
+    prefix = np.concatenate([[101], rng.integers(1000, 30000, ENGINE_PREFIX - 1)]).astype(np.int64)
+    suffixes = [rng.integers(1000, 30000, int(n)).astype(np.int64)
+                for n in rng.integers(8, 25, ENGINE_SUFFIXES)]
+    eng.reset()
+    log = LaunchLog(eng)
+    zero_counts()
+    eng.register_prefix("sys", {"input_ids": prefix, "image_data": img})
+    pstats = eng.run([(f"s{i}", {"prefix": "sys", "input_ids": s, "max_new": ENGINE_SHORT})
+                      for i, s in enumerate(suffixes)])
+    counts = read_counts()
+    log.undo(eng)
+    eng.drop_prefix("sys")
+    for key, n in counts.items():
+        totals[key] += n
+    preadings = {}
+    for i, s in enumerate(suffixes):
+        full = {"input_ids": np.concatenate([prefix, s]), "image_data": img}
+        full["input_mask"] = np.ones_like(full["input_ids"])
+        preadings[f"s{i}"] = agree(eng, full, pstats["outputs"][f"s{i}"],
+                                   sequential_tokens(module, eng, full, ENGINE_SHORT))
+    emit(phase="engine", part="pink_prefix", **stats_line(pstats), launches=counts,
+         admissions=len(log.prefills), extends=len(log.extends), agreement=preadings)
+    check(len(log.prefills) == 1 and len(log.extends) == ENGINE_SUFFIXES,
+          "engine prefix: one prefill, an extend a suffix")
+    check(all(agrees(r) for r in preadings.values()), f"engine prefix tokens: {preadings}")
+
+    # a two-turn session beside two plain requests, against a full re-prefill
+    eng.reset()
+    zero_counts()
+    first = {**by_id["p0"], "max_new": ENGINE_SHORT, "session": True}
+    eng.submit("t1", first)
+    eng.submit(*reqs[6])
+    eng.submit(*reqs[7])
+    while "t1" not in eng._done:
+        eng.step()
+    turn = np.random.default_rng(SEED + 32).integers(1000, 30000, ENGINE_TURN).astype(np.int64)
+    eng.continue_session("t1", "t2", {"input_ids": turn, "max_new": ENGINE_SHORT})
+    while "t2" not in eng._done:
+        eng.step()
+    counts = read_counts()
+    for key, n in counts.items():
+        totals[key] += n
+    gen1, gen2 = eng._done["t1"], eng._done["t2"]
+    n1 = int(first["input_mask"].sum())
+    conv = np.concatenate([first["input_ids"][:n1], gen1, turn]).astype(np.int64)
+    full = {"input_ids": conv, "input_mask": np.ones_like(conv),
+            "image_data": first["image_data"]}
+    sreading = agree(eng, full, gen2, sequential_tokens(module, eng, full, ENGINE_SHORT))
+    eng.close_session("t2")
+    emit(phase="engine", part="pink_session", turn_tokens=ENGINE_TURN, first_turn=gen1,
+         second_turn=gen2, agreement=sreading, launches=counts)
+    check(agrees(sreading), f"engine session against a full re-prefill: {sreading}")
+
+    # kv_int8: the same module serves from an int8 cache
+    module.kv_int8 = True
+    try:
+        qeng = ContinuousBatchingEngine(
+            PinkAdapter(module, PINK_PROMPT_LEN, PINK_NEW_TOKENS, has_image=True),
+            slots=ENGINE_SLOTS, max_new_tokens=PINK_NEW_TOKENS, eos_id=pred.eos_id,
+            step_tokens=ENGINE_WINDOW)
+        torch.cuda.reset_peak_memory_stats()
+        qstats, counts, qlog = engine_pass(qeng, plain[:ENGINE_SLOTS])
+        qpeak = torch.cuda.max_memory_allocated() / 1e9
+        qreadings = {rid: agree(qeng, d, qstats["outputs"][rid],
+                                sequential_tokens(module, qeng, d, d["max_new"]))
+                     for rid, d in plain[:2]}
+        cache_bytes = {q: sum(t.numel() * t.element_size() for layer in e._state["cache"]
+                              for t in layer.values()) for q, e in (("bf16", eng), ("int8", qeng))}
+    finally:
+        module.kv_int8 = False
+    for key, n in counts.items():
+        totals[key] += n
+    emit(phase="engine", part="pink_kv_int8", **stats_line(qstats), peak_mem_gb=qpeak,
+         pool_cache_bytes=cache_bytes, launches=counts, host_ms=qlog.host_ms(),
+         agreement=qreadings)
+    check(all(agrees(r) for r in qreadings.values()), f"engine kv_int8 tokens: {qreadings}")
+    check(cache_bytes["int8"] < 0.6 * cache_bytes["bf16"], "engine: the int8 pool is not smaller")
+
+    emit(phase="engine", part="pink_idle", gpu=gpu, **engine_idle(eng, plain, gpu),
+         decode_step_ms={rows: decode_step_ms(module, rows) for rows in (1, ENGINE_SLOTS)})
+    emit(phase="engine", part="pink_summary", seconds=time.perf_counter() - t_phase,
+         launches=totals)
+    return totals
+
+
+def pink_int8_twins(seed: int, layers: int = 2):
+    """Pink at full width and ``layers`` decoder layers with the int8
+    cache: bf16 on the card seeded there, and fp32 on the CPU from the same
+    values."""
+    opts = ["model_attributes.pink.kv_int8", "true"]
+    for key, value in {**PINK_MODEL, "lm_preset": pink_layers(layers)}.items():
+        opts += [f"model_attributes.pink.{key}", str(value)]
+    shells = []
+    for device, dtype in (("cuda", "bfloat16"), ("cpu", "float32")):
+        cfg = build_config(PINK_CONFIG, opts=opts + ["model_attributes.pink.dtype_str", dtype])
+        with no_default_init():
+            shells.append(build_model(cfg, device=device))
+    card, cpu = shells
+    card.init(seed, on_device=True)
+    weights.load_flax_params(cpu.module, export_flax_params(card.module))
+    return card, cpu
+
+
+def int8_logits(step, token=None, steps: int = INT8_STEPS):
+    """fp32 logits of ``steps`` decode steps after a prefill; ``step(cache,
+    token, t)`` decodes one; fed ``token`` (the CPU's), or greedy."""
+    out, toks = [], []
+    logits, cache, advance = step(None, None, 0)
+    for t in range(steps):
+        tok = logits.argmax(-1) if token is None else token[t].to(logits.device)
+        toks.append(tok.cpu())
+        logits, cache, _ = step(cache, tok, t)
+        out.append(logits[0].float().cpu())
+    return out, toks
+
+
+def pink_int8_steps(module, batch):
+    def step(cache, tok, t):
+        with torch.inference_mode():
+            if cache is None:
+                lens = batch["input_mask"].sum(-1)
+                cache = module.make_cache(1, module.num_vision_tokens(batch) + PINK_PROMPT_LEN
+                                          + INT8_STEPS + 1, device=batch["input_ids"].device)
+                logits, cache = module.prefill(batch, cache, lens)
+                return logits, cache, None
+            pos = module.num_vision_tokens(batch) + batch["input_mask"].sum(-1) + t
+            logits, cache = module.decode_step(tok, pos, cache)
+            return logits, cache, None
+    return step
+
+
+def m2_int8_steps(module, batch):
+    state = {}
+
+    def step(cache, tok, t):
+        with torch.inference_mode():
+            if cache is None:
+                logits, cache, state["slot"], state["rope"] = module.prefill(batch, INT8_STEPS + 1)
+                return logits, cache, None
+            logits, cache = module.decode_step(tok, state["rope"] + t, state["slot"] + t, cache)
+            return logits, cache, None
+    return step
+
+
+def int8_faults():
+    """The int8 cache's scales misread on the card (the CPU reads first):
+    the key scales one slot off; the value scales not applied."""
+    from antmmf_torch.modules import llm as llm_mod
+
+    real = llm_mod.int8_scale_rows
+
+    def k_scale_one_slot_off(cache):
+        k_row, v_row = real(cache)
+        return torch.roll(k_row, 1, dims=-1), v_row
+
+    def v_scale_not_applied(cache):
+        k_row, v_row = real(cache)
+        return k_row, torch.ones_like(v_row)
+
+    return [(fn.__name__, lambda fn=fn: setattr(llm_mod, "int8_scale_rows", fn),
+             lambda: setattr(llm_mod, "int8_scale_rows", real))
+            for fn in (k_scale_one_slot_off, v_scale_not_applied)]
+
+
+def int8_compare(card_steps, cpu_steps, faults: bool) -> dict:
+    """Card against CPU over the decode steps: the worst step's cosine and
+    |Δ| over the spread; with ``faults``, each planted fault's."""
+    ref, toks = int8_logits(cpu_steps)
+
+    def reading():
+        got, _ = int8_logits(card_steps, toks)
+        rs = [compare_logits(g, r) for g, r in zip(got, ref)]
+        return dict(cos=min(r["cos"] for r in rs),
+                    max_abs_d_over_std=max(r["max_abs_d_over_std"] for r in rs))
+
+    res = {"sound": reading()}
+    for name, plant, undo in (int8_faults() if faults else ()):
+        plant()
+        try:
+            res[name] = reading()
+        finally:
+            undo()
+    return res
+
+
+def int8_within_bound(res) -> bool:
+    return res["cos"] >= INT8_COS_MIN and res["max_abs_d_over_std"] <= INT8_DLOGIT_MAX
+
+
+def pink_int8_reading(seed: int, faults: bool = True) -> dict:
+    card, cpu = pink_int8_twins(seed)
+    rng = np.random.default_rng(seed + 40)
+    n = 48
+    ids = np.zeros(PINK_PROMPT_LEN, np.int64)
+    ids[0], ids[1:n] = 101, rng.integers(1000, 30000, n - 1)
+    arrays = {"input_ids": ids[None], "input_mask": (np.arange(PINK_PROMPT_LEN) < n)[None]
+              .astype(np.int64), "image_data": rng.standard_normal((1, SIZE, SIZE, 3))
+              .astype(np.float32)}
+    res = int8_compare(pink_int8_steps(card.module, card.to_device(arrays)),
+                       pink_int8_steps(cpu.module, cpu.to_device(arrays)), faults)
+    del card, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def engine_int8_check(name: str, res: dict) -> None:
+    caught = {n: not int8_within_bound(r) for n, r in res.items() if n != "sound"}
+    emit(phase="engine", part=f"{name}_kv_int8_card_vs_cpu", steps=INT8_STEPS, **res["sound"],
+         faults={n: r for n, r in res.items() if n != "sound"}, faults_caught=caught,
+         cos_min=INT8_COS_MIN, dlogit_max=INT8_DLOGIT_MAX)
+    check(int8_within_bound(res["sound"]), f"{name} kv_int8: card and CPU disagree beyond "
+          f"the stated bound")
+    check(all(caught.values()), f"{name} kv_int8: a planted fault passed: {caught}")
+
+
+def engine_cli(gpu) -> dict:
+    """Phase 11b (d): ``python -m antmmf_torch.predictors.cli --engine``
+    in-process through ``cli.main`` on four text-only requests, Pink at full
+    width and 2 decoder layers seeded on the card; the printed tokens
+    against an in-process engine on the same seeded model. Returns the
+    launches of the CLI's run."""
+    from antmmf_torch.predictors import cli
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="engine_cli_", dir=build)
+    rng = np.random.default_rng(SEED + 33)
+    rows = [{"id": f"c{i}", "input_ids": [101] + rng.integers(1000, 30000, int(n)).tolist()}
+            for i, n in enumerate(rng.integers(8, 30, CLI_REQUESTS))]
+    argv = ["--config", PINK_CONFIG, "--device", "cuda", "--no_ckpt", "--slots", "4",
+            "--step_tokens", str(ENGINE_WINDOW), "--max_new", str(CLI_NEW),
+            "model_attributes.pink.dtype_str", "bfloat16",
+            "predictor_parameters.init_on_device", "true"]
+    for key, value in {**PINK_MODEL, "lm_preset": pink_layers(CLI_LAYERS)}.items():
+        argv += [f"model_attributes.pink.{key}", str(value)]
+    try:
+        path = os.path.join(root, "reqs.jsonl")
+        with open(path, "w") as f:
+            f.write("".join(json.dumps(r) + "\n" for r in rows))
+        argv[2:2] = ["--engine", path]
+        zero_counts()
+        stdout = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout), no_default_init():
+            cli.main(argv)
+        cli_s = time.perf_counter() - t0
+        counts = read_counts()
+        lines = [json.loads(line) for line in stdout.getvalue().strip().splitlines()]
+        printed = {r["id"]: r["tokens"] for r in lines[:-1]}
+        _, config, _ = cli.parse(argv)
+        with no_default_init():
+            shell = build_model(config, device="cuda")
+        shell.init(on_device=True)
+        ad = PinkAdapter(shell.module, max(len(r["input_ids"]) for r in rows), CLI_NEW,
+                         has_image=False)
+        want = ContinuousBatchingEngine(ad, slots=4, max_new_tokens=CLI_NEW, eos_id=-1,
+                                        step_tokens=ENGINE_WINDOW).run(
+            [(r["id"], {"input_ids": np.asarray(r["input_ids"])}) for r in rows])["outputs"]
+        del shell, ad
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit(phase="engine", part="cli", gpu=gpu, layers=CLI_LAYERS, seconds=cli_s, launches=counts,
+         printed=printed, stats=lines[-1]["stats"], same_tokens=printed == want)
+    check(printed == want, "cli --engine printed other tokens than the in-process engine")
+    check(counts == {**NO_LAUNCHES, "flash_fwd": CLI_LAYERS * CLI_REQUESTS},
+          f"cli --engine launches {counts}")
+    return counts
+
+
+def phase_engine(pred, gpu) -> dict:
+    """Phase 11b: (a) the engine on Pink int4, (c) Pink's int8 cache card vs
+    CPU, (d) ``cli --engine``. Returns the launches of (a) and (d)."""
+    t0 = time.perf_counter()
+    totals = pink_engine(pred, gpu)
+    engine_int8_check("pink", pink_int8_reading(SEED))
+    for key, n in engine_cli(gpu).items():
+        totals[key] += n
+    emit(phase="engine", part="summary", seconds=time.perf_counter() - t0, launches=totals)
+    return totals
+
+
+def m2_engine(pred, served: dict, gpu) -> dict:
+    """Phase 19 (e): the engine on phase 19's full-depth model: 4 slots,
+    windows of 8, the three requests twice (24 new tokens) against phase
+    19's sequential tokens, and a two-turn text session against a full
+    re-prefill. Returns the launches."""
+    t_phase = time.perf_counter()
+    module = pred.shell.module
+    ad = M2OmniAdapter(module, SERVING_SEQ_LEN, M2_NEW_TOKENS, has_image=True,
+                       extra_slots=ENGINE_EXTRA)
+    eng = ContinuousBatchingEngine(ad, slots=M2_ENGINE_SLOTS, max_new_tokens=M2_NEW_TOKENS,
+                                   eos_id=pred.eos_id, step_tokens=ENGINE_WINDOW)
+
+    def data_of(request) -> dict:
+        arrays = pred.build_sample(request).arrays()
+        return {"input_ids": arrays["input_ids"][0], "input_mask": arrays["input_mask"][0],
+                **{k: v for k, v in arrays.items() if k not in ("input_ids", "input_mask")}}
+
+    requests = m2_requests()
+    datas = {name: data_of(r) for name, r in requests.items()}
+    reqs = [(f"{name}_{i}", datas[name]) for i in range(2) for name in M2_REQUESTS]
+    torch.cuda.reset_peak_memory_stats()
+    stats, counts, log = engine_pass(eng, reqs)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out = stats["outputs"]
+    readings = {rid: agree(eng, d, out[rid], truncate_at_eos(
+        served[rid.rsplit("_", 1)[0]]["new_tokens"], eng.eos_id)) for rid, d in reqs}
+    seq_ms = sum(served[name]["request_ms"] for name in M2_REQUESTS) * 2
+    seq_tokens = 2 * sum(len(truncate_at_eos(served[n]["new_tokens"], eng.eos_id))
+                         for n in M2_REQUESTS)
+    emit(phase="engine", part="m2_pass", gpu=gpu, slots=M2_ENGINE_SLOTS, window=ENGINE_WINDOW,
+         **stats_line(stats), peak_mem_gb=peak, sequential_tokens_per_s=seq_tokens * 1e3 / seq_ms,
+         speedup_tokens_per_s=stats["tokens_per_s"] / (seq_tokens * 1e3 / seq_ms),
+         launches=counts, windows=len(log.windows), host_ms=log.host_ms(), agreement=readings,
+         tie_max=ENGINE_TIE_MAX)
+    for (rid, data), got in zip(reqs, log.prefills):
+        want = m2_launches(M2_LAYERS, "audio" in data)
+        check(got == want, f"m2 engine admission of {rid}: launches {got}; expected {want}")
+    check(all(w == NO_LAUNCHES for w in log.windows), f"m2 engine windows {log.windows[:2]}")
+    check(all(agrees(r) for r in readings.values()), f"m2 engine tokens: {readings}")
+
+    # rope and cache slot advance apart, by what the image run compresses
+    eng.reset()
+    eng.submit("gap", datas["image_conversation"])
+    eng.step()
+    rope0, slot0 = (int(x.reshape(-1)[0]) for x in eng._slot_start[0])
+    st = eng._state
+    gap = (int(st["rope"][0]), int(st["spos"][0]))
+    check(slot0 - rope0 > 0 and gap == (rope0 + ENGINE_WINDOW, slot0 + ENGINE_WINDOW),
+          f"m2 engine: rope {rope0}->{gap[0]}, slot {slot0}->{gap[1]}")
+    eng.reset()
+
+    # a two-turn text session against a full re-prefill
+    zero_counts()
+    first = {**data_of({"conversation": [{"role": "user", "content": [
+        {"type": "text", "text": "tell me a short story about a cat and a window."}]}]}),
+        "max_new": ENGINE_SHORT, "session": True}
+    eng.submit("t1", first)
+    while "t1" not in eng._done:
+        eng.step()
+    turn = np.random.default_rng(SEED + 34).integers(1000, 30000, ENGINE_TURN).astype(np.int64)
+    eng.continue_session("t1", "t2", {"input_ids": turn, "max_new": ENGINE_SHORT})
+    while "t2" not in eng._done:
+        eng.step()
+    scounts = read_counts()
+    gen1, gen2 = eng._done["t1"], eng._done["t2"]
+    n1 = int(first["input_mask"].sum())
+    conv = np.zeros(SERVING_SEQ_LEN, np.int64)
+    body = np.concatenate([first["input_ids"][:n1], gen1, turn])
+    conv[:len(body)] = body
+    full = {"input_ids": conv, "input_mask": (conv != 0).astype(np.int64)}
+    full["input_mask"][:len(body)] = 1
+    sreading = agree(eng, full, gen2, sequential_tokens(module, eng, full, ENGINE_SHORT))
+    eng.close_session("t2")
+    emit(phase="engine", part="m2_session", first_turn=gen1, second_turn=gen2,
+         agreement=sreading, launches=scounts)
+    check(agrees(sreading), f"m2 engine session against a full re-prefill: {sreading}")
+    emit(phase="engine", part="m2_idle", gpu=gpu, **engine_idle(eng, reqs, gpu),
+         seconds=time.perf_counter() - t_phase)
+    totals = {k: counts[k] + scounts[k] for k in counts}
+    return totals
+
+
+def m2_int8_reading(card, cpu, request, faults: bool) -> dict:
+    """Phase 19 (d)'s twins with the int8 cache on request ``request``."""
+    arrays = card.build_sample(request).arrays()
+    card.shell.module.kv_int8 = cpu.kv_int8 = True
+    try:
+        return int8_compare(m2_int8_steps(card.shell.module, card.shell.to_device(arrays)),
+                            m2_int8_steps(cpu, {k: torch.as_tensor(v) for k, v in arrays.items()}),
+                            faults)
+    finally:
+        card.shell.module.kv_int8 = cpu.kv_int8 = False
+
+
+def engine_faults(eng):
+    """Faults planted in the engine (each undone after its pass): the decode
+    window's cache slot one ahead (a hole in each row's history, RoPE one
+    ahead); every admission copied into slot 0."""
+    real_decode, real_admit = eng.ad.decode, eng._admit
+
+    def slot_one_ahead(token, rope, slot, cache):
+        return real_decode(token, rope + 1, (slot + 1).clamp(max=eng.T - 1), cache)
+
+    def admit_into_slot_0(s, *args):
+        return real_admit(0, *args)
+
+    return [("slot_one_ahead", lambda: setattr(eng.ad, "decode", slot_one_ahead),
+             lambda: eng.ad.__dict__.pop("decode")),
+            ("admit_into_slot_0", lambda: setattr(eng, "_admit", admit_into_slot_0),
+             lambda: eng.__dict__.pop("_admit"))]
+
+
+def calibrate_engine(seeds=3) -> None:
+    """The engine's near-tie margin (Pink int4 at full depth: sound seeds'
+    first differing positions, then two planted engine faults) and the int8
+    cache's card-vs-CPU readings (Pink at 2 layers, M2-omni at M2_CUT; sound
+    seeds, then the two misread scales)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pred = pink_predictor()
+    module = pred.shell.module
+    eng = ContinuousBatchingEngine(
+        PinkAdapter(module, PINK_PROMPT_LEN, PINK_NEW_TOKENS, has_image=True),
+        slots=ENGINE_SLOTS, max_new_tokens=PINK_NEW_TOKENS, eos_id=pred.eos_id,
+        step_tokens=ENGINE_WINDOW)
+
+    def margins(reqs, seq):
+        stats, _, _ = engine_pass(eng, reqs)
+        res = {rid: agree(eng, d, stats["outputs"][rid], seq[rid]) for rid, d in reqs}
+        diverged = [r["margin"] for r in res.values() if not r["equal"]]
+        return dict(requests=len(res), diverged=len(diverged),
+                    margins=sorted(diverged), first_diffs=sorted(
+                        r["first_diff"] for r in res.values() if not r["equal"]))
+
+    for seed in range(seeds):
+        reqs = [r for i, r in enumerate(engine_pink_requests(seed))
+                if ENGINE_ROLES.get(i) in (None, "text_only")]
+        seq = {rid: sequential_tokens(module, eng, d, d["max_new"]) for rid, d in reqs}
+        emit(phase="calibrate_engine", kind="sound", seed=seed, **margins(reqs, seq),
+             tie_max=ENGINE_TIE_MAX)
+    for name, plant, undo in engine_faults(eng):
+        plant()
+        try:
+            emit(phase="calibrate_engine", kind="fault", fault=name, seed=seeds - 1,
+                 **margins(reqs, seq), tie_max=ENGINE_TIE_MAX)
+        finally:
+            undo()
+    del pred, module, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    for seed in range(seeds):
+        res = pink_int8_reading(seed, faults=seed == seeds - 1)
+        emit(phase="calibrate_engine", kind="pink_kv_int8", seed=seed, readings=res,
+             within_bound={n: int8_within_bound(r) for n, r in res.items()})
+    for seed in range(seeds):
+        card, cpu, card32, tree = m2_twins(seed)
+        del card32, tree
+        res = m2_int8_reading(card, cpu, m2_requests(seed)["image_conversation"],
+                              seed == seeds - 1)
+        emit(phase="calibrate_engine", kind="m2_kv_int8", seed=seed, readings=res,
+             within_bound={n: int8_within_bound(r) for n, r in res.items()})
+        del card, cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(phase="calibrate_engine", kind="bound", tie_max=ENGINE_TIE_MAX,
+         int8_cos_min=INT8_COS_MIN, int8_dlogit_max=INT8_DLOGIT_MAX)
 
 
 # ------------------------------------------------------------------ phase 12
@@ -5408,6 +6224,8 @@ def m2_full_depth(gpu: str) -> dict:
              device_idle_share=1 - busy / wall if n_ops else "not measured", device_ops=n_ops,
              top_device_ops_ms=top, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
              new_tokens=reading["new_tokens"], text=reading["text"])
+    for k, n in m2_engine(pred, served, gpu).items():
+        totals[k] += n
     del pred, module
     gc.collect()
     torch.cuda.empty_cache()
@@ -5576,13 +6394,14 @@ def m2_readings(seed: int, faults: bool, model_dir=None):
             finally:
                 undo()
         out[name] = res
+    int8 = m2_int8_reading(card, cpu, requests["image_conversation"], faults)
     served = None
     if model_dir is not None:
         served, totals = m2_model_dir(card, tree, requests["image_audio_text"], model_dir)
     del card, cpu, card32, tree
     gc.collect()
     torch.cuda.empty_cache()
-    return out, served, totals
+    return out, served, totals, int8
 
 
 def m2_model_dir(card, tree, request, root: str):
@@ -5625,7 +6444,7 @@ def m2_model_dir(card, tree, request, root: str):
 def calibrate_m2_omni(seeds=3) -> None:
     """Phase 19 (d)'s readings: sound seeds, then planted faults at the last."""
     for seed in range(seeds):
-        readings, _, _ = m2_readings(seed, seed == seeds - 1)
+        readings, _, _, _ = m2_readings(seed, seed == seeds - 1)
         for request, by_name in readings.items():
             for name, res in by_name.items():
                 emit(phase="calibrate_m2_omni", kind="sound" if name == "sound" else "fault",
@@ -5643,7 +6462,7 @@ def m2_cut_depth(gpu: str) -> dict:
     root = tempfile.mkdtemp(prefix="m2_omni_smoke_", dir=build)
     t0 = time.perf_counter()
     try:
-        readings, served, totals = m2_readings(SEED, True, model_dir=root)
+        readings, served, totals, int8 = m2_readings(SEED, True, model_dir=root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     same = bool(np.array_equal(served["in_process_ids"], served["served_ids"]))
@@ -5666,6 +6485,7 @@ def m2_cut_depth(gpu: str) -> dict:
         check(res["sound"]["positions_equal_cpu"] and res["sound"]["positions_equal_recurrence"],
               f"m2_omni {request}: the 3D positions on the card differ")
         check(all(caught.values()), f"m2_omni {request}: a planted fault passed: {caught}")
+    engine_int8_check("m2", int8)
     emit(phase="m2_omni", part="cut_depth", seconds=time.perf_counter() - t0)
     return totals
 
@@ -6109,9 +6929,13 @@ def main() -> None:
     phase_pink_card_vs_cpu(pink, rng)
     done("10_pink_card_vs_cpu")
     timing["int4_gemv"] = phase_int4_times(pink, gpu)
-    del pink
-    torch.cuda.empty_cache()
     done("11_int4_times")
+    for name, n in phase_engine(pink, gpu).items():
+        launches[name] += n
+    del pink
+    gc.collect()
+    torch.cuda.empty_cache()
+    done("11b_engine")
     launches["small_attention"] += phase_trainer(gpu, bare_p50)
     done("12_trainer")
     for part, phase in (("13_pretraining", phase_pretraining),
@@ -6140,7 +6964,8 @@ CALIBRATIONS = {"serving": calibrate, "training": calibrate_training, "pink": ca
                 "pretraining": calibrate_pretraining, "dmae": calibrate_dmae,
                 "task_heads": calibrate_task_heads, "roi": calibrate_roi,
                 "pink_train": calibrate_pink_train, "pink_7b": calibrate_pink_7b,
-                "m2_omni": calibrate_m2_omni, "m2_train": calibrate_m2_train}
+                "m2_omni": calibrate_m2_omni, "m2_train": calibrate_m2_train,
+                "engine": calibrate_engine}
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--calibrate"] and set(sys.argv[2:]) <= set(CALIBRATIONS):

@@ -103,7 +103,7 @@ def test_cross_attention_and_its_gradients(C, H):
         out = jm.apply({"params": params}, x, kv=kv, bias=bias)
         return (out * w).sum(), out
 
-    (_, j_out), j_grads = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(
+    (_, j_out), j_grads = jax.jit(jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True))(
         params, x, kv)
     port = t_attention.MultiHeadAttention(C, H, F32)
     load_flax_params(port, params)
@@ -200,7 +200,7 @@ def test_transformer_decoder_forward_and_gradients():
         out = jm.apply({"params": params}, x, memory, mask)
         return (out * w).sum(), out
 
-    (_, j_out), j_grads = jax.value_and_grad(loss, has_aux=True)(params)
+    (_, j_out), j_grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
     port = t_dec.TransformerDecoder(C_DEC, LAYERS, H_DEC, dtype=F32)
     load_flax_params(port, params)
     tx, tm, tmask, tw = _t(x, memory, mask, w)
@@ -219,7 +219,7 @@ def test_language_decoder_forward_and_gradients():
         logits = jm.apply({"params": params}, tokens, memory, mask)
         return (logits * w).sum(), logits
 
-    (_, j_logits), j_grads = jax.value_and_grad(loss, has_aux=True)(params)
+    (_, j_logits), j_grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
     logits = port(*_t(tokens, memory, mask))
     assert logits.dtype == torch.float32 and tuple(logits.shape) == tokens.shape + (V,)
     (logits * torch.from_numpy(w)).sum().backward()
@@ -233,7 +233,8 @@ def test_prime_and_decode_step_with_gradients():
     rng, tokens, memory, mask, jm, params, port = _language_decoders(5)
     B = tokens.shape[0]
     v = {"params": params}
-    j_kvs = jm.apply(v, memory, method=lambda m, mem: m.prime(mem))
+    j_kvs = jax.jit(lambda v, mem: jm.apply(v, mem, method=lambda m, mem: m.prime(mem)))(
+        v, memory)
     with torch.no_grad():  # primed once per request, outside the step's graph
         t_kvs = port.prime(torch.from_numpy(memory))
     assert len(t_kvs) == LAYERS
@@ -248,7 +249,8 @@ def test_prime_and_decode_step_with_gradients():
     for i, pos in enumerate((np.array([0, 2, 5]), np.array([1, 3, MAXLEN - 1]))):
         tok = tokens[:, i]
         if i == 0:
-            j_logits, j_caches = jm.apply(v, tok, pos, j_caches, j_kvs, mask, method=step)
+            j_logits, j_caches = jax.jit(lambda *a: jm.apply(v, *a, method=step))(
+                tok, pos, j_caches, j_kvs, mask)
             with torch.no_grad():
                 t_logits, t_caches = port.decode_step(
                     *_t(tok, pos), t_caches, t_kvs, torch.from_numpy(mask))
@@ -258,7 +260,8 @@ def test_prime_and_decode_step_with_gradients():
                                           method=step)
                 return (logits * w).sum(), (logits, caches)
 
-            (_, (j_logits, j_caches)), j_grads = jax.value_and_grad(loss, has_aux=True)(params)
+            (_, (j_logits, j_caches)), j_grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+                params)
             t_logits, t_caches = port.decode_step(*_t(tok, pos), t_caches, t_kvs,
                                                   torch.from_numpy(mask))
             (t_logits * torch.from_numpy(w)).sum().backward()

@@ -347,9 +347,11 @@ def test_builds_from_the_fixture_config():
 
 
 def test_unported_options_raise_by_key():
-    for key, value in (("kv_int8", True), ("sequence_parallel", "ring")):
-        with pytest.raises(NotImplementedError, match=key):
-            TM(**TINY, **VIT, **{key: value}, device="cpu")
+    for kv_int8 in (False, True):  # the int8 cache is ported; sequence parallelism is not
+        with pytest.raises(NotImplementedError, match="sequence_parallel"):
+            TM(**TINY, **VIT, sequence_parallel="ring", kv_int8=kv_int8, device="cpu")
+    assert TM(**TINY, **VIT, kv_int8=True, device="cpu").decoder.make_cache(
+        1, 4, quantized=True)[0]["k"].dtype == torch.int8
     tm = TM(**TINY, **VIT, image_token_id=3, device="cpu")
     batch = {"input_ids": torch.ones(1, 3, dtype=torch.long)}
     for key, value in (("num_beams", 2), ("do_sample", True), ("speculative", 3)):

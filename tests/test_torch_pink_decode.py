@@ -379,11 +379,12 @@ def test_generate_refuses_what_is_not_ported(pink_tiny, kw):
 EVA_TINY = dict(visual_tower="eva", eva_preset="eva_tiny_test", image_size=28)
 
 
-# the int8 cache and sequence parallelism stay refused, on the EVA tower,
-# the serial adapters and the stacked layout too
-@pytest.mark.parametrize("kw", [dict(kv_int8=True, **EVA_TINY),
+# sequence parallelism stays refused, on the EVA tower, the serial adapters
+# and the stacked layout too, and beside the (ported) int8 cache
+@pytest.mark.parametrize("kw", [dict(sequence_parallel="ulysses", kv_int8=True, **EVA_TINY),
                                 dict(sequence_parallel="ulysses", adapter_style="pink"),
-                                dict(kv_int8=True), dict(sequence_parallel="ring", scan_layers=True),
+                                dict(sequence_parallel="ring", kv_int8=True),
+                                dict(sequence_parallel="ring", scan_layers=True),
                                 dict(sequence_parallel="ring")])
 def test_pink_refuses_what_is_not_ported(kw):
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -403,15 +404,18 @@ REQUESTS = [{"text": "what is in the picture?"}, {"text": "describe the dog [0.1
 @pytest.fixture(scope="module")
 def jax_generation(tmp_path_factory):
     """The JAX GenerationPredictor on the tiny Pink config with
-    ``decode_quant: int4``, its float weights (the same seeded init, before
-    quantisation) dumped as params.npz, and its answers."""
+    ``decode_quant: int4``, its float weights (its seeded init, as it hands
+    them to ``quantize_for_decode``) dumped as params.npz, and its answers."""
     cfg = JConfiguration.from_file(PINK_CFG).override_with_opts(TINY_OPTS).to_dict()
-    cfg_float = JConfiguration.from_file(PINK_CFG).override_with_opts(TINY_OPTS).to_dict()
-    del cfg_float["predictor_parameters"]["decode_quant"]
-    with jitted_jax_init():
+    quantized = []
+    real = j_quant.quantize_for_decode
+    with jitted_jax_init(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_quant, "quantize_for_decode",
+                   lambda *a, **kw: quantized.append(a[0]) or real(*a, **kw))
         pred = JGenPredictor(cfg).load(with_ckpt=False)
-        float_vars = JGenPredictor(cfg_float).load(with_ckpt=False).variables
+    float_vars = quantized[0]
     assert j_quant.is_decode_quantized(pred.variables)
+    assert not j_quant.is_decode_quantized(float_vars)
     tmp = tmp_path_factory.mktemp("pink_serving")
     np.savez(tmp / "params.npz", **flatten_flax(jax.device_get(float_vars["params"])))
     rng = np.random.default_rng(8)

@@ -27,7 +27,7 @@ from antmmf_torch.utils.weights import flatten_flax
 from antmmf_tpu.common.build import build_config as j_build_config
 from antmmf_tpu.trainers.build import build_trainer as j_build_trainer
 from test_torch_task_trainer import _record_validations, one_torch_thread  # noqa: F401
-from test_torch_trainer import jitted_jax_init
+from test_torch_trainer import jax_saves_skipped, jitted_jax_init
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, "projects", "pink", "configs", "pink_instruct.local.yml")
@@ -69,7 +69,8 @@ def trainer_runs(tmp_path_factory, *extra, port_extra=()):
     npz = os.path.join(jdir, "params.npz")
     np.savez(npz, **flatten_flax(jax.device_get(jt.state.variables["params"])))
     j_vals = _record_validations(jt)
-    jt.train()
+    with jax_saves_skipped():
+        jt.train()
     port, t_vals = port_run(tdir, *extra, *port_extra, "training_parameters.restart", "true",
                             "training_parameters.resume_file", npz)
     return dict(jax=jt, port=port, j_vals=j_vals, t_vals=t_vals, npz=npz)

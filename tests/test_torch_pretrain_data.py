@@ -42,7 +42,7 @@ from antmmf_tpu.common.build import build_config as j_build_config
 from antmmf_tpu.common.task_loader import TaskLoader as JTaskLoader
 from antmmf_tpu.datasets.processors.text_processors import MaskedTokenProcessor as JProc
 from antmmf_tpu.trainers.build import build_trainer as j_build_trainer
-from test_torch_trainer import jitted_jax_init
+from test_torch_trainer import jax_saves_skipped, jitted_jax_init
 from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -154,7 +154,8 @@ def runs(tmp_path_factory):
     npz = os.path.join(jdir, "params.npz")
     np.savez(npz, **flatten_flax(jax.device_get(jt.state.variables["params"])))
     j_vals = _record_validations(jt)
-    jt.train()
+    with jax_saves_skipped():
+        jt.train()
     tt = t_build_trainer(t_build_config(CFG, opts=OPTS + [
         "training_parameters.save_dir", tdir, "training_parameters.device", "cpu",
         "training_parameters.restart", "true", "training_parameters.resume_file", npz]))

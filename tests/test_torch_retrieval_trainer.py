@@ -51,7 +51,7 @@ from antmmf_tpu.models.base_model import build_model as j_build
 from antmmf_tpu.modules.metrics.evaluators import _ranks_with_multi_gt as j_ranks
 from antmmf_tpu.trainers.build import build_trainer as j_build_trainer
 from antmmf_tpu.trainers.retrieval_trainer import RetrievalTrainer as JRetrieval
-from test_torch_trainer import jitted_jax_init
+from test_torch_trainer import jax_saves_skipped, jitted_jax_init
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, "projects", "base_vtp", "configs", "video_retrieval.local.yml")
@@ -188,7 +188,8 @@ def head_only(tmp_path_factory):
     jdir, tdir = (str(tmp_path_factory.mktemp(n)) for n in ("jax_head", "port_head"))
     jt, npz = _jax_trainer(HEAD_ONLY, jdir)
     init = flatten_flax(jax.device_get(jt.state.variables["params"]))
-    jt.train()
+    with jax_saves_skipped():
+        jt.train()
     tt = _port_trainer(HEAD_ONLY, tdir, npz)
     tt.train()
     return dict(init=init, j=flatten_flax(jax.device_get(jt.state.variables["params"])),

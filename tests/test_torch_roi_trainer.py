@@ -37,7 +37,7 @@ from antmmf_tpu.common.build import build_config as j_build_config
 from antmmf_tpu.models import univl_roi as j_roi
 from antmmf_tpu.trainers.build import build_trainer as j_build_trainer
 from test_torch_task_trainer import _record_validations, one_torch_thread  # noqa: F401
-from test_torch_trainer import jitted_jax_init
+from test_torch_trainer import jax_saves_skipped, jitted_jax_init
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, "projects", "base_vtp", "configs", "roi_pretrain.local.yml")
@@ -90,7 +90,8 @@ def runs(tmp_path_factory):
         npz = os.path.join(jdir, "params.npz")
         np.savez(npz, **flatten_flax(jax.device_get(jt.state.variables["params"])))
         j_vals = _record_validations(jt)
-        jt.train()
+        with jax_saves_skipped():
+            jt.train()
         port, t_vals = _port(tdir, "training_parameters.restart", "true",
                              "training_parameters.resume_file", npz)
     drop = [_port(d, "training_parameters.restart", "true",

@@ -8,8 +8,8 @@
 * knobs of paths that are not ported raise with the key's name:
   ``steps_per_dispatch`` 2, ``sequence_parallel`` beside a (ported)
   nonzero ``dropout``, a world size of 2,
-  Pink's ``sequence_parallel`` beside ``scan_layers`` and ``kv_int8`` beside
-  ``visual_tower: eva``;
+  Pink's ``sequence_parallel`` beside ``scan_layers`` and beside
+  ``visual_tower: eva`` with the (ported) ``kv_int8``;
 * the retrieval variants run to the end on the CPU: the MoCo config
   (``video_retrieval_moco.local.yml``), DMAE through ``retrieval_trainer``
   (``dmae_vtp/configs/msrvtt_retrieval.local.yml``), ``loss_type``
@@ -81,7 +81,8 @@ def test_default_device_is_the_card(tmp_path, device):
     (PINK, ("model_attributes.pink.scan_layers", "true",
             "model_attributes.pink.sequence_parallel", "ring"), "sequence_parallel"),
     (PINK, ("model_attributes.pink.visual_tower", "eva",
-            "model_attributes.pink.kv_int8", "true"), "kv_int8"),
+            "model_attributes.pink.kv_int8", "true",
+            "model_attributes.pink.sequence_parallel", "ulysses"), "sequence_parallel"),
 ], ids=["steps_per_dispatch", "remat_policy", "dropout", "num_nodes", "pink_scan_layers",
         "pink_eva"])
 def test_unported_knobs_raise(tmp_path, config, extra, key):

@@ -31,7 +31,7 @@ from antmmf_torch import run
 from antmmf_torch.utils.weights import flatten_flax
 from antmmf_tpu.common.build import build_config as j_build_config
 from antmmf_tpu.trainers.build import build_trainer as j_build_trainer
-from test_torch_trainer import jitted_jax_init
+from test_torch_trainer import jax_saves_skipped, jitted_jax_init
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, "projects", "base_vtp", "configs", "video_retrieval.local.yml")
@@ -91,7 +91,8 @@ def trainer_runs(model, tmp_path_factory):
     npz = os.path.join(jdir, "params.npz")
     np.savez(npz, **flatten_flax(jax.device_get(jt.state.variables["params"])))
     j_vals = _record_validations(jt)
-    jt.train()
+    with jax_saves_skipped():
+        jt.train()
     trainer = {}
     real_build = run.build_trainer
 

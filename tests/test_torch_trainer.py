@@ -30,7 +30,7 @@ from antmmf_torch.common.checkpoint import Checkpoint
 from antmmf_torch.trainers.build import build_trainer as t_build_trainer
 from antmmf_torch.utils.weights import flatten_flax
 from antmmf_tpu.common.build import build_config as j_build_config
-from antmmf_tpu.common.checkpoint import merge_params_tolerant
+from antmmf_tpu.common.checkpoint import Checkpoint as JCheckpoint, merge_params_tolerant
 from antmmf_tpu.models.base_model import ModelShell as JModelShell
 from antmmf_tpu.trainers.build import build_trainer as j_build_trainer
 
@@ -58,6 +58,18 @@ def jitted_jax_init():
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(JModelShell, "init", init)
+        yield
+
+
+@contextlib.contextmanager
+def jax_saves_skipped():
+    """The JAX trainer's Orbax snapshots (``model_<n>``, ``best``,
+    ``<model>_final``) left unwritten: no port test reads them (the port
+    restarts from the ``params.npz`` each fixture writes), and they cost
+    seconds of CPU a fixture."""
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("save", "save_final_weights", "finalize_writes"):
+            mp.setattr(JCheckpoint, name, lambda self, *args, **kw: None)
         yield
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -92,7 +104,8 @@ def runs(tmp_path_factory):
     npz = os.path.join(jdir, "params.npz")
     np.savez(npz, **init)
     j_vals = _record_validations(jt)
-    jt.train()
+    with jax_saves_skipped():
+        jt.train()
 
     tt = t_build_trainer(t_build_config(CFG, opts=OPTS + [
         "training_parameters.save_dir", tdir, "training_parameters.device", "cpu",
