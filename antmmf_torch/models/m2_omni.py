@@ -29,8 +29,13 @@ logits, the hidden states and, with ``labels``, ``lm_loss``/``lm_acc`` (over
 the vocabulary in chunks, ``_lm_loss_chunked``, when the [B, L, V] logits
 would pass 2²⁸ entries). ``prefill`` writes the KV cache and returns the
 next RoPE position (the largest valid position + 1), which is not the next
-cache slot; greedy ``generate`` decodes token t at RoPE position
-``next_p + t`` into slot ``lens_full + t``. ``decode_chunk`` and
+cache slot; ``generate`` decodes token t at RoPE position ``next_p + t``
+into slot ``lens_full + t``: greedily, by beam search (a beam's RoPE
+position is ``nf + (slot - sf)``, its row's next position and first free
+slot repeated over the beams), by nucleus sampling (drawn at the RoPE
+position) or by prompt-lookup speculation (chunks at ``next_p + off`` and
+``lens_full + off``, the cache ``max_new + gamma + 1`` slots past the
+prompt), as ``models/pink.py``'s ``generate`` does. ``decode_chunk`` and
 ``extend_cache`` append a text turn or prompt chunk at ``rope0 + k`` on
 all three axes from cache slot ``slot0`` (the serving engine's sessions,
 prefixes and chunked admission). The cache is the port's list of
@@ -70,6 +75,8 @@ from antmmf_torch.modules.qdense import QuantDense
 from antmmf_torch.modules.transformers.base import TransformerEncoder
 from antmmf_torch.modules.vision.qwen2_vit import build_qwen2_vit
 from antmmf_torch.modules.vision.vit import PRESETS as VIT_PRESETS, VisionTransformer
+from antmmf_torch.utils.speculative import speculative_greedy
+from antmmf_torch.utils.text_utils import beam_search_cached, nucleus_sampling_cached
 
 
 AUDIO_FEATURES = 80 * 7  # the fbank width: 80 mels stacked 7 frames deep
@@ -157,7 +164,7 @@ def _gather_tokens(tokens: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 @registry.register_model("m2_omni")
 class M2Omni(nn.Module):
-    DECODE_QUANT = ()  # no decode_quant mode: K8 at its shapes is not ported
+    DECODE_QUANT = ("int4", "int8")  # the predictor's decode_quant modes this model serves
 
     def __init__(self, lm_preset: str = "omni_1b", visual_tower: str = "vit",
                  vit_preset: str = "vit_base_patch32", qwen2_preset: str = "qwen2_vit",
@@ -526,26 +533,57 @@ class M2Omni(nn.Module):
     @torch.inference_mode()
     def generate(self, batch: Mapping[str, torch.Tensor], eos_id: int = 2,
                  max_length: Optional[int] = None, num_beams: int = 1, speculative: int = 0,
-                 do_sample: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Greedy decoding with the KV cache. Returns (tokens int[B,
-        Lp+max_new], the generation written after each row's text prompt;
-        prompt lengths int[B]). A row that has emitted ``eos_id`` keeps
-        emitting it; the last token needs no trailing decode step."""
-        for name, value, only in (("num_beams", num_beams, 1), ("speculative", speculative, 0),
-                                  ("do_sample", do_sample, False)):
-            if value != only:
-                raise NotImplementedError(f"m2_omni generate {name}={value!r} is not ported "
-                                          f"yet; only greedy decoding is")
+                 spec_ngram: int = 2, do_sample: bool = False, top_p: float = 0.9,
+                 temperature: float = 1.0, seed: int = 0,
+                 stats: Optional[Dict[str, Any]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """KV-cache decoding: greedy, beams, sampling or speculation (module
+        docstring). Returns (tokens int[B, Lp+max_new], the generation
+        written after each row's text prompt; prompt lengths int[B]). A row
+        that has emitted ``eos_id`` keeps emitting it; the last token needs
+        no trailing decode step. ``stats``, a dict, receives the best beams'
+        ``scores``, or speculation's ``n_generated`` and ``n_steps``."""
         max_new = int(max_length or 16)
+        stats = {} if stats is None else stats
         ids = batch["input_ids"].long()
         mask = batch.get("input_mask")
         mask = torch.ones_like(ids) if mask is None else mask.long()
         B, Lp = ids.shape
         lens_text = mask.sum(-1)
         tokens = torch.cat([ids * mask, ids.new_zeros(B, max_new)], dim=1)
+        gen_cols = lens_text[:, None] + torch.arange(max_new, device=ids.device)[None]
+        gamma = int(speculative) if num_beams == 1 and not do_sample else 0
         fwd = {k: v for k, v in batch.items() if k not in ("input_ids", "input_mask")}
         fwd.update(input_ids=tokens[:, :Lp], input_mask=mask)
-        logits, cache, lens_full, next_p = self.prefill(fwd, max_new)
+        logits, cache, lens_full, next_p = self.prefill(
+            fwd, max_new + (gamma + 1 if gamma else 0))
+        if num_beams > 1:
+            nf = next_p.repeat_interleave(num_beams)
+            sf = lens_full.repeat_interleave(num_beams)
+
+            def beam_step(tok, slot, cache):
+                return self.decode_step(tok, nf + (slot - sf), slot, cache)
+
+            best, stats["scores"] = beam_search_cached(
+                beam_step, logits, cache, lens_full, eos_id, max_new=max_new,
+                num_beams=num_beams)
+            return tokens.scatter_(1, gen_cols, best), lens_text
+        if gamma:
+            def chunk_fn(chunk, start_off, cache):
+                return self.decode_chunk(chunk, next_p + start_off, lens_full + start_off, cache)
+
+            buf = torch.cat([tokens, tokens.new_zeros(B, gamma + 1)], dim=1)
+            out, stats["n_generated"], stats["n_steps"] = speculative_greedy(
+                chunk_fn, logits, cache, buf, lens_text, eos_id, max_new, gamma=gamma,
+                ngram=spec_ngram)
+            return out[:, :Lp + max_new], lens_text
+        if do_sample:
+            def sample_step(tok, slot, cache):
+                return self.decode_step(tok, next_p + (slot - lens_full), slot, cache)
+
+            gen = nucleus_sampling_cached(sample_step, logits, cache, lens_full, seed, eos_id,
+                                          max_new=max_new, top_p=top_p,
+                                          temperature=temperature, draw_pos=next_p)
+            return tokens.scatter_(1, gen_cols, gen), lens_text
         done = torch.zeros(B, dtype=torch.bool, device=ids.device)
         for t in range(max_new):
             nxt = torch.where(done, eos_id, logits.argmax(dim=-1))

@@ -23,15 +23,23 @@ weight (``requires_grad_(False)``), so their inputs still get gradients.
 new turn or prompt chunk appended from per-row slots, the serving engine's
 sessions, prefixes and chunked admission) are the cached pieces; with
 ``kv_int8`` every cache is the int8 one (``modules/llm.py``).
-``generate`` is greedy decoding as a Python loop over explicit tensors,
-with the KV cache (one prefill, then one single-token step per new token;
-the last token needs no trailing step) or, with ``use_cache=False``, by
-re-encoding the whole prefix per token, the anchor the cached path is held
-to.
+``generate`` decodes with the KV cache (one prefill, then single-token
+steps; the last token needs no trailing step): greedy, beam search
+(``num_beams`` > 1, ``utils/text_utils.beam_search_cached``: the cache,
+the int8 one's scales included, reordered by row gathers), nucleus
+sampling (``do_sample`` with ``top_p``, ``temperature`` and an integer
+``seed``; the draw is hashed from the seed and each token's position) or
+prompt-lookup speculation (``speculative`` = gamma draft tokens verified a
+step through ``decode_chunk``, ``utils/speculative.py``: greedy's tokens
+exactly; zeroed under beams or sampling, as in JAX). With
+``use_cache=False`` it re-encodes the whole prefix per token, greedily: the
+anchor the cached path is held to. ``prefill_chunked`` runs the prompt
+``chunk_tokens`` at a time through decode-style calls: the same logits as
+``prefill`` (its last chunk is cut short where JAX pads it, so no write
+reaches past the prompt).
 
 ``LM_PRESETS`` is the port's copy of ``antmmf_tpu/models/m2_omni.py``'s
-table. Beam search, sampling, speculative decoding, sequence parallelism
-and ``prefill_chunked`` raise until they are ported.
+table. Sequence parallelism raises until it is ported.
 """
 
 from __future__ import annotations
@@ -51,6 +59,8 @@ from antmmf_torch.modules.lora import LoRADense
 from antmmf_torch.modules.qdense import QuantDense
 from antmmf_torch.modules.vision.eva_vit import EVA_PRESETS, EvaVisionTransformer
 from antmmf_torch.modules.vision.vit import PRESETS as VIT_PRESETS, VisionTransformer
+from antmmf_torch.utils.speculative import speculative_greedy
+from antmmf_torch.utils.text_utils import beam_search_cached, nucleus_sampling_cached
 
 LM_PRESETS = {
     "omni_tiny_test": dict(hidden=64, num_layers=2, num_heads=2, num_kv_heads=1,
@@ -91,7 +101,7 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 @registry.register_model("pink")
 class PinkModel(nn.Module):
-    DECODE_QUANT = ("int4",)  # the predictor's decode_quant modes this model serves
+    DECODE_QUANT = ("int4", "int8")  # the predictor's decode_quant modes this model serves
 
     def __init__(self, lm_preset: str = "omni_1b", visual_tower: str = "vit",
                  vit_preset: str = "vit_base_patch32", eva_preset: str = "eva_vit_g",
@@ -223,6 +233,28 @@ class PinkModel(nn.Module):
         last = hidden[torch.arange(B, device=hidden.device), idx]
         return self._head(last), cache
 
+    def prefill_chunked(self, batch: Mapping[str, torch.Tensor], cache, lens: torch.Tensor,
+                        chunk_tokens: int = 128):
+        """``prefill`` ``chunk_tokens`` positions of [vision; text] at a time,
+        each chunk a decode-style call at its own slots; the hidden state at
+        each row's last prompt token is kept as its chunk passes. Returns
+        (logits fp32 [B, V], cache)."""
+        embeds, _, Lv = self._assemble(batch)
+        B, L, C = embeds.shape
+        W = min(int(chunk_tokens), L)
+        rows = torch.arange(B, device=embeds.device)
+        last_idx = Lv + lens - 1
+        last_h = embeds.new_zeros(B, C)
+        for s in range(0, L, W):
+            chunk = embeds[:, s:s + W]
+            pos0 = torch.full((B,), s, dtype=torch.long, device=embeds.device)
+            pos = pos0[:, None] + torch.arange(chunk.shape[1], device=embeds.device)[None]
+            hidden, cache = self.decoder(chunk, pos, cache=cache, decode_pos=pos0)
+            hit = (last_idx >= s) & (last_idx < s + chunk.shape[1])
+            picked = hidden[rows, (last_idx - s).clamp(0, chunk.shape[1] - 1)]
+            last_h = torch.where(hit[:, None], picked, last_h)
+        return self._head(last_h), cache
+
     def decode_step(self, token: torch.Tensor, pos: torch.Tensor, cache):
         """One token per row at absolute slot and RoPE position ``pos``
         int[B]. Returns (logits fp32 [B, V], cache)."""
@@ -257,15 +289,16 @@ class PinkModel(nn.Module):
     @torch.inference_mode()
     def generate(self, batch: Mapping[str, torch.Tensor], eos_id: int = 102,
                  max_length: Optional[int] = None, num_beams: int = 1, use_cache: bool = True,
-                 speculative: int = 0, do_sample: bool = False
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Greedy decoding. Returns (tokens int[B, Lp+max_new] with the
-        generation written after each row's prompt, prompt lengths int[B]).
-        A row that has emitted ``eos_id`` keeps emitting it."""
-        if num_beams != 1 or speculative or do_sample:
-            raise NotImplementedError("beam search, speculative decoding and sampling are "
-                                      "not ported yet; only greedy decoding is")
+                 speculative: int = 0, spec_ngram: int = 2, do_sample: bool = False,
+                 top_p: float = 0.9, temperature: float = 1.0, seed: int = 0,
+                 stats: Optional[Dict[str, Any]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Greedy, beam, sampled or speculative decoding (module docstring).
+        Returns (tokens int[B, Lp+max_new] with the generation written after
+        each row's prompt, prompt lengths int[B]). A row that has emitted
+        ``eos_id`` keeps emitting it. ``stats``, a dict, receives the best
+        beams' ``scores``, or speculation's ``n_generated`` and ``n_steps``."""
         max_new = int(max_length or 16)
+        stats = {} if stats is None else stats
         ids = batch["input_ids"].long()
         mask = batch.get("input_mask")
         mask = torch.ones_like(ids) if mask is None else mask.long()
@@ -274,6 +307,7 @@ class PinkModel(nn.Module):
         total = Lp + max_new
         tokens = torch.cat([ids * mask, ids.new_zeros(B, max_new)], dim=1)
         lens = mask.sum(dim=-1)
+        gen_cols = lens[:, None] + torch.arange(max_new, device=ids.device)[None]
 
         def fwd_batch(cur_ids, cur_mask):
             fwd = {"input_ids": cur_ids, "input_mask": cur_mask}
@@ -296,9 +330,28 @@ class PinkModel(nn.Module):
                 _, done = emit(t, logits[torch.arange(B, device=ids.device), pos], done)
             return tokens, lens
 
+        gamma = int(speculative) if num_beams == 1 and not do_sample else 0
         Lv = self.num_vision_tokens(batch)
-        cache = self.make_cache(B, Lv + total, device=ids.device)
+        cache = self.make_cache(B, Lv + total + (gamma + 1 if gamma else 0), device=ids.device)
         logits, cache = self.prefill(fwd_batch(tokens[:, :Lp], mask), cache, lens)
+        if num_beams > 1:
+            best, stats["scores"] = beam_search_cached(
+                self.decode_step, logits, cache, Lv + lens, eos_id, max_new=max_new,
+                num_beams=num_beams)
+            return tokens.scatter_(1, gen_cols, best), lens
+        if gamma:
+            def chunk_fn(chunk, start_off, cache):
+                return self.decode_chunk(chunk, Lv + lens + start_off, cache)
+
+            buf = torch.cat([tokens, tokens.new_zeros(B, gamma + 1)], dim=1)
+            out, stats["n_generated"], stats["n_steps"] = speculative_greedy(
+                chunk_fn, logits, cache, buf, lens, eos_id, max_new, gamma=gamma, ngram=spec_ngram)
+            return out[:, :total], lens
+        if do_sample:
+            gen = nucleus_sampling_cached(self.decode_step, logits, cache, Lv + lens, seed,
+                                          eos_id, max_new=max_new, top_p=top_p,
+                                          temperature=temperature)
+            return tokens.scatter_(1, gen_cols, gen), lens
         for t in range(max_new):
             nxt, done = emit(t, logits, done)
             if t < max_new - 1:  # the final token needs no trailing decode step

@@ -10,8 +10,16 @@ buffers, flax's sibling arrays of the same names,
 
 and ``forward`` then goes through ``int4_apply``: the int4 GEMV kernel for
 decode-sized inputs (weights cross device memory as 4 bits), unpack + matmul
-for prefill-sized ones. ``freeze`` freezes the weight, not the output: no
-weight gradient, while the activation gradient still flows.
+for prefill-sized ones. ``load_int8`` serves an int8 record instead,
+
+    kernel_q8     int8   [in, out]
+    kernel_scale  f32    [out]
+
+dequantised at every call (``q.to(dtype) * scale.to(dtype)``, the JAX
+package's per-step dequantisation, whose product it computes outside any
+kernel) and multiplied by ``torch.matmul``. ``freeze`` freezes the weight,
+not the output: no weight gradient, while the activation gradient still
+flows.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ class QuantDense(nn.Linear):
         self.dtype = dtype
         if freeze:
             self.weight.requires_grad_(False)
-        self.kernel_q4 = self.kernel_scale = None
+        self.kernel_q4 = self.kernel_q8 = self.kernel_scale = None
 
     def load_packed(self, q4, scale) -> None:
         """Serve from a ``{"q4", "scale"}`` record (arrays or tensors) from
@@ -42,12 +50,35 @@ class QuantDense(nn.Linear):
             raise ValueError(f"packed record q4 {tuple(q4.shape)} {q4.dtype}, scale "
                              f"{tuple(scale.shape)} does not fit a "
                              f"[{self.in_features}, {self.out_features}] kernel")
-        device = self.weight.device if self.weight is not None else self.kernel_q4.device
+        self._serve(q4, None, scale)
+
+    def load_int8(self, q, scale) -> None:
+        """Serve from a ``{"q", "scale"}`` record: q int8 [in, out], scale
+        [out]; the float weight is dropped."""
+        q, scale = torch.as_tensor(q), torch.as_tensor(scale)
+        if q.dtype != torch.int8 or tuple(q.shape) != (self.in_features, self.out_features) \
+                or tuple(scale.shape) != (self.out_features,):
+            raise ValueError(f"int8 record q {tuple(q.shape)} {q.dtype}, scale "
+                             f"{tuple(scale.shape)} does not fit a "
+                             f"[{self.in_features}, {self.out_features}] kernel")
+        self._serve(None, q, scale)
+
+    def _serve(self, q4, q8, scale) -> None:
+        held = next(t for t in (self.weight, self.kernel_q4, self.kernel_q8) if t is not None)
         self.weight = None
-        self.kernel_q4 = q4.to(device).contiguous()
-        self.kernel_scale = scale.to(device=device, dtype=torch.float32).contiguous()
+        self.kernel_q4 = None if q4 is None else q4.to(held.device).contiguous()
+        self.kernel_q8 = None if q8 is None else q8.to(held.device).contiguous()
+        self.kernel_scale = scale.to(device=held.device, dtype=torch.float32).contiguous()
+
+    def int8_weight(self) -> torch.Tensor:
+        """The int8 record's kernel [in, out] in the module's dtype: values and
+        scales cast first, then multiplied (rounded in that dtype, as JAX's
+        per-step product is)."""
+        return self.kernel_q8.to(self.dtype) * self.kernel_scale.to(self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.kernel_q4 is not None:
             return int4_apply(x, self.kernel_q4, self.kernel_scale, self.dtype).to(self.dtype)
+        if self.kernel_q8 is not None:
+            return torch.matmul(x.to(self.dtype), self.int8_weight())
         return super().forward(x.to(self.dtype))

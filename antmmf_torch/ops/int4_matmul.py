@@ -55,26 +55,51 @@ def packable(shape: Tuple[int, ...], group: int = DEFAULT_GROUP) -> bool:
     return shape[0] % max(2, group) == 0
 
 
+def _div(a: torch.Tensor, b: float) -> torch.Tensor:
+    """``a / b`` as an IEEE division on every device: a Python divisor on a
+    CUDA tensor is taken as a multiply by its reciprocal, which rounds
+    differently from numpy's division."""
+    return a / torch.tensor(b, dtype=a.dtype, device=a.device)
+
+
+def pack_int4_tensor(w: torch.Tensor, group: int = DEFAULT_GROUP
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``pack_int4`` on a tensor [in, out] on its own device: (q4 uint8
+    [in/2, out], scale fp32 [in/group, out]), byte for byte numpy's (fp32
+    quotients, round half to even)."""
+    fin, fout = w.shape
+    if not packable(tuple(w.shape), group):
+        raise ValueError(f"shape {tuple(w.shape)} not packable (group={group})")
+    g = w.float().reshape(fin // group, group, fout)
+    scale = _div(g.abs().amax(dim=1).clamp(min=1e-12), 7.0)
+    q = torch.round(g / scale[:, None]).clamp(-7, 7).to(torch.int8).reshape(fin, fout)
+    half = fin // 2
+    lo = (q[:half] + 8).view(torch.uint8)
+    hi = q[half:].view(torch.uint8) & 0x0F
+    return lo | (hi << 4), scale
+
+
 def pack_int4(w: np.ndarray, group: int = DEFAULT_GROUP) -> Tuple[np.ndarray, np.ndarray]:
     """f32 [in, out] → (q4 uint8 [in/2, out], scale f32 [in/group, out]).
 
     Symmetric [-7, 7] grid, one scale per ``group`` input rows and output
     channel. Row i packs with row i + in/2: the low nibble stores row i
     biased by 8 ([1, 15]), the high nibble row i + in/2 as a signed
-    two's-complement nibble."""
-    fin, fout = w.shape
-    if not packable(w.shape, group):
-        raise ValueError(f"shape {w.shape} not packable (group={group})")
-    # torch's CPU ops on all threads; the same IEEE fp32 quotients and
-    # round-half-to-even as the JAX package's numpy, so the same bytes
-    g = torch.from_numpy(np.ascontiguousarray(w, dtype=np.float32)).reshape(
-        fin // group, group, fout)
-    scale = g.abs().amax(dim=1).clamp(min=1e-12) / 7.0
-    q = torch.round(g / scale[:, None]).clamp(-7, 7).to(torch.int8).reshape(fin, fout)
-    half = fin // 2
-    lo = (q[:half] + 8).view(torch.uint8)
-    hi = q[half:].view(torch.uint8) & 0x0F
-    return (lo | (hi << 4)).numpy(), scale.numpy()
+    two's-complement nibble. Computed by ``pack_int4_tensor`` with torch's
+    CPU ops on all threads: the same IEEE fp32 quotients and round half to
+    even as the JAX package's numpy, so the same bytes."""
+    q4, scale = pack_int4_tensor(torch.from_numpy(np.ascontiguousarray(w, dtype=np.float32)),
+                                 group)
+    return q4.numpy(), scale.numpy()
+
+
+def quantize_int8_tensor(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-output-channel int8 of a kernel [..., out] on its own
+    device: (q int8 of w's shape, scale fp32 [out] = max|w| / 127), byte
+    for byte the JAX package's numpy."""
+    t = w.float()
+    scale = _div(t.reshape(-1, t.shape[-1]).abs().amax(dim=0).clamp(min=1e-12), 127.0)
+    return torch.round(t / scale).clamp(-127, 127).to(torch.int8), scale
 
 
 def _pick_tiles(fin: int, fout: int, group: int) -> Optional[Tuple[int, int]]:

@@ -19,17 +19,22 @@ trainer's ``save_dir`` or a ``params.npz``, a ``scan_layers`` decoder's
 layers stacked or not, or, without one, seeded random weights
 (``predictor_parameters.init_on_device`` draws them on the model's
 device); the cache stays a list of per-layer tensors (JAX stacks the same
-values under ``scan_layers``). ``predictor_parameters.decode_quant: int4``
-quantises the loaded weights with ``quantize_for_decode(bits=4)`` and
-serves them through the int4 GEMV kernel (``QuantDense`` packed buffers),
-for a model whose class lists the mode in ``DECODE_QUANT``.
+values under ``scan_layers``). ``predictor_parameters.decode_quant: int4 |
+int8`` quantises the loaded weights on the model's device
+(``quantize_module_for_decode``, the records of ``quantize_for_decode``
+byte for byte): int4 records are served by the int4 GEMV kernel, int8
+records dequantised at each call (``QuantDense``), for a model whose class
+lists the mode in ``DECODE_QUANT`` (Pink and M2-omni list both).
+
+The decoding options are the JAX predictor's: ``num_beams``,
+``speculative`` (prompt-lookup draft tokens a step), ``do_sample`` with
+``top_p`` and ``temperature``; ``seed`` (an integer, default 0) keys the
+port's sampling draw.
 
 ``predict({"text": "...", "image": HxWx3?}) →
 {"generated_text": str, "generated_ids": int[B, Lp+max_new]}``.
 
-Beams, sampling, speculative decoding, ``tensor_parallel`` and a
-``decode_quant`` mode the model's ``DECODE_QUANT`` does not list (int8;
-any for M2-omni) raise until they are ported.
+``tensor_parallel`` raises until it is ported.
 """
 
 from __future__ import annotations
@@ -44,11 +49,12 @@ from antmmf_torch.datasets.processors.m2omni_processing import M2OmniUnifiedProc
 from antmmf_torch.datasets.processors.text_processors import DEFAULT_VOCAB, _resolve_vocab_path
 from antmmf_torch.predictors.base_predictor import BasePredictor
 from antmmf_torch.predictors.caption_predictor import ids_to_caption
-from antmmf_torch.predictors.quantization import load_decode_records, quantize_for_decode
+from antmmf_torch.predictors.quantization import quantize_module_for_decode
 from antmmf_torch.structures.sample import Sample, SampleList
 from antmmf_torch.utils.conversation import build_prompt
 from antmmf_torch.utils.tokenization import BertTokenizer
-from antmmf_torch.utils.weights import export_flax_params
+
+DECODE_BITS = {"int8": 8, "int4": 4}
 
 
 @registry.register_predictor("generation_predictor")
@@ -56,7 +62,7 @@ class GenerationPredictor(BasePredictor):
     """Serves a model exposing ``generate(batch, ...)``: Pink over a [vision;
     text] prompt, M2-omni over the unified processor's spliced prompt."""
 
-    NOT_PORTED = {"num_beams": 1, "speculative": 0, "do_sample": False, "tensor_parallel": 0}
+    NOT_PORTED = {"tensor_parallel": 0}
     UNIFIED_KEYS = ("conversation", "images", "video", "waveform")
 
     def example_data(self) -> Dict[str, Any]:
@@ -96,6 +102,8 @@ class GenerationPredictor(BasePredictor):
                                           f"is not ported yet")
         dq = self.pp.get("decode_quant")
         if dq:
+            if str(dq) not in DECODE_BITS:
+                raise ValueError(f"decode_quant must be int8|int4, got {dq!r}")
             import antmmf_torch.models  # noqa: F401  (registers the models)
 
             name, model = self._model_attributes(self.config)
@@ -113,6 +121,13 @@ class GenerationPredictor(BasePredictor):
         self.max_new_tokens = int(self.pp.get("max_new_tokens", 24))
         self.max_prompt_len = int(self.pp.get("max_prompt_len", 64))
         self.eos_id = int(self.pp.get("eos_id", 102))
+        self.decode_options = dict(
+            num_beams=int(self.pp.get("num_beams", 1)),
+            speculative=int(self.pp.get("speculative", 0)),
+            do_sample=bool(self.pp.get("do_sample", False)),
+            top_p=float(self.pp.get("top_p", 0.9)),
+            temperature=float(self.pp.get("temperature", 1.0)),
+            seed=int(self.pp.get("seed", 0)))
         super().load(with_ckpt=with_ckpt)
         module = self.shell.module
         if not hasattr(module, "generate"):
@@ -120,10 +135,8 @@ class GenerationPredictor(BasePredictor):
         self.image_size = int(self._model_attributes(self.model_config)[1].get("image_size", 224))
         self.image_processor = NormalizedImageProcessor({"size": self.image_size})
         if dq:
-            records = quantize_for_decode(
-                {"params": export_flax_params(module, stacked=False)}, bits=4,
-                min_size=int(self.pp.get("decode_quant_min_size", 65536)))
-            load_decode_records(module, records, module.dtype)
+            quantize_module_for_decode(module, bits=DECODE_BITS[str(dq)],
+                                       min_size=int(self.pp.get("decode_quant_min_size", 65536)))
         return self
 
     def _build_unified_sample(self, data: Mapping[str, Any]) -> SampleList:
@@ -168,7 +181,7 @@ class GenerationPredictor(BasePredictor):
     def predict(self, data: Mapping[str, Any]) -> Dict[str, Any]:
         batch = self.shell.to_device(self.build_sample(data).arrays())
         tokens, lens = self.shell.module.generate(
-            batch, eos_id=self.eos_id, max_length=self.max_new_tokens)
+            batch, eos_id=self.eos_id, max_length=self.max_new_tokens, **self.decode_options)
         tokens, lens = tokens.cpu().numpy(), lens.cpu().numpy()
         outs = [ids_to_caption(self.tokenizer, tokens[b, lens[b]: lens[b] + self.max_new_tokens])
                 for b in range(tokens.shape[0])]

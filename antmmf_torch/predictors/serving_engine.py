@@ -29,7 +29,8 @@ Per-request nucleus sampling filters the logits exactly as JAX's
 argmax in the same window). The draw is the port's own: a Gumbel-max over
 uniforms hashed from (the request's seed, the token's RoPE position, the
 vocabulary index) on the device (``position_uniforms``), not JAX's
-threefry stream; a sampled token is a pure function of the request and
+threefry stream; the helpers live in ``utils/text_utils.py``, which
+``generate``'s sampling shares; a sampled token is a pure function of the request and
 its own progress, never of the requests that share the pool.
 
 The adapters bind a model to the engine: the weights live in the module
@@ -49,8 +50,12 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-NEG_INF = -1e9  # the logit below the nucleus cutoff, JAX's value
-_MASK32 = 0xFFFFFFFF
+from antmmf_torch.utils.text_utils import (  # noqa: F401  (the engine's sampling surface)
+    nucleus_filter,
+    position_uniforms,
+    sample_tokens,
+)
+
 
 
 def _module_device(module) -> torch.device:
@@ -133,49 +138,6 @@ class M2OmniAdapter:
 
     def extend(self, tokens, mask, rope, slot, cache):
         return self.module.extend_cache(tokens, mask, rope, slot, cache)
-
-
-def nucleus_filter(logits: torch.Tensor, temps: torch.Tensor, top_ps: torch.Tensor
-                   ) -> torch.Tensor:
-    """JAX's nucleus filter: logits [S, V] / max(temperature, 1e-6), sorted
-    descending, softmax, cumsum; the cutoff is the sorted value at index
-    count(cum < top_p), and every logit below it becomes -1e9."""
-    lg = logits.float() / temps.clamp(min=1e-6)[:, None]
-    srt = torch.sort(lg, dim=-1, descending=True).values
-    cum = torch.cumsum(torch.softmax(srt, dim=-1), dim=-1)
-    idx = (cum < top_ps[:, None]).sum(-1).clamp(max=lg.shape[-1] - 1)
-    cutoff = torch.gather(srt, -1, idx[:, None])
-    return torch.where(lg < cutoff, NEG_INF, lg)
-
-
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """A 32-bit integer finalizer (lowbias32) on int64 holding uint32."""
-    x = x ^ (x >> 16)
-    x = (x * 0x7FEB352D) & _MASK32
-    x = x ^ (x >> 15)
-    x = (x * 0x846CA68B) & _MASK32
-    return x ^ (x >> 16)
-
-
-def position_uniforms(seeds: torch.Tensor, positions: torch.Tensor, vocab: int) -> torch.Tensor:
-    """Uniforms in (0, 1) [S, vocab], a pure function of each row's (seed,
-    position) and the vocabulary index: 24-bit hashes of the three."""
-    h = _mix32(seeds.long() & _MASK32)
-    h = _mix32(h ^ ((positions.long() * 0x9E3779B1) & _MASK32))
-    v = torch.arange(vocab, device=seeds.device, dtype=torch.long)
-    x = _mix32((h[:, None] + v[None] * 0x85EBCA6B) & _MASK32)
-    return ((x >> 8).float() + 0.5) / float(1 << 24)
-
-
-def sample_tokens(logits: torch.Tensor, temps: torch.Tensor, top_ps: torch.Tensor,
-                  seeds: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """One token a row: the greedy argmax where the temperature is 0, else a
-    Gumbel-max draw from the nucleus-filtered logits."""
-    greedy = logits.argmax(dim=-1)
-    filtered = nucleus_filter(logits, temps, top_ps)
-    u = position_uniforms(seeds, positions, logits.shape[-1])
-    sampled = (filtered - torch.log(-torch.log(u))).argmax(dim=-1)
-    return torch.where(temps > 0, sampled, greedy)
 
 
 class ContinuousBatchingEngine:

@@ -4,7 +4,7 @@
     python3 chip_smoke.py --calibrate  # the card-vs-CPU readings: seeds and planted faults
     python3 chip_smoke.py --calibrate dmae  # one part: serving, training, pink, pretraining,
                                             # dmae, task_heads, roi, pink_train, pink_7b,
-                                            # m2_omni, m2_train, engine
+                                            # m2_omni, m2_train, engine, decoding
 
 Phases, each printing JSON lines; a failing phase ends the script with a
 non-zero code and no result line:
@@ -30,7 +30,8 @@ non-zero code and no result line:
    then 400 live visual keys, stage-2 re-ranking's chunk of 32 such pairs and
    a tail chunk of 5, Lq ≠ Lk, causal, a fully masked row, D 32 and 128, key counts
    around the forward's tile ring, query counts around the backward's,
-   causal with a key bias, Pink's causal prefill shape, Pink's training
+   causal with a key bias, Pink's causal prefill shape and its eval batch's
+   ([8, 16, 113, 128], 16..64 live text keys), Pink's training
    step: causal [8, 16, 305, 128] with 49 vision keys and 8..256 live text
    keys, k/v repeated from 4 kv heads; at D=128 [4, 16, L, 128] with L 63,
    64, 65 and 129 around the backward's rings, causal Lq ≠ Lk both ways, a
@@ -89,7 +90,8 @@ non-zero code and no result line:
 9. Pink int4 decode serving: ``GenerationPredictor`` through the CLI code at
    the full width of ``lm_preset: omni_1b`` (hidden 2048, 22 layers, 16 heads
    of 128, 4 kv heads, vocabulary 151,936, SwiGLU 5504) behind ViT-B/32 at
-   224², bf16, ``decode_quant: int4``, prompt of 64 tokens, 24 new tokens,
+   224², bf16, ``decode_quant: int4`` (the records made on the card by
+   ``quantize_module_for_decode``), prompt of 64 tokens, 24 new tokens,
    seeded random weights. Each request must launch ``small_attention`` 11
    times (ViT), ``flash_fwd`` 22 times (the causal prefill of 113 tokens) and
    ``int4_gemv`` 1 + 23·155 times (``lm_head`` on the last prompt token,
@@ -98,13 +100,16 @@ non-zero code and no result line:
    prefill time, decode time per token, tokens/s, peak memory and the
    device's idle share over profiled decode steps;
 10. card vs CPU (Pink): one set of int4 records loaded into the card's bf16
-   model and an fp32 CPU model (the records phase 9's predictor made from
-   its bf16 weights, not a second quantisation of the CPU's): the logits at
+   model and an fp32 CPU model (the records phase 9's predictor made on the
+   card from its bf16 weights, exported with ``export_decode_records``, not
+   a second quantisation of the CPU's): the logits at
    prefill and at the first decode step (teacher-forced), held to the bound
    that ``--calibrate`` reads from sound seeds and planted faults;
-11. ``int4_gemv`` timed on the served model's own records at 1, 8, 16 and
-   32 rows of bf16 x (8: the engine's pooled decode step; 16: its chunked
-   extend), cycling through copies so that no launch finds its
+11. ``int4_gemv`` timed on the served model's own records at 1, 3, 5, 8,
+   16, 24 and 32 rows of bf16 x (3: a request's beams; 5: a speculative
+   verify step of gamma 4; 8: the engine's pooled decode step; 16: its
+   chunked extend; 24: beams over an eval batch of 8), cycling through
+   copies so that no launch finds its
    weights in the L2 cache, beside its bound, its plain version (1 row) and
    bf16 ``torch.matmul`` on the dequantised weight, and summed over a decode
    step's 155 launches for each row count;
@@ -131,6 +136,30 @@ non-zero code and no result line:
    antmmf_torch.predictors.cli --engine`` through ``cli.main`` on four
    text-only requests at 2 decoder layers seeded on the card, its tokens
    against an in-process engine on the same model;
+11c. the decoding surface on phase 9's module: (a) ``antmmf_torch.scripts.
+   pink_eval.main`` over 16 seeded VQA rows (OpenCV images written under
+   ``build/`` and deleted) at batch 8 and 16 new tokens, greedy, beams of 3,
+   speculation of gamma 4 and sampling (top_p 0.9, temperature 0.8, seed
+   5): each mode's seconds and ms a row beside greedy's, 22 ``flash_fwd``
+   and 11 K1 a batch asserted; speculation's tokens equal greedy's but at a
+   near-tie of the greedy logits (``ENGINE_TIE_MAX``), one seed's samples
+   equal twice, top_p 1e-6 greedy's under the same rule; (b) one request
+   through the generation predictor in each mode, K8's launches by rows
+   (beams: 3 rows a step; speculation: 5 a verify step) beside phase 11's
+   K8 and bf16 matmul times a step at those rows; Pink at full width seeded
+   on the card in bf16, then ``decode_quant: int8`` in place on the card
+   (decode ms a token, weight bytes, a request's launches: 22 ``flash_fwd``,
+   11 K1, no K8) beside phase 9's int4; (c) card bf16 vs CPU fp32 at 2 of 22
+   decoder layers: the card's best beam's score against the CPU's
+   log-probabilities of its tokens, the card's samples at top_p 0.5 inside
+   the CPU's nucleus, int8 records made on the card equal to the CPU's byte
+   for byte, the kernels the card dequantises equal to the CPU's bf16
+   product of them, and the logits of a prefill and three decode steps,
+   held to the bounds ``--calibrate decoding`` reads, with four planted
+   faults, each outside the bound named for it (the beams' cache rows
+   rolled: the card's replay of its best beam; the beams' length penalty
+   dropped: the CPU's score; the nucleus filter skipped; the int8 scale
+   multiplied in fp32 and then cast);
 12. trainer: ``python -m antmmf_torch.run`` driven in-process
    (``antmmf_torch.run.main``) on ``projects/base_vtp/configs/
    video_retrieval.yml`` at full width over a seeded synthetic dataset in
@@ -303,7 +332,16 @@ non-zero code and no result line:
    the cache slot advancing apart, a two-turn text session against a full
    re-prefill, the idle share over two windows; (d)'s twins with the int8
    cache on request (a), held to the int8 bounds with the same two faults
-   outside them.
+   outside them; then, last on (a)'s model, int4: the model quantised in
+   place on the card (seconds; layer 0's seven records and ``lm_head``'s
+   against numpy's ``quantize_for_decode`` on host copies of the same
+   weights, byte for byte), K8 at its five shapes (4096→4096, 4096→1024,
+   4096→11,008, 11,008→4096 stored as 11,264 rows, 4096→151,936) at 1, 4 and
+   8 rows against ``plain_int4_gemv`` and timed beside bf16 matmul and the
+   bound, summed over a decode step's 225 launches, and request (a) served
+   greedy (32 ``flash_fwd`` and 1 + 23·225 K8 asserted) and speculative
+   (gamma 4: its tokens against greedy's under the near-tie rule): TTFT, ms
+   a token and peak memory beside the bf16 readings.
 20. M2-omni LoRA training (``m2_omni_7b.yml`` under ``recipe_opts`` of
    ``models/m2_omni.py``: LoRA 8 on the decoder's seven projections and on
    every Qwen2-ViT block, only the adapters, ``vision_proj`` and
@@ -332,8 +370,9 @@ pretraining step and trainer, each part of phase 14 but its card-vs-CPU
 comparison, each caption request, bare step and trainer run of phase 15,
 each bare step and trainer run of phase 16, phase 17's trainer runs,
 phase 18's runs and served requests, phase 19's requests, each engine
-pass of phases 11b and 19, phase 20's warm-up updates and its chunked-loss
-update)
+pass of phases 11b and 19, each pink_eval run and predictor request of
+phase 11c, phase 19's int4 requests, phase 20's warm-up updates and its
+chunked-loss update)
 runs
 with the kernels' launch counts set to 0 just before it and read just after;
 launches made to compare a kernel with its plain version or to time it are
@@ -417,8 +456,10 @@ from antmmf_torch.predictors.m2_omni_serving import (  # noqa: E402
     serving_opts,
 )
 from antmmf_torch.predictors.quantization import (  # noqa: E402
+    export_decode_records,
     load_decode_records,
     quantize_for_decode,
+    quantize_module_for_decode,
 )
 from antmmf_torch.predictors.serving_engine import (  # noqa: E402
     ContinuousBatchingEngine,
@@ -426,6 +467,7 @@ from antmmf_torch.predictors.serving_engine import (  # noqa: E402
     PinkAdapter,
 )
 from antmmf_torch.modules.moco import queue_buffers  # noqa: E402
+from antmmf_torch.modules.qdense import QuantDense  # noqa: E402
 from antmmf_torch.trainers.base_trainer import BaseTrainer  # noqa: E402
 from antmmf_torch.trainers.build import build_trainer  # noqa: E402
 from antmmf_torch.trainers.retrieval_trainer import RetrievalTrainer  # noqa: E402
@@ -809,6 +851,15 @@ def flash_cases(gen):
         proj(4, 200, 12, 64), ragged(4, 200, 1), True
     yield "pink_prefill_L113_d128_causal", proj(1, 113, 16, 128), proj(1, 113, 16, 128), \
         proj(1, 113, 16, 128), None, True
+    # pink_eval's batch prefill (phase 11c): 8 rows of 49 vision keys and
+    # 16..64 text keys, right-padded, causal
+    text = torch.randint(16, PINK_PROMPT_LEN + 1, (EVAL_BATCH,), generator=gen, device=dev)
+    live = torch.cat([torch.ones(EVAL_BATCH, PINK_PATCHES, dtype=torch.bool, device=dev),
+                      torch.arange(PINK_PROMPT_LEN, device=dev)[None] < text[:, None]], 1)
+    L = PINK_PATCHES + PINK_PROMPT_LEN
+    yield f"pink_eval_prefill_B{EVAL_BATCH}_L{L}_d128_causal_ragged", \
+        proj(EVAL_BATCH, L, 16, 128), proj(EVAL_BATCH, L, 16, 128), \
+        proj(EVAL_BATCH, L, 16, 128), make_attention_mask(live.long()), True
     # the D=128 backward (Pink's width): its two-stage rings over keys (dQ)
     # and queries (dK/dV) at one tile, exactly one, a one-row last tile and
     # an odd count; causal with Lq != Lk both ways
@@ -1821,30 +1872,23 @@ def phase_trace(walls, gpu, iters=5):
 
 
 # ------------------------------------------------------------------ phase 9
-def pink_predictor(device: str = "cuda", dtype: str = "bfloat16", quant: bool = True):
+def pink_predictor(device: str = "cuda", dtype: str = "bfloat16", quant: str = "int4",
+                   on_device: bool = False):
     """``GenerationPredictor`` on the full-width Pink model through the CLI's
-    ``build_predictor``; seeded random weights."""
+    ``build_predictor``; seeded random weights (drawn on the card with
+    ``on_device``), quantised on the model's device to ``quant`` unless it
+    is empty."""
     opts = ["model_attributes.pink.dtype_str", dtype,
             "predictor_parameters.max_prompt_len", str(PINK_PROMPT_LEN),
             "predictor_parameters.max_new_tokens", str(PINK_NEW_TOKENS),
-            "predictor_parameters.num_beams", "1"]
+            "predictor_parameters.num_beams", "1",
+            "predictor_parameters.init_on_device", str(on_device).lower()]
     for key, value in PINK_MODEL.items():
         opts += [f"model_attributes.pink.{key}", str(value)]
     if quant:
-        opts += ["predictor_parameters.decode_quant", "int4"]
-    from antmmf_torch.predictors import generation_predictor as gp
-
-    made = []
-    real = gp.quantize_for_decode
-    gp.quantize_for_decode = lambda *a, **kw: made.append(real(*a, **kw)) or made[-1]
-    try:
-        predictor, _ = build_predictor(["--config", PINK_CONFIG, "--predictor",
-                                        "generation_predictor", "--no_ckpt", "--device", device,
-                                        *opts])
-    finally:
-        gp.quantize_for_decode = real
-    predictor.records = made[0] if made else None  # the int4 records it loaded
-    return predictor
+        opts += ["predictor_parameters.decode_quant", quant]
+    return build_predictor(["--config", PINK_CONFIG, "--predictor", "generation_predictor",
+                            "--no_ckpt", "--device", device, *opts])[0]
 
 
 def pink_request(rng, text="what is the person in the picture doing?"):
@@ -1887,7 +1931,7 @@ def phase_pink(rng, gpu):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    pred = pink_predictor()
+    pred = pink_predictor(on_device=True)
     load_s = time.perf_counter() - t0
     module = pred.shell.module
     packed = [m for m in module.modules() if getattr(m, "kernel_q4", None) is not None]
@@ -1950,6 +1994,7 @@ def phase_pink(rng, gpu):
         decode_walk(pred, arrays, 4, sync=False)
     busy, n_ops, top = device_busy(prof, 1)
     step_p50 = float(np.percentile(steps, 50))
+    pred.decode_step_p50_ms = step_p50
     emit(phase="pink_times", gpu=gpu, prefill_ms=pct(prefill), decode_step_ms=pct(steps),
          decode_tokens_per_s=1e3 / step_p50, request_ms=pct(lat),
          request_new_tokens_per_s=PINK_NEW_TOKENS * 1e3 / float(np.mean(lat)),
@@ -1995,14 +2040,23 @@ def pink_within_bound(res) -> bool:
 def pink_twins(card, seed: int):
     """An fp32 CPU model with weights of ``seed`` and one set of int4 records
     in it and in the card's bf16 model: at the card's seed the records the
-    card's predictor made and loaded (from its bf16 weights), else records
-    of the CPU's weights, loaded into both."""
-    with no_default_init():  # the predictor's seeded init sets every value
-        cpu = pink_predictor("cpu", "float32", quant=False)
+    card's predictor made on the card (from its bf16 weights) and serves,
+    exported, else records of the CPU's weights, loaded into both."""
+    from antmmf_torch.models.base_model import ModelShell
+
+    seeded = ModelShell.init
+    if seed == SEED:  # every value comes from the card's export: no seeded init
+        ModelShell.init = lambda self, *a, **kw: None
+    try:
+        with no_default_init():  # the predictor's seeded init sets every value
+            cpu = pink_predictor("cpu", "float32", quant="")
+    finally:
+        ModelShell.init = seeded
     if seed:  # the predictor drew seed 0
         cpu.shell.init(seed)
-    records = card.records if seed == SEED and card.records is not None else None
-    if records is None:
+    if seed == SEED:  # the records the card's predictor made on the card, as it serves them
+        records = export_decode_records(card.shell.module)
+    else:
         records = quantize_for_decode({"params": export_flax_params(cpu.shell.module)})
         load_decode_records(card.shell.module, records, torch.bfloat16)
     load_decode_records(cpu.shell.module, records, torch.float32)
@@ -2095,7 +2149,9 @@ def calibrate_pink(seeds=3) -> None:
 # ----------------------------------------------------------------- phase 11
 def phase_int4_times(pred, gpu) -> dict:
     """``int4_gemv`` on the served model's records, one of each of the path's
-    five shapes, at 1 row of bf16 x (the decode path) and at 8 and 32 rows.
+    five shapes, at 1 row of bf16 x (the decode path), at the row counts of
+    beams (3), speculation (5), the engine (8, 16), beams at an eval batch of
+    8 (24) and at 32 rows.
     Bound: packed bytes, scales, x and y once over the memory rate, against
     2·rows·in·out operations at the bf16 tensor rate. Prints the readings
     summed over a decode step's launches (each shape's time times its
@@ -2109,7 +2165,8 @@ def phase_int4_times(pred, gpu) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     saved = read_counts()
     steps = {rows: dict(ms=0.0, library_ms=0.0, bound_ms=0.0, bytes=0)
-             for rows in (1, ENGINE_SLOTS, ENGINE_CHUNK, 32)}
+             for rows in (1, DECODE_BEAMS, DECODE_GAMMA + 1, ENGINE_SLOTS, ENGINE_CHUNK,
+                          EVAL_BATCH * DECODE_BEAMS, 32)}
     steps[1].update(eager_ms=0.0, plain_ms=0.0)
     for name, (mod, per_step) in modules.items():
         packed, scale = mod.kernel_q4, mod.kernel_scale
@@ -2144,6 +2201,7 @@ def phase_int4_times(pred, gpu) -> dict:
         emit(phase="times", exp="int4_gemv_per_decode_step", rows=rows,
              launches=GEMVS_PER_STEP, gpu=gpu, **step,
              bound_share=step["bound_ms"] / step["ms"])
+    pred.int4_step_ms = steps  # phase 11c reads them beside the row counts of its modes
     step = steps[1]
     return dict(ms=step["ms"] / GEMVS_PER_STEP, plain_ms=step["plain_ms"] / GEMVS_PER_STEP,
                 library_ms=step["library_ms"] / GEMVS_PER_STEP,
@@ -2551,11 +2609,11 @@ def pink_engine(pred, gpu) -> dict:
     return totals
 
 
-def pink_int8_twins(seed: int, layers: int = 2):
+def pink_int8_twins(seed: int, layers: int = 2, kv_int8: bool = True):
     """Pink at full width and ``layers`` decoder layers with the int8
-    cache: bf16 on the card seeded there, and fp32 on the CPU from the same
-    values."""
-    opts = ["model_attributes.pink.kv_int8", "true"]
+    cache (or without, ``kv_int8`` off): bf16 on the card seeded there, and
+    fp32 on the CPU from the same values."""
+    opts = ["model_attributes.pink.kv_int8", str(kv_int8).lower()]
     for key, value in {**PINK_MODEL, "lm_preset": pink_layers(layers)}.items():
         opts += [f"model_attributes.pink.{key}", str(value)]
     shells = []
@@ -2745,6 +2803,573 @@ def phase_engine(pred, gpu) -> dict:
     for key, n in engine_cli(gpu).items():
         totals[key] += n
     emit(phase="engine", part="summary", seconds=time.perf_counter() - t0, launches=totals)
+    return totals
+
+
+# ------------------------------------------------------------ phase 11c
+# The decoding surface on phase 9's Pink int4 module: (a) pink_eval over
+# EVAL_ROWS seeded rows at batch EVAL_BATCH, greedy, beams, speculation and
+# sampling; (b) the generation predictor's modes with K8's row counts a
+# step, and Pink's decode_quant int8 at full width beside bf16 and int4; (c)
+# beams, sampling and int8 weights card bf16 against CPU fp32 at 2 decoder
+# layers. Beams run K8 at B·num_beams rows (3 for one request, 24 for an
+# eval batch), a verify step of speculation at B·(gamma + 1) (5; an eval
+# batch's 40 rows pass GEMV_MAX_ROWS and take unpack + matmul).
+EVAL_ROWS, EVAL_BATCH, EVAL_NEW = 16, 8, 16
+DECODE_BEAMS, DECODE_GAMMA = 3, 4
+SAMPLING = dict(top_p=0.9, temperature=0.8, seed=5)
+STEP_ROWS = {"greedy": 1, "beams": DECODE_BEAMS, "speculative": DECODE_GAMMA + 1, "sampled": 1}
+EVAL_MODES = {"greedy": [], "beams": ["--num_beams", str(DECODE_BEAMS)],
+              "speculative": ["--speculate", str(DECODE_GAMMA)],
+              "sampled": ["--do_sample", "--top_p", str(SAMPLING["top_p"]), "--temperature",
+                          str(SAMPLING["temperature"]), "--seed", str(SAMPLING["seed"])]}
+DECODE_LAYERS = 2  # card vs CPU: full width at 2 of the 22 decoder layers
+# card bf16 vs CPU fp32 (``--calibrate decoding`` reads them): the card's
+# best beam's normalised score against the CPU's log-probabilities of the
+# same tokens (|Δ|) and against the card's replay of them at the search's
+# shapes; the CPU's probability mass strictly above each token the card
+# sampled at top_p 0.5, less 0.5 (> 0: outside the CPU's nucleus); the int8
+# kernels the card dequantises against the CPU's bf16 product of the same
+# records (largest |Δ|), and the logits of a prefill and three decode steps
+# on them (cos, |Δ| over the spread). Sound runs over three seeds read
+# |Δscore| 0.0004 to 0.0082 against the CPU and 0 against the replay,
+# excess -0.044 to -0.016, the dequantised kernels exact, cos 0.99989 and
+# 0.073 of the spread. Planted at each of the three seeds: the beams' cache
+# rows rolled read 0.014 to 0.066 against the replay (0.0023 to 0.081
+# against the CPU: at two seeds under bf16's noise, so only the replay's
+# bound is held to catch it); the beams' length penalty dropped 94.8 to
+# 99.1 against the CPU; the nucleus filter skipped 0.36 to 0.46; the scale
+# multiplied in fp32 0.00024 on the kernels (H100 readings).
+# BEAM_DSCORE_MAX is 3x the largest sound |Δscore|.
+BEAM_DSCORE_MAX, BEAM_REPLAY_MAX, SAMPLE_EXCESS_MAX, SAMPLE_TOP_P = 0.025, 1e-5, 0.05, 0.5
+DEQUANT_DEV_MAX = 0.0
+DECODE_COS_MIN, DECODE_DLOGIT_MAX = 0.999, 0.25
+
+
+def write_eval_rows(root: str, seed: int) -> str:
+    """EVAL_ROWS VQA rows over seeded OpenCV images of 280..420 × 300..500;
+    returns the jsonl's path."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    words = ("dog", "cat", "kitchen", "red", "two", "window", "person", "car")
+    rows = []
+    for i in range(EVAL_ROWS):
+        h, w = int(rng.integers(280, 421)), int(rng.integers(300, 501))
+        cv2.imwrite(os.path.join(root, f"{i}.png"), rng.integers(0, 256, (h, w, 3), np.uint8))
+        q = " ".join(rng.choice(words, int(rng.integers(3, 12))))
+        rows.append({"image": f"{i}.png", "question": f"what is the {q} doing?",
+                     "answers": [str(a) for a in rng.choice(words, 3)]})
+    path = os.path.join(root, "rows.jsonl")
+    with open(path, "w") as f:
+        f.write("".join(json.dumps(r) + "\n" for r in rows))
+    return path
+
+
+def eval_run(shell, path: str, extra) -> dict:
+    """``pink_eval.main`` on the loaded model: the printed summary, seconds,
+    launches (set to 0 just before, read just after) and each generate's
+    (batch, tokens, lens)."""
+    from antmmf_torch.scripts import pink_eval
+
+    module, calls = shell.module, []
+    real = module.generate
+
+    def recorded(batch, **kw):
+        tokens, lens = real(batch, **kw)
+        calls.append((batch, tokens, lens))
+        return tokens, lens
+
+    argv = ["--config", PINK_CONFIG, "--annotations", path, "--image_dir",
+            os.path.dirname(path), "--task", "vqa", "--batch_size", str(EVAL_BATCH),
+            "--max_prompt_len", str(PINK_PROMPT_LEN), "--max_new_tokens", str(EVAL_NEW),
+            "--image_size", str(SIZE), "--device", "cuda", *extra]
+    module.generate = recorded
+    try:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            summary = pink_eval.main(argv, shell=shell)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        del module.generate
+    check(json.loads(printed.getvalue()) == summary, "pink_eval printed another summary")
+    return dict(summary=summary, seconds=seconds, launches=counts, calls=calls)
+
+
+def forced_margin(module, batch, row: int, want: list, got: int, j: int) -> float:
+    """|l[want_j] - l[got]| / std(l) of one row's logits at new token j,
+    teacher-forced on ``want[:j]`` through the model's prefill and decode
+    steps (one row, as ``tie_margin`` reads the engine's)."""
+    one = {k: v[row:row + 1] for k, v in batch.items()}
+    with torch.inference_mode():
+        lens = one["input_mask"].sum(-1)
+        Lv = module.num_vision_tokens(one)
+        cache = module.make_cache(1, Lv + one["input_ids"].shape[1] + j + 1, device="cuda")
+        logits, cache = module.prefill(one, cache, lens)
+        for t in range(j):
+            logits, cache = module.decode_step(torch.tensor([want[t]], device="cuda"),
+                                               Lv + lens + t, cache)
+    lg = logits[0].float()
+    return float((lg[want[j]] - lg[got]).abs() / lg.std())
+
+
+def eval_agreement(module, ref: dict, run: dict) -> dict:
+    """A run's tokens against ``ref``'s (greedy) row by row: equal, or the
+    first difference and its near-tie margin on the greedy logits."""
+    out = {"rows": 0, "equal": 0, "margins": []}
+    for (batch, want, lens), (_, got, _) in zip(ref["calls"], run["calls"]):
+        for row in range(want.shape[0]):
+            n = int(lens[row])
+            w, g = want[row, n:n + EVAL_NEW].tolist(), got[row, n:n + EVAL_NEW].tolist()
+            out["rows"] += 1
+            j = next((i for i, (a, b) in enumerate(zip(w, g)) if a != b), None)
+            if j is None:
+                out["equal"] += 1
+            else:
+                out["margins"].append(forced_margin(module, batch, row, w, g[j], j))
+    return out
+
+
+def decode_eval(pred, gpu) -> dict:
+    """Phase 11c (a): pink_eval on phase 9's module in each mode; returns
+    the launches."""
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="pink_eval_", dir=build)
+    totals = dict(NO_LAUNCHES)
+    try:
+        path = write_eval_rows(root, SEED + 60)
+        eval_run(pred.shell, path, [])  # warm-up at the eval's shapes
+        runs = {mode: eval_run(pred.shell, path, extra) for mode, extra in EVAL_MODES.items()}
+        runs["sampled_again"] = eval_run(pred.shell, path, EVAL_MODES["sampled"])
+        runs["top_p_1e-6"] = eval_run(pred.shell, path, ["--do_sample", "--top_p", "1e-6"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    batches = -(-EVAL_ROWS // EVAL_BATCH)
+    for mode, run in runs.items():
+        for k, n in run["launches"].items():
+            totals[k] += n
+        emit(phase="decoding", part="pink_eval", mode=mode, gpu=gpu, rows=EVAL_ROWS,
+             batch=EVAL_BATCH, new_tokens=EVAL_NEW, seconds=run["seconds"],
+             ms_per_row=run["seconds"] * 1e3 / EVAL_ROWS,
+             ms_per_row_over_greedy=run["seconds"] / runs["greedy"]["seconds"],
+             launches=run["launches"],
+             flash_fwd_per_batch=run["launches"]["flash_fwd"] / batches,
+             flash_fwd_per_row=run["launches"]["flash_fwd"] / EVAL_ROWS,
+             summary=run["summary"])
+        check(run["launches"]["flash_fwd"] == batches * PINK_LAYERS
+              and run["launches"]["small_attention"] == batches * PINK_VIT_LAYERS,
+              f"pink_eval {mode}: launches {run['launches']}")
+        check(run["summary"]["n"] == EVAL_ROWS, f"pink_eval {mode}: {run['summary']}")
+    module = pred.shell.module
+    spec = eval_agreement(module, runs["greedy"], runs["speculative"])
+    narrow = eval_agreement(module, runs["greedy"], runs["top_p_1e-6"])
+    same_seed = all(torch.equal(a[1], b[1]) for a, b in zip(runs["sampled"]["calls"],
+                                                            runs["sampled_again"]["calls"]))
+    emit(phase="decoding", part="pink_eval_agreement", speculative_vs_greedy=spec,
+         top_p_1e_6_vs_greedy=narrow, sampled_twice_same_tokens=same_seed,
+         tie_max=ENGINE_TIE_MAX)
+    for name, res in (("speculative", spec), ("top_p 1e-6", narrow)):
+        check(all(m <= ENGINE_TIE_MAX for m in res["margins"]),
+              f"pink_eval {name} tokens differ from greedy beyond a near-tie: {res}")
+    check(same_seed, "pink_eval: one seed sampled two different generations")
+    return totals
+
+
+def decode_predictor(pred, gpu) -> dict:
+    """Phase 11c (b): one request through the generation predictor in each
+    mode, K8's rows logged at each launch; returns the launches."""
+    from antmmf_torch.modules import qdense
+
+    req = pink_request(np.random.default_rng(SEED + 61))
+    saved = dict(pred.decode_options)
+    real = qdense.int4_apply
+    rows = []
+
+    def logged(x, packed, scale, dtype):  # the rows of each call that takes K8
+        n = x.numel() // x.shape[-1]
+        if n <= i4.GEMV_MAX_ROWS:
+            rows.append(n)
+        return real(x, packed, scale, dtype)
+
+    modes = {"greedy": {}, "beams": dict(num_beams=DECODE_BEAMS),
+             "speculative": dict(speculative=DECODE_GAMMA), "sampled": dict(do_sample=True,
+                                                                           **SAMPLING)}
+    totals, out = dict(NO_LAUNCHES), {}
+    n_prompt = int(pred.build_sample(req).arrays()["input_mask"].sum())
+    for mode, options in modes.items():
+        pred.decode_options = {**saved, **options}
+        rows.clear()
+        qdense.int4_apply = logged
+        try:
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            answer = pred.predict(req)
+            torch.cuda.synchronize()
+            request_ms = (time.perf_counter() - t0) * 1e3
+            counts = read_counts()
+        finally:
+            qdense.int4_apply = real
+            pred.decode_options = saved
+        for k, n in counts.items():
+            totals[k] += n
+        per_rows = {r: rows.count(r) for r in sorted(set(rows))}
+        check(sum(per_rows.values()) == counts["int4_gemv"],
+              f"predictor {mode}: K8 rows logged {per_rows}, launched {counts['int4_gemv']}")
+        new = np.asarray(answer["generated_ids"])[0, n_prompt:n_prompt + PINK_NEW_TOKENS]
+        out[mode] = dict(request_ms=request_ms, launches=counts, k8_launches_by_rows=per_rows,
+                         new_tokens=new.tolist())
+        step_rows = STEP_ROWS[mode]  # lm_head at the prefill's last token: one row, once
+        steps = (per_rows.get(step_rows, 0) - (step_rows == 1)) / GEMVS_PER_STEP
+        timing = pred.int4_step_ms.get(step_rows, {})
+        emit(phase="decoding", part="predictor", mode=mode, gpu=gpu, request_ms=request_ms,
+             new_tokens_per_s=PINK_NEW_TOKENS * 1e3 / request_ms, launches=counts,
+             k8_launches_by_rows=per_rows, k8_rows_a_step=step_rows, decode_steps=steps,
+             k8_step_ms=timing.get("ms"), bf16_matmul_step_ms=timing.get("library_ms"),
+             k8_step_bound_ms=timing.get("bound_ms"), new_tokens=new.tolist(),
+             text=answer["generated_text"])
+        check(counts["flash_fwd"] == PINK_LAYERS and counts["small_attention"] == PINK_VIT_LAYERS,
+              f"predictor {mode}: launches {counts}")
+        check(per_rows.get(1, 0) >= 1 and steps == int(steps) and 1 <= steps < PINK_NEW_TOKENS,
+              f"predictor {mode}: K8 launches by rows {per_rows}")
+    check(out["beams"]["k8_launches_by_rows"] == {1: 1, DECODE_BEAMS: (PINK_NEW_TOKENS - 1)
+                                                  * GEMVS_PER_STEP},
+          f"beams: K8 launches by rows {out['beams']['k8_launches_by_rows']}")
+    same = out["speculative"]["new_tokens"] == out["greedy"]["new_tokens"]
+    check(same or forced_margin_reading(pred, req, out) <= ENGINE_TIE_MAX,
+          "predictor: speculative tokens differ from greedy beyond a near-tie")
+    return totals
+
+
+def forced_margin_reading(pred, req, out) -> float:
+    batch = pred.shell.to_device(pred.build_sample(req).arrays())
+    want, got = out["greedy"]["new_tokens"], out["speculative"]["new_tokens"]
+    j = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
+    return forced_margin(pred.shell.module, batch, 0, want, got[j], j)
+
+
+def decode_int8(pred4, gpu) -> None:
+    """Phase 11c (b): Pink at full width seeded on the card in bf16, decode
+    steps timed; quantised to int8 in place on the card, timed again, one
+    request served; beside phase 9's int4 steps."""
+    torch.cuda.reset_peak_memory_stats()
+    pred = pink_predictor(quant="", on_device=True)
+    module = pred.shell.module
+    req = pink_request(np.random.default_rng(SEED + 62))
+    arrays = pred.build_sample(req).arrays()
+
+    def projections():
+        return [m for m in module.modules() if isinstance(m, QuantDense)]
+
+    def weight_bytes():
+        return sum(t.numel() * t.element_size() for m in projections()
+                   for t in (m.weight, m.kernel_q8, m.kernel_scale) if t is not None)
+
+    readings = {}
+    for name in ("bf16", "int8"):
+        if name == "int8":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            served = quantize_module_for_decode(module, bits=8)
+            torch.cuda.synchronize()
+            readings.update(quantise_s=time.perf_counter() - t0, served_dequantised=served)
+        decode_walk(pred, arrays, 3)  # warm-up
+        prefill, steps, _ = decode_walk(pred, arrays, PINK_NEW_TOKENS - 1)
+        readings[name] = dict(prefill_ms=prefill, decode_step_ms=pct(steps),
+                              projection_weight_bytes=weight_bytes(),
+                              mem_allocated_gb=torch.cuda.memory_allocated() / 1e9)
+    zero_counts()
+    out = pred.predict(req)
+    counts = read_counts()
+    n8 = sum(m.kernel_q8 is not None for m in projections())
+    emit(phase="decoding", part="pink_int8", gpu=gpu, **readings,
+         int4_decode_step_p50_ms=pred4.decode_step_p50_ms, int8_projections=n8,
+         request_launches=counts, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         text=out["generated_text"])
+    check(n8 == GEMVS_PER_STEP, f"pink int8: {n8} int8 projections")
+    check(counts == {**NO_LAUNCHES, "flash_fwd": PINK_LAYERS, "small_attention": PINK_VIT_LAYERS},
+          f"pink int8 request launches {counts}")
+    check(readings["int8"]["projection_weight_bytes"] < 0.55
+          * readings["bf16"]["projection_weight_bytes"], "pink int8: the weights did not shrink")
+    del pred, module
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def decode_twins(seed: int):
+    """Pink at full width and DECODE_LAYERS decoder layers: bf16 on the card
+    seeded there, fp32 on the CPU from the same values."""
+    return pink_int8_twins(seed, DECODE_LAYERS, kv_int8=False)
+
+
+def decode_arrays(seed: int) -> dict:
+    rng = np.random.default_rng(seed + 70)
+    n = 40
+    ids = np.zeros(PINK_PROMPT_LEN, np.int64)
+    ids[0], ids[1:n] = 101, rng.integers(1000, 30000, n - 1)
+    return {"input_ids": ids[None], "input_mask": (np.arange(PINK_PROMPT_LEN) < n)[None]
+            .astype(np.int64), "image_data": rng.standard_normal((1, SIZE, SIZE, 3))
+            .astype(np.float32)}
+
+
+def forced_logprobs(module, batch, tokens: list, temperature: float = 1.0):
+    """The CPU's fp32 log-softmax of logits / temperature before each of
+    ``tokens``, teacher-forced (prefill, then a decode step a token)."""
+    out = []
+    with torch.inference_mode():
+        lens = batch["input_mask"].sum(-1)
+        Lv = module.num_vision_tokens(batch)
+        cache = module.make_cache(1, Lv + batch["input_ids"].shape[1] + len(tokens) + 1,
+                                  device=batch["input_ids"].device)
+        logits, cache = module.prefill(batch, cache, lens)
+        for t, tok in enumerate(tokens):
+            out.append(torch.log_softmax(logits[0].float() / temperature, -1).cpu())
+            if t < len(tokens) - 1:
+                logits, cache = module.decode_step(torch.tensor([tok], device=logits.device),
+                                                   Lv + lens + t, cache)
+    return out
+
+
+def beam_replay(card, arrays, best: list) -> float:
+    """The card's normalised score of ``best`` replayed as the search runs
+    it: a one-row prefill repeated to DECODE_BEAMS rows, then a decode step
+    a token at DECODE_BEAMS identical rows (each matmul at the search's
+    shapes, so the same kernels give the same bits), the log-probabilities
+    summed in fp32 up to EOS, over the tokens that are not EOS plus one."""
+    K = DECODE_BEAMS
+    module, batch = card.module, card.to_device(arrays)
+    with torch.inference_mode():
+        lens = batch["input_mask"].sum(-1)
+        Lv = module.num_vision_tokens(batch)
+        cache = module.make_cache(1, Lv + batch["input_ids"].shape[1] + len(best), device="cuda")
+        logits, cache = module.prefill(batch, cache, lens)  # the search's first token: one row
+        cache = [{n: c.repeat_interleave(K, 0) for n, c in layer.items()} for layer in cache]
+        pos = (Lv + lens).repeat_interleave(K)
+        score, done = None, False
+        for t, tok in enumerate(best):
+            logp = torch.log_softmax(logits.float(), dim=-1)[0, tok]
+            if not done:
+                score = logp if score is None else score + logp
+            done = done or tok == 102
+            if t < len(best) - 1:
+                logits, cache = module.decode_step(torch.full((K,), tok, device="cuda"),
+                                                   pos + t, cache)
+        length = torch.tensor(float(sum(t != 102 for t in best) + 1), device="cuda")
+    return float(score / length ** 1.0)
+
+
+def beam_reading(card, cpu, arrays) -> dict:
+    """The card's best beam (K = DECODE_BEAMS, EVAL_NEW tokens) and its
+    normalised score: against the card's replay of the same tokens at the
+    search's shapes (|Δ|; the search's cache and scores, bit for bit in a
+    sound run), and against the CPU's fp32 log-probabilities of those tokens
+    normalised as ``beam_search_cached`` normalises (EOS frozen at 0)."""
+    stats = {}
+    with torch.inference_mode():
+        tokens, lens = card.module.generate(card.to_device(arrays), eos_id=102,
+                                            max_length=EVAL_NEW, num_beams=DECODE_BEAMS,
+                                            stats=stats)
+    n = int(lens[0])
+    best = tokens[0, n:n + EVAL_NEW].tolist()
+    logps = forced_logprobs(cpu.module, cpu.to_device(arrays), best)
+    total, done = 0.0, False
+    for tok, lp in zip(best, logps):
+        if not done:
+            total += float(lp[tok])
+        done = done or tok == 102
+    cpu_score = total / (sum(t != 102 for t in best) + 1)
+    card_score = float(stats["scores"][0])
+    return dict(card_score=card_score, replay_dev=abs(card_score - beam_replay(card, arrays, best)),
+                cpu_score=cpu_score, d_score=abs(card_score - cpu_score), tokens=best)
+
+
+def sample_reading(card, cpu, arrays, cpu_draw: bool = True) -> dict:
+    """Tokens the card samples at top_p SAMPLE_TOP_P: the CPU's probability
+    mass strictly above each, at its step, less top_p (the worst step; > 0:
+    outside the CPU's nucleus); with ``cpu_draw``, how many tokens the CPU
+    twin draws alike from the same seed."""
+    kw = dict(eos_id=-1, max_length=EVAL_NEW, do_sample=True, top_p=SAMPLE_TOP_P,
+              temperature=1.0, seed=SAMPLING["seed"])
+    with torch.inference_mode():
+        tokens, lens = card.module.generate(card.to_device(arrays), **kw)
+    n = int(lens[0])
+    drawn = tokens[0, n:n + EVAL_NEW].tolist()
+    excess = []
+    for tok, lp in zip(drawn, forced_logprobs(cpu.module, cpu.to_device(arrays), drawn)):
+        p = lp.exp()
+        excess.append(float(p[p > p[tok]].sum()) - SAMPLE_TOP_P)
+    out = dict(excess=max(excess), tokens=drawn)
+    if cpu_draw:
+        with torch.inference_mode():
+            cpu_tokens, _ = cpu.module.generate(cpu.to_device(arrays), **kw)
+        out["same_as_cpu_draw"] = int(sum(a == b for a, b in zip(
+            drawn, cpu_tokens[0, n:n + EVAL_NEW].tolist())))
+    return out
+
+
+def int8_reading(card, cpu, arrays) -> dict:
+    """Both twins quantised to int8 on their own device: the records byte
+    for byte; the kernels the card dequantises against the CPU's bf16
+    product of the same records; the logits of a prefill and three decode
+    steps (teacher-forced with the CPU's tokens)."""
+    served = [quantize_module_for_decode(m.module, bits=8) for m in (card, cpu)]
+    pairs = [(a, b) for a, b in zip(card.module.modules(), cpu.module.modules())
+             if isinstance(a, QuantDense) and a.kernel_q8 is not None]
+    records_equal = all(torch.equal(a.kernel_q8.cpu(), b.kernel_q8)
+                        and torch.equal(a.kernel_scale.cpu(), b.kernel_scale) for a, b in pairs)
+    ref_logits = int8_logits(pink_int8_steps(cpu.module, cpu.to_device(arrays)))
+    # JAX's bf16 product on the CPU: the fp32 product of the bf16 values is
+    # exact, so its rounding to bf16 is the bf16 multiply's
+    ref_kernels = [(b.kernel_q8.float() * b.kernel_scale.to(torch.bfloat16).float())
+                   .to(torch.bfloat16) for _, b in pairs]
+
+    def reading():
+        with torch.inference_mode():
+            dev = max(float((a.int8_weight().cpu().float() - ref.float()).abs().max())
+                      for (a, _), ref in zip(pairs, ref_kernels))
+        got, _ = int8_logits(pink_int8_steps(card.module, card.to_device(arrays)), ref_logits[1])
+        rs = [compare_logits(g, r) for g, r in zip(got, ref_logits[0])]
+        return dict(dequant_max_abs_dev=dev, cos=min(r["cos"] for r in rs),
+                    max_abs_d_over_std=max(r["max_abs_d_over_std"] for r in rs))
+
+    return dict(served=served, int8_kernels=len(pairs), records_equal=records_equal,
+                reading=reading)
+
+
+def decode_faults(card):
+    """Faults planted on the card only (the CPU reads first): (the bound of
+    ``decode_within_bound`` that must catch it, name, plant, undo). The
+    beams' cache rows rolled by one before each decode step (a beam reads
+    another's keys); the beams' length penalty dropped (the best beam's
+    score is its raw sum); the nucleus filter skipped (a draw from the whole
+    softmax); the int8 scale multiplied in fp32, then cast."""
+    module = card.module
+    from antmmf_torch.utils import text_utils
+
+    def rolled(tok, pos, cache):
+        return type(module).decode_step(module, tok, pos, [
+            {n: t.roll(1, 0) for n, t in layer.items()} for layer in cache])
+
+    real_best = text_utils._best
+    real_filter = text_utils.top_p_filter
+    real_weight = QuantDense.int8_weight
+
+    def fp32_scale(self):
+        return (self.kernel_q8.float() * self.kernel_scale).to(self.dtype)
+
+    return [("beam_replay", "beam_cache_rows_rolled",
+             lambda: setattr(module, "decode_step", rolled),
+             lambda: module.__dict__.pop("decode_step", None)),
+            ("beam_cpu", "beam_length_penalty_dropped",
+             lambda: setattr(text_utils, "_best", lambda tokens, scores, eos_id, penalty:
+                             real_best(tokens, scores, eos_id, 0.0)),
+             lambda: setattr(text_utils, "_best", real_best)),
+            ("sample", "nucleus_filter_skipped",
+             lambda: setattr(text_utils, "top_p_filter",
+                             lambda lg, top_p, temperature: lg.float() / temperature),
+             lambda: setattr(text_utils, "top_p_filter", real_filter)),
+            ("int8", "int8_scale_multiplied_in_fp32",
+             lambda: setattr(QuantDense, "int8_weight", fp32_scale),
+             lambda: setattr(QuantDense, "int8_weight", real_weight))]
+
+
+def decode_within_bound(res) -> dict:
+    return {"beam_cpu": res["beam"]["d_score"] <= BEAM_DSCORE_MAX,
+            "beam_replay": res["beam"]["replay_dev"] <= BEAM_REPLAY_MAX,
+            "sample": res["sample"]["excess"] <= SAMPLE_EXCESS_MAX,
+            "int8": res["int8"]["dequant_max_abs_dev"] <= DEQUANT_DEV_MAX
+            and res["int8"]["cos"] >= DECODE_COS_MIN
+            and res["int8"]["max_abs_d_over_std"] <= DECODE_DLOGIT_MAX}
+
+
+def decode_readings(seed: int, faults: bool = True) -> dict:
+    """Card against CPU at DECODE_LAYERS layers: sound readings, then with
+    ``faults`` each planted fault's reading of its own part."""
+    clock = [time.perf_counter()]
+
+    def lap():
+        clock.append(time.perf_counter())
+        return clock[-1] - clock[-2]
+
+    card, cpu = decode_twins(seed)
+    arrays = decode_arrays(seed)
+    seconds = {"twins": lap()}
+    res = {"beam": beam_reading(card, cpu, arrays)}
+    seconds["beam"] = lap()
+    res["sample"] = sample_reading(card, cpu, arrays)
+    seconds["sample"] = lap()
+    q = int8_reading(card, cpu, arrays)
+    res["int8"] = {**q["reading"](), "records_equal": q["records_equal"],
+                   "int8_kernels": q["int8_kernels"]}
+    seconds["int8"] = lap()
+    res["faults"], res["seconds"] = {}, seconds
+    for bound, name, plant, undo in (decode_faults(card) if faults else ()):
+        part = bound.split("_")[0]
+        plant()
+        try:
+            reading = {"beam": lambda: beam_reading(card, cpu, arrays),
+                       "sample": lambda: sample_reading(card, cpu, arrays, cpu_draw=False),
+                       "int8": q["reading"]}[part]()
+        finally:
+            undo()
+        res["faults"][name] = {"bound": bound, **{k: v for k, v in reading.items()
+                                                  if k != "tokens"},
+                               "within_bound": decode_within_bound({**res, part: reading})[bound]}
+    seconds["faults"] = lap()
+    del card, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def decode_card_vs_cpu() -> None:
+    t0 = time.perf_counter()
+    res = decode_readings(SEED)
+    ok = decode_within_bound(res)
+    caught = {n: not f["within_bound"] for n, f in res["faults"].items()}
+    emit(phase="decoding", part="card_vs_cpu", layers=DECODE_LAYERS,
+         beam={k: v for k, v in res["beam"].items() if k != "tokens"},
+         sample={k: v for k, v in res["sample"].items() if k != "tokens"}, int8=res["int8"],
+         faults=res["faults"], part_seconds=res["seconds"], within_bound=ok,
+         faults_caught=caught,
+         bounds=dict(beam_dscore_max=BEAM_DSCORE_MAX, beam_replay_max=BEAM_REPLAY_MAX,
+                     sample_excess_max=SAMPLE_EXCESS_MAX,
+                     dequant_dev_max=DEQUANT_DEV_MAX, cos_min=DECODE_COS_MIN,
+                     dlogit_max=DECODE_DLOGIT_MAX), seconds=time.perf_counter() - t0)
+    check(res["int8"]["records_equal"], "int8 records made on the card differ from the CPU's")
+    check(all(ok.values()), f"decoding card vs CPU beyond the stated bounds: {ok}")
+    check(all(caught.values()), f"decoding: a planted fault passed its bound: {caught}")
+
+
+def calibrate_decoding(seeds=3) -> None:
+    """Phase 11c (c)'s readings: sound and with each planted fault, a seed
+    at a time."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for seed in range(seeds):
+        res = decode_readings(seed)
+        emit(phase="calibrate_decoding", seed=seed,
+             beam={k: v for k, v in res["beam"].items() if k != "tokens"},
+             sample={k: v for k, v in res["sample"].items() if k != "tokens"},
+             int8=res["int8"], faults=res["faults"], part_seconds=res["seconds"],
+             within_bound=decode_within_bound(res))
+
+
+def phase_decoding(pred, gpu) -> dict:
+    """Phase 11c on phase 9's Pink int4 predictor: (a) pink_eval, (b) the
+    predictor's modes and Pink int8, (c) card vs CPU. Returns the launches
+    of (a) and (b)'s int4 requests."""
+    t0 = time.perf_counter()
+    totals = decode_eval(pred, gpu)
+    for k, n in decode_predictor(pred, gpu).items():
+        totals[k] += n
+    decode_int8(pred, gpu)
+    decode_card_vs_cpu()
+    emit(phase="decoding", part="summary", seconds=time.perf_counter() - t0, launches=totals)
     return totals
 
 
@@ -6226,10 +6851,181 @@ def m2_full_depth(gpu: str) -> dict:
              new_tokens=reading["new_tokens"], text=reading["text"])
     for k, n in m2_engine(pred, served, gpu).items():
         totals[k] += n
+    for k, n in m2_int4(pred, served, gpu).items():
+        totals[k] += n
     del pred, module
     gc.collect()
     torch.cuda.empty_cache()
     return totals
+
+
+# phase 19 (d): the full-depth bf16 model quantised to int4 on the card, in
+# place; K8 at its five shapes and the rows of one request, of speculation
+# (gamma + 1 = 5) and of 8; one request greedy and speculative. A decode
+# step launches K8 7 times a layer and once for lm_head.
+M2_GEMVS_PER_STEP = 7 * M2_LAYERS + 1
+M2_INT4_SHAPES = {"attn_q_o": "attention.q_proj", "attn_k_v": "attention.k_proj",
+                  "mlp_gate_up": "mlp.gate_proj", "mlp_down": "mlp.down_proj",
+                  "lm_head": None}
+M2_INT4_ROWS = (1, 4, 8)
+M2_LAUNCHES_PER_STEP = {"attn_q_o": 2 * M2_LAYERS, "attn_k_v": 2 * M2_LAYERS,
+                        "mlp_gate_up": 2 * M2_LAYERS, "mlp_down": M2_LAYERS, "lm_head": 1}
+
+
+def m2_int4_records_check(module, host: dict) -> dict:
+    """Each record the card made against numpy's (``quantize_for_decode``
+    on the host copies of the same bf16 weights), byte for byte."""
+    want = flatten_flax(quantize_for_decode(host))
+    out = {}
+    for path, rec in want.items():
+        mod = module.get_submodule(path[:-len("/kernel")].replace("/", "."))
+        out[path] = bool("q4" in rec and mod.kernel_q4 is not None
+                         and np.array_equal(mod.kernel_q4.cpu().numpy(), rec["q4"])
+                         and np.array_equal(mod.kernel_scale.cpu().numpy(), rec["scale"]))
+    return out
+
+
+def m2_int4_kernels(module, gpu) -> dict:
+    """K8 on the served records at the five shapes and M2_INT4_ROWS rows of
+    bf16 x: against ``plain_int4_gemv`` (INT4_TOL), timed from a CUDA graph
+    over copies that the L2 cannot hold beside bf16 ``torch.matmul`` on the
+    dequantised weight, with the bound; summed over a decode step's
+    launches. Returns the step sums by rows."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 80)
+    saved = read_counts()
+    layer = module.decoder.layer_0
+    steps = {rows: dict(ms=0.0, library_ms=0.0, bound_ms=0.0) for rows in M2_INT4_ROWS}
+    failed = []
+    for name, sub in M2_INT4_SHAPES.items():
+        mod = module.lm_head if sub is None else layer.get_submodule(sub)
+        packed, scale = mod.kernel_q4, mod.kernel_scale
+        fin_x, fout = mod.in_features, mod.out_features
+        record_bytes = packed.numel() + scale.numel() * 4
+        copies = max(2, min(64, -(-256 * 2 ** 20 // record_bytes)))
+        records = [(packed.clone(), scale.clone()) for _ in range(copies)]
+        dense = [unpack_int4(packed, scale, torch.bfloat16)[:fin_x]]
+        dense.append(dense[0].clone())
+        for rows in M2_INT4_ROWS:
+            x = torch.randn(rows, fin_x, generator=gen, device="cuda").to(torch.bfloat16)
+            y, ref = int4_gemv(x, packed, scale), plain_int4_gemv(x, packed, scale)
+            err = max_err(y, ref)
+            ok = err <= INT4_TOL * max(ref.abs().max().item(), 1.0)
+            if not ok:
+                failed.append(f"{name}_{rows}")
+            nbytes = record_bytes + x.numel() * 2 + rows * fout * 4
+            timing = dict(ms=graph_ms(lambda i: int4_gemv(x, *records[i]), copies),
+                          library_ms=graph_ms(lambda i: torch.matmul(x, dense[i]), 2),
+                          **bound(nbytes, 2 * rows * packed.shape[0] * 2 * fout))
+            emit(phase="m2_omni", part="int4_gemv", case=name, x=[rows, fin_x],
+                 record=[packed.shape[0] * 2, fout], group=packed.shape[0] * 2 // scale.shape[0],
+                 gpu=gpu, vs_plain=err, ok=ok, launches_per_decode_step=M2_LAUNCHES_PER_STEP[name],
+                 copies_in_turn=copies, **timing, bound_share=timing["bound_ms"] / timing["ms"])
+            for key in steps[rows]:
+                steps[rows][key] += M2_LAUNCHES_PER_STEP[name] * timing[key]
+        del records, dense
+    for fn in KERNELS:  # checks and timings are not path launches
+        fn.launches = saved[fn.__name__]
+    for rows, step in steps.items():
+        emit(phase="m2_omni", part="int4_gemv_per_decode_step", rows=rows, gpu=gpu,
+             launches=M2_GEMVS_PER_STEP, **step, bound_share=step["bound_ms"] / step["ms"])
+    check(not failed, f"int4_gemv disagrees with its plain version at the 7B shapes: {failed}")
+    return steps
+
+
+def m2_int4(pred, served: dict, gpu) -> dict:
+    """Phase 19 (d), last on the full-depth model: host copies of layer 0's
+    seven kernels and lm_head's, the model quantised to int4 in place on the
+    card (timed), those records against numpy's byte for byte, K8 at the 7B
+    shapes, and the image conversation served greedy and speculative (TTFT,
+    ms a token, peak) beside the bf16 model's readings. Returns the
+    launches of the two requests."""
+    module = pred.shell.module
+    paths = flax_paths(module)
+    host = {}
+    for name, param in module.named_parameters():
+        if name.startswith("decoder.layer_0.") and name.endswith("_proj.weight") \
+                or name == "lm_head.weight":
+            host[paths[name]] = param.detach().float().T.contiguous().cpu().numpy()
+    host = weights._nest(host)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    served_n, dequantised = quantize_module_for_decode(module, bits=4)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    records = m2_int4_records_check(module, host)
+    del host
+    packed = [m for m in module.modules() if getattr(m, "kernel_q4", None) is not None]
+    emit(phase="m2_omni", part="int4_quantise", gpu=gpu, seconds=quant_s, served=served_n,
+         dequantised=dequantised, records_equal_numpy=records,
+         packed_weight_gb=sum(m.kernel_q4.numel() + m.kernel_scale.numel() * 4
+                              for m in packed) / 1e9,
+         mem_allocated_gb=torch.cuda.memory_allocated() / 1e9)
+    check(len(packed) == M2_GEMVS_PER_STEP, f"m2_omni int4: {len(packed)} packed kernels")
+    check(all(records.values()), f"m2_omni int4 records differ from numpy's: {records}")
+    steps = m2_int4_kernels(module, gpu)
+    request = m2_requests()["image_conversation"]
+    arrays = pred.build_sample(request).arrays()
+    saved = dict(pred.decode_options)
+    totals, readings = dict(NO_LAUNCHES), {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pred.predict(request)  # warm-up of the int4 path
+    for mode, options in (("greedy", {}), ("speculative", dict(speculative=DECODE_GAMMA))):
+        pred.decode_options = {**saved, **options}
+        try:
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            answer = pred.predict(request)
+            torch.cuda.synchronize()
+            request_ms = (time.perf_counter() - t0) * 1e3
+            counts = read_counts()
+        finally:
+            pred.decode_options = saved
+        for k, n in counts.items():
+            totals[k] += n
+        n_prompt = int(arrays["input_mask"].sum())
+        readings[mode] = dict(request_ms=request_ms, launches=counts, new_tokens=np.asarray(
+            answer["generated_ids"])[0, n_prompt:n_prompt + M2_NEW_TOKENS].tolist())
+    prefill, step_ms, _ = m2_walk(pred, arrays, M2_NEW_TOKENS - 1)
+    bf16 = served["image_conversation"]
+    spec_steps = (readings["speculative"]["launches"]["int4_gemv"] - 1) / M2_GEMVS_PER_STEP
+    emit(phase="m2_omni", part="int4_serving", gpu=gpu, ttft_ms=prefill,
+         decode_step_ms=pct(step_ms), greedy=readings["greedy"],
+         speculative={**readings["speculative"], "verify_steps": spec_steps},
+         bf16_request_ms=bf16["request_ms"], bf16_new_tokens=bf16["new_tokens"],
+         k8_step_ms_by_rows={r: s["ms"] for r, s in steps.items()},
+         bf16_matmul_step_ms_by_rows={r: s["library_ms"] for r, s in steps.items()},
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    want = {**NO_LAUNCHES, "flash_fwd": M2_LAYERS,
+            "int4_gemv": 1 + (M2_NEW_TOKENS - 1) * M2_GEMVS_PER_STEP}
+    check(readings["greedy"]["launches"] == want,
+          f"m2_omni int4 greedy launches {readings['greedy']['launches']}; expected {want}")
+    check(spec_steps == int(spec_steps) and 1 <= spec_steps < M2_NEW_TOKENS,
+          f"m2_omni int4 speculative K8 launches {readings['speculative']['launches']}")
+    same = readings["speculative"]["new_tokens"] == readings["greedy"]["new_tokens"]
+    emit(phase="m2_omni", part="int4_speculative_vs_greedy", same_tokens=same)
+    check(same or m2_forced_margin(pred, arrays, readings) <= ENGINE_TIE_MAX,
+          "m2_omni int4: speculative tokens differ from greedy beyond a near-tie")
+    return totals
+
+
+def m2_forced_margin(pred, arrays, readings) -> float:
+    """The greedy logits' near-tie margin at the first position where the
+    speculative tokens differ (one row, teacher-forced)."""
+    module = pred.shell.module
+    want, got = readings["greedy"]["new_tokens"], readings["speculative"]["new_tokens"]
+    j = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
+    batch = pred.shell.to_device(arrays)
+    with torch.inference_mode():
+        logits, cache, lens_full, next_p = module.prefill(batch, j + 1)
+        for t in range(j):
+            logits, cache = module.decode_step(torch.tensor([want[t]], device="cuda"),
+                                               next_p + t, lens_full + t, cache)
+    lg = logits[0].float()
+    return float((lg[want[j]] - lg[got[j]]).abs() / lg.std())
 
 
 def m2_sanm(gpu: str) -> dict:
@@ -6932,10 +7728,13 @@ def main() -> None:
     done("11_int4_times")
     for name, n in phase_engine(pink, gpu).items():
         launches[name] += n
+    done("11b_engine")
+    for name, n in phase_decoding(pink, gpu).items():
+        launches[name] += n
     del pink
     gc.collect()
     torch.cuda.empty_cache()
-    done("11b_engine")
+    done("11c_decoding")
     launches["small_attention"] += phase_trainer(gpu, bare_p50)
     done("12_trainer")
     for part, phase in (("13_pretraining", phase_pretraining),
@@ -6965,7 +7764,7 @@ CALIBRATIONS = {"serving": calibrate, "training": calibrate_training, "pink": ca
                 "task_heads": calibrate_task_heads, "roi": calibrate_roi,
                 "pink_train": calibrate_pink_train, "pink_7b": calibrate_pink_7b,
                 "m2_omni": calibrate_m2_omni, "m2_train": calibrate_m2_train,
-                "engine": calibrate_engine}
+                "engine": calibrate_engine, "decoding": calibrate_decoding}
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--calibrate"] and set(sys.argv[2:]) <= set(CALIBRATIONS):

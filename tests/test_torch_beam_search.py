@@ -1,4 +1,5 @@
-"""Beam search in the port against the JAX package, on the CPU.
+"""Beam search, re-encoding nucleus sampling and the registered decoders
+in the port against the JAX package, on the CPU.
 
 The next-token logits come from seeded numpy tables, the same function of
 the prefix on both sides: A[last token] + P[its position] + S[sum of the
@@ -16,6 +17,16 @@ The tokens must equal JAX's exactly and the scores agree within 1e-5
 cached search's length normalisation leaves BOS out (as in JAX), so their
 scores differ by that and their best beams may part: the port's do exactly
 where JAX's do.
+
+Nucleus sampling by re-encoding draws from its own stream (``seed``, not
+JAX's key), so it is held to JAX by replay: JAX's ``nucleus_sampling`` runs
+eagerly on the same tables with each draw replaced by the port's token at
+that step; every token the port drew lies in the nucleus JAX keeps there,
+and JAX's sequences, EOS cut included, are the port's. The registered
+``beam_search`` and ``nucleus_sampling`` decoders pass the same arguments
+to their searches as JAX's do from the same decoder block and call
+(``sum_threshold`` over ``top_p``, the call's over the block's), and give
+JAX's beams and JAX's nucleus.
 """
 
 import jax
@@ -24,7 +35,9 @@ import numpy as np
 import pytest
 import torch
 
+from antmmf_torch.common.registry import registry as t_registry
 from antmmf_torch.utils import text_utils as t_text
+from antmmf_tpu.common.registry import registry as j_registry
 from antmmf_tpu.utils import text_utils as j_text
 from test_torch_task_trainer import one_torch_thread  # noqa: F401  (autouse, this module)
 
@@ -148,3 +161,93 @@ def test_top_k_breaks_ties_by_lower_index_as_jax():
             tv, ti = t_text.top_k(torch.from_numpy(x), k)
             np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
             np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def _jax_replay(monkeypatch, forced, run):
+    """``run()`` (a JAX re-encoding sampler) eagerly, each draw replaced by
+    the port's token of ``forced`` [B, T] at that step: JAX's sequences and
+    each step's filtered logits [B, V]."""
+    steps = []
+
+    def draw(key, filtered, axis=-1):
+        steps.append(np.asarray(filtered))
+        return jnp.asarray(forced[:, len(steps)], jnp.int32)
+
+    monkeypatch.setattr(jax.random, "categorical", draw)
+    with jax.disable_jit():
+        tokens = np.asarray(run())
+    monkeypatch.undo()
+    return tokens, steps
+
+
+def _assert_in_jax_nucleus(tokens, want, steps):
+    np.testing.assert_array_equal(tokens, want)  # the same EOS cut
+    assert len(steps) == T - 1
+    for t, filtered in enumerate(steps, 1):
+        live = ~(tokens[:, 1:t] == EOS).any(axis=1)
+        kept = filtered[np.arange(B), tokens[:, t]] > t_text.NEG_INF
+        assert kept[live].all(), t
+
+
+SAMPLED = [("plain", 0.9, 1.0), ("early_eos", 0.9, 1.0), ("plain", 0.5, 1.3)]
+
+
+@pytest.mark.parametrize("case,top_p,temperature", SAMPLED,
+                         ids=[f"{c}_p{p}_t{t}" for c, p, t in SAMPLED])
+def test_nucleus_sampling_draws_inside_jax_nucleus(monkeypatch, case, top_p, temperature):
+    tables = _tables(case)
+    t_logits, _ = _torch_fns(*tables)
+    j_logits, _ = _jax_fns(*tables)
+
+    def sample(seed):
+        return t_text.nucleus_sampling(t_logits, torch.full((B,), BOS), seed, EOS, max_length=T,
+                                       top_p=top_p, temperature=temperature).numpy()
+
+    tokens = sample(5)
+    assert np.array_equal(sample(5), tokens) and not np.array_equal(sample(6), tokens)
+    want, steps = _jax_replay(monkeypatch, tokens, lambda: j_text.nucleus_sampling(
+        j_logits, jnp.full((B,), BOS, jnp.int32), jax.random.PRNGKey(0), EOS, T, top_p,
+        temperature))
+    _assert_in_jax_nucleus(tokens, want, steps)
+    if case == "early_eos":
+        assert (tokens[:, 1:-1] == EOS).any()
+
+
+BLOCK = {"eos_id": EOS, "max_length": T, "num_beams": 3, "length_penalty": 0.5,
+         "sum_threshold": 0.5, "top_p": 0.95, "temperature": 1.3}
+
+
+@pytest.mark.parametrize("name", ["beam_search", "nucleus_sampling"])
+def test_registered_decoders_pass_jax_arguments(monkeypatch, name):
+    """From one decoder block and one call, each package's registered
+    decoder calls its search with the same arguments."""
+    calls = {}
+    for side, module, registry in (("port", t_text, t_registry), ("jax", j_text, j_registry)):
+        monkeypatch.setattr(module, name, lambda *a, _side=side, **kw: calls.setdefault(_side, kw))
+        decoder = registry.get_decoder_class(name)(BLOCK)
+        if name == "beam_search":
+            decoder(None, None, max_length=5)
+        else:
+            decoder(None, None, 0, max_length=5)
+    assert calls["port"] == calls["jax"] and calls["port"]["max_length"] == 5
+    if name == "nucleus_sampling":
+        assert calls["port"]["top_p"] == 0.5 and calls["port"]["temperature"] == 1.3
+
+
+def test_registered_decoders_give_jax_results(monkeypatch):
+    tables = _tables("early_eos")
+    t_logits, _ = _torch_fns(*tables)
+    j_logits, _ = _jax_fns(*tables)
+    t_bos, j_bos = torch.full((B,), BOS), jnp.full((B,), BOS, jnp.int32)
+    tt, st = t_registry.get_decoder_class("beam_search")(BLOCK)(t_logits, t_bos)
+    tj, sj = j_registry.get_decoder_class("beam_search")(BLOCK)(j_logits, j_bos)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(tj))
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), atol=SCORE_ATOL, rtol=0)
+    tokens = t_registry.get_decoder_class("nucleus_sampling")(BLOCK)(t_logits, t_bos, seed=2)
+    tokens = tokens.numpy()
+    assert np.array_equal(tokens, t_text.nucleus_sampling(
+        t_logits, t_bos, 2, EOS, max_length=T, top_p=0.5, temperature=1.3).numpy())
+    decoder = j_registry.get_decoder_class("nucleus_sampling")(BLOCK)
+    want, steps = _jax_replay(monkeypatch, tokens,
+                              lambda: decoder(j_logits, j_bos, jax.random.PRNGKey(0)))
+    _assert_in_jax_nucleus(tokens, want, steps)

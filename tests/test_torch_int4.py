@@ -196,8 +196,21 @@ def test_quantize_for_decode_down_proj_leaf_is_bitwise_jax():
 
 
 def test_quantize_for_decode_int8_is_not_ported():
-    with pytest.raises(NotImplementedError, match="bits=4"):
-        t_quant.quantize_for_decode({}, bits=8)
+    """The name is kept from when int8 was refused. It checks that the int8
+    record of a kernel is JAX's byte for byte, and that a width other than 4
+    or 8 bits is refused as JAX refuses it."""
+    w = (np.random.default_rng(8).normal(size=(512, 256)) * 0.02).astype(np.float32)
+    tree = {"mlp": {"down_proj": {"kernel": w}}}
+    port = t_quant.quantize_for_decode(tree, bits=8)["mlp"]["down_proj"]["kernel"]
+    ref = j_quant.quantize_for_decode(tree, bits=8)["mlp"]["down_proj"]["kernel"]
+    assert set(port) == set(ref) == {"q", "scale"}
+    for k in ("q", "scale"):
+        assert port[k].dtype == ref[k].dtype
+        np.testing.assert_array_equal(port[k], ref[k])
+    with pytest.raises(ValueError, match="bits must be 4 or 8"):
+        t_quant.quantize_for_decode({}, bits=3)
+    with pytest.raises(ValueError, match="bits must be 4 or 8"):
+        j_quant.quantize_for_decode({}, bits=3)
 
 
 @pytest.mark.parametrize("rows", [3, 40])

@@ -352,8 +352,10 @@ def test_unported_options_raise_by_key():
             TM(**TINY, **VIT, sequence_parallel="ring", kv_int8=kv_int8, device="cpu")
     assert TM(**TINY, **VIT, kv_int8=True, device="cpu").decoder.make_cache(
         1, 4, quantized=True)[0]["k"].dtype == torch.int8
+    # beams, sampling and speculation decode (held to JAX in
+    # tests/test_torch_generate_modes.py)
     tm = TM(**TINY, **VIT, image_token_id=3, device="cpu")
     batch = {"input_ids": torch.ones(1, 3, dtype=torch.long)}
     for key, value in (("num_beams", 2), ("do_sample", True), ("speculative", 3)):
-        with pytest.raises(NotImplementedError, match=key):
-            tm.generate(batch, **{key: value})
+        tokens, lens = tm.generate(batch, max_length=4, **{key: value})
+        assert tokens.shape == (1, 3 + 4) and int(lens[0]) == 3, key

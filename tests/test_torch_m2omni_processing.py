@@ -234,12 +234,19 @@ def test_generation_predictor_serves_video_and_audio(tiny_vocab):
 
 
 def test_generation_predictor_refusals(tiny_vocab):
+    """``tensor_parallel`` is refused; beams, sampling, speculation and
+    ``decode_quant`` are served."""
     config = predictor_config(tiny_vocab)
     for key, value in (("num_beams", 2), ("do_sample", True), ("speculative", 2),
                        ("decode_quant", "int4"), ("tensor_parallel", 2)):
         pp = {**config["predictor_parameters"], "device": "cpu", key: value}
-        with pytest.raises(NotImplementedError, match=key):
-            GenerationPredictor({**config, "predictor_parameters": pp}).load(with_ckpt=False)
+        pred = GenerationPredictor({**config, "predictor_parameters": pp})
+        if key == "tensor_parallel":
+            with pytest.raises(NotImplementedError, match=key):
+                pred.load(with_ckpt=False)
+            continue
+        out = pred.load(with_ckpt=False).predict(pred.example_data())
+        assert isinstance(out["generated_text"], str), key
 
 
 def test_cli_serves_a_conversation_on_the_composed_config(tiny_vocab, tmp_path, capsys):

@@ -210,9 +210,10 @@ def test_decoder_serves_q4_records_like_jax():
     holder = torch.nn.Module()
     holder.decoder = port
     n_packed, n_dequantised = t_quant.load_decode_records(holder, records, F32)
-    assert n_packed == 6 and n_dequantised == 1  # down_proj's 688 rows fall back to int8
+    assert n_packed == 7 and n_dequantised == 0  # down_proj's 688 rows: an int8 record
     assert port.layer_0.attention.q_proj.kernel_q4.shape == (128, 256)
     assert port.layer_0.mlp.down_proj.kernel_q4 is None
+    assert port.layer_0.mlp.down_proj.kernel_q8.shape == (688, 256)
     j_vars = j_quant.make_live_vars(ref_records, jnp.float32)()["decoder"]
     cache = t_llm.init_decoder_cache(1, B, 4, L + 1, 64, F32)
     j_cache = j_llm.init_decoder_cache(1, B, 4, L + 1, 64, jnp.float32)
@@ -297,8 +298,15 @@ def test_pink_records_are_bitwise_jax(pink_tiny):
     assert t_quant.is_decode_quantized(_records(variables))
     assert not t_quant.is_decode_quantized(variables)
     routed = t_quant._route_q4_siblings(_records(variables))
-    ref_routed = j_quant._route_q4_siblings(_records(variables))
-    assert set(flatten_flax(routed)) == set(flatten_flax(ref_routed))
+    ref_routed = flatten_flax(j_quant._route_q4_siblings(_records(variables)))
+    # JAX routes the int4 records; the port also serves the int8 ones on
+    # QuantDense paths (each layer's down_proj) as int8 buffers
+    int8_paths = [p for p, rec in ref_routed.items() if isinstance(rec, dict)
+                  and "/decoder/" in f"/{p}"]
+    assert int8_paths and all(p.endswith("mlp/down_proj/kernel") for p in int8_paths)
+    want = set(ref_routed) - set(int8_paths)
+    want |= {p[:-len("kernel")] + k for p in int8_paths for k in ("kernel_q8", "kernel_scale")}
+    assert set(flatten_flax(routed)) == want
     assert set(routed["params"]["lm_head"]) == {"kernel_q4", "kernel_scale"}
     assert set(routed["params"]["vision_tower"]["encoder"]["layer_0"]["attention"]["q_proj"]) \
         == {"kernel", "bias"}
@@ -322,7 +330,7 @@ def test_pink_greedy_generate_matches_jax(pink_tiny, quantized, monkeypatch):
         shell, atol = _quantized_twin(variables), 5e-4
         j_vars = _records(variables)
         assert shell.module.lm_head.kernel_q4 is not None
-        assert shell.module.decoder.layer_0.mlp.down_proj.kernel_q4 is None  # int8 fallback
+        assert shell.module.decoder.layer_0.mlp.down_proj.kernel_q8 is not None  # int8 fallback
     want, want_lens = jm.generate(j_vars, batch, eos_id=1, max_length=max_new)
     want = np.asarray(want)
     tb = shell.to_device(batch)
@@ -371,9 +379,24 @@ def test_pink_greedy_generate_matches_jax(pink_tiny, quantized, monkeypatch):
 
 @pytest.mark.parametrize("kw", [dict(num_beams=4), dict(speculative=2), dict(do_sample=True)])
 def test_generate_refuses_what_is_not_ported(pink_tiny, kw):
+    """The name is kept from when these modes were refused. It checks that
+    beams, speculation and sampling are served (held to JAX in
+    ``tests/test_torch_generate_modes.py``): speculation gives greedy's
+    tokens, beams their scores, sampling the same tokens from the same seed."""
     _, _, shell, batch = pink_tiny
-    with pytest.raises(NotImplementedError, match="not ported"):
-        shell.module.generate(shell.to_device(batch), **kw)
+    batch = shell.to_device(batch)
+    stats = {}
+    tokens, lens = shell.module.generate(batch, eos_id=1, max_length=5, stats=stats, **kw)
+    greedy, _ = shell.module.generate(batch, eos_id=1, max_length=5)
+    prompt = batch["input_mask"].bool()
+    assert tokens.shape == greedy.shape
+    assert torch.equal(tokens[:, :6][prompt], greedy[:, :6][prompt])
+    if "speculative" in kw:
+        assert torch.equal(tokens, greedy) and stats["n_steps"] >= 1
+    elif "num_beams" in kw:
+        assert stats["scores"].shape == (2,) and bool((stats["scores"] <= 0).all())
+    else:
+        assert torch.equal(tokens, shell.module.generate(batch, eos_id=1, max_length=5, **kw)[0])
 
 
 EVA_TINY = dict(visual_tower="eva", eva_preset="eva_tiny_test", image_size=28)
@@ -441,7 +464,7 @@ def test_generation_predictor_serves_records(jax_generation):
         ["--config", PINK_CFG, "--predictor", "generation_predictor", "--device", "cpu",
          "--no_ckpt", *TINY_OPTS])
     module = pred.shell.module
-    assert module.decoder.layer_0.attention.q_proj.weight is not None  # int8 record: float
+    assert module.decoder.layer_0.attention.q_proj.kernel_q8 is not None  # an int8 record
     sample = pred.build_sample(jax_generation["reqs"][0]).arrays()
     assert sample["input_ids"].shape == (1, 48) and sample["image_data"].shape == (1, 32, 32, 3)
     out = pred.predict(jax_generation["reqs"][0])
@@ -451,11 +474,25 @@ def test_generation_predictor_serves_records(jax_generation):
 @pytest.mark.parametrize("key,value", [("num_beams", "4"), ("speculative", "2"),
                                        ("do_sample", "true"), ("tensor_parallel", "2"),
                                        ("decode_quant", "int8")])
-def test_generation_predictor_refuses_what_is_not_ported(key, value):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        t_cli.build_predictor(
-            ["--config", PINK_CFG, "--predictor", "generation_predictor", "--device", "cpu",
-             "--no_ckpt", *TINY_OPTS, f"predictor_parameters.{key}", value])
+def test_generation_predictor_refuses_what_is_not_ported(key, value, jax_generation):
+    """The name is kept from when these options were refused. It checks that
+    ``tensor_parallel`` is refused, and that the decoding options and int8
+    weights are served."""
+    argv = ["--config", PINK_CFG, "--predictor", "generation_predictor", "--device", "cpu",
+            "--no_ckpt", *TINY_OPTS, f"predictor_parameters.{key}", value]
+    if key == "tensor_parallel":
+        with pytest.raises(NotImplementedError, match="not ported"):
+            t_cli.build_predictor(argv)
+        return
+    pred, _ = t_cli.build_predictor(argv)
+    out = pred.predict(jax_generation["reqs"][0])
+    assert out["generated_ids"].shape == (1, 48 + 6) and isinstance(out["generated_text"], str)
+    if key == "decode_quant":
+        module = pred.shell.module
+        assert module.decoder.layer_0.attention.q_proj.kernel_q8 is not None
+        assert module.lm_head.kernel_q8 is not None
+    else:
+        assert pred.decode_options[key] == (True if value == "true" else int(value))
 
 
 @pytest.mark.parametrize("template", ["vicuna_v1", "llama2", "simple", "plain"])
