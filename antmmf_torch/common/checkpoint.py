@@ -34,6 +34,12 @@ and a ``params.npz`` of ``/``-joined flax paths in flax layout (the port's
 ``TrainState``. ``resume`` applies ``resume``, ``resume_file`` and
 ``restart``. ``find_weights`` and ``load_weights`` serve a trainer's
 ``save_dir`` (or a ``params.npz``) to a predictor.
+
+Over ranks every rank calls ``save``: the main rank's ``fsdp`` ranks
+gather the sharded masters and state onto its host in buckets
+(``TrainState.host_copy``), and the main rank alone writes the whole
+tensors, in the layout above; a restore reads the whole tensors and keeps
+each rank's slices, so a snapshot resumes at any world size.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ import torch
 
 from antmmf_torch.common.configuration import Configuration, convert_to_config
 from antmmf_torch.modules.moco import queue_buffers
+from antmmf_torch.parallel import collectives as coll
 from antmmf_torch.utils.weights import flax_paths, to_torch_layout, unstack_layers
 
 
@@ -173,10 +180,6 @@ def _atomic_save(obj: Any, path: str) -> None:
     os.replace(tmp, path)
 
 
-def _cpu(tree: Mapping[str, torch.Tensor], names: Mapping[str, str]) -> Dict[str, torch.Tensor]:
-    return {names[n]: t.detach().to("cpu", copy=True) for n, t in tree.items()}
-
-
 class Checkpoint:
     def __init__(self, config: Mapping, logger: Optional[Any] = None, load_only: bool = False):
         self.config = convert_to_config(config)
@@ -185,36 +188,53 @@ class Checkpoint:
         self.save_dir = os.path.abspath(tp.get("save_dir", "./save"))
         self.models_dir = os.path.join(self.save_dir, "models")
         self.max_to_keep = tp.get("max_ckpt_num", None)
-        if not load_only:
+        if not load_only and coll.is_main_process():
             os.makedirs(self.models_dir, exist_ok=True)
             Configuration(self.config.to_dict()).save(os.path.join(self.save_dir, "config.yaml"))
             with open(os.path.join(self.save_dir, "git_info.json"), "w") as f:
                 json.dump(_git_provenance(os.getcwd()), f, indent=2)
 
     # ------------------------------------------------------------------- save
-    def _state_tree(self, state) -> Dict[str, Any]:
+    def _state_tree(self, state) -> Optional[Dict[str, Any]]:
+        """The whole state on the host of the main rank; ``None`` on the
+        others (every rank calls it: the gathers are collectives)."""
         names = flax_paths(state.model)
         opt = state.opt_state
-        tree = {"step": int(state.step), "params": _cpu(state.params, names),
-                "opt_state": {"count": int(opt["count"]), "mu": _cpu(opt["mu"], names),
-                              "nu": _cpu(opt["nu"], names)},
+
+        def whole(tensors):
+            host = state.host_copy(tensors)
+            return None if host is None else {names[n]: t for n, t in host.items()}
+
+        # every rank draws from its own generator
+        gens = coll.all_gather_object(state.generator.get_state()) \
+            if coll.get_world_size() > 1 else None
+        tree = {"step": int(state.step), "params": whole(state.params),
+                "opt_state": {"count": int(opt["count"]), "mu": whole(opt["mu"]),
+                              "nu": whole(opt["nu"])},
                 "generator": state.generator.get_state()}
         if "acc" in opt:
-            tree["opt_state"].update(acc=_cpu(opt["acc"], names),
-                                     mini_step=int(opt["mini_step"]))
+            tree["opt_state"].update(acc=whole(opt["acc"]), mini_step=int(opt["mini_step"]))
+        if state.momentum is not None:
+            tree["momentum"] = whole(state.momentum)
+        if not coll.is_main_process():
+            return None
+        if gens is not None:
+            tree["rank_generators"] = gens
         queues = queue_buffers(state.model)
         if queues:
             tree["moco"] = {p: t.detach().to("cpu", copy=True) for p, t in queues.items()}
-        if state.momentum is not None:
-            tree["momentum"] = _cpu(state.momentum, names)
         return tree
 
     def save(self, state, iteration: Optional[int] = None, tag: Optional[str] = None) -> str:
+        """Every rank calls it; the main rank writes."""
         iteration = int(iteration if iteration is not None else state.step)
         path = os.path.join(self.models_dir, tag or f"model_{iteration}")
-        _atomic_save(self._state_tree(state), path)
-        if tag is None:
-            self._gc()
+        tree = self._state_tree(state)
+        if tree is not None:
+            _atomic_save(tree, path)
+            if tag is None:
+                self._gc()
+        coll.synchronize()
         return path
 
     def save_best(self, state) -> str:
@@ -222,7 +242,11 @@ class Checkpoint:
 
     def save_final_weights(self, state, model_name: str = "model") -> str:
         path = os.path.join(self.save_dir, f"{model_name}_final")
-        _atomic_save({"params": _cpu(state.params, flax_paths(state.model))}, path)
+        params = state.host_copy(state.params)
+        if params is not None:
+            names = flax_paths(state.model)
+            _atomic_save({"params": {names[n]: t for n, t in params.items()}}, path)
+        coll.synchronize()
         return path
 
     def _gc(self) -> None:
@@ -259,16 +283,23 @@ class Checkpoint:
         for name, dst in trees:
             src = tree["params"] if name == "params" else tree["opt_state"][name]
             for n, t in dst.items():
-                t.copy_(src[names[n]])
+                t.copy_(state.local(n, src[names[n]]))
         for p, t in queue_buffers(state.model).items():
             t.copy_(tree["moco"][p])
         if state.momentum is not None:
             for n, t in state.momentum.items():
-                t.copy_(tree["momentum"][names[n]])
+                t.copy_(state.local(n, tree["momentum"][names[n]]))
             state.sync_key_module()
         opt["count"] = tree["opt_state"]["count"]
         state.step = tree["step"]
-        state.generator.set_state(tree["generator"])
+        gens, world = tree.get("rank_generators"), coll.get_world_size()
+        if gens is not None and len(gens) == world:
+            state.generator.set_state(gens[coll.get_rank()])
+        else:
+            state.generator.set_state(tree["generator"])
+            if world > 1:
+                # another world size: a generator of this rank's own from here
+                state.generator.manual_seed(coll.rank_seed(int(tree["step"]), coll.get_rank()))
         state.sync_model(frozen=True)
         return state, True
 
@@ -278,14 +309,20 @@ class Checkpoint:
         """Weights-only tolerant load (the restart / finetune path) from a
         port checkpoint or a ``params.npz`` of flax-layout leaves."""
         names = flax_paths(state.model)
-        target = {names[n]: t for n, t in state.params.items()}
+        # the whole tensors (gathered over the fsdp ranks), sliced back after
+        params = state.gathered(state.params)
+        target = {names[n]: t for n, t in params.items()}
         loaded = read_weights(path, {p: t.shape for p, t in target.items()})
         target.update({f"moco/{p}": t for p, t in queue_buffers(state.model).items()})
-        if state.momentum is not None:
-            target.update({f"momentum/{names[n]}": t for n, t in state.momentum.items()})
+        momentum = state.gathered(state.momentum) if state.momentum is not None else {}
+        target.update({f"momentum/{names[n]}": t for n, t in momentum.items()})
         merged, report = merge_params_tolerant(target, loaded, pretrained_mapping, self.logger)
         for leaf_path, value in merged.items():
             target[leaf_path].copy_(value)
+        for mine, whole in ((state.params, params), (state.momentum or {}, momentum)):
+            for n, t in mine.items():
+                if whole[n] is not t:
+                    t.copy_(state.local(n, whole[n]))
         if state.momentum is not None:
             state.sync_key_module()
         state.sync_model(frozen=True)

@@ -5,10 +5,12 @@ Port of ``antmmf_tpu/common/task_loader.py``: one task per entry of
 ``task_attributes`` and run type, one loader per dataset (``drop_last`` for
 train, ``pad_last`` for eval), the train sampler from
 ``training_parameters.sampler`` and a sequential one for eval, and
-``seed_sampler`` to reseed an epoch. The port runs in one process, so the
-global batch divides over a process count of 1 and each loader yields the
-whole global batch. Streaming (iterable-only) datasets raise until they are
-ported.
+``seed_sampler`` to reseed an epoch. Over several ranks (the process
+group's world) each rank loads ``batch_size / world`` samples, through the
+``distributed_sampler`` (``training_parameters.distributed_sampler``, a
+shuffled one for train, an ordered one for eval), and the last eval batch
+is wrapped to full size; in one process the loader yields the whole global
+batch. Streaming (iterable-only) datasets raise until they are ported.
 """
 
 from __future__ import annotations
@@ -20,8 +22,7 @@ from antmmf_torch.common.registry import registry
 from antmmf_torch.datasets.base_dataset import BaseIterableDataset
 from antmmf_torch.datasets.loader import DataLoader
 from antmmf_torch.datasets.samplers import build_sampler
-
-PROCESS_COUNT = 1  # the port runs one process on one device
+from antmmf_torch.parallel import collectives as coll
 
 
 class TaskLoader:
@@ -45,14 +46,14 @@ class TaskLoader:
     def make_dataloaders(self) -> None:
         global_bs = int(self.tp.get("batch_size", 8))
         test_bs = int(self.tp.get("test_batch_size") or global_bs)
+        nproc = coll.get_world_size()
         for bs, name in ((global_bs, "batch_size"), (test_bs, "test_batch_size")):
-            if bs % PROCESS_COUNT:
-                raise ValueError(f"{name}={bs} must be divisible by process count "
-                                 f"{PROCESS_COUNT}")
+            if bs % nproc:
+                raise ValueError(f"{name}={bs} must be divisible by process count {nproc}")
         num_workers = int(self.tp.get("num_workers", 0))
         for dataset_type, tasks in self.tasks.items():
             self.loaders[dataset_type] = []
-            per_process_bs = (global_bs if dataset_type == "train" else test_bs) // PROCESS_COUNT
+            per_process_bs = (global_bs if dataset_type == "train" else test_bs) // nproc
             for task in tasks:
                 for dataset in task.get_datasets():
                     if isinstance(dataset, BaseIterableDataset):
@@ -67,6 +68,10 @@ class TaskLoader:
                         pad_last=(dataset_type != "train")))
 
     def _build_sampler(self, dataset, dataset_type: str):
+        if coll.get_world_size() > 1:
+            cfg = dict(self.tp.get("distributed_sampler", {"type": "distributed_sampler"}))
+            cfg.setdefault("type", "distributed_sampler")
+            return build_sampler(cfg, dataset, shuffle=(dataset_type == "train"))
         if dataset_type == "train":
             return build_sampler(self.tp.get("sampler", {"type": "random_sampler"}), dataset)
         return build_sampler({"type": "sequential_sampler"}, dataset)

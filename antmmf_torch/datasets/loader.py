@@ -10,7 +10,10 @@ evaluators drop the repeated rows by their ids. ``prefetch_to_device`` keeps
 ``depth`` batches in flight: ``to_device`` stages each array in pinned host
 memory and copies it with ``non_blocking``, so the host enqueues the next
 batch's copy without waiting for the running step (on the device the copy
-runs in stream order, after that step).
+runs in stream order, after that step). A loader's batch carries the
+dataset indices it was made from (``sample_index``), which corpus
+evaluators over ranks read to put the rows of every rank back in the
+dataset's order.
 """
 
 from __future__ import annotations
@@ -66,7 +69,10 @@ class DataLoader:
             samples = list(pool.map(self.dataset.__getitem__, idx_batch))
         else:
             samples = [self.dataset[i] for i in idx_batch]
-        return self.collate_fn(samples)
+        batch = self.collate_fn(samples)
+        if isinstance(batch, SampleList):
+            batch.sample_index = list(idx_batch)
+        return batch
 
     def __iter__(self) -> Iterator[SampleList]:
         if self.num_workers <= 0:

@@ -3,13 +3,16 @@
 Port of ``antmmf_tpu/datasets/samplers.py``: ``sequential_sampler`` and
 ``random_sampler``, whose permutation is ``default_rng(seed + epoch)``'s, so
 an epoch visits the samples in the JAX package's order; ``set_epoch``
-reseeds. The port runs in one process: ``distributed_sampler`` (and the
-class-balance sampler) raise until they are ported.
+reseeds; and ``distributed_sampler``, rank ``rank``'s share of such an
+order among ``num_replicas`` ranks: padded by wrapping around to a multiple
+of the ranks, then every ``num_replicas``-th index from ``rank`` on, so
+every rank yields the same count. The class-balance sampler raises until
+it is ported (queue A8d).
 """
 
 from __future__ import annotations
 
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -50,12 +53,38 @@ class RandomSampler(AntmmfSampler):
         return iter(rng.permutation(len(self.dataset)).tolist())
 
 
+@registry.register_sampler("distributed_sampler")
+class DistributedSampler(AntmmfSampler):
+    def __init__(self, dataset, shuffle: bool = True, seed: int = 0,
+                 num_replicas: Optional[int] = None, rank: Optional[int] = None, **kwargs):
+        super().__init__(dataset)
+        if num_replicas is None or rank is None:
+            from antmmf_torch.parallel import collectives as coll
+
+            num_replicas = coll.get_world_size() if num_replicas is None else num_replicas
+            rank = coll.get_rank() if rank is None else rank
+        self.num_replicas, self.rank = int(num_replicas), int(rank)
+        self.shuffle, self.seed = bool(shuffle), int(seed)
+        self.num_samples = -(-len(dataset) // self.num_replicas)
+        self.total_size = self.num_samples * self.num_replicas
+
+    def __len__(self) -> int:
+        return self.num_samples
+
+    def __iter__(self) -> Iterator[int]:
+        n = len(self.dataset)
+        order = (np.random.default_rng(self.seed + self.epoch).permutation(n).tolist()
+                 if self.shuffle else list(range(n)))
+        while len(order) < self.total_size:
+            order += order[: self.total_size - len(order)]
+        return iter(order[self.rank:self.total_size:self.num_replicas])
+
+
 def build_sampler(sampler_config, dataset, **extra) -> AntmmfSampler:
     cfg = dict(sampler_config or {})
     name = cfg.get("type", "sequential_sampler")
-    if name in ("distributed_sampler", "class_balance_sampler"):
-        raise NotImplementedError(f"sampler {name!r} is not ported yet; the port runs in one "
-                                  f"process with sequential_sampler or random_sampler")
+    if name == "class_balance_sampler":
+        raise NotImplementedError(f"sampler {name!r} is not ported yet (queue A8d)")
     params = dict(cfg.get("params", {}))
     params.update(extra)
     return registry.get_sampler_class(name)(dataset, **params)

@@ -17,6 +17,19 @@ reaches the ViT, BERT and the cross-encoder as in JAX; a training forward
 (``deterministic=False``) draws its masks from the ``generator`` it is
 given (``layers.draws``). Sequence parallelism raises until it is ported.
 ``univl_auto`` dispatches on ``training_stage`` to the family's models.
+
+Over ranks (``parallel.collectives``) the retrieval model computes the
+global batch's losses, as the JAX model does under SPMD: the text and clip
+embeddings are gathered with gradients (``gather_with_grad``, rank-major,
+which is the global batch's order), so ``sim`` is the global [B, B]
+matrix and the L1 loss the global one on every rank; each rank mines the
+hard negatives of its own text rows among the global batch's columns and
+cross-encodes them against the gathered visual sequences (the L2 loss of
+its rows, whose mean over ranks is the global mean), or scores its rows of
+the full grid, which is gathered for the symmetric loss; MoCo enqueues the
+global batch's keys in order, so every rank's queue stays the same. The
+trainer averages the gradients over ranks, which with the gathers'
+reduce-scatter backward gives the global batch's gradient.
 """
 
 from __future__ import annotations
@@ -35,6 +48,7 @@ from antmmf_torch.modules import moco
 from antmmf_torch.modules.losses.contrastive import NEG_INF, mil_nce, neg_nce, symmetric_cross_en
 from antmmf_torch.modules.transformers.base import TransformerEncoder
 from antmmf_torch.modules.vision.vit import PRESETS as VIT_PRESETS, VisionTransformer
+from antmmf_torch.parallel import collectives as coll
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-6) -> torch.Tensor:
@@ -202,7 +216,11 @@ class UnivlForVideoTextRetrieval(nn.Module):
     online embeddings) are enqueued only by ``flush_queues``, which the
     train step calls after the backward: the loss's backward reads the
     queues, so they must not change before it. A forward with
-    ``deterministic=False`` leaves its keys pending for that call."""
+    ``deterministic=False`` leaves its keys pending for that call.
+    ``global_batch_over_ranks``: its losses gather what the global batch
+    needs, so the trainer may run it over ranks."""
+
+    global_batch_over_ranks = True
 
     def __init__(self, vit_preset: str = "vit_base_patch32", image_size: int = 224,
                  bert_preset: str = "bert_base", embed_dim: int = 512, n_clips: int = 1,
@@ -287,7 +305,9 @@ class UnivlForVideoTextRetrieval(nn.Module):
         text_embed, clip_embed = text["text_embed"], video["clip_embed"]
         if self.training_head_only:
             text_embed, clip_embed = text_embed.detach(), clip_embed.detach()
-        sim = clip_similarity(text_embed, clip_embed, self.logit_scale)
+        # over ranks: the global batch's rows, rank-major (identity in one process)
+        sim = clip_similarity(coll.gather_with_grad(text_embed),
+                              coll.gather_with_grad(clip_embed), self.logit_scale)
         output: Dict[str, Any] = {"l1_simi": sim, "sim": sim, "text_embed": text_embed,
                                   "visual_embed": clip_embed.mean(dim=1), "logits": sim}
         if self.with_queue:
@@ -327,7 +347,8 @@ class UnivlForVideoTextRetrieval(nn.Module):
         loss = 0.5 * (infonce(text_embed, key_video, self.video_queue)
                       + infonce(v_mean, key_text, self.text_queue))
         if not deterministic:
-            self._pending_keys = (key_text, key_video)
+            # the global batch's keys, in its order, on every rank
+            self._pending_keys = (coll.all_gather(key_text), coll.all_gather(key_video))
         return loss
 
     def flush_queues(self) -> None:
@@ -349,27 +370,34 @@ class UnivlForVideoTextRetrieval(nn.Module):
         if video_mask is None:
             video_mask = torch.ones(B, F, dtype=torch.long, device=vis_seq.device)
         vis_mask = video_mask.repeat_interleave(Lv, dim=1)
-        k = min(self.hard_mining_k, B) if self.hard_mining_k > 0 else 0
+        # over ranks: this rank's text rows against the global batch's videos
+        vis_all = coll.gather_with_grad(vis_seq)
+        vis_mask_all = coll.all_gather(vis_mask)
+        G = vis_all.shape[0]
+        row0 = coll.get_rank() * B
+        rows = torch.arange(B, device=sim.device) + row0
+        k = min(self.hard_mining_k, G) if self.hard_mining_k > 0 else 0
         if not deterministic and k > 1:
             # each text row meets its positive and its k-1 hardest L1
             # negatives (stop-gradient sims, the positive excluded)
-            eye = torch.eye(B, device=sim.device)
-            masked = sim.detach() + eye * torch.finfo(torch.float32).min
+            eye = torch.nn.functional.one_hot(rows, G).float()
+            masked = sim[row0:row0 + B].detach() + eye * torch.finfo(torch.float32).min
             hard_idx = torch.topk(masked, k - 1, dim=-1).indices
-            cols = torch.cat([torch.arange(B, device=sim.device)[:, None], hard_idx], dim=1)
+            cols = torch.cat([rows[:, None], hard_idx], dim=1)
             flat = cols.reshape(-1)
             scores = self.base.cross_pair_scores(
                 text_seq.repeat_interleave(k, dim=0), text_mask.repeat_interleave(k, dim=0),
-                vis_seq[flat], vis_mask[flat]).reshape(B, k)
+                vis_all[flat], vis_mask_all[flat]).reshape(B, k)
             # the positive sits in column 0 of each mined row
             losses["level2_similarity_loss"] = -torch.log_softmax(scores, dim=-1)[:, 0].mean()
             output["l2_pair_scores"] = scores
             output["l2_pair_cols"] = cols
         else:
-            # the full B×B grid, pair (i, j) at i·B + j
+            # the full grid, pair (i, j) at i·G + j; this rank's rows, gathered
             l2 = self.base.cross_pair_scores(
-                text_seq.repeat_interleave(B, dim=0), text_mask.repeat_interleave(B, dim=0),
-                vis_seq.repeat(B, 1, 1), vis_mask.repeat(B, 1)).reshape(B, B)
+                text_seq.repeat_interleave(G, dim=0), text_mask.repeat_interleave(G, dim=0),
+                vis_all.repeat(B, 1, 1), vis_mask_all.repeat(B, 1)).reshape(B, G)
+            l2 = coll.gather_with_grad(l2)
             output["l2_simi"] = l2
             losses["level2_similarity_loss"] = symmetric_cross_en(l2)
         output["text_seq"] = text_seq

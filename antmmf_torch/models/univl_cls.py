@@ -20,6 +20,8 @@ from antmmf_torch.modules.classifier import ClassifierLayer
 
 @registry.register_model("univl_classification")
 class UnivlForClassification(UnivlForVideoTextRetrieval):
+    global_batch_over_ranks = False  # its own forward: not run over ranks yet
+
     def __init__(self, num_labels: int = 2, embed_dim: int = 512, device=None, **kw):
         super().__init__(embed_dim=embed_dim, device=device, **kw)
         self.cls_head = ClassifierLayer("mlp", 4 * embed_dim, num_labels, num_layers=2,

@@ -21,6 +21,8 @@ from antmmf_torch.models.univl import UnivlForVideoTextRetrieval
 
 @registry.register_model("univl_mcqa")
 class UnivlForMultiChoiceQA(UnivlForVideoTextRetrieval):
+    global_batch_over_ranks = False  # its own forward: not run over ranks yet
+
     def _forward(self, batch: Mapping[str, torch.Tensor], deterministic: bool) -> Dict:
         clip_embed = self.base.forward_img_encoder(batch["image_data"])["clip_embed"]
         ids, mask = batch["options_input_ids"], batch["options_input_mask"]

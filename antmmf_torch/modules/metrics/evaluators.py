@@ -6,7 +6,12 @@ evaluators:
 every eval batch and computes text→video and video→text recalls with
 multi-ground-truth min-rank; with ``image_vid`` in the batch, videos are
 deduplicated by id (which also drops the rows that ``pad_last`` repeated;
-repeated captions stay, as in the JAX package). ``recall_metrics`` turns
+repeated captions stay, as in the JAX package). Over ranks it gathers
+every rank's rows with the dataset indices they were loaded from
+(``DataLoader``'s ``sample_index``) before it scores, keeps one row an
+index (the wrap-around padding of the sampler and of the last batch
+repeats some) in the dataset's order, and so scores what one process
+scores on the eval set. ``recall_metrics`` turns
 0-based ranks into R@1/5/10 (percent), median and mean rank.
 ``CaptioningEvaluator`` (``captioning``) scores generated captions with
 corpus BLEU-4 and ROUGE-L. The other evaluators raise until they are
@@ -20,6 +25,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 
 from antmmf_torch.modules.metrics.extended import bleu4, rouge_l
+from antmmf_torch.parallel import collectives as coll
 
 
 class BaseEvaluator:
@@ -71,6 +77,8 @@ class GlobalRetrievalRecallEvaluator(BaseEvaluator):
         self._t2v_gt: List[Sequence[int]] = []
         self._v2t_gt: List[Sequence[int]] = []
         self._vids: List[np.ndarray] = []
+        self._index: List[np.ndarray] = []
+        self._explicit_gt = False
 
     def collect(self, batch: Mapping, output: Mapping) -> None:
         t = output.get("text_embed")
@@ -79,6 +87,9 @@ class GlobalRetrievalRecallEvaluator(BaseEvaluator):
             return
         self._text.append(np.asarray(t, dtype=np.float32))
         self._video.append(np.asarray(v, dtype=np.float32))
+        index = getattr(batch, "sample_index", None)
+        if index is not None:
+            self._index.append(np.asarray(index, dtype=np.int64))
         meta = getattr(batch, "metadata", {}) if not isinstance(batch, dict) else {}
         if isinstance(batch, Mapping) and "image_vid" in batch:
             # unique-video id per row → dedupe + grouped gt in summarize
@@ -90,6 +101,7 @@ class GlobalRetrievalRecallEvaluator(BaseEvaluator):
             or meta.get("image_tid_list")
         n_t_prev = sum(x.shape[0] for x in self._text[:-1])
         n_v_prev = sum(x.shape[0] for x in self._video[:-1])
+        self._explicit_gt |= t2v is not None or v2t is not None
         if t2v is not None:
             self._t2v_gt.extend(t2v)
         else:  # identity pairing: text i ↔ video i
@@ -99,7 +111,30 @@ class GlobalRetrievalRecallEvaluator(BaseEvaluator):
         else:
             self._v2t_gt.extend([[n_t_prev + i] for i in range(self._text[-1].shape[0])])
 
+    def _gather_ranks(self) -> None:
+        """Every rank's rows, one a dataset index, in the dataset's order."""
+        if self._explicit_gt:
+            raise NotImplementedError("over ranks the retrieval evaluator pairs rows by "
+                                      "image_vid; explicit caption_vid_list pairs are not "
+                                      "gathered yet")
+        if len(self._index) != len(self._text):
+            raise ValueError("over ranks each eval batch must carry its sample_index")
+        cat = (lambda xs: np.concatenate(xs) if xs else None)
+        parts = coll.all_gather_object((cat(self._text), cat(self._video), cat(self._vids),
+                                        cat(self._index)))
+        parts = [p for p in parts if p[0] is not None]
+        index = np.concatenate([p[3] for p in parts])
+        _, first = np.unique(index, return_index=True)
+        self._text = [np.concatenate([p[0] for p in parts])[first]]
+        self._video = [np.concatenate([p[1] for p in parts])[first]]
+        self._vids = [np.concatenate([p[2] for p in parts])[first]] if self._vids else []
+        n = len(first)
+        self._t2v_gt = [[i] for i in range(n)]
+        self._v2t_gt = [[i] for i in range(n)]
+
     def summarize(self) -> Dict[str, float]:
+        if coll.get_world_size() > 1:
+            self._gather_ranks()
         if not self._text:
             return {}
         t = np.concatenate(self._text)

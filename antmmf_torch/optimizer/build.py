@@ -114,6 +114,12 @@ def build_lr_schedule(tp: Mapping[str, Any], base_lr: float) -> Callable[[int], 
     return schedule
 
 
+def global_norm(names, tensors, norm_fn: Optional[Callable] = None) -> torch.Tensor:
+    if norm_fn is not None:
+        return norm_fn(names, tensors)
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
 class AdamW:
     """optax's ``chain(clip_by_global_norm, adamw, scale_by_multipliers)``
     over dictionaries of fp32 tensors; ``update`` changes the parameters and
@@ -139,13 +145,15 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor], state: Dict[str, Any],
-               params: Dict[str, torch.Tensor]) -> torch.Tensor:
+               params: Dict[str, torch.Tensor], norm_fn: Optional[Callable] = None
+               ) -> torch.Tensor:
         """Returns the global norm of ``grads`` before the clip (a device
-        scalar: no host sync)."""
+        scalar: no host sync). ``norm_fn(names, tensors)`` computes it when
+        the tensors are slices of the parameters (``TrainState.global_norm``)."""
         names = list(params)
         p = [params[n] for n in names]
         g = [grads[n] for n in names]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        norm = global_norm(names, g, norm_fn)
         if self.max_grad_norm is not None:
             keep = norm < self.max_grad_norm
             one = torch.ones((), device=norm.device)
@@ -194,17 +202,18 @@ class MultiSteps:
 
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor], state: Dict[str, Any],
-               params: Dict[str, torch.Tensor]) -> torch.Tensor:
+               params: Dict[str, torch.Tensor], norm_fn: Optional[Callable] = None
+               ) -> torch.Tensor:
         """Returns the global norm of this call's ``grads`` (a device scalar)."""
         names = list(params)
         g = [grads[n] for n in names]
         acc = [state["acc"][n] for n in names]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        norm = global_norm(names, g, norm_fn)
         step = torch._foreach_sub(g, acc)
         torch._foreach_div_(step, float(state["mini_step"] + 1))
         torch._foreach_add_(acc, step)
         if state["mini_step"] == self.every_k - 1:
-            self.inner.update(state["acc"], state, params)
+            self.inner.update(state["acc"], state, params, norm_fn)
             torch._foreach_zero_(acc)
             state["mini_step"] = 0
         else:

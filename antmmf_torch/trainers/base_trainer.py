@@ -1,5 +1,5 @@
 """BaseTrainer: config → task and data → model → train loop → validation →
-checkpoints, on one device.
+checkpoints, on one device or over ranks.
 
 Port of ``antmmf_tpu/trainers/base_trainer.py``. ``load`` builds the
 tasks and their loaders, the model (seeded random weights), AdamW with the
@@ -20,18 +20,34 @@ saves a snapshot at the next step boundary and ends the run
 the card and raise without CUDA; ``cpu`` runs on the CPU. The port's own
 ``training_parameters.init_on_device`` (off unless given) draws the seeded
 init on that device: other values than the CPU's draws from the same seed,
-in seconds for billions of parameters. The port runs one
-process on one device: on one device a data/model ``mesh`` computes what no
-mesh computes, so the mesh is recorded in the log and the whole global
-batch runs on the device. Knobs of paths that are not ported raise with the
-key's name: ``steps_per_dispatch`` > 1, ``remat_policy`` other than
-``none``, ``evalai_inference``, ``profile_at_iteration``,
-``param_sharding_rules``, a world size above 1, and ``interpret``. A
-model with ``with_momentum`` trains MoCo momentum towers: the state holds
-their EMA (``TrainState.init_momentum``, made before the checkpoint is
-applied, as the JAX trainer makes it) and the step runs the key forward.
-The FLOPs telemetry of the JAX trainer (XLA's cost analysis) is not
-ported.
+in seconds for billions of parameters. A model with ``with_momentum``
+trains MoCo momentum towers: the state holds their EMA
+(``TrainState.init_momentum``, made before the checkpoint is applied, as
+the JAX trainer makes it) and the step runs the key forward. The FLOPs
+telemetry of the JAX trainer (XLA's cost analysis) is not ported.
+
+Ranks: started by ``antmmf_torch.utils.launch``, the trainer joins the
+process group (``parallel.collectives``) and builds the ``mesh``
+(``parallel.mesh``) over it: the ``data`` × ``fsdp`` ranks each load
+``batch_size / world`` samples, the step averages the fp32 gradients over
+them, and under ``fsdp`` the masters and the optimizer state are sharded
+by ``param_sharding_rules`` (``TrainState``'s ``Shards``), so each step
+computes what one device computes on the global batch; rank r's
+generator is seeded from (seed, r). A mesh applies when the world size
+matches it; at world size 1 it collapses, is written to the log, and the
+whole global batch runs on the one device. Only a model whose losses
+gather the global batch (``global_batch_over_ranks``) runs over ranks.
+The scalars are averaged over ranks where they are read, rank 0 alone
+logs and writes checkpoints, and its early-stopping decisions and a
+SIGTERM on any rank reach every rank. ``remat_policy`` recomputes the
+loss's forward in the backward under a selective policy
+(``train_state.remat_context``); ``steps_per_dispatch`` K groups the steps
+into windows of K (``_end_window``): the log and the snapshot fire at a
+window's end, with its last scalars, as in the JAX trainer, where a window
+is one dispatch; a change of the batch's shape and the end of an epoch or
+of the iteration budget end a window early, as they flush the JAX loop's
+stack. The steps themselves are the same as without windows. Knobs of paths that are not ported raise with the key's
+name: ``evalai_inference``, ``profile_at_iteration`` and ``interpret``.
 
 With ``gradient_accumulation_steps`` k, a train step is one trainer
 iteration (one micro-batch): the optimizer updates the masters every k-th,
@@ -69,11 +85,20 @@ from antmmf_torch.datasets.loader import prefetch_to_device, to_device
 from antmmf_torch.models.base_model import ModelShell, build_model, resolve_device
 from antmmf_torch.modules.metrics.evaluators import build_evaluator
 from antmmf_torch.optimizer.build import build_optimizer
-from antmmf_torch.trainers.train_state import TrainState, make_train_step
+from antmmf_torch.parallel import collectives as coll
+from antmmf_torch.parallel import partitioning
+from antmmf_torch.parallel.mesh import build_mesh
+from antmmf_torch.trainers.train_state import (Shards, TrainState, make_train_step,
+                                               remat_context)
 from antmmf_torch.utils.early_stopping import EarlyStopping
 from antmmf_torch.utils.logger import Logger
 from antmmf_torch.utils.timer import Timer
 from antmmf_torch.utils.weights import flax_paths
+
+
+def _signature(batch: Mapping[str, torch.Tensor]) -> tuple:
+    """A batch's fields, shapes and dtypes: a change ends a dispatch window."""
+    return tuple((k, tuple(v.shape), v.dtype) for k, v in batch.items())
 
 
 @registry.register_trainer("base_trainer")
@@ -89,8 +114,13 @@ class BaseTrainer:
         self._refuse_unported()
         self._init_device_and_seed()
         self.writer = Logger(self.config)
-        self.writer.write(f"device: {self.device}; mesh: {dict(self.tp.get('mesh', {}))} "
-                          f"(one device: the whole global batch runs on it)")
+        self.mesh = build_mesh(self.tp.get("mesh", {"data": -1}), coll.get_world_size())
+        if self.mesh.collapsed:
+            layout = "one device: the whole global batch runs on it"
+        else:
+            layout = (f"{self.mesh.size} ranks over {coll.backend()}: data "
+                      f"{self.mesh.shape['data']} x fsdp {self.mesh.shape['fsdp']}")
+        self.writer.write(f"device: {self.device}; mesh: {self.mesh.declared} ({layout})")
         self.load_task()
         self.load_model()
         self.load_optimizer()
@@ -100,27 +130,25 @@ class BaseTrainer:
     def _refuse_unported(self) -> None:
         tp = self.tp
         refused = {
-            "training_parameters.steps_per_dispatch": int(tp.get("steps_per_dispatch", 1)) > 1,
-            "training_parameters.remat_policy":
-                str(tp.get("remat_policy", "none") or "none") not in ("none", "null"),
             "training_parameters.evalai_inference": bool(tp.get("evalai_inference", False)),
             "training_parameters.profile_at_iteration": bool(tp.get("profile_at_iteration")),
-            "training_parameters.param_sharding_rules": bool(tp.get("param_sharding_rules")),
         }
-        world = max(int(os.environ.get("WORLD_SIZE", 1)), int(tp.get("num_nodes", 1) or 1))
-        refused[f"world size {world}"] = world > 1
         for key, bad in refused.items():
             if bad:
-                raise NotImplementedError(f"{key}: not ported yet; the port trains in one "
-                                          f"process on one device")
+                raise NotImplementedError(f"{key}: not ported yet")
 
     def _init_device_and_seed(self) -> None:
         device = str(self.tp.get("device", "auto"))
         if device not in ("auto", "cuda", "cpu"):
             raise ValueError(f"training_parameters.device {device!r}: auto, cuda or cpu")
         self.device = resolve_device("cpu" if device == "cpu" else "cuda")
+        coll.init_distributed(self.device.type)
+        if self.device.type == "cuda":
+            self.device = torch.device("cuda", torch.cuda.current_device())
         seed = self.tp.get("seed")
-        self.seed = int(seed) if seed is not None else int.from_bytes(os.urandom(2), "little")
+        # every rank draws the same seed (one init) from rank 0
+        self.seed = int(seed) if seed is not None else int(coll.broadcast_scalar(
+            int.from_bytes(os.urandom(2), "little")))
 
     def load_task(self) -> None:
         self.task_loader = TaskLoader(self.config)
@@ -139,6 +167,11 @@ class BaseTrainer:
         self.shell: ModelShell = build_model(self.config, self.model_name, str(self.device))
         if self.model_name is None:
             self.model_name = list(self.config.get("model_attributes", {}).keys())[0]
+        if coll.get_world_size() > 1 and not getattr(self.shell.module,
+                                                     "global_batch_over_ranks", False):
+            raise NotImplementedError(
+                f"{type(self.shell.module).__name__} over {coll.get_world_size()} ranks: its "
+                f"losses do not gather the global batch yet; univl_retrieval's do")
         # the JAX trainer initialises from the first batch of the first
         # loader; taking it here draws the same samples (and random frames)
         self._cached_first_batch = self._example_batch()
@@ -167,16 +200,20 @@ class BaseTrainer:
 
     def load_extras(self) -> None:
         module = self.shell.module
-        self.state = TrainState.create(module, self.tx, seed=self.seed)
+        rank = coll.get_rank()
+        self.state = TrainState.create(
+            module, self.tx, shards=self._shards(),
+            seed=self.seed if coll.get_world_size() == 1 else coll.rank_seed(self.seed, rank))
         # full-MoCo momentum towers: the EMA of ``base`` from the initial masters
         self._moco_m = 0.0
         if getattr(module, "with_momentum", False):
             self.state.init_momentum("base")
             self._moco_m = float(module.momentum)
-        n_train = sum(self.state.params[n].numel() for n in self.state.trainable)
-        self.writer.write(f"trainable params: {n_train:,} of "
-                          f"{sum(t.numel() for t in self.state.params.values()):,}; optimizer "
-                          f"state: {self.state.optimizer_state_bytes():,} bytes")
+        n_train = sum(p.numel() for p in module.parameters() if p.requires_grad)
+        n_all = sum(p.numel() for p in module.parameters())
+        self.writer.write(f"trainable params: {n_train:,} of {n_all:,}; optimizer state: "
+                          f"{self.state.optimizer_state_bytes():,} bytes, masters: "
+                          f"{self.state.master_bytes():,} bytes (rank {rank})")
         self.checkpoint = Checkpoint(self.config, self.writer)
         self.state, self.resume_info = self.checkpoint.resume(self.state, self.tp)
         self.writer.write(f"checkpoint: {self.resume_info}")
@@ -197,11 +234,30 @@ class BaseTrainer:
         self.snapshot_interval = int(self.tp.get("snapshot_interval", 1000))
         self.evaluator = build_evaluator(self.tp.get("evaluator", None))
 
+    def _shards(self):
+        """The ``fsdp`` split of the masters and the optimizer state, from
+        ``param_sharding_rules`` (the JAX package's defaults without them);
+        ``None`` without an ``fsdp`` axis above 1."""
+        rules = self.tp.get("param_sharding_rules", None)
+        rules = [tuple(r) for r in rules] if rules else None
+        fsdp = self.mesh.shape["fsdp"]
+        module = self.shell.module
+        dims = partitioning.shard_dims(flax_paths(module),
+                                       {n: p.shape for n, p in module.named_parameters()},
+                                       fsdp, rules)
+        if fsdp <= 1:
+            return None
+        group = self.mesh.fsdp_group("cuda" if coll.backend() == "nccl" else "cpu")
+        return Shards(dims, group, fsdp, coll.group_rank(group))
+
     def compile_steps(self) -> None:
         """The train step (``make_train_step``) and the eval step: the loss
         and the outputs without gradients."""
         shell = self.shell
-        self._train_step = make_train_step(shell, self.tx, self._moco_m)
+        remat = self.tp.get("remat_policy", "none")
+        remat_kw = {"remat": remat} if remat_context(remat) is not None else {}
+        self._train_step = make_train_step(shell, self.tx, self._moco_m, **remat_kw)
+        self.steps_per_dispatch = max(1, int(self.tp.get("steps_per_dispatch", 1)))
 
         def eval_step(state: TrainState, batch: Mapping[str, torch.Tensor]):
             with torch.inference_mode():
@@ -236,6 +292,7 @@ class BaseTrainer:
                 if not train_loaders:
                     raise RuntimeError("run_type includes train but no train datasets")
                 batches = (b for b in itertools.chain(*train_loaders) if b.get_batch_size() > 0)
+                window, start, shape, end = self.steps_per_dispatch, iteration, None, ""
                 asked = time.perf_counter()
                 for batch in prefetch_to_device(batches, self._to_device):
                     got = time.perf_counter()
@@ -244,24 +301,32 @@ class BaseTrainer:
                         # counts this batch and names the final snapshot
                         # one step past the state it holds
                         break
+                    if window > 1:
+                        prev, shape = shape, _signature(batch)
+                        if iteration > start and shape != prev:
+                            # a change of shape ends the window, as it
+                            # flushes the JAX loop's stack
+                            end, start = self._end_window(start, iteration, scalars, val_batch,
+                                                          timer), iteration
+                            if end:
+                                break
                     iteration += 1
                     self.timings.setdefault("first_step_start", got)
                     self.state, scalars = self._train_step(self.state, batch)
                     self.timings["loader_wait_s"].append(got - asked)
                     self.timings["step_s"].append(time.perf_counter() - asked)
-                    if self._preempted:
-                        # SIGTERM: persist the state and end; resume continues here
-                        self.checkpoint.save(self.state, iteration)
-                        self.writer.write(f"preemption checkpoint saved @ iter {iteration}; "
-                                          f"exiting", "warning")
-                        return
-                    if iteration % self.log_interval == 0:
-                        self._logistics_log(iteration, scalars, val_batch, timer)
-                    if iteration % self.snapshot_interval == 0:
-                        should_stop = self._try_full_validation(iteration)
-                        if should_stop:
+                    if iteration - start == window or iteration >= self.max_iterations:
+                        end, start = self._end_window(start, iteration, scalars, val_batch,
+                                                      timer), iteration
+                        if end:
                             break
                     asked = time.perf_counter()
+                if not end and iteration > start:
+                    # the epoch's last window, shorter than steps_per_dispatch
+                    end = self._end_window(start, iteration, scalars, val_batch, timer)
+                if end == "exit":
+                    return
+                should_stop = end == "stop"
                 epoch += 1
                 if self.max_epochs is not None and epoch >= int(self.max_epochs):
                     break
@@ -271,6 +336,30 @@ class BaseTrainer:
         finally:
             self._restore_sigterm(old_sigterm)
         self.finalize(iteration)
+
+    def _end_window(self, start: int, iteration: int, scalars, val_batch, timer) -> str:
+        """The end of the window of steps ``start`` + 1 .. ``iteration`` (one
+        step, or up to ``steps_per_dispatch``): after a SIGTERM on any rank
+        the state is saved and the run ends (``"exit"``; resume continues
+        here); the log and the snapshot fire when a step of the window
+        crossed their interval, with the window's last scalars, as in the
+        JAX trainer's windows (``"stop"`` when early stopping ends the
+        run)."""
+        preempted = self._preempted
+        if coll.is_distributed():
+            preempted = bool(coll.all_reduce_max_scalar(float(preempted)))
+        if preempted:
+            self.checkpoint.save(self.state, iteration)
+            self.writer.write(f"preemption checkpoint saved @ iter {iteration}; exiting",
+                              "warning")
+            return "exit"
+        crossed = range(start + 1, iteration + 1)
+        if any(j % self.log_interval == 0 for j in crossed):
+            self._logistics_log(iteration, scalars, val_batch, timer)
+        if any(j % self.snapshot_interval == 0 for j in crossed):
+            if self._try_full_validation(iteration):
+                return "stop"
+        return ""
 
     def _install_preemption_handler(self):
         """SIGTERM → checkpoint and exit at the next step boundary (main
@@ -303,8 +392,11 @@ class BaseTrainer:
 
     @staticmethod
     def _host(scalars: Mapping[str, torch.Tensor]) -> Dict[str, float]:
-        """Device scalars → host floats in one transfer."""
+        """Device scalars → host floats in one transfer; over ranks their
+        mean (a collective: every rank reads the same scalars)."""
         values = torch.stack([v.detach().float().reshape(()) for v in scalars.values()])
+        if coll.is_distributed():
+            coll.all_reduce_(values).div_(coll.get_world_size())
         return dict(zip(scalars, values.tolist()))
 
     def _logistics_log(self, iteration, scalars, val_batch, timer) -> None:
@@ -332,8 +424,8 @@ class BaseTrainer:
         monitored["total_loss"] = (self.meter.meters["train/total_loss"].global_avg
                                    if "train/total_loss" in self.meter.meters
                                    else metrics.get("total_loss", 0.0))
-        stop = self.early_stopping(iteration, monitored)
-        if self.early_stopping.is_best:
+        stop = bool(coll.broadcast_scalar(float(self.early_stopping(iteration, monitored))))
+        if coll.broadcast_scalar(float(self.early_stopping.is_best)):
             self.checkpoint.save_best(self.state)
         self.checkpoint.save(self.state, iteration)
         return stop
@@ -388,7 +480,7 @@ class BaseTrainer:
             monitored = {f"val/{k}": v for k, v in metrics.items()}
             monitored["total_loss"] = metrics.get("total_loss", 0.0)
             self.early_stopping(iteration, monitored)
-            if self.early_stopping.is_best:
+            if coll.broadcast_scalar(float(self.early_stopping.is_best)):
                 self.checkpoint.save_best(self.state)
         self.checkpoint.save(self.state, iteration)
         self.checkpoint.save_final_weights(self.state, self.model_name)

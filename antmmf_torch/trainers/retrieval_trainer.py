@@ -20,7 +20,9 @@ then scores the corpus on the host:
 
 The sequence outputs that stage 2 reads stay on the device; the embeddings
 and WTI components come to the host in fp32. The eval loss is not
-computed here (the JAX trainer's ``evaluate_set`` has none either).
+computed here (the JAX trainer's ``evaluate_set`` has none either). Its
+corpus scoring is not gathered over ranks yet: over several ranks it
+raises (``base_trainer``'s ``global_retrieval_recall`` evaluator is).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 from antmmf_torch.common.registry import registry
 from antmmf_torch.datasets.loader import prefetch_to_device
 from antmmf_torch.modules.metrics.evaluators import _ranks_with_multi_gt, recall_metrics
+from antmmf_torch.parallel import collectives as coll
 from antmmf_torch.trainers.base_trainer import BaseTrainer
 
 WTI_KEYS = ("wti_text_tokens", "wti_text_weights", "wti_video_tokens", "wti_video_weights",
@@ -43,6 +46,9 @@ WTI_KEYS = ("wti_text_tokens", "wti_text_weights", "wti_video_tokens", "wti_vide
 @registry.register_trainer("retrieval_trainer")
 class RetrievalTrainer(BaseTrainer):
     def compile_steps(self) -> None:
+        if coll.get_world_size() > 1:
+            raise NotImplementedError("retrieval_trainer over ranks: its corpus scoring is "
+                                      "not gathered yet")
         super().compile_steps()
         module = self.shell.module
         encode = getattr(module, "encode", None)

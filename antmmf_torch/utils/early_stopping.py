@@ -2,8 +2,8 @@
 
 Port of ``antmmf_tpu/utils/early_stopping.py``: patience in iterations,
 ``val/`` prefixing of the monitored metric, minimize or maximize; ``is_best``
-says whether the last call improved. The port runs one process, so the
-decisions need no broadcast.
+says whether the last call improved. Over ranks the trainer broadcasts
+rank 0's decisions, so no rank leaves the loop alone.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 
 Port of ``antmmf_tpu/utils/logger.py``: ``Logger.write`` at a ``level`` to
 one file per run (named by the config's hash and a timestamp) and to
-stdout, and TensorBoard scalars when ``tensorboardX`` is installed. The
-port runs one process, which is rank 0.
+stdout, and TensorBoard scalars when ``tensorboardX`` is installed. Over
+ranks only rank 0 writes; the other ranks keep errors, on stderr.
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ import os
 import sys
 import time
 from typing import Any, Dict, Optional
+
+from antmmf_torch.parallel import collectives as coll
 
 
 class Logger:
@@ -26,6 +28,12 @@ class Logger:
         fmt = logging.Formatter("%(asctime)s %(levelname)s: %(message)s",
                                 datefmt="%Y-%m-%dT%H:%M:%S")
         save_dir = None
+        if not coll.is_main_process():
+            errors = logging.StreamHandler(sys.stderr)
+            errors.setLevel(logging.ERROR)
+            errors.setFormatter(fmt)
+            self.logger.addHandler(errors)
+            return
         if config is not None:
             tp = config.get("training_parameters", {}) or {}
             save_dir = tp.get("save_dir", "./save")

@@ -365,6 +365,25 @@ non-zero code and no result line:
    micro-batch [4, 32, 640, 128] (causal, right-padded), phase 7 times it
    beside SDPA's backward.
 
+21. ranks: ``antmmf_torch.run`` on ``video_retrieval.yml`` at full width
+   over ranks that ``antmmf_torch.utils.launch`` starts on the one card
+   (gloo; NCCL refuses two ranks on one device) over phase 12's layout with
+   clips of 8 frames, B=32 global: (a) ``mesh {data: 2}`` for 2 steps; (b)
+   ``{fsdp: 2}`` for 2 steps, each rank's optimizer state and masters half
+   of one process's; (c) (a)'s snapshot resumed in one process to step 4
+   beside one process's own snapshot resumed so; (d) the cross-mined
+   variant at 2 ranks for a step (K1 and the flash family under the
+   gathers); (e) world size 1 under NCCL for 2 steps; three launches start
+   together, (a) then (d) in the same two ranks, (b), and (e), each
+   process held to its share of the card. One process runs the same global batches while the
+   ranks run; losses, clip norms and the
+   masters are held to it at the bf16 tolerances ``RANKS_*_RTOL`` name, the
+   launches of every rank's steps to 24 K1 (and 2 of each flash kernel in
+   (d)); each rank writes its counts, which the phase adds up. Every
+   process's peak card memory and host RSS and the least free card and
+   available host memory while the ranks run are printed; a launch that
+   fails prints its whole log, with each rank's state at the failure.
+
 Each path (serving, each training leg, each Pink request, the trainer, the
 pretraining step and trainer, each part of phase 14 but its card-vs-CPU
 comparison, each caption request, bare step and trainer run of phase 15,
@@ -372,7 +391,7 @@ each bare step and trainer run of phase 16, phase 17's trainer runs,
 phase 18's runs and served requests, phase 19's requests, each engine
 pass of phases 11b and 19, each pink_eval run and predictor request of
 phase 11c, phase 19's int4 requests, phase 20's warm-up updates and its
-chunked-loss update)
+chunked-loss update, phase 21's ranks)
 runs
 with the kernels' launch counts set to 0 just before it and read just after;
 launches made to compare a kernel with its plain version or to time it are
@@ -388,9 +407,12 @@ import contextlib
 import copy
 import gc
 import io
+import itertools
 import json
 import os
+import resource
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -3554,7 +3576,7 @@ FIRST_LOSS_ATOL = 1e-3  # trainer vs bare step when cuBLAS picks another algorit
 INIT_ON_DEVICE = ["training_parameters.init_on_device", "true"]
 
 
-def write_msrvtt_layout(root: str, seed: int) -> int:
+def write_msrvtt_layout(root: str, seed: int, frames: int = TRAINER_CLIP_FRAMES) -> int:
     """A seeded synthetic dataset in the MSR-VTT layout of ``TRAINER_CONFIG``:
     ``videos/data.mdb``, an LMDB (the port's ``LmdbLiteWriter``) of 64 clips
     of 12 uint8 frames at 240×320 (a seeded image per clip plus seeded
@@ -3565,7 +3587,7 @@ def write_msrvtt_layout(root: str, seed: int) -> int:
     writer = LmdbLiteWriter(os.path.join(root, "videos") + os.sep)
     for i in range(TRAINER_CLIPS):
         base = rng.integers(0, 256, (1, *TRAINER_HW, 3), dtype=np.int16)
-        noise = rng.integers(-24, 25, (TRAINER_CLIP_FRAMES, *TRAINER_HW, 3), dtype=np.int16)
+        noise = rng.integers(-24, 25, (frames, *TRAINER_HW, 3), dtype=np.int16)
         buf = io.BytesIO()
         np.save(buf, np.clip(base + noise, 0, 255).astype(np.uint8))
         writer.put(f"video{i}", buf.getvalue())
@@ -7675,6 +7697,488 @@ SOURCES = {
 }
 
 
+# ----------------------------------------------------------------- phase 21
+RANKS_STEPS, RANKS_RESUMED_STEPS, RANKS_CROSS_STEPS, RANKS_NCCL_STEPS = 2, 4, 1, 2
+# clips of 8 frames: the train sampler's 8 bins then hold one frame each, so
+# every process loads the same frames for a clip whatever order it reads in
+RANKS_FRAMES = 8
+CROSS_OPTS = ["model_attributes.univl_retrieval.with_cross_encoder", "true",
+              "model_attributes.univl_retrieval.cross_layers", str(CROSS["cross_layers"]),
+              "model_attributes.univl_retrieval.hard_mining_k", str(CROSS["hard_mining_k"])]
+# bf16 compute over local batches of 16 against one batch of 32 (other
+# matmul shapes, other roundings): each step's loss within RANKS_LOSS_RTOL
+# of one process's and its clip norm within RANKS_NORM_RTOL, the masters'
+# distance from one process's within RANKS_UPDATE_RTOL of the length of its
+# update from the init (a gradient off by the world size doubles the norm;
+# AdamW itself does not see a scale). H100 readings: over 4 steps losses
+# within 9.8e-4, norms 8.3e-3, masters 0.062-0.067 of the update; over the
+# 2 steps run here 9.7e-5, 1.1e-3 and 0.054-0.063
+RANKS_LOSS_RTOL, RANKS_NORM_RTOL, RANKS_UPDATE_RTOL = 5e-3, 3e-2, 0.25
+# GB of the card each process of a launch may hold, and this process while
+# it runs the references (``set_per_process_memory_fraction``): 2 x 12 +
+# 2 x 7 + 12 + 18 = 68 GB of the H100's 85, about 71 with the six CUDA
+# contexts. H100 readings (700 W) with each run a launch of its own, all at
+# once, no share and the default allocator: peak reserved (allocated) a
+# rank (a) 8.3 (7.8), (b) 5.9 (4.8), (d) 11.2-15.9 (8.4), (e) 10.7 (9.1),
+# the references 16.3 reserved, and the card's free memory fell to 1.4 GB
+RANKS_CARD_GB = {"ad": 12.0, "b": 7.0, "e": 12.0, "references": 18.0}
+
+
+class RanksProbe:
+    """Each train step's local loss, clip norm and seconds, and the kernels
+    it launched, from ``BaseTrainer.compile_steps``; with ``keep_init`` the
+    whole masters before the first step; each full validation's metrics."""
+
+    def __init__(self, keep_init: bool = False):
+        self.losses, self.norms, self.seconds, self.launches = [], [], [], []
+        self.keep_init, self.init, self.vals = keep_init, None, []
+
+    def install(self):
+        probe, real = self, BaseTrainer.compile_steps
+
+        def compile_steps(trainer):
+            real(trainer)
+            step, evaluate = trainer._train_step, trainer.evaluate_set
+
+            def train_step(state, batch):
+                if probe.keep_init and probe.init is None:
+                    probe.init = {n: t.detach().cpu().clone()
+                                  for n, t in state.gathered(state.params).items()}
+                before = read_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, scalars = step(state, batch)
+                probe.losses.append(float(scalars["total_loss"]))
+                probe.norms.append(float(scalars["grad_norm"]))
+                probe.seconds.append(time.perf_counter() - t0)
+                after = read_counts()
+                probe.launches.append({k: after[k] - before[k] for k in after})
+                return state, scalars
+
+            def evaluate_set(dataset_type="val"):
+                probe.vals.append(evaluate(dataset_type))
+                return probe.vals[-1]
+
+            trainer._train_step, trainer.evaluate_set = train_step, evaluate_set
+
+        BaseTrainer.compile_steps = compile_steps
+        return lambda: setattr(BaseTrainer, "compile_steps", real)
+
+
+class MemoryWatch:
+    """Between ``start`` and ``stop``, a thread reads every ``every`` seconds the card's
+    free memory (``mem_get_info``: what every process on the card left) and
+    the host's available memory (the cgroup's limit less its use where the
+    cgroup has a limit, else ``MemAvailable``), and keeps the least of
+    each, in GB."""
+
+    def __init__(self, every: float = 0.2):
+        self.every, self.card_free_min_gb, self.host_available_min_gb = every, None, None
+        self._stop = None
+
+    @staticmethod
+    def host_available() -> float:
+        try:
+            with open("/sys/fs/cgroup/memory.max") as f:
+                limit = f.read().strip()
+            if limit != "max":
+                with open("/sys/fs/cgroup/memory.current") as f:
+                    return (int(limit) - int(f.read())) / 1e9
+        except OSError:
+            pass
+        with open("/proc/meminfo") as f:
+            return next(int(line.split()[1]) for line in f
+                        if line.startswith("MemAvailable")) * 1024 / 1e9
+
+    def _run(self):
+        while not self._stop.is_set():
+            card = torch.cuda.mem_get_info()[0] / 1e9
+            host = self.host_available()
+            self.card_free_min_gb = min(card, self.card_free_min_gb or card)
+            self.host_available_min_gb = min(host, self.host_available_min_gb or host)
+            self._stop.wait(self.every)
+
+    def start(self) -> None:
+        import threading
+
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        if self._stop is not None:
+            self._stop.set()
+            self._thread.join()
+
+
+def recall_keys(metrics: dict) -> dict:
+    return {k: v for k, v in metrics.items() if "-r@" in k or k in ("mean_recall", "total_loss")}
+
+
+def ranks_argv(root: str, name: str, steps: int, *extra: str) -> list:
+    tp = "training_parameters"
+    return trainer_argv(root, f"{tp}.save_dir", os.path.join(root, name),
+                        f"{tp}.max_iterations", str(steps), f"{tp}.log_interval", "100",
+                        f"{tp}.snapshot_interval", "100", f"{tp}.run_type", "train",
+                        f"{tp}.max_ckpt_num", "2", *INIT_ON_DEVICE, *extra)
+
+
+def rank_main(spec_path: str) -> None:
+    """One rank of phase 21 (``chip_smoke.py --rank <spec>``, started by
+    ``antmmf_torch.utils.launch``): ``antmmf_torch.run.main`` on each of the
+    spec's argvs in turn, holding at most the spec's share of the card;
+    each rank writes what it saw to ``<out>/<name>_rank<r>.json`` as each
+    run ends."""
+    from antmmf_torch.parallel import collectives as coll
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.cuda.set_per_process_memory_fraction(
+        spec["card_gb"] * 1e9 / torch.cuda.get_device_properties(0).total_memory)
+    for name, argv in spec["runs"]:
+        probe = RanksProbe()
+        uninstall = probe.install()
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            trainer = run.main(argv)
+        finally:
+            uninstall()
+        state = trainer.state
+        run_s = time.perf_counter() - t0
+        load_s = trainer.timings["first_step_start"] - t0
+        out = dict(losses=probe.losses, norms=probe.norms, seconds=probe.seconds,
+                   run_s=run_s, load_s=load_s,
+                   finalize_s=run_s - load_s - trainer.timings["loop_s"],
+                   launches=probe.launches, counts=read_counts(),
+                   backend=coll.backend(), world=coll.get_world_size(),
+                   optimizer_state_bytes=state.optimizer_state_bytes(),
+                   master_bytes=state.master_bytes(),
+                   sharded=0 if state.shards is None else len(state.shards.dims),
+                   val=recall_keys(probe.vals[-1]),
+                   peak_card_gb=torch.cuda.max_memory_reserved() / 1e9,
+                   peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   host_rss_peak_gb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6)
+        path = os.path.join(spec["out"], f"{name}_rank{coll.get_rank()}.json")
+        with open(f"{path}.tmp", "w") as f:
+            json.dump(out, f)
+        os.replace(f"{path}.tmp", path)  # whole when the phase sees it
+        del trainer, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def free_ports(n: int) -> list:
+    """n distinct free ports on localhost: each launch its own rendezvous."""
+    import socket
+
+    socks = [socket.socket(socket.AF_INET, socket.SOCK_STREAM) for _ in range(n)]
+    try:
+        for sock in socks:
+            sock.bind(("127.0.0.1", 0))
+        return [sock.getsockname()[1] for sock in socks]
+    finally:
+        for sock in socks:
+            sock.close()
+
+
+class RankLaunch:
+    """``python -m antmmf_torch.utils.launch`` of ``nproc`` ranks of
+    ``rank_main`` on ``runs`` (one after another in the same processes),
+    each rank held to ``card_gb`` of the card, in a session of its own so
+    that ``stop`` ends the launcher and its ranks together. ``results``
+    gives every rank's results of a run once they are written, ``wait``
+    those of every run at the end; a rank that fails fails the phase, and
+    the launch's whole log goes to stderr."""
+
+    def __init__(self, root: str, tag: str, nproc: int, runs: list, port: int, card_gb: float):
+        self.tag, self.nproc, self.runs = tag, nproc, runs
+        self.out = os.path.join(root, f"out_{tag}")
+        os.makedirs(self.out)
+        spec = os.path.join(root, f"spec_{tag}.json")
+        with open(spec, "w") as f:
+            json.dump({"runs": runs, "out": self.out, "card_gb": card_gb}, f)
+        self.log = open(os.path.join(root, f"launch_{tag}.log"), "w")
+        # two intra-op threads a rank: several launches share the host's
+        # cores; expandable segments keep a rank's reserved memory near what
+        # it allocates, within its share
+        env = {**os.environ, "OMP_NUM_THREADS": "2",
+               "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "antmmf_torch.utils.launch", "--nproc_per_node", str(nproc),
+             "--master_port", str(port), os.path.abspath(__file__), "--rank", spec],
+            stdout=self.log, stderr=subprocess.STDOUT, start_new_session=True, env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+
+    def _paths(self, name: str) -> list:
+        return [os.path.join(self.out, f"{name}_rank{r}.json") for r in range(self.nproc)]
+
+    def results(self, name: str) -> list:
+        paths = self._paths(name)
+        while not all(os.path.exists(p) for p in paths):
+            if self.proc.poll() is not None:
+                return self.wait()[name]
+            time.sleep(0.2)
+        return [json.load(open(p)) for p in paths]
+
+    def wait(self) -> dict:
+        try:
+            code = self.proc.wait(timeout=900)
+        finally:
+            self.stop()
+            self.log.close()
+        if code != 0:
+            # the whole log of the launch: every rank's error and the
+            # launcher's line with each rank's state
+            with open(self.log.name) as f:
+                text = f.read()
+            sys.stderr.write(f"--- launch {self.tag} ---\n{text}--- end of launch {self.tag} ---\n")
+            raise AssertionError(f"ranks {self.tag}: the launch of {self.nproc} exited with "
+                                 f"{code}:\n" + "\n".join(text.splitlines()[-30:]))
+        return {name: [json.load(open(p)) for p in self._paths(name)] for name, _ in self.runs}
+
+
+def final_masters(save_dir: str, paths: dict) -> dict:
+    """A run's ``univl_retrieval_final`` by parameter name."""
+    params = torch.load(os.path.join(save_dir, "univl_retrieval_final"), map_location="cpu",
+                        weights_only=True, mmap=True)["params"]
+    return {n: params[p] for n, p in paths.items()}
+
+
+def update_distance(got: dict, ref: dict, init: dict) -> float:
+    """‖got − ref‖ / ‖ref − init‖ over every master (host tensors), each
+    tensor's terms on the card."""
+    num = den = 0.0
+    for n in ref:
+        g, r, i = (x[n].to("cuda", torch.float32) for x in (got, ref, init))
+        num += float((g - r).pow(2).sum())
+        den += float((r - i).pow(2).sum())
+    return (num / den) ** 0.5
+
+
+def reference_trainer(argv: list):
+    """One process on the same config and data: the trainer loaded as
+    ``antmmf_torch.run`` loads it, and the seconds that took."""
+    t0 = time.perf_counter()
+    args = get_parser().parse_args(argv)
+    trainer = build_trainer(build_config(args.config, args.config_override,
+                                         [o for o in args.opts if o != "--"], args))
+    trainer.load()
+    return trainer, time.perf_counter() - t0
+
+
+def reference_steps(trainer, steps: int, resume_file: str = "", save_at: int = 0,
+                    keep=()) -> dict:
+    """The reference trainer's train step driven over its own loader (the
+    epoch's order, from the state's step on) up to ``steps``, without the
+    validations and saves of ``train``, after restoring ``resume_file``
+    when given: each step's loss and clip norm, the masters (on the card)
+    at the steps in ``keep`` (0: before the first step) and at the end, and
+    a snapshot at step ``save_at``."""
+    t0 = time.perf_counter()
+    if resume_file:
+        trainer.state, _ = trainer.checkpoint.restore_state(trainer.state, resume_file)
+    state = trainer.state
+    masters, losses, norms = {}, [], []
+    trainer.task_loader.seed_sampler("train", 0)
+    # the masters kept go to the host: the ranks share this card
+    host = lambda: {n: t.to("cpu", copy=True) for n, t in state.params.items()}  # noqa: E731
+    for batch in itertools.chain(*trainer.task_loader.get_loaders("train")):
+        if state.step in keep:
+            masters[state.step] = host()
+        if state.step >= steps:
+            break
+        state, scalars = trainer._train_step(state, trainer._to_device(batch))
+        losses.append(float(scalars["total_loss"]))
+        norms.append(float(scalars["grad_norm"]))
+        if state.step == save_at:
+            trainer.checkpoint.save(state, save_at)
+    trainer.state = state
+    masters["last"] = masters.get(state.step) or host()
+    masters[state.step] = masters["last"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, norms=norms, masters=masters, steps_s=time.perf_counter() - t0,
+                optimizer_state_bytes=state.optimizer_state_bytes(),
+                master_bytes=state.master_bytes(), paths=weights.flax_paths(state.model))
+
+
+def phase_ranks(gpu: str) -> dict:
+    """``antmmf_torch.run`` on ``TRAINER_CONFIG`` at full width over ranks
+    that ``antmmf_torch.utils.launch`` starts on the one card (gloo: NCCL
+    refuses two ranks on one device), over phase 12's dataset layout with
+    clips of 8 frames, written under ``build/`` and deleted at the end:
+    (a) ``mesh {data: 2}``, 2 ranks, B=32 global, 2 steps; (b) the same
+    under ``{fsdp: 2}``, each rank's optimizer state and masters beside one
+    process's, and its peak card memory beside (a)'s and (e)'s; (c) (a)'s
+    snapshot resumed in one process to step 4, beside one process's own
+    snapshot resumed so; (d) the cross-mined variant at 2 ranks for a step
+    (K1 and the flash family under the gathers); (e) world size 1 under
+    NCCL for 2 steps. Three launches start together: (a) then (d) in the
+    same two ranks, (b), and (e), while this process runs the same global
+    batches: 2 steps, resumed to 4, and the cross-mined step; each process
+    holds at most its share of the card (``RANKS_CARD_GB``). Each
+    rank writes its own launch counts; the phase adds them up. Every
+    process's peak card memory and host RSS, the least free card memory
+    and the least available host memory while the ranks run are printed.
+    Ranks that share one card beside other runs measure nothing of speed
+    across cards: their step times are printed as read."""
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="ranks_smoke_", dir=build)
+    # the ranks allocate on the card this process shares with them
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    watch = MemoryWatch()
+    rank_launches = {}
+    try:
+        write_msrvtt_layout(root, SEED, RANKS_FRAMES)
+        watch.start()
+        data2 = ["training_parameters.mesh.data", "2"]
+        fsdp2 = ["training_parameters.mesh.data", "1", "training_parameters.mesh.fsdp", "2"]
+        t0 = time.perf_counter()
+
+        def named(name, steps, *opts):
+            return (name, ranks_argv(root, name, steps, *opts))
+
+        # three launches start together beside this process's references:
+        # (a) then (d) in the same two ranks, (b), (e); each process holds at
+        # most its share of the card (``RANKS_CARD_GB``)
+        plan = (("ad", 2, [named("a", RANKS_STEPS, *data2),
+                           named("d", RANKS_CROSS_STEPS, *data2, *CROSS_OPTS)]),
+                ("b", 2, [named("b", RANKS_STEPS, *fsdp2)]),
+                ("e", 1, [named("e", RANKS_NCCL_STEPS)]))
+        for (tag, nproc, runs), port in zip(plan, free_ports(len(plan))):
+            rank_launches[tag] = RankLaunch(root, tag, nproc, runs, port, RANKS_CARD_GB[tag])
+        torch.cuda.set_per_process_memory_fraction(
+            RANKS_CARD_GB["references"] * 1e9 / torch.cuda.get_device_properties(0).total_memory)
+
+        # a resume starts the epochs again: (a)'s snapshot and one process's,
+        # each resumed in one process, see the same batches
+        t1 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        one, load_s = reference_trainer(ranks_argv(root, "ref", RANKS_STEPS, *data2))
+        ref = reference_steps(one, RANKS_STEPS, save_at=RANKS_STEPS, keep=(0, RANKS_STEPS))
+        snapshot = lambda name: os.path.join(root, name, "models",  # noqa: E731
+                                             f"model_{RANKS_STEPS}")
+        ref_c = reference_steps(one, RANKS_RESUMED_STEPS, resume_file=snapshot("ref"))
+        cross, cross_load_s = reference_trainer(ranks_argv(root, "cross_ref", RANKS_CROSS_STEPS,
+                                                           *data2, *CROSS_OPTS))
+        cross_ref = reference_steps(cross, RANKS_CROSS_STEPS)
+        del cross
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks = {"a": rank_launches["ad"].results("a")}
+        resumed = reference_steps(one, RANKS_RESUMED_STEPS, resume_file=snapshot("a"))
+        del one
+        references_s = time.perf_counter() - t1
+        references_peak_gb = torch.cuda.max_memory_reserved() / 1e9
+        for launch in rank_launches.values():
+            ranks.update(launch.wait())
+        ranks_s = time.perf_counter() - t0
+        watch.stop()
+        launches = {k: sum(r["counts"][k] for runs in ranks.values() for r in runs)
+                    for k in read_counts()}
+
+        def global_losses(runs):
+            return [float(np.mean([r["losses"][i] for r in runs]))
+                    for i in range(len(runs[0]["losses"]))]
+
+        def rel(got, want):
+            return float(np.max(np.abs(np.asarray(got) - np.asarray(want))
+                                / np.abs(np.asarray(want))))
+
+        readings = {}
+        for name, runs, want in (("a_data_2", ranks["a"], ref), ("b_fsdp_2", ranks["b"], ref),
+                                 ("d_cross_data_2", ranks["d"], cross_ref),
+                                 ("e_nccl_world_1", ranks["e"], ref)):
+            got, n = global_losses(runs), len(runs[0]["losses"])
+            readings[name] = dict(
+                backend=runs[0]["backend"], world=runs[0]["world"], losses=got,
+                one_process_losses=want["losses"][:n], loss_rel=rel(got, want["losses"][:n]),
+                norms=runs[0]["norms"], one_process_norms=want["norms"][:n],
+                norm_rel=rel(runs[0]["norms"], want["norms"][:n]),
+                step_ms=[[t * 1e3 for t in r["seconds"]] for r in runs],
+                run_s=[r["run_s"] for r in runs], load_s=[r["load_s"] for r in runs],
+                finalize_s=[r["finalize_s"] for r in runs],
+                peak_card_gb=[r["peak_card_gb"] for r in runs],
+                peak_allocated_gb=[r["peak_allocated_gb"] for r in runs],
+                host_rss_peak_gb=[r["host_rss_peak_gb"] for r in runs],
+                launches_per_step=runs[0]["launches"][0], val=runs[0]["val"])
+        paths = ref["paths"]
+        for name, save in (("a_data_2", "a"), ("b_fsdp_2", "b")):
+            readings[name]["update_rel"] = update_distance(
+                final_masters(os.path.join(root, save), paths), ref["masters"][RANKS_STEPS],
+                ref["masters"][0])
+        readings["b_fsdp_2"]["state_bytes"] = dict(
+            ranks=[(r["optimizer_state_bytes"], r["master_bytes"]) for r in ranks["b"]],
+            one_process=(ref["optimizer_state_bytes"], ref["master_bytes"]),
+            sharded_tensors=ranks["b"][0]["sharded"])
+        readings["c_resumed_one_process"] = dict(
+            losses=resumed["losses"], one_process_losses=ref_c["losses"],
+            loss_rel=rel(resumed["losses"], ref_c["losses"]),
+            update_rel=update_distance(resumed["masters"]["last"], ref_c["masters"]["last"],
+                                       ref["masters"][0]))
+        steps_s = {n: r["steps_s"] for n, r in (
+            ("ref", ref), ("ref_c", ref_c), ("cross_ref", cross_ref), ("c", resumed))}
+        steps_s.update(load_s=load_s, cross_load_s=cross_load_s)
+        del ref, ref_c, cross_ref, resumed
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        for launch in rank_launches.values():
+            launch.stop()
+        watch.stop()
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        shutil.rmtree(root, ignore_errors=True)
+
+    memory = dict(card_total_gb=torch.cuda.get_device_properties(0).total_memory / 1e9,
+                  card_free_min_gb=watch.card_free_min_gb,
+                  host_available_min_gb=watch.host_available_min_gb,
+                  this_process_held_gb=held_gb, references_peak_card_gb=references_peak_gb,
+                  this_process_host_rss_peak_gb=resource.getrusage(
+                      resource.RUSAGE_SELF).ru_maxrss / 1e6)
+    emit(phase="ranks", config=TRAINER_CONFIG, batch=TRAINER_BATCH, gpu=gpu,
+         ranks_s=ranks_s, references_s=references_s, reference_steps_s=steps_s,
+         memory=memory, readings=readings, launches=launches,
+         note="two ranks share one card beside the one-process references: their step "
+              "times say nothing of speed across cards")
+    for name, r in readings.items():
+        check(r["loss_rel"] <= RANKS_LOSS_RTOL and all(np.isfinite(r["losses"])),
+              f"ranks {name}: losses {r['losses']} against one process's "
+              f"{r['one_process_losses']}")
+        if "norm_rel" in r:
+            check(r["norm_rel"] <= RANKS_NORM_RTOL,
+                  f"ranks {name}: clip norms {r['norms']} against {r['one_process_norms']}")
+        if "update_rel" in r:
+            check(r["update_rel"] <= RANKS_UPDATE_RTOL,
+                  f"ranks {name}: masters {r['update_rel']:.3g} of the update from one "
+                  f"process's")
+    check(readings["a_data_2"]["backend"] == "gloo" and readings["e_nccl_world_1"]["backend"]
+          == "nccl", "ranks: backends " + str({k: r.get("backend") for k, r in readings.items()}))
+    one_opt, one_masters = readings["b_fsdp_2"]["state_bytes"]["one_process"]
+    for opt, masters in readings["b_fsdp_2"]["state_bytes"]["ranks"]:
+        check(0.5 <= opt / one_opt < 0.52 and 0.5 <= masters / one_masters < 0.52,
+              f"ranks b: a rank holds {opt} of {one_opt} optimizer bytes, {masters} of "
+              f"{one_masters} master bytes")
+    for name in ("a_data_2", "b_fsdp_2", "e_nccl_world_1"):
+        check(readings[name]["launches_per_step"] == TRAINER_LAUNCHES,
+              f"ranks {name}: a step launched {readings[name]['launches_per_step']}")
+    check(readings["d_cross_data_2"]["launches_per_step"] == STEP_LAUNCHES["cross_mined"],
+          f"ranks d: a step launched {readings['d_cross_data_2']['launches_per_step']}")
+    check(all(launches[k] > 0 for k in ("small_attention", "flash_fwd", "flash_dq",
+                                        "flash_dkv")) and launches["int4_gemv"] == 0,
+          f"ranks: the phase launched {launches}")
+    return launches
+
+
 def main() -> None:
     clock = [("start", time.perf_counter())]  # (phase, when it ended)
 
@@ -7741,7 +8245,8 @@ def main() -> None:
                         ("14_retrieval_variants", phase_retrieval_variants),
                         ("15_task_heads", phase_task_heads), ("16_roi", phase_roi),
                         ("17_pink_train", phase_pink_train), ("18_pink_7b", phase_pink_7b),
-                        ("19_m2_omni", phase_m2_omni), ("20_m2_train", phase_m2_train)):
+                        ("19_m2_omni", phase_m2_omni), ("20_m2_train", phase_m2_train),
+                        ("21_ranks", phase_ranks)):
         for name, n in phase(gpu).items():
             launches[name] += n
         done(part)
@@ -7770,6 +8275,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--calibrate"] and set(sys.argv[2:]) <= set(CALIBRATIONS):
         for part in sys.argv[2:] or CALIBRATIONS:
             CALIBRATIONS[part]()
+    elif sys.argv[1:2] == ["--rank"] and len(sys.argv) == 3:
+        rank_main(sys.argv[2])
     elif sys.argv[1:]:
         sys.exit(f"usage: python3 chip_smoke.py [--calibrate [{'|'.join(CALIBRATIONS)} ...]]")
     else:

@@ -6,10 +6,11 @@
 * without it the trainer asks for the card, and on a machine without CUDA
   that raises before any data is read: it never becomes a CPU run;
 * knobs of paths that are not ported raise with the key's name:
-  ``steps_per_dispatch`` 2, ``sequence_parallel`` beside a (ported)
-  nonzero ``dropout``, a world size of 2,
-  Pink's ``sequence_parallel`` beside ``scan_layers`` and beside
-  ``visual_tower: eva`` with the (ported) ``kv_int8``;
+  ``sequence_parallel`` beside a (ported) nonzero ``dropout``, Pink's
+  ``sequence_parallel`` beside ``scan_layers`` and beside
+  ``visual_tower: eva`` with the (ported) ``kv_int8``; those ported since
+  (``steps_per_dispatch`` 2, ``remat_policy``, ``num_nodes`` 2, which one
+  process ignores as the JAX trainer does) train the fixture;
 * the retrieval variants run to the end on the CPU: the MoCo config
   (``video_retrieval_moco.local.yml``), DMAE through ``retrieval_trainer``
   (``dmae_vtp/configs/msrvtt_retrieval.local.yml``), ``loss_type``
@@ -70,14 +71,12 @@ def test_default_device_is_the_card(tmp_path, device):
 
 
 @pytest.mark.parametrize("config,extra,key", [
-    (CFG, ("training_parameters.steps_per_dispatch", "2"),
-     "training_parameters.steps_per_dispatch"),
-    (CFG, ("training_parameters.remat_policy", "dots_saveable"),
-     "training_parameters.remat_policy"),
+    (CFG, ("training_parameters.steps_per_dispatch", "2"), None),
+    (CFG, ("training_parameters.remat_policy", "dots_saveable"), None),
     (CFG, ("model_attributes.univl_retrieval.dropout", "0.1",
            "model_attributes.univl_retrieval.sequence_parallel", "ulysses"),
      "sequence parallelism"),
-    (CFG, ("training_parameters.num_nodes", "2"), "world size 2"),
+    (CFG, ("training_parameters.num_nodes", "2"), None),
     (PINK, ("model_attributes.pink.scan_layers", "true",
             "model_attributes.pink.sequence_parallel", "ring"), "sequence_parallel"),
     (PINK, ("model_attributes.pink.visual_tower", "eva",
@@ -86,8 +85,12 @@ def test_default_device_is_the_card(tmp_path, device):
 ], ids=["steps_per_dispatch", "remat_policy", "dropout", "num_nodes", "pink_scan_layers",
         "pink_eva"])
 def test_unported_knobs_raise(tmp_path, config, extra, key):
+    argv = _argv(tmp_path, config, "training_parameters.device", "cpu", *extra)
+    if key is None:  # ported: the knob trains
+        assert run.main(argv).state.step == 2
+        return
     with pytest.raises(NotImplementedError, match=key):
-        run.main(_argv(tmp_path, config, "training_parameters.device", "cpu", *extra))
+        run.main(argv)
 
 
 VARIANTS = {
@@ -128,8 +131,11 @@ def test_retrieval_variants_ask_for_the_card(tmp_path, name):
 
 
 def test_world_size_from_the_environment_raises(tmp_path, monkeypatch):
+    """A world size in the environment without the launcher's rendezvous
+    (``antmmf_torch.utils.launch``) never becomes a run of one process."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="world size 2"):
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    with pytest.raises(RuntimeError, match="world size 2"):
         run.main(_argv(tmp_path, CFG, "training_parameters.device", "cpu"))
 
 
