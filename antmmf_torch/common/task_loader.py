@@ -6,7 +6,9 @@ Port of ``antmmf_tpu/common/task_loader.py``: one task per entry of
 train, ``pad_last`` for eval), the train sampler from
 ``training_parameters.sampler`` and a sequential one for eval, and
 ``seed_sampler`` to reseed an epoch. Over several ranks (the process
-group's world) each rank loads ``batch_size / world`` samples, through the
+group's world) each rank loads ``batch_size / world`` samples (``batch_size
+/ (world / seq)`` under a registered mesh with a ``seq`` axis, whose ranks
+of a line read the rows of their data coordinate), through the
 ``distributed_sampler`` (``training_parameters.distributed_sampler``, a
 shuffled one for train, an ordered one for eval), and the last eval batch
 is wrapped to full size; in one process the loader yields the whole global
@@ -23,6 +25,7 @@ from antmmf_torch.datasets.base_dataset import BaseIterableDataset
 from antmmf_torch.datasets.loader import DataLoader
 from antmmf_torch.datasets.samplers import build_sampler
 from antmmf_torch.parallel import collectives as coll
+from antmmf_torch.parallel.mesh import active_mesh, data_parallel_size
 
 
 class TaskLoader:
@@ -46,10 +49,15 @@ class TaskLoader:
     def make_dataloaders(self) -> None:
         global_bs = int(self.tp.get("batch_size", 8))
         test_bs = int(self.tp.get("test_batch_size") or global_bs)
-        nproc = coll.get_world_size()
+        # the ranks of a ``seq`` line load the same rows: the batch is split
+        # over the (data, fsdp) ranks alone
+        mesh = active_mesh()
+        nproc = coll.get_world_size() if mesh is None or mesh.collapsed \
+            else data_parallel_size(mesh)
         for bs, name in ((global_bs, "batch_size"), (test_bs, "test_batch_size")):
             if bs % nproc:
-                raise ValueError(f"{name}={bs} must be divisible by process count {nproc}")
+                raise ValueError(f"{name}={bs} must be divisible by the data-parallel "
+                                 f"process count {nproc}")
         num_workers = int(self.tp.get("num_workers", 0))
         for dataset_type, tasks in self.tasks.items():
             self.loaders[dataset_type] = []
@@ -71,7 +79,13 @@ class TaskLoader:
         if coll.get_world_size() > 1:
             cfg = dict(self.tp.get("distributed_sampler", {"type": "distributed_sampler"}))
             cfg.setdefault("type", "distributed_sampler")
-            return build_sampler(cfg, dataset, shuffle=(dataset_type == "train"))
+            extra = {}
+            mesh = active_mesh()
+            if mesh is not None and mesh.shape["seq"] > 1:
+                # a rank reads the rows of its data coordinate, not of its rank
+                extra = dict(num_replicas=data_parallel_size(mesh),
+                             rank=mesh.batch_index(coll.get_rank()))
+            return build_sampler(cfg, dataset, shuffle=(dataset_type == "train"), **extra)
         if dataset_type == "train":
             return build_sampler(self.tp.get("sampler", {"type": "random_sampler"}), dataset)
         return build_sampler({"type": "sequential_sampler"}, dataset)

@@ -50,9 +50,15 @@ The conv tower's ``proj`` reads fbank frames of ``AUDIO_FEATURES`` (80
 mels × LFR 7 = 560, the audio processor's), which flax infers from the
 first batch and the port builds with. ``max_vision_tokens`` is accepted
 and unused, as in JAX.
-Beams, sampling, speculative decoding, ``sequence_parallel`` and the
-predictor's ``decode_quant`` (``DECODE_QUANT`` is empty) raise
-until they are ported.
+``sequence_parallel`` (``ring`` or ``ulysses``) shards the decoder's stream
+over a registered mesh's ``seq`` axis (``modules/llm.py``): the spliced
+embeddings, the 3D positions and the shifted labels are made on the whole
+sequence, every rank of a ``seq`` line running the frozen towers as JAX
+does, then the decoder pads the stream to a multiple of the axis size and
+each rank keeps its slice to the loss. Over ranks (``seq``, ``data`` or
+both) the LM loss is the global token mean (``modules.llm.token_mean``):
+each rank's sums of masked NLL, hits and valid labels, all-reduced before
+the division. ``global_batch_over_ranks`` says so to the trainer.
 """
 
 from __future__ import annotations
@@ -70,11 +76,12 @@ from torch.utils.checkpoint import checkpoint
 from antmmf_torch.common.registry import registry
 from antmmf_torch.models.pink import LM_PRESETS
 from antmmf_torch.modules.encoders.sanm_audio import build_sanm_encoder, compress_audio_tokens
-from antmmf_torch.modules.llm import DecoderLM
+from antmmf_torch.modules.llm import DecoderLM, token_mean
 from antmmf_torch.modules.qdense import QuantDense
 from antmmf_torch.modules.transformers.base import TransformerEncoder
 from antmmf_torch.modules.vision.qwen2_vit import build_qwen2_vit
 from antmmf_torch.modules.vision.vit import PRESETS as VIT_PRESETS, VisionTransformer
+from antmmf_torch.parallel import collectives as coll
 from antmmf_torch.utils.speculative import speculative_greedy
 from antmmf_torch.utils.text_utils import beam_search_cached, nucleus_sampling_cached
 
@@ -165,6 +172,7 @@ def _gather_tokens(tokens: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 @registry.register_model("m2_omni")
 class M2Omni(nn.Module):
     DECODE_QUANT = ("int4", "int8")  # the predictor's decode_quant modes this model serves
+    global_batch_over_ranks = True  # the LM loss is the global token mean over ranks
 
     def __init__(self, lm_preset: str = "omni_1b", visual_tower: str = "vit",
                  vit_preset: str = "vit_base_patch32", qwen2_preset: str = "qwen2_vit",
@@ -179,9 +187,6 @@ class M2Omni(nn.Module):
                  rope_3d: bool = True, dtype_str: str = "bfloat16", kv_int8: bool = False,
                  device=None):
         super().__init__()
-        if sequence_parallel != "none":
-            raise NotImplementedError(f"m2_omni sequence_parallel={sequence_parallel!r} is not "
-                                      f"ported yet; only 'none' is")
         self.kv_int8 = bool(kv_int8)
         if llm_lora_targets not in ("qv", "all"):
             raise ValueError(f"llm_lora_targets must be 'qv' or 'all', got {llm_lora_targets!r}")
@@ -200,7 +205,8 @@ class M2Omni(nn.Module):
             self.hidden, p["num_layers"], p["num_heads"], p["num_kv_heads"],
             lora_rank=llm_lora_rank,
             lora_targets=("q", "k", "v", "o") if all_tgt else ("q", "v"), lora_mlp=all_tgt,
-            remat=remat, scan_layers=scan_layers, rope_3d=rope_3d, **kw)
+            remat=remat, scan_layers=scan_layers, rope_3d=rope_3d,
+            sequence_parallel=sequence_parallel, **kw)
         if visual_tower == "qwen2":
             self.vision_tower = build_qwen2_vit(qwen2_preset, image_size=image_size,
                                                 lora_rank=vit_lora_rank, remat=remat, **kw)
@@ -436,7 +442,13 @@ class M2Omni(nn.Module):
         V] logits and log-softmax are recomputed in the backward and never
         saved: forward and backward hold O(B·chunk·V), as JAX's
         ``jax.checkpoint`` of each slice does."""
-        h, y = hidden[:, :-1], labels[:, 1:]
+        nll, hits, count = self._chunked_stats(hidden[:, :-1], labels[:, 1:], chunk)
+        denom = torch.as_tensor(count).clamp(min=1)
+        return {"losses": {"lm_loss": nll / denom}, "metrics": {"lm_acc": hits / denom}}
+
+    def _chunked_stats(self, h: torch.Tensor, y: torch.Tensor, chunk: int = 2048):
+        """``_slice_stats`` summed over ``chunk``-position slices of (h, y),
+        each slice checkpointed when gradients are on."""
         run = self._slice_stats
         if torch.is_grad_enabled():
             run = functools.partial(checkpoint, self._slice_stats, use_reentrant=False)
@@ -444,8 +456,22 @@ class M2Omni(nn.Module):
         for s in range(0, h.shape[1], chunk):
             stats = run(h[:, s:s + chunk], y[:, s:s + chunk])
             nll, hits, count = nll + stats[0], hits + stats[1], count + stats[2]
-        denom = torch.as_tensor(count).clamp(min=1)
-        return {"losses": {"lm_loss": nll / denom}, "metrics": {"lm_acc": hits / denom}}
+        return nll, hits, count
+
+    def _global_lm_loss(self, hidden: torch.Tensor, labels: torch.Tensor, offset: int,
+                        group) -> Dict[str, Any]:
+        """The LM loss over ranks: the labels shifted on the whole sequence
+        (position ``offset`` + t predicts ``labels[:, t + 1]``, every other
+        position ignored), sharded as the decoder's stream when ``group`` is
+        given, the sums over this rank's positions reduced by ``token_mean``."""
+        y = labels.new_full((labels.shape[0], offset + labels.shape[1]), -100)
+        y[:, offset:offset + labels.shape[1] - 1] = labels[:, 1:]
+        if group is not None:
+            y = self.decoder.shard_stream(y, group, -100)
+        else:
+            hidden, y = hidden[:, offset:], y[:, offset:]
+        loss, acc = token_mean(*self._chunked_stats(hidden, y))
+        return {"losses": {"lm_loss": loss}, "metrics": {"lm_acc": acc}}
 
     def _slice_stats(self, h: torch.Tensor, y: torch.Tensor):
         """(masked nll sum, hits, count) of one slice of positions."""
@@ -459,19 +485,27 @@ class M2Omni(nn.Module):
     def forward(self, batch: Mapping[str, torch.Tensor],
                 deterministic: bool = True) -> Dict[str, Any]:
         """``logits`` fp32 (over the text positions in the prefix layout),
-        ``hidden``, and with ``labels`` the loss and accuracy."""
+        ``hidden``, and with ``labels`` the loss and accuracy. Over ranks
+        with ``labels``: ``hidden`` (this rank's slice of the stream under
+        ``sequence_parallel``) and the global loss and accuracy."""
         input_ids = batch["input_ids"]
         text_mask = batch.get("input_mask")
         text_mask = torch.ones_like(input_ids) if text_mask is None else text_mask
         labels = batch.get("labels")
         if self.spliced:
             embeds, positions, _ = self._assemble_spliced(batch, input_ids)
-            hidden = self.decoder(embeds, positions, text_mask.long())
-            if labels is not None and (hidden.shape[1] - 1) * self.vocab_size > 2 ** 28:
-                return {"hidden": hidden, **self._lm_loss_chunked(hidden, labels)}
+            mask = text_mask.long()
         else:
             embeds, positions, mask = self._assemble_prefix(batch, input_ids, text_mask)
-            hidden = self.decoder(embeds, positions, mask)[:, -input_ids.shape[1]:]
+        hidden = self.decoder(embeds, positions, mask)
+        group = self.decoder.seq_group()
+        if labels is not None and (group is not None or coll.is_distributed()):
+            offset = embeds.shape[1] - input_ids.shape[1]
+            return {"hidden": hidden, **self._global_lm_loss(hidden, labels, offset, group)}
+        if not self.spliced:
+            hidden = hidden[:, -input_ids.shape[1]:]
+        elif labels is not None and (hidden.shape[1] - 1) * self.vocab_size > 2 ** 28:
+            return {"hidden": hidden, **self._lm_loss_chunked(hidden, labels)}
         logits = self.lm_head(hidden).float()
         return {"logits": logits, "hidden": hidden, **self._lm_loss(logits, labels)}
 

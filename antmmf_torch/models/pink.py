@@ -38,8 +38,15 @@ anchor the cached path is held to. ``prefill_chunked`` runs the prompt
 ``prefill`` (its last chunk is cut short where JAX pads it, so no write
 reaches past the prompt).
 
+``sequence_parallel`` (``ring`` or ``ulysses``) shards the decoder's stream
+[vision; text] over a registered mesh's ``seq`` axis (``modules/llm.py``);
+the labels are shifted on the whole stream, then sharded as it is. Over
+ranks the LM loss is the global token mean (``modules.llm.token_mean``),
+and ``logits`` are over this rank's positions (its slice of the whole
+stream under ``sequence_parallel``).
+
 ``LM_PRESETS`` is the port's copy of ``antmmf_tpu/models/m2_omni.py``'s
-table. Sequence parallelism raises until it is ported.
+table.
 """
 
 from __future__ import annotations
@@ -54,11 +61,12 @@ from torch import nn
 
 from antmmf_torch.common.build import overlay_opts
 from antmmf_torch.common.registry import registry
-from antmmf_torch.modules.llm import DecoderLM
+from antmmf_torch.modules.llm import DecoderLM, token_mean
 from antmmf_torch.modules.lora import LoRADense
 from antmmf_torch.modules.qdense import QuantDense
 from antmmf_torch.modules.vision.eva_vit import EVA_PRESETS, EvaVisionTransformer
 from antmmf_torch.modules.vision.vit import PRESETS as VIT_PRESETS, VisionTransformer
+from antmmf_torch.parallel import collectives as coll
 from antmmf_torch.utils.speculative import speculative_greedy
 from antmmf_torch.utils.text_utils import beam_search_cached, nucleus_sampling_cached
 
@@ -102,6 +110,7 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 @registry.register_model("pink")
 class PinkModel(nn.Module):
     DECODE_QUANT = ("int4", "int8")  # the predictor's decode_quant modes this model serves
+    global_batch_over_ranks = True  # the LM loss is the global token mean over ranks
 
     def __init__(self, lm_preset: str = "omni_1b", visual_tower: str = "vit",
                  vit_preset: str = "vit_base_patch32", eva_preset: str = "eva_vit_g",
@@ -113,9 +122,6 @@ class PinkModel(nn.Module):
                  sequence_parallel: str = "none", kv_int8: bool = False,
                  vocab_override: int = 0, device=None):
         super().__init__()
-        if sequence_parallel != "none":
-            raise NotImplementedError(f"sequence_parallel={sequence_parallel!r} is not ported "
-                                      f"yet; only 'none' is")
         self.kv_int8 = bool(kv_int8)
         if adapter_style not in ("lora", "pink"):
             raise ValueError(f"adapter_style must be 'lora' or 'pink', got {adapter_style!r}")
@@ -133,7 +139,7 @@ class PinkModel(nn.Module):
             lora_rank=0 if pink_style else (lora_rank if lora_decoder else 0),
             lora_freeze_base=lora_freeze_base, adapter_dim=adapter_dim if pink_style else 0,
             adapter_mlp=adapter_mlp, adapter_non_linear=adapter_non_linear, remat=remat,
-            scan_layers=scan_layers, **kw)
+            scan_layers=scan_layers, sequence_parallel=sequence_parallel, **kw)
         if visual_tower == "eva":
             eva_kw = EVA_PRESETS[eva_preset]
             self.num_patches = (image_size // eva_kw["patch_size"]) ** 2
@@ -212,13 +218,32 @@ class PinkModel(nn.Module):
         ``labels`` int[B, Lt] the LM loss. Pink draws nothing in training,
         so ``deterministic`` (the shell's training switch) changes nothing."""
         B, Lt = batch["input_ids"].shape
-        embeds, full_mask, _ = self._assemble(batch)
+        embeds, full_mask, Lv = self._assemble(batch)
         positions = self._positions(B, embeds.shape[1], embeds.device)
         hidden = self.decoder(embeds, positions, full_mask)
-        out = {"logits": self._head(hidden[:, -Lt:])}
         labels = batch.get("labels")
-        if labels is not None:
+        group = self.decoder.seq_group()
+        if group is None:
+            hidden = hidden[:, -Lt:]
+        out = {"logits": self._head(hidden)}
+        if labels is None:
+            return out
+        if group is None and not coll.is_distributed():
             out["losses"] = {"lm_loss": lm_loss(out["logits"], labels)}
+            return out
+        # over ranks: text position t predicts labels[:, t + 1], shifted on
+        # the whole stream before the decoder's sharding
+        y = labels.new_full((B, Lt), -100)
+        y[:, :-1] = labels[:, 1:]
+        if group is not None:
+            y = self.decoder.shard_stream(torch.cat([y.new_full((B, Lv), -100), y], 1), group,
+                                          -100)
+        logits = out["logits"]
+        nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), y.reshape(-1).long(),
+                              ignore_index=-100, reduction="sum")
+        valid = y >= 0
+        hits = (valid & (logits.argmax(-1) == y)).sum()
+        out["losses"] = {"lm_loss": token_mean(nll, hits, valid.sum())[0]}
         return out
 
     # ------------------------------------------------------- cached decoding

@@ -15,7 +15,9 @@ replace the L1 loss; ``with_queue`` replaces it with MoCo InfoNCE against
 text and video queues held in buffers (``moco.MocoQueue``). ``dropout``
 reaches the ViT, BERT and the cross-encoder as in JAX; a training forward
 (``deterministic=False``) draws its masks from the ``generator`` it is
-given (``layers.draws``). Sequence parallelism raises until it is ported.
+given (``layers.draws``). ``sequence_parallel`` (``ring`` or ``ulysses``)
+reaches the ViT's attention and the cross-encoder's (their pair stream),
+as in JAX; it engages under a registered mesh with a ``seq`` axis above 1.
 ``univl_auto`` dispatches on ``training_stage`` to the family's models.
 
 Over ranks (``parallel.collectives``) the retrieval model computes the
@@ -75,7 +77,8 @@ class UnivlVideoBase(nn.Module):
                  token_merge_r: int = 0, with_cross_encoder: bool = False,
                  cross_layers: int = 2, dtype=torch.bfloat16, device=None,
                  cross_sim_head: bool = True, with_text: bool = True,
-                 with_visual: bool = True, dropout: float = 0.0):
+                 with_visual: bool = True, dropout: float = 0.0,
+                 sequence_parallel: str = "none"):
         super().__init__()
         self.n_clips = n_clips
         vit_kw = VIT_PRESETS[vit_preset]
@@ -86,7 +89,7 @@ class UnivlVideoBase(nn.Module):
             self.img_encoder = VisionTransformer(image_size=image_size,
                                                  token_merge_r=token_merge_r,
                                                  dtype=dtype, device=device, dropout=dropout,
-                                                 **vit_kw)
+                                                 sequence_parallel=sequence_parallel, **vit_kw)
         bert_kw = BERT_PRESETS[bert_preset]
         kw = dict(dtype=dtype, device=device)
         text_hidden, self.visual_hidden = bert_kw["hidden_size"], vit_kw["embed_dim"]
@@ -106,7 +109,8 @@ class UnivlVideoBase(nn.Module):
             self.cross_type_embed = nn.Embedding(2, width, **kw)
             self.cross_encoder = TransformerEncoder(
                 width, cross_layers, max(1, width // 64), norm_style="post",
-                final_norm=False, dtype=dtype, device=device, dropout=dropout)
+                final_norm=False, dtype=dtype, device=device, dropout=dropout,
+                sequence_parallel=sequence_parallel)
             self.cross_pooler = nn.Linear(width, width, **kw)
             if cross_sim_head:
                 # the trained L2 match score, computed in fp32 (flax creates
@@ -233,8 +237,6 @@ class UnivlForVideoTextRetrieval(nn.Module):
                  training_head_only: bool = False, sequence_parallel: str = "none",
                  encoder_lr_decay: float = 1.0, device=None):
         super().__init__()
-        if sequence_parallel != "none":
-            raise NotImplementedError("sequence parallelism is not ported yet")
         if loss_type not in ("cross_en", "mil_nce", "neg_nce"):
             raise ValueError(f"loss_type {loss_type!r}: cross_en, mil_nce or neg_nce")
         self.dtype = getattr(torch, dtype_str)
@@ -246,7 +248,8 @@ class UnivlForVideoTextRetrieval(nn.Module):
         self.training_head_only = training_head_only
         self.base = UnivlVideoBase(vit_preset, image_size, bert_preset, embed_dim, n_clips,
                                    token_merge_r, with_cross_encoder, cross_layers,
-                                   self.dtype, device, dropout=dropout)
+                                   self.dtype, device, dropout=dropout,
+                                   sequence_parallel=sequence_parallel)
         self.logit_scale = nn.Parameter(
             torch.tensor(init_logit_scale, dtype=torch.float32, device=device))
         if with_queue:
@@ -374,7 +377,7 @@ class UnivlForVideoTextRetrieval(nn.Module):
         vis_all = coll.gather_with_grad(vis_seq)
         vis_mask_all = coll.all_gather(vis_mask)
         G = vis_all.shape[0]
-        row0 = coll.get_rank() * B
+        row0 = coll.batch_index() * B
         rows = torch.arange(B, device=sim.device) + row0
         k = min(self.hard_mining_k, G) if self.hard_mining_k > 0 else 0
         if not deterministic and k > 1:

@@ -26,8 +26,16 @@ module takes its XLA core for them: the kernels return no probabilities.
 Both kernel ops are autograd Functions. On the CPU they compute their plain
 versions; on the card a call the router gave a kernel that the kernel
 refuses (a dtype it does not take, a launch that fails) raises and never
-falls back to the einsum core. Sequence parallelism, the fused QKV
-projection and ``sow_attention`` are not ported.
+falls back to the einsum core.
+
+``sequence_parallel`` (``ring`` or ``ulysses``) engages where the JAX
+module's does: self-attention with a key-padding bias or none, under a
+registered mesh whose ``seq`` axis is above 1 (``parallel.mesh``). The
+stream stays whole outside attention, as JAX's layout leaves an encoder:
+``parallel.long_context.sp_attention`` takes this rank's slice, runs the
+exchange or the ring (Ulysses' local attention through ``attention_core``
+above), and gathers the output. Elsewhere the knob changes nothing. The
+fused QKV projection and ``sow_attention`` are not ported.
 """
 
 from __future__ import annotations
@@ -40,6 +48,8 @@ from torch import nn
 from antmmf_torch.modules.layers import Dropout
 from antmmf_torch.ops.flash_attention import flash_attention
 from antmmf_torch.ops.small_attention import HEAD_DIMS, MAX_L, einsum_attention, small_attention
+from antmmf_torch.parallel.long_context import check_mode, sp_attention
+from antmmf_torch.parallel.mesh import active_seq_group
 
 MASKED = -1e30  # the JAX package's additive mask for causal and decode-cache slots
 
@@ -98,11 +108,12 @@ class MultiHeadAttention(nn.Module):
     scope."""
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.bfloat16, device=None,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, sequence_parallel: str = "none"):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"width {dim} is not divisible by {num_heads} heads")
         self.num_heads = num_heads
+        self.sequence_parallel = check_mode(sequence_parallel)
         kw = dict(dtype=dtype, device=device)
         self.q_proj = nn.Linear(dim, dim, **kw)
         self.k_proj = nn.Linear(dim, dim, **kw)
@@ -149,4 +160,9 @@ class MultiHeadAttention(nn.Module):
             probs = attention_probs(q, k, bias)
             out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
             return self._out(self.dropout(out)), probs
+        group = active_seq_group() if self.sequence_parallel != "none" else None
+        key_only = bias is None or (bias.dim() == 4 and bias.shape[1] == bias.shape[2] == 1)
+        if group is not None and kv is x and key_only:
+            out = sp_attention(self.sequence_parallel, q, k, v, group, bias=bias)
+            return self._out(self.dropout(out))
         return self._out(self.dropout(attention_core(q, k, v, bias=bias)))

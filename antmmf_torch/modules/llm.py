@@ -57,8 +57,20 @@ one max-abs/127 scale a (row, head, slot) (``quantize_kv``). Prefill writes
 the quantised chunk and attends over its unquantised k/v, as JAX's does;
 decode reads the int8 rows and folds the scales in JAX's order: the logits
 times ``k_scale`` before the 1/√D, the probabilities (in the compute dtype)
-times ``v_scale`` (``int8_scale_rows``). Sequence parallelism is not
-ported.
+times ``v_scale`` (``int8_scale_rows``).
+
+``sequence_parallel`` (``ring`` or ``ulysses``) engages on the cache-free
+forward under a registered mesh whose ``seq`` axis is above 1
+(``parallel.mesh.active_seq_group``); elsewhere it changes nothing, and
+decode with a cache stays data-parallel, as in JAX. ``DecoderLM`` then
+pads the stream to a multiple of the axis size P (masked keys) and holds
+its carry sharded, [B, L/P, C] a rank, from the first layer to the final
+norm (JAX's ``shard_batch_dim(carry, seq=True)``); only attention mixes
+positions. ``GQAttention`` runs the ring on its kv heads, or Ulysses after
+expanding K/V locally, both causal (``parallel.long_context``). The caller
+shards its labels with ``shard_stream`` and reduces its loss with
+``token_mean``: the sums of the masked NLL and of the valid count over
+every rank, then one division.
 """
 
 from __future__ import annotations
@@ -72,6 +84,10 @@ from torch import nn
 from antmmf_torch.modules.layers import checkpointed, normal_
 from antmmf_torch.modules.qdense import QuantDense
 from antmmf_torch.ops.flash_attention import flash_attention
+from antmmf_torch.parallel import collectives as coll
+from antmmf_torch.parallel.long_context import (check_mode, pad_shard, ring_attention,
+                                                ulysses_attention)
+from antmmf_torch.parallel.mesh import active_seq_group
 
 MASKED = -1e30  # additive bias of a masked key, the JAX package's value
 
@@ -188,6 +204,21 @@ def apply_rope_cs(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torc
     return (xf * cos + _rotate_half(xf) * sin).to(x.dtype)
 
 
+def token_mean(nll_sum: torch.Tensor, hits: torch.Tensor, count: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the LM loss, its accuracy) from this rank's sums of masked NLL, of
+    argmax hits and of valid labels: over ranks each sum is all-reduced
+    over every rank (``data`` × ``seq``) before the division, the NLL's
+    with gradients (``collectives.all_reduce_sum``), so the loss is the
+    global batch's token mean. The count is at least 1."""
+    if coll.is_distributed():
+        nll_sum = coll.all_reduce_sum(nll_sum)
+        hits = coll.all_reduce_(torch.as_tensor(hits).detach().clone())
+        count = coll.all_reduce_(torch.as_tensor(count).detach().clone())
+    denom = torch.as_tensor(count).clamp(min=1)
+    return nll_sum / denom, hits / denom
+
+
 def lora_delta(out: torch.Tensor, x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                scaling: float) -> torch.Tensor:
     """``out + (x · a · b) · scaling``, the delta in fp32, cast to out's dtype."""
@@ -205,8 +236,9 @@ class GQAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, num_kv_heads: Optional[int] = None,
                  rope_theta: float = 10000.0, lora_rank: int = 0, lora_alpha: float = 16.0,
                  lora_freeze_base: bool = True, dtype=torch.bfloat16, device=None,
-                 lora_targets: Sequence[str] = ("q", "v")):
+                 lora_targets: Sequence[str] = ("q", "v"), sequence_parallel: str = "none"):
         super().__init__()
+        self.sequence_parallel = check_mode(sequence_parallel)
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads or num_heads
         self.head_dim = dim // num_heads
@@ -257,6 +289,18 @@ class GQAttention(nn.Module):
         if rope_cs is None:  # standalone use; DecoderLM hoists the tables
             rope_cs = rope_cos_sin(positions, D, self.rope_theta)
         q, k = apply_rope_cs(q, *rope_cs), apply_rope_cs(k, *rope_cs)
+
+        group = active_seq_group() if cache is None and self.sequence_parallel != "none" \
+            else None
+        if group is not None:  # x is this rank's slice of the stream
+            if self.sequence_parallel == "ulysses":
+                rep = H // n_kv
+                out = ulysses_attention(q, k.repeat_interleave(rep, dim=1),
+                                        v.repeat_interleave(rep, dim=1), group, bias=bias,
+                                        causal=True)
+            else:  # the ring rotates K/V at the kv-head count
+                out = ring_attention(q, k, v, group, bias=bias, causal=True)
+            return self._project("o", out.transpose(1, 2).reshape(B, L, H * D))
 
         quant = cache is not None and "k_scale" in cache
         if decode_pos is None:
@@ -359,7 +403,7 @@ class DecoderLayer(nn.Module):
                  lora_alpha: float = 16.0, lora_freeze_base: bool = True,
                  dtype=torch.bfloat16, device=None, lora_targets: Sequence[str] = ("q", "v"),
                  lora_mlp: bool = False, adapter_dim: int = 0, adapter_mlp: bool = False,
-                 adapter_non_linear: bool = False):
+                 adapter_non_linear: bool = False, sequence_parallel: str = "none"):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.input_norm = RMSNorm(dim, **kw)
@@ -367,7 +411,7 @@ class DecoderLayer(nn.Module):
                              if adapter_dim else None)
         self.attention = GQAttention(dim, num_heads, num_kv_heads, rope_theta, lora_rank,
                                      lora_alpha, lora_freeze_base, lora_targets=lora_targets,
-                                     **kw)
+                                     sequence_parallel=sequence_parallel, **kw)
         self.post_attn_norm = RMSNorm(dim, **kw)
         self.adapter_mlp_layer = (SerialAdapter(dim, adapter_dim, adapter_non_linear, **kw)
                                   if adapter_dim and adapter_mlp else None)
@@ -392,8 +436,8 @@ class DecoderLayer(nn.Module):
 class DecoderLM(nn.Module):
     """Causal decoder over embedded inputs [B, L, hidden] (the caller embeds
     tokens, so multimodal prefixes can be spliced in); layers ``layer_{i}``
-    and ``final_norm``. ``rope_3d``, ``remat`` and ``scan_layers`` as the
-    module docstring says."""
+    and ``final_norm``. ``rope_3d``, ``remat``, ``scan_layers`` and
+    ``sequence_parallel`` as the module docstring says."""
 
     def __init__(self, hidden: int, num_layers: int, num_heads: int,
                  num_kv_heads: Optional[int] = None, mlp_ratio: float = 2.6875,
@@ -402,9 +446,11 @@ class DecoderLM(nn.Module):
                  lora_targets: Sequence[str] = ("q", "v"), lora_mlp: bool = False,
                  adapter_dim: int = 0, adapter_mlp: bool = False,
                  adapter_non_linear: bool = False, remat: bool = False,
-                 scan_layers: bool = False, rope_3d: bool = False):
+                 scan_layers: bool = False, rope_3d: bool = False,
+                 sequence_parallel: str = "none"):
         super().__init__()
         self.rope_3d = rope_3d
+        self.sequence_parallel = check_mode(sequence_parallel)
         self.num_layers, self.num_heads = num_layers, num_heads
         self.num_kv_heads = num_kv_heads or num_heads
         self.head_dim = hidden // num_heads
@@ -415,17 +461,26 @@ class DecoderLM(nn.Module):
             self.add_module(f"layer_{i}", DecoderLayer(
                 hidden, num_heads, num_kv_heads, mlp_ratio, rope_theta, lora_rank, lora_alpha,
                 lora_freeze_base, dtype, device, lora_targets, lora_mlp, adapter_dim,
-                adapter_mlp, adapter_non_linear))
+                adapter_mlp, adapter_non_linear, sequence_parallel))
         self.final_norm = RMSNorm(hidden, dtype=dtype, device=device)
 
     def forward(self, embeds: torch.Tensor, positions: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
                 cache: Optional[List[Dict[str, torch.Tensor]]] = None,
                 decode_pos: Optional[torch.Tensor] = None):
-        """Without ``cache``: the causal forward (returns hidden). With
-        ``cache``: ``(hidden, cache)``, prefill when ``decode_pos`` is None,
-        an L-token decode chunk at cache slot ``decode_pos`` otherwise; the
-        rotary positions are ``positions`` in every mode."""
+        """Without ``cache``: the causal forward (returns hidden; this rank's
+        slice of the padded stream when ``seq_group`` gives a group, see
+        ``shard_stream``). With ``cache``: ``(hidden, cache)``, prefill when
+        ``decode_pos`` is None, an L-token decode chunk at cache slot
+        ``decode_pos`` otherwise; the rotary positions are ``positions`` in
+        every mode."""
+        group = self.seq_group() if cache is None else None
+        if group is not None:
+            if attention_mask is None:
+                attention_mask = torch.ones(embeds.shape[:2], dtype=torch.long,
+                                            device=embeds.device)
+            embeds, positions, attention_mask = (
+                pad_shard(t, group, 1, 0) for t in (embeds, positions, attention_mask))
         bias = None
         if decode_pos is None and attention_mask is not None:
             bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0, MASKED).float()
@@ -442,6 +497,18 @@ class DecoderLM(nn.Module):
                 x = layer(x, positions, bias, rope_cs=rope_cs)
         x = self.final_norm(x)
         return x if cache is None else (x, cache)
+
+    def seq_group(self):
+        """The ``seq`` group the cache-free forward shards its stream over,
+        or ``None`` (no knob, or no registered mesh with ``seq`` > 1)."""
+        return active_seq_group() if self.sequence_parallel != "none" else None
+
+    @staticmethod
+    def shard_stream(x: torch.Tensor, group, value=0) -> torch.Tensor:
+        """This rank's slice of a whole-stream tensor [B, L, ...] (labels,
+        say) as the forward shards its stream: padded along L with ``value``
+        to a multiple of the axis size, then sliced."""
+        return pad_shard(x, group, 1, value)
 
     def make_cache(self, batch: int, max_len: int, dtype=None, device=None,
                    quantized: bool = False):

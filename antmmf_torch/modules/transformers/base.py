@@ -14,8 +14,10 @@ activations; ``drop_path`` drops each residual branch per sample
 (``layers.DropPath``), at ``drop_path · i / max(1, n − 1)`` in layer i, or
 at ``drop_path`` in every layer with ``scan_layers`` (the JAX package scans
 one layer body, so its rate is uniform). ``scan_layers`` sets only that
-rate here: the port keeps per-layer modules and names. Pipelining is a
-scale-out lever of the JAX package and is not ported.
+rate here: the port keeps per-layer modules and names.
+``sequence_parallel`` reaches every layer's attention
+(``MultiHeadAttention``). Pipelining is a scale-out lever of the JAX
+package and is not ported.
 """
 
 from __future__ import annotations
@@ -34,12 +36,13 @@ class TransformerLayer(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  activation: str = "gelu", norm_style: str = "pre",
                  layer_norm_eps: float = 1e-5, dtype=torch.bfloat16, device=None, *,
-                 dropout: float = 0.0, drop_path: float = 0.0):
+                 dropout: float = 0.0, drop_path: float = 0.0, sequence_parallel: str = "none"):
         super().__init__()
         if norm_style not in ("pre", "post"):
             raise ValueError(f"norm_style must be 'pre' or 'post', got {norm_style!r}")
         self.norm_style = norm_style
-        self.attention = MultiHeadAttention(dim, num_heads, dtype, device, dropout)
+        self.attention = MultiHeadAttention(dim, num_heads, dtype, device, dropout,
+                                            sequence_parallel)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), activation, dtype, device, dropout)
         self.norm1 = LayerNorm(dim, layer_norm_eps, dtype, device)
         self.norm2 = LayerNorm(dim, layer_norm_eps, dtype, device)
@@ -80,7 +83,8 @@ class TransformerEncoder(nn.Module):
                  norm_style: str = "pre", layer_norm_eps: float = 1e-5,
                  token_merge_r: int = 0, final_norm: bool = True, remat: bool = False,
                  dtype=torch.bfloat16, device=None, *, dropout: float = 0.0,
-                 drop_path: float = 0.0, scan_layers: bool = False):
+                 drop_path: float = 0.0, scan_layers: bool = False,
+                 sequence_parallel: str = "none"):
         super().__init__()
         self.num_layers, self.remat = num_layers, remat
         self.token_merge_r = token_merge_r
@@ -88,7 +92,8 @@ class TransformerEncoder(nn.Module):
             rate = drop_path if scan_layers else drop_path * i / max(1, num_layers - 1)
             self.add_module(f"layer_{i}", TransformerLayer(
                 dim, num_heads, mlp_ratio, activation, norm_style, layer_norm_eps,
-                dtype, device, dropout=dropout, drop_path=rate))
+                dtype, device, dropout=dropout, drop_path=rate,
+                sequence_parallel=sequence_parallel))
         self.final_norm = (LayerNorm(dim, layer_norm_eps, dtype, device)
                            if final_norm and norm_style == "pre" else None)
 

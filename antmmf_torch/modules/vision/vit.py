@@ -6,7 +6,8 @@ Port of ``antmmf_tpu/modules/vision/vit.py``: NHWC images → patch embeddings
 ``clip_select_layer``) is built with fewer layers and no final norm;
 ``remat`` recomputes its layers in the backward. ``dropout`` drops after
 the embeddings and inside the stack, ``drop_path`` ramps over the layers
-(uniform with ``scan_layers``; ``TransformerEncoder``). The JAX module's
+(uniform with ``scan_layers``; ``TransformerEncoder``);
+``sequence_parallel`` reaches its attention. The JAX module's
 output projection and activation switch are not ported.
 """
 
@@ -34,7 +35,8 @@ class VisionTransformer(nn.Module):
                  embed_dim: int = 768, num_layers: int = 12, num_heads: int = 12,
                  token_merge_r: int = 0, final_norm: bool = True, remat: bool = False,
                  dtype=torch.bfloat16, device=None, dropout: float = 0.0,
-                 drop_path: float = 0.0, scan_layers: bool = False):
+                 drop_path: float = 0.0, scan_layers: bool = False,
+                 sequence_parallel: str = "none"):
         super().__init__()
         self.embeddings = VisualEmbeddings(image_size, patch_size, embed_dim, dtype, device,
                                            dropout)
@@ -42,7 +44,7 @@ class VisionTransformer(nn.Module):
         self.encoder = TransformerEncoder(
             embed_dim, num_layers, num_heads, 4.0, "quick_gelu", "pre", 1e-5,
             token_merge_r, final_norm, remat, dtype=dtype, device=device, dropout=dropout,
-            drop_path=drop_path, scan_layers=scan_layers)
+            drop_path=drop_path, scan_layers=scan_layers, sequence_parallel=sequence_parallel)
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """images float[B, H, W, 3] → dict(sequence [B, N, C], pooled [B, C])."""

@@ -20,9 +20,7 @@ DDP mode), and the same surface maps onto ``torch.distributed``:
 The backend is chosen from the world, never from a config key: NCCL when
 each rank of a node has a card of its own, gloo on the CPU and when ranks
 share a card (NCCL refuses two ranks on one device). gloo carries a CUDA
-tensor through a host copy. ``all_to_all``, ``ppermute`` and
-``axis_index`` belong to the model, expert and sequence axes, not ported
-yet. Outside a process group every function is the identity of one
+tensor through a host copy. Outside a process group every function is the identity of one
 process.
 """
 
@@ -35,7 +33,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-_STATE: dict = {"backend": None, "host_group": None}
+_STATE: dict = {"backend": None, "host_group": None, "batch_group": None, "batch_index": 0}
 
 
 def init_distributed(device: str = "cpu") -> Optional[str]:
@@ -141,6 +139,20 @@ def rank_seed(seed: int, rank: int) -> int:
     return int(np.random.SeedSequence([int(seed), int(rank)]).generate_state(1)[0])
 
 
+def set_batch_group(group, index: int) -> None:
+    """The ranks the batch collectives run over (those with this rank's
+    ``seq`` coordinate) and this rank's index among them; ``None`` for the
+    world."""
+    _STATE["batch_group"], _STATE["batch_index"] = group, int(index)
+
+
+def batch_index() -> int:
+    """This rank's slice of the global batch (its rank without a ``seq`` axis)."""
+    if not is_distributed():
+        return 0
+    return _STATE["batch_index"] if _STATE["batch_group"] is not None else get_rank()
+
+
 # ------------------------------------------------------------------ in step
 
 
@@ -193,38 +205,155 @@ def gather_to(t: torch.Tensor, dst: int, group=None) -> Optional[List[torch.Tens
 
 
 def all_gather(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """Every rank's ``x`` concatenated along ``dim`` in rank order (tiled),
-    without gradients."""
+    """Every batch rank's ``x`` concatenated along ``dim`` in rank order
+    (tiled), without gradients."""
     if not is_distributed():
         return x.detach()
-    return torch.cat(gather_list(x), dim=dim)
+    return torch.cat(gather_list(x, _STATE["batch_group"]), dim=dim)
 
 
 class _GatherWithGrad(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
-        ctx.rows = x.shape[0]
-        return torch.cat(gather_list(x), dim=0)
+    """All-gather along ``dim`` over ``group``; the backward is the
+    reduce-scatter (the sum over the group of this rank's slice's cotangent)."""
 
     @staticmethod
-    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
-        # reduce-scatter: the sum over ranks of this rank's rows' cotangent
-        grad = all_reduce_(grad.contiguous().clone())
-        start = get_rank() * ctx.rows
-        return grad[start:start + ctx.rows]
+    def forward(ctx, x: torch.Tensor, group, index: int, dim: int) -> torch.Tensor:
+        ctx.group, ctx.index, ctx.dim, ctx.size = group, index, dim, x.shape[dim]
+        return torch.cat(gather_list(x, group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = all_reduce_(grad.contiguous().clone(), group=ctx.group)
+        return grad.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, None, None
 
 
 def gather_with_grad(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's rows of ``x`` (the same count on every rank),
+    """Every batch rank's rows of ``x`` (the same count on every rank),
     concatenated in rank order along dim 0, with gradients: the backward
     gives each rank the sum over ranks of its rows' cotangent."""
     if not is_distributed():
         return x
-    return _GatherWithGrad.apply(x)
+    return _GatherWithGrad.apply(x, _STATE["batch_group"], batch_index(), 0)
+
+
+# ------------------------------------------------------------ the seq axis
+def axis_index(group) -> int:
+    """This rank's coordinate on the axis of ``group`` (``lax.axis_index``)."""
+    return group_rank(group)
+
+
+def axis_size(group) -> int:
+    return dist.get_world_size(group) if is_distributed() else 1
+
+
+def all_gather_seq(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The group's slices of ``x`` concatenated along ``dim`` in axis order,
+    with gradients (backward: the reduce-scatter, the transpose)."""
+    return _GatherWithGrad.apply(x, group, axis_index(group), dim)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return all_reduce_(x.detach().clone(), group=group)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return all_reduce_(grad.contiguous().clone(), group=ctx.group), None
+
+
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum over ``group`` (the world) of ``x``, with gradients: the
+    backward sums the cotangent over the group, the transpose (``psum``)."""
+    if not is_distributed():
+        return x
+    return _AllReduceSum.apply(x, group)
+
+
+def _exchange(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """``lax.all_to_all(tiled=True)``: chunk j of ``x`` along ``split_dim``
+    goes to rank j of the group; the chunks received are concatenated along
+    ``concat_dim`` in the senders' order."""
+    n = dist.get_world_size(group)
+    send = torch.stack([c.contiguous() for c in x.chunk(n, split_dim)])
+    if _staged(send):
+        host = send.cpu()
+        recv = torch.empty_like(host)
+        dist.all_to_all_single(recv, host, group=group)
+        recv = recv.to(x.device)
+    else:
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group)
+    return torch.cat(list(recv.unbind(0)), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch.Tensor:
+        ctx.group, ctx.dims = group, (split_dim, concat_dim)
+        return _exchange(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        split_dim, concat_dim = ctx.dims
+        return _exchange(grad, ctx.group, concat_dim, split_dim), None, None, None
+
+
+def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """The tiled all-to-all over ``group``; its backward is the reverse
+    exchange. ``x.shape[split_dim]`` must divide by the group's size."""
+    if axis_size(group) == 1:
+        return x
+    return _AllToAll.apply(x, group, split_dim, concat_dim)
+
+
+def _shift(tensors: Sequence[torch.Tensor], group, shift: int) -> List[torch.Tensor]:
+    """Each tensor sent to the rank ``shift`` places on along the group's
+    ring and received from the one ``shift`` places back."""
+    n, me = dist.get_world_size(group), axis_index(group)
+    dst = dist.get_global_rank(group, (me + shift) % n)
+    src = dist.get_global_rank(group, (me - shift) % n)
+    staged = [t.detach().contiguous().cpu() if _staged(t) else t.detach().contiguous()
+              for t in tensors]
+    recv = [torch.empty_like(t) for t in staged]
+    ops = [dist.P2POp(dist.isend, t, dst, group) for t in staged] + \
+        [dist.P2POp(dist.irecv, t, src, group) for t in recv]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return [r.to(t.device) for r, t in zip(recv, tensors)]
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group, shift: int) -> torch.Tensor:
+        ctx.group, ctx.shift = group, shift
+        return _shift([x], group, shift)[0]
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return _shift([grad], ctx.group, -ctx.shift)[0], None, None
+
+
+def ppermute(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """``lax.ppermute`` over the group's ring: rank i's ``x`` goes to rank
+    i + ``shift``; the backward sends the cotangent the other way."""
+    if axis_size(group) == 1:
+        return x
+    return _Ppermute.apply(x, group, shift)
+
+
+def ppermute_many(tensors: Sequence[torch.Tensor], group, shift: int = 1) -> List[torch.Tensor]:
+    """``ppermute`` of several tensors in one batch of sends, without
+    gradients (the ring attention's blocks, whose backward is its own)."""
+    if axis_size(group) == 1:
+        return list(tensors)
+    return _shift(tensors, group, shift)
 
 
 def all_reduce_mean(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """The mean over ranks of each tensor, through one flat fp32 buffer."""
+    """The mean over every rank of each tensor, through one flat fp32
+    buffer (the gradients: see the module docstring's rule)."""
     if not is_distributed() or not tensors:
         return list(tensors)
     flat = torch.cat([t.reshape(-1).float() for t in tensors])

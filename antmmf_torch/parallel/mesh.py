@@ -6,17 +6,26 @@ function's arithmetic over the five axes (``data``, ``fsdp``, ``model``,
 ``dcn`` sub-mapping whose factor is the outermost on each combined axis;
 ``devices`` holds the rank ids in the layout JAX gives its devices. The
 port carries the batch over ``data`` × ``fsdp`` and shards the fp32
-masters and the optimizer state over ``fsdp``; ``model``, ``expert`` and
-``seq`` above 1 over several ranks raise (queue A7b).
+masters and the optimizer state over ``fsdp``, and the token stream over
+``seq`` (``parallel.long_context``): the ranks of a ``seq`` line hold the
+same batch. ``model`` and ``expert`` above 1 over several ranks raise
+(pipeline, tensor and expert parallelism: the later parts of queue A7b).
 
 At world size 1 a declared mesh collapses: every axis is 1 and the whole
 global batch runs on the one device (``collapsed`` says so), which is
 what a mesh computes. Over several ranks the mesh must match the world
 size, as ``build_mesh`` demands of the devices. Rank r loads the r-th
-slice of the global batch (JAX's ``batch_spec`` split, rank-major, which
-is the devices' order without ``dcn``), so a gather in rank order gives
-back the global batch. ``fsdp_group`` makes each rank's ``fsdp`` process
-group, over a ``torch.distributed`` ``DeviceMesh``.
+slice of the global batch, r its index over (``data``, ``fsdp``) (JAX's
+``batch_spec`` split, rank-major, which is the devices' order without
+``dcn``), so a gather in that order gives back the global batch.
+``fsdp_group`` makes each rank's ``fsdp`` process group, over a
+``torch.distributed`` ``DeviceMesh``; ``seq_group`` and ``batch_group``
+its ``seq`` line and the ranks that share its ``seq`` coordinate.
+
+``set_active_mesh`` registers the run's mesh (the JAX trainer's
+``registry.register("mesh", ...)``), which a module with a
+``sequence_parallel`` knob reads through ``active_seq_group``: outside a
+registered mesh with ``seq`` > 1 the knob changes nothing.
 """
 
 from __future__ import annotations
@@ -28,7 +37,8 @@ import numpy as np
 
 MESH_AXES = ("data", "fsdp", "model", "expert", "seq")
 BATCH_AXES = ("data", "fsdp")
-LATER_AXES = ("model", "expert", "seq")
+LATER_AXES = ("model", "expert")
+_ACTIVE: Dict[str, Any] = {"mesh": None}
 
 
 class Mesh:
@@ -41,10 +51,56 @@ class Mesh:
         self.shape: Dict[str, int] = dict(zip(MESH_AXES, devices.shape))
         self.collapsed = collapsed
         self.declared = dict(declared or {})
+        self._made = None  # this rank's seq and batch process groups, made at first use
 
     @property
     def size(self) -> int:
         return int(self.devices.size)
+
+    def coords(self, rank: int) -> Dict[str, int]:
+        """Rank ``rank``'s coordinate on each axis."""
+        where = np.argwhere(self.devices == rank)[0]
+        return dict(zip(MESH_AXES, (int(c) for c in where)))
+
+    def batch_index(self, rank: int) -> int:
+        """Which slice of the global batch rank ``rank`` loads: its index
+        over (data, fsdp), the same on every rank of its ``seq`` line."""
+        c = self.coords(rank)
+        return c["data"] * self.shape["fsdp"] + c["fsdp"]
+
+    def _groups(self) -> Dict[str, Any]:
+        """This rank's ``seq`` line and batch plane as process groups; every
+        rank makes every group, in one order (``new_group`` is collective)."""
+        if self._made is None:
+            import torch.distributed as dist
+            from antmmf_torch.parallel import collectives as coll
+
+            me = coll.get_rank()
+            grid = self.devices.reshape(-1, self.shape["seq"])  # (data, fsdp) x seq
+            made = {}
+            for line in grid.tolist():
+                group = dist.new_group(line)
+                if me in line:
+                    made["seq"] = group
+            for plane in grid.T.tolist():
+                group = dist.new_group(plane)
+                if me in plane:
+                    made["batch"] = group
+            self._made = made
+        return self._made
+
+    def seq_group(self):
+        """This rank's ``seq`` process group (``None`` without one)."""
+        if self.collapsed or self.shape["seq"] == 1:
+            return None
+        return self._groups()["seq"]
+
+    def batch_group(self):
+        """The process group of the ranks with this rank's ``seq``
+        coordinate: the global batch's ranks (``None`` without ``seq``)."""
+        if self.collapsed or self.shape["seq"] == 1:
+            return None
+        return self._groups()["batch"]
 
     def fsdp_group(self, device_type: str = "cpu"):
         """This rank's ``fsdp`` process group, from a ``DeviceMesh`` over
@@ -56,8 +112,11 @@ class Mesh:
             return None
         from torch.distributed.device_mesh import DeviceMesh
 
-        return DeviceMesh(device_type, self.devices[:, :, 0, 0, 0].tolist(),
-                          mesh_dim_names=BATCH_AXES).get_group("fsdp")
+        if self.shape["seq"] == 1:
+            return DeviceMesh(device_type, self.devices[:, :, 0, 0, 0].tolist(),
+                              mesh_dim_names=BATCH_AXES).get_group("fsdp")
+        return DeviceMesh(device_type, self.devices[:, :, 0, 0, :].tolist(),
+                          mesh_dim_names=BATCH_AXES + ("seq",)).get_group("fsdp")
 
 
 def build_mesh(mesh_config: Optional[Mapping[str, Any]] = None,
@@ -79,9 +138,31 @@ def build_mesh(mesh_config: Optional[Mapping[str, Any]] = None,
     mesh = Mesh(layout(declared, world_size), declared=declared)
     later = {a: mesh.shape[a] for a in LATER_AXES if mesh.shape[a] > 1}
     if later:
-        raise NotImplementedError(f"mesh axes {later} over {world_size} ranks: model, expert "
-                                  f"and sequence parallelism are queue A7b, not ported yet")
+        raise NotImplementedError(f"mesh axes {later} over {world_size} ranks: tensor, pipeline "
+                                  f"and expert parallelism are the later parts of queue A7b, "
+                                  f"not ported yet")
     return mesh
+
+
+def set_active_mesh(mesh: Optional[Mesh]) -> None:
+    """Register the run's mesh (``None`` to clear it); over a ``seq`` axis
+    the batch collectives then run over this rank's batch plane."""
+    from antmmf_torch.parallel import collectives as coll
+
+    _ACTIVE["mesh"] = mesh
+    group = mesh.batch_group() if mesh is not None and coll.is_distributed() else None
+    coll.set_batch_group(group, mesh.batch_index(coll.get_rank()) if group is not None else 0)
+
+
+def active_mesh() -> Optional[Mesh]:
+    return _ACTIVE["mesh"]
+
+
+def active_seq_group():
+    """The registered mesh's ``seq`` group of this rank when its ``seq``
+    axis is above 1 over ranks, else ``None`` (the knob then does nothing)."""
+    mesh = _ACTIVE["mesh"]
+    return None if mesh is None else mesh.seq_group()
 
 
 def _check_names(cfg: Mapping[str, Any]) -> None:

@@ -16,7 +16,9 @@ right-aligned on the leaf's rank, as the JAX function aligns it);
 ``validate_specs`` lists such dimensions. ``shard_dims`` turns the specs
 into the dimension of the port's tensor that the ``fsdp`` axis splits: a
 flax kernel [in, out] is the port's [out, in], a convolution's HWIO its
-OIHW. A rule that names ``model``, ``expert`` or ``seq`` raises (A7b).
+OIHW. A rule may name ``seq``: the ranks of a ``seq`` line each hold the
+whole state, so such an entry shards nothing here. A rule that names
+``model`` or ``expert`` raises (the later parts of queue A7b).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ DEFAULT_RULES: Rules = (
     (r".*(kernel|embedding)$", ("fsdp", None)),
     (r".*", None),
 )
-PORTED_AXES = ("data", "fsdp")
+PORTED_AXES = ("data", "fsdp", "seq")
 
 
 def _axes(entry) -> Tuple[str, ...]:
@@ -52,8 +54,8 @@ def check_rules(rules: Rules) -> None:
             later = [a for a in _axes(entry) if a not in PORTED_AXES]
             if later:
                 raise NotImplementedError(
-                    f"param_sharding_rules {pattern!r} names {later}: model, expert and "
-                    f"sequence parallelism are queue A7b, not ported yet")
+                    f"param_sharding_rules {pattern!r} names {later}: tensor and expert "
+                    f"parallelism are the later parts of queue A7b, not ported yet")
 
 
 def spec_for(path_string: str, ndim: int, rules: Rules) -> Spec:
@@ -138,7 +140,7 @@ def shard_dims(paths: Mapping[str, str], shapes: Mapping[str, Sequence[int]],
         return {}
     fshapes = {paths[n]: flax_shape(paths[n], s) for n, s in shapes.items()}
     specs = relax_to_divisible(infer_param_specs(fshapes, rules), fshapes,
-                               {"data": 1, "fsdp": fsdp})
+                               {"data": 1, "fsdp": fsdp, "seq": 1})
     out = {}
     for name, path in paths.items():
         dims = [d for d, e in enumerate(specs[path]) if "fsdp" in _axes(e)]

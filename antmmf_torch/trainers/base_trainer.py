@@ -28,15 +28,19 @@ telemetry of the JAX trainer (XLA's cost analysis) is not ported.
 
 Ranks: started by ``antmmf_torch.utils.launch``, the trainer joins the
 process group (``parallel.collectives``) and builds the ``mesh``
-(``parallel.mesh``) over it: the ``data`` × ``fsdp`` ranks each load
-``batch_size / world`` samples, the step averages the fp32 gradients over
-them, and under ``fsdp`` the masters and the optimizer state are sharded
+(``parallel.mesh``) over it, which it registers (``set_active_mesh``, the
+JAX trainer's ``registry.register("mesh", ...)``): the ``data`` × ``fsdp``
+ranks each load ``batch_size / (data · fsdp)`` samples, the ranks of a
+``seq`` line the same ones (a ``sequence_parallel`` model splits their
+tokens), the step averages the fp32 gradients over every rank, and under
+``fsdp`` the masters and the optimizer state are sharded
 by ``param_sharding_rules`` (``TrainState``'s ``Shards``), so each step
 computes what one device computes on the global batch; rank r's
 generator is seeded from (seed, r). A mesh applies when the world size
 matches it; at world size 1 it collapses, is written to the log, and the
 whole global batch runs on the one device. Only a model whose losses
-gather the global batch (``global_batch_over_ranks``) runs over ranks.
+gather the global batch (``global_batch_over_ranks``: UniVL retrieval,
+Pink and M2-omni, whose LM loss is the global token mean) runs over ranks.
 The scalars are averaged over ranks where they are read, rank 0 alone
 logs and writes checkpoints, and its early-stopping decisions and a
 SIGTERM on any rank reach every rank. ``remat_policy`` recomputes the
@@ -87,7 +91,7 @@ from antmmf_torch.modules.metrics.evaluators import build_evaluator
 from antmmf_torch.optimizer.build import build_optimizer
 from antmmf_torch.parallel import collectives as coll
 from antmmf_torch.parallel import partitioning
-from antmmf_torch.parallel.mesh import build_mesh
+from antmmf_torch.parallel.mesh import build_mesh, set_active_mesh
 from antmmf_torch.trainers.train_state import (Shards, TrainState, make_train_step,
                                                remat_context)
 from antmmf_torch.utils.early_stopping import EarlyStopping
@@ -115,11 +119,15 @@ class BaseTrainer:
         self._init_device_and_seed()
         self.writer = Logger(self.config)
         self.mesh = build_mesh(self.tp.get("mesh", {"data": -1}), coll.get_world_size())
+        # modules with a sequence_parallel knob, the loaders and the batch
+        # collectives read the run's mesh
+        set_active_mesh(self.mesh)
         if self.mesh.collapsed:
             layout = "one device: the whole global batch runs on it"
         else:
             layout = (f"{self.mesh.size} ranks over {coll.backend()}: data "
-                      f"{self.mesh.shape['data']} x fsdp {self.mesh.shape['fsdp']}")
+                      f"{self.mesh.shape['data']} x fsdp {self.mesh.shape['fsdp']} x seq "
+                      f"{self.mesh.shape['seq']}")
         self.writer.write(f"device: {self.device}; mesh: {self.mesh.declared} ({layout})")
         self.load_task()
         self.load_model()
@@ -171,7 +179,8 @@ class BaseTrainer:
                                                      "global_batch_over_ranks", False):
             raise NotImplementedError(
                 f"{type(self.shell.module).__name__} over {coll.get_world_size()} ranks: its "
-                f"losses do not gather the global batch yet; univl_retrieval's do")
+                f"losses do not gather the global batch yet; univl_retrieval's, pink's and "
+                f"m2_omni's do")
         # the JAX trainer initialises from the first batch of the first
         # loader; taking it here draws the same samples (and random frames)
         self._cached_first_batch = self._example_batch()

@@ -26,9 +26,16 @@ the key forward first and the EMA update after AdamW, against the updated
 masters, as the JAX trainer reads ``new_state.params``.
 
 Over ranks (``parallel.collectives``) the step averages the fp32 gradients
-over every rank (the ``data`` × ``fsdp`` ranks) in one flat fp32
+over every rank (``data`` × ``fsdp`` × ``seq``) in one flat fp32
 all-reduce: JAX's global gradient is never rounded to bf16 across
-replicas. Under ``fsdp`` > 1 (``Shards``) the state holds, for each
+replicas. Each rank's loss is its share of a sum whose gradient is the
+world size times the global one (a loss every rank computes alike over
+the gathered batch; the LM loss's NLL summed over ranks before the
+division, whose backward sums the cotangent again), and every in-step
+collective's backward is its transpose, so the mean is the gradient one
+process computes on the global batch: a ``seq`` rank's partial gradient
+from its tokens and a replicated consumer's whole one both come out
+right. Under ``fsdp`` > 1 (``Shards``) the state holds, for each
 parameter a rule shards, only this rank's slice of the fp32 master, of
 both AdamW moments, of ``MultiSteps``' accumulator and of a MoCo EMA, as
 the JAX package's ``state_sharding`` lays them out; the clip reads the

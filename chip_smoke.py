@@ -155,11 +155,12 @@ non-zero code and no result line:
    the CPU's nucleus, int8 records made on the card equal to the CPU's byte
    for byte, the kernels the card dequantises equal to the CPU's bf16
    product of them, and the logits of a prefill and three decode steps,
-   held to the bounds ``--calibrate decoding`` reads, with four planted
-   faults, each outside the bound named for it (the beams' cache rows
-   rolled: the card's replay of its best beam; the beams' length penalty
-   dropped: the CPU's score; the nucleus filter skipped; the int8 scale
-   multiplied in fp32 and then cast);
+   held to the bounds ``--calibrate decoding`` reads, with a planted fault
+   outside its bound (the int8 scale multiplied in fp32 and then cast);
+   ``--calibrate decoding`` plants three more, each rerunning the CPU twin
+   (the beams' cache rows rolled: the card's replay of its best beam; the
+   beams' length penalty dropped: the CPU's score; the nucleus filter
+   skipped);
 12. trainer: ``python -m antmmf_torch.run`` driven in-process
    (``antmmf_torch.run.main``) on ``projects/base_vtp/configs/
    video_retrieval.yml`` at full width over a seeded synthetic dataset in
@@ -298,11 +299,13 @@ non-zero code and no result line:
    parameter, none for a frozen one), peak memory.
 18. Pink 7B (``pink_7b.yml`` laid over ``pink_instruct.local.yml`` by
    ``recipe_opts``: omni_7b behind EVA-CLIP-g, LoRA 16 on q/v, remat,
-   ``scan_layers``): card bf16 vs CPU fp32 at 2 of 32 decoder and 2 of 39
+   ``scan_layers``): card bf16 vs CPU fp32 at 2 of 32 decoder and 1 of 39
    EVA layers with three planted faults, ``run.main`` at 1 and 1 with a
    resume inside an accumulation window, its ``save_dir`` and a stacked
-   ``params.npz`` served to the same tokens, then the trainer at full
-   depth (remat on against off, timed and profiled updates).
+   ``params.npz`` served to the same tokens, then the trainer at 16 of 32
+   decoder and 20 of 39 EVA layers (remat on against off, timed and
+   profiled updates); the depths are cut for the script's time budget, the
+   widths are the recipe's.
 19. M2-omni serving (``m2_omni_7b.yml`` with ``serving_opts``: omni_7b
    behind Qwen2-ViT at 32 blocks of 1280 and the conv audio tower at 512,
    bf16, prompts of 640 tokens, images at 448² pixels, seeded weights drawn
@@ -350,14 +353,14 @@ non-zero code and no result line:
    ``build_optimizer`` and ``make_train_step``: (a) at full width and depth,
    updates of two micro-batches of 4 conversations of 640 slots from the
    unified processor (images, two of them with audio and text; then 4-frame
-   videos at 392²), labels over the assistant's answer: 2 warm-up, 4 timed and 2
-   profiled updates (p50/p95 ms, tokens/s, busy and idle share, flash ms,
-   peak memory, optimizer-state bytes, 128 ``flash_fwd``, 64 ``flash_dq``,
+   videos at 392²), labels over the assistant's answer: 1 warm-up, 3 timed
+   and 1 profiled update (p50/p95 ms, tokens/s, busy and idle share, flash
+   ms, peak memory, optimizer-state bytes, 128 ``flash_fwd``, 64 ``flash_dq``,
    64 ``flash_dkv`` and 4 K1 launches an update asserted), finite losses,
    every trainable master moved and every frozen one bit-unchanged; (b) one
    update of B=1 conversations with a 16-frame video (2,048 video slots of
    2,304), so the LM loss takes its chunked path, and its peak memory; (c)
-   card bf16 vs CPU fp32 at 2 of 32 decoder layers and 2 of 32 blocks, B=1
+   card bf16 vs CPU fp32 at 1 of 32 decoder layers and 1 of 32 blocks, B=1
    (the loss and the trainable gradients' cosines), held to the bounds
    ``--calibrate m2_train`` reads and three planted faults outside them
    (the decoder's LoRA scaling doubled, the vision tokens detached, the
@@ -383,6 +386,32 @@ non-zero code and no result line:
    process's peak card memory and host RSS and the least free card and
    available host memory while the ranks run are printed; a launch that
    fails prints its whole log, with each rank's state at the failure.
+22. sequence parallelism: two ranks of ``chip_smoke.py --sp-rank`` (one
+   launch of ``antmmf_torch.utils.launch``, gloo on the one card, ``{seq:
+   2}``) beside one process on the same inputs, each held to its share of
+   the card: (a) ``m2_omni_longvideo.yml``'s LoRA update (omni_1b's width,
+   16 heads of 128 on 4 kv heads, at 8 of its 22 decoder layers; ViT-B/16
+   at 224², LoRA 8 on the seven projections, remat, bf16) through
+   ``make_train_step`` on one stream of 80 frames × 196 vision tokens
+   between 16 prompt and 40 answer tokens (15,736), 2 updates with the
+   causal GQA ring: losses, clip norms and the trainable masters against one
+   process on the whole stream at the bounds ``--calibrate sp`` reads (two
+   planted faults outside them: the ranks' gradients summed, later shards'
+   blocks attended), each rank's peak card memory below one process's,
+   the launches of each rank's update asserted (the ring's diagonal block on
+   rank 0, two blocks on rank 1, the forward twice under remat; 12 K1 of
+   the frozen ViT); in the ranks, the ring at the stream's block shape [1,
+   16, 7,868, 128] against the plain ring step, forward and backward, each
+   row (a query's output or dQ, a key's dK or dV) within a few bf16
+   roundings of that row's own largest reference magnitude, and three
+   planted merge faults outside those bounds (an earlier block merged
+   without its row sum, the earlier blocks dropped, their dK/dV halved); (b)
+   Ulysses-causal on the same decoder at 2 layers, one update; (c)
+   ``long_video.yml`` through ``antmmf_torch.run`` (Ulysses in ViT-B/32,
+   64 frames a clip) over a seeded layout of 4 clips, B=2 (the config's 32
+   cut), one step. Then ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` timed
+   at the ring's block shape (the causal diagonal block and an earlier
+   shard's) beside their bound, plain versions and SDPA.
 
 Each path (serving, each training leg, each Pink request, the trainer, the
 pretraining step and trainer, each part of phase 14 but its card-vs-CPU
@@ -391,7 +420,7 @@ each bare step and trainer run of phase 16, phase 17's trainer runs,
 phase 18's runs and served requests, phase 19's requests, each engine
 pass of phases 11b and 19, each pink_eval run and predictor request of
 phase 11c, phase 19's int4 requests, phase 20's warm-up updates and its
-chunked-loss update, phase 21's ranks)
+chunked-loss update, phase 21's ranks, phase 22's rank runs)
 runs
 with the kernels' launch counts set to 0 just before it and read just after;
 launches made to compare a kernel with its plain version or to time it are
@@ -804,6 +833,19 @@ def phase_kernels() -> float:
 def ulps_tol(ref: torch.Tensor, ulps: float) -> float:
     """``ulps`` bf16 roundings at the reference's largest magnitude (≥ 1)."""
     return ulps * torch.finfo(torch.bfloat16).eps * max(ref.float().abs().max().item(), 1.0)
+
+
+def row_ulps(got: torch.Tensor, ref: torch.Tensor, floor: float = 1 / 64) -> float:
+    """The worst row's largest |got - ref| (rows along the last dimension),
+    in bf16 roundings of that row's own largest reference magnitude, taken
+    at least ``floor`` of the tensor's: a row whose exact value is zero (the
+    stream's first query sees one key, so its dQ cancels to rounding) reads
+    against that floor; a zero tensor reads 0 if ``got`` is zero too."""
+    ref = ref.float()
+    d = (got.float() - ref).abs().amax(-1)
+    m = ref.abs().amax(-1).clamp(min=floor * ref.abs().max().item())
+    r = torch.where(m > 0, d / m.clamp(min=1e-30), torch.where(d > 0, torch.inf, 0.0))
+    return r.max().item() / torch.finfo(torch.bfloat16).eps
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1689,7 +1731,8 @@ def bound(nbytes: float, flops: float) -> dict:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def flash_shape_times(pair_bias, gpu, case: str, qkv=None, causal: bool = False) -> dict:
+def flash_shape_times(pair_bias, gpu, case: str, qkv=None, causal: bool = False,
+                      extras: bool = True, plain_iters: int = 10) -> dict:
     """The flash kernels at a pair stream's [P, 12, L, 64] bf16 (or at
     ``qkv``'s shape) with that stream's key bias, q/k/v in the projections'
     layout, beside their plain versions and SDPA (with ``causal``, a boolean
@@ -1697,7 +1740,9 @@ def flash_shape_times(pair_bias, gpu, case: str, qkv=None, causal: bool = False)
     input read once and each output written once (for dQ and dK/dV, K and V
     of the keys these inputs need: ``flash_bwd_bytes``), and the products
     over the (query, key) pairs each row attends (4, 6 and 8 multiply-adds
-    ·2 per pair and head dimension for forward, dQ, dK/dV)."""
+    ·2 per pair and head dimension for forward, dQ, dK/dV). Without
+    ``extras`` the family-against-SDPA rows are left out; the plain versions
+    run ``plain_iters`` times."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     P, L = pair_bias.shape[0], pair_bias.shape[3]
     if qkv is None:
@@ -1728,21 +1773,32 @@ def flash_shape_times(pair_bias, gpu, case: str, qkv=None, causal: bool = False)
     timing = {
         "flash_fwd": dict(
             ms=graph_ms(lambda i: flash_fwd(q, k, v, kb, scale, causal), 20),
-            plain_ms=cuda_ms(lambda: plain_flash_fwd(q, k, v, kb, scale, causal), iters=10),
+            plain_ms=cuda_ms(lambda: plain_flash_fwd(q, k, v, kb, scale, causal),
+                             iters=plain_iters, warmup=min(plain_iters, 10)),
             library_ms=graph_ms(
                 lambda i: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 20),
             **bound(4 * tensor + bias_b + 2 * rows, 4 * D * pairs)),
         "flash_dq": dict(
             ms=graph_ms(lambda i: flash_dq(q, k, v, kb, out, stats, dout, scale, causal), 20),
             plain_ms=cuda_ms(lambda: plain_flash_dq(q, k, v, kb, out, stats, dout, scale,
-                                                    causal), iters=10),
+                                                    causal), iters=plain_iters,
+                             warmup=min(plain_iters, 10)),
             library_ms=sdpa_bwd_ms, **bound(dq_bytes, 6 * D * pairs)),
         "flash_dkv": dict(
             ms=graph_ms(lambda i: flash_dkv(q, k, v, kb, stats, dout, delta, scale, causal), 20),
             plain_ms=cuda_ms(lambda: plain_flash_dkv(q, k, v, kb, stats, dout, delta, scale,
-                                                     causal), iters=10),
+                                                     causal), iters=plain_iters,
+                             warmup=min(plain_iters, 10)),
             library_ms=sdpa_bwd_ms, **bound(dkv_bytes, 8 * D * pairs)),
     }
+    for name, t in timing.items():
+        emit(phase="times", exp=name, case=case, shape=[P, H, L, D], dtype="bf16",
+             gpu=gpu, causal=causal, live_keys=live, attended_pairs=pairs,
+             **t, bound_share=t["bound_ms"] / t["ms"])
+    if not extras:
+        for fn in KERNELS:  # timing launches are not path launches
+            fn.launches = saved[fn.__name__]
+        return {name: {**t, "shape": [P, H, L, D]} for name, t in timing.items()}
     # SDPA forward and backward together, the yardstick for the three kernels
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
 
@@ -1764,10 +1820,6 @@ def flash_shape_times(pair_bias, gpu, case: str, qkv=None, causal: bool = False)
     backend = sdpa_kernels(q, k, v, mask, dout)
     for fn in KERNELS:  # timing launches are not path launches
         fn.launches = saved[fn.__name__]
-    for name, t in timing.items():
-        emit(phase="times", exp=name, case=case, shape=[P, H, L, D], dtype="bf16",
-             gpu=gpu, causal=causal, live_keys=live, attended_pairs=pairs,
-             **t, bound_share=t["bound_ms"] / t["ms"])
     emit(phase="times", exp="flash_fwd_dq_dkv_vs_sdpa_fwd_bwd", case=case, shape=[P, H, L, D],
          gpu=gpu, flash_ms=family_ms, sdpa_ms=sdpa_ms,
          timed="eager, CUDA events, .backward into .grad")
@@ -2866,6 +2918,9 @@ DECODE_LAYERS = 2  # card vs CPU: full width at 2 of the 22 decoder layers
 BEAM_DSCORE_MAX, BEAM_REPLAY_MAX, SAMPLE_EXCESS_MAX, SAMPLE_TOP_P = 0.025, 1e-5, 0.05, 0.5
 DEQUANT_DEV_MAX = 0.0
 DECODE_COS_MIN, DECODE_DLOGIT_MAX = 0.999, 0.25
+# the faults the script's own run plants (card-side only, no CPU rerun);
+# ``--calibrate decoding`` plants all four at every seed
+DECODE_RUN_FAULTS = ("int8_scale_multiplied_in_fp32",)
 
 
 def write_eval_rows(root: str, seed: int) -> str:
@@ -3309,9 +3364,10 @@ def decode_within_bound(res) -> dict:
             and res["int8"]["max_abs_d_over_std"] <= DECODE_DLOGIT_MAX}
 
 
-def decode_readings(seed: int, faults: bool = True) -> dict:
-    """Card against CPU at DECODE_LAYERS layers: sound readings, then with
-    ``faults`` each planted fault's reading of its own part."""
+def decode_readings(seed: int, faults=None) -> dict:
+    """Card against CPU at DECODE_LAYERS layers: sound readings, then each
+    planted fault named in ``faults`` (all of ``decode_faults`` when None)
+    read on its own part."""
     clock = [time.perf_counter()]
 
     def lap():
@@ -3330,7 +3386,9 @@ def decode_readings(seed: int, faults: bool = True) -> dict:
                    "int8_kernels": q["int8_kernels"]}
     seconds["int8"] = lap()
     res["faults"], res["seconds"] = {}, seconds
-    for bound, name, plant, undo in (decode_faults(card) if faults else ()):
+    for bound, name, plant, undo in decode_faults(card):
+        if faults is not None and name not in faults:
+            continue
         part = bound.split("_")[0]
         plant()
         try:
@@ -3350,8 +3408,12 @@ def decode_readings(seed: int, faults: bool = True) -> dict:
 
 
 def decode_card_vs_cpu() -> None:
+    """Phase 11c (c): the sound readings within the bounds and the planted
+    faults of DECODE_RUN_FAULTS outside them (``--calibrate decoding``
+    plants every fault; the beam and sampling faults each rerun the CPU
+    twin, most of the phase's time)."""
     t0 = time.perf_counter()
-    res = decode_readings(SEED)
+    res = decode_readings(SEED, DECODE_RUN_FAULTS)
     ok = decode_within_bound(res)
     caught = {n: not f["within_bound"] for n, f in res["faults"].items()}
     emit(phase="decoding", part="card_vs_cpu", layers=DECODE_LAYERS,
@@ -3576,18 +3638,19 @@ FIRST_LOSS_ATOL = 1e-3  # trainer vs bare step when cuBLAS picks another algorit
 INIT_ON_DEVICE = ["training_parameters.init_on_device", "true"]
 
 
-def write_msrvtt_layout(root: str, seed: int, frames: int = TRAINER_CLIP_FRAMES) -> int:
+def write_msrvtt_layout(root: str, seed: int, frames: int = TRAINER_CLIP_FRAMES,
+                        clips: int = TRAINER_CLIPS, hw: tuple = TRAINER_HW) -> int:
     """A seeded synthetic dataset in the MSR-VTT layout of ``TRAINER_CONFIG``:
     ``videos/data.mdb``, an LMDB (the port's ``LmdbLiteWriter``) of 64 clips
-    of 12 uint8 frames at 240×320 (a seeded image per clip plus seeded
-    per-frame noise), keyed by clip name; ``annotations/msrvtt_{train,test}
-    .jsonl``, 64 captions of 10 seeded words from the BERT vocabulary, one
-    per clip. Returns the LMDB's bytes."""
+    (``clips``) of 12 (``frames``) uint8 frames at 240×320 (``hw``; a seeded
+    image per clip plus seeded per-frame noise), keyed by clip name;
+    ``annotations/msrvtt_{train,test}.jsonl``, a caption of 10 seeded words
+    from the BERT vocabulary per clip. Returns the LMDB's bytes."""
     rng = np.random.default_rng(seed)
     writer = LmdbLiteWriter(os.path.join(root, "videos") + os.sep)
-    for i in range(TRAINER_CLIPS):
-        base = rng.integers(0, 256, (1, *TRAINER_HW, 3), dtype=np.int16)
-        noise = rng.integers(-24, 25, (frames, *TRAINER_HW, 3), dtype=np.int16)
+    for i in range(clips):
+        base = rng.integers(0, 256, (1, *hw, 3), dtype=np.int16)
+        noise = rng.integers(-24, 25, (frames, *hw, 3), dtype=np.int16)
         buf = io.BytesIO()
         np.save(buf, np.clip(base + noise, 0, 255).astype(np.uint8))
         writer.put(f"video{i}", buf.getvalue())
@@ -3595,7 +3658,7 @@ def write_msrvtt_layout(root: str, seed: int, frames: int = TRAINER_CLIP_FRAMES)
     with open(VOCAB, encoding="utf-8") as f:
         words = [w.strip() for w in f if w.strip().isalpha()]
     lines = [json.dumps({"caption": " ".join(rng.choice(words, 10)), "clip_name": f"video{i}",
-                         "sen_id": i}) for i in range(TRAINER_CLIPS)]
+                         "sen_id": i}) for i in range(clips)]
     os.makedirs(os.path.join(root, "annotations"))
     for split in ("train", "test"):
         with open(os.path.join(root, "annotations", f"msrvtt_{split}.jsonl"), "w") as f:
@@ -6174,12 +6237,17 @@ def phase_pink_train(gpu: str) -> dict:
 
 # ------------------------------------------------ phase 18: pink_7b.yml
 PINK_7B_LAYERS, PINK_7B_EVA_LAYERS = 32, 39
+# (c), (d) at 16 of the 32 decoder and 20 of the 39 EVA layers (the script's
+# time budget); the widths stay
+PINK_7B_TIMED = (16, 20)
 PINK_7B_TOKENS = PINK_7B_HEADS[2]  # 256 EVA tokens, the class token dropped
 # card vs CPU: full width at 2 of the 32 decoder layers and 2 of the 39 EVA
 # layers (its planted faults include the bridge's layers reversed); run.main,
 # its resume and serving (since PR 17): at 1 and 1 (a snapshot of ≈ 5.9 GB
 # of fp32 masters instead of ≈ 32)
-PINK_7B_CUT, PINK_7B_RUN_CUT = (2, 2), (1, 1)
+# card vs CPU at 2 decoder layers (the reversed-bridge fault needs two) and
+# 1 EVA layer
+PINK_7B_CUT, PINK_7B_RUN_CUT = (2, 1), (1, 1)
 PINK_7B_REMAT_LAYERS = (8, 16)  # remat on against off at depths where off still fits
 PINK_7B_NEW_TOKENS = 8
 
@@ -6193,7 +6261,7 @@ def pink_7b_iter_launches(layers: int) -> dict:
 
 
 PINK_7B_UPDATE_LAUNCHES = {k: n * PINK_ACCUM
-                           for k, n in pink_7b_iter_launches(PINK_7B_LAYERS).items()}
+                           for k, n in pink_7b_iter_launches(PINK_7B_TIMED[0]).items()}
 PINK_7B_RUN_ITER_LAUNCHES = pink_7b_iter_launches(PINK_7B_RUN_CUT[0])
 # an eval forward (no gradients, no recompute) and a served request's prefill
 PINK_7B_FORWARD_LAUNCHES = {**NO_LAUNCHES, "flash_fwd": PINK_7B_RUN_CUT[0]}
@@ -6204,7 +6272,9 @@ PINK_7B_FORWARD_LAUNCHES = {**NO_LAUNCHES, "flash_fwd": PINK_7B_RUN_CUT[0]}
 # against the CPU's, the largest |Δ| over the largest |token value|, where a
 # change below bf16's rounding shows (``--calibrate pink_7b`` reads them).
 # Sound runs over three seeds stay below |Δ| 0.00099 and above cos 0.99994
-# (all), 0.99972 (least), with the EVA reading below 2.2e-6; EVA's GELU in
+# (all), 0.99972 (least), with the EVA reading below 2.2e-6 at 2 + 2 layers
+# (at 2 + 1: |Δ| 0.0024, cos 0.99992 / 0.99982, EVA 1.74e-6; the three
+# faults read EVA 1.1e-4, |Δ| 0.011, |Δ| 0.64); EVA's GELU in
 # its tanh form reads |Δ| 0.0004–0.0006 and cos 0.99994 (below bf16's
 # rounding) but the EVA reading 1.31e-4–1.40e-4; the class token kept in
 # front of vision_proj |Δ| 0.0088–0.0142, cos 0.99927 (all), 0.9960–0.9962
@@ -6458,11 +6528,12 @@ def pink_7b_trainer(gpu: str) -> dict:
     with accumulation 2, a snapshot one micro-step into the third window,
     the resume and the 6th iteration bit for bit, the first batch's loss
     falls; after the run its masters are exported as a stacked
-    ``params.npz``. (e) The run's ``save_dir`` served. (c), (d) The trainer
-    at full width and depth, loaded as ``run.main`` loads it: the peak of
+    ``params.npz``. (e) The run's ``save_dir`` and that ``params.npz``
+    served. (c), (d) The trainer at full width, loaded as ``run.main``
+    loads it: the peak of
     an update at PINK_7B_REMAT_LAYERS layers with remat on and off, then
-    timed and profiled updates at all 32. Returns the launches of (b) and
-    (e)."""
+    timed and profiled updates at PINK_7B_TIMED (16 of 32 decoder and 20 of
+    39 EVA layers). Returns the launches of (b) and (e)."""
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(build, exist_ok=True)
     root = tempfile.mkdtemp(prefix="pink_7b_smoke_", dir=build)
@@ -6500,10 +6571,11 @@ def pink_7b_trainer(gpu: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         serving = pink_7b_serving(save_dir, npz_dir)
-        # (c), (d) full width and depth
+        # (c), (d) full width, PINK_7B_TIMED deep
         torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
-        trainer = loaded_trainer(pink_7b_argv(root))
+        trainer = loaded_trainer(pink_7b_argv(root, layers=PINK_7B_TIMED[0],
+                                              eva_layers=PINK_7B_TIMED[1]))
         torch.cuda.synchronize()
         full_setup_s = time.perf_counter() - t1
         load_peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -6532,7 +6604,7 @@ def pink_7b_trainer(gpu: str) -> dict:
         config=f"{PINK_TRAIN_CONFIG} + {PINK_7B_CONFIG}", gpu=gpu, rows=rows,
         images="fixture images (cv2)" if images else "none: black frames (no cv2)",
         batch=PINK_TRAIN_BATCH, accumulation=PINK_ACCUM, run_layers=layers, run_eva_layers=eva,
-        timed_layers=PINK_7B_LAYERS, timed_eva_layers=PINK_7B_EVA_LAYERS,
+        timed_layers=PINK_7B_TIMED[0], timed_eva_layers=PINK_7B_TIMED[1],
         losses=losses, first_batch_loss=dict(initial_masters=r.loss_before,
                                              final_masters=r.loss_after),
         update_p50_ms=upd_p50, update_p95_ms=float(np.percentile(t["update_ms"], 95)),
@@ -7334,11 +7406,12 @@ def phase_m2_omni(gpu: str) -> dict:
 # 4-frame video at phase 19's 448² takes 635 of the 640 slots before any
 # answer, so the training videos are resized to 392² (392 video slots)
 M2_TRAIN_BATCH, M2_ACCUM = 4, 2
-M2_TRAIN_WARMUP, M2_TRAIN_TIMED, M2_TRAIN_PROFILED = 2, 4, 2
+M2_TRAIN_WARMUP, M2_TRAIN_TIMED, M2_TRAIN_PROFILED = 1, 3, 1
 M2_VIDEO_FRAMES, M2_VIDEO_PIXELS = 4, 392 * 392
 M2_LONG_FRAMES, M2_LONG_SEQ_LEN = 16, 2304
 M2_ANSWER = "a person walks across a kitchen and opens the window while a radio plays."
-M2_TRAIN_CUT = (2, 2)  # card vs CPU: 2 of the 32 decoder layers and 2 of the 32 tower blocks
+# card vs CPU: 1 of the 32 decoder layers and 1 of the 32 tower blocks
+M2_TRAIN_CUT = (1, 1)
 
 
 def m2_train_launches(layers: int, audio: bool) -> dict:
@@ -7362,7 +7435,9 @@ M2_UPDATE_LAUNCHES = {k: m2_train_launches(M2_LAYERS, True)[k]
 # (least); the decoder's LoRA scaling doubled reads |Δ| 0.141, cos 0.845 /
 # 0.725; the vision tokens detached cos 0 (no gradient reaches the tower);
 # the audio convolutions padded (1, 1) |Δ| 0.0133, cos 0.966 / 0.803 (H100
-# readings)
+# readings, at 2 + 2). At 1 + 1: sound |Δ| ≤ 0.0027, cos ≥ 0.99995 /
+# 0.99988; the faults |Δ| 0.067 cos 0.910 / 0.832, cos 0, |Δ| 0.085 cos
+# 0.969 / 0.857
 M2_TRAIN_DLOSS_MAX, M2_TRAIN_COS_ALL, M2_TRAIN_COS_MIN = 0.006, 0.9998, 0.999
 
 
@@ -7892,13 +7967,14 @@ class RankLaunch:
     those of every run at the end; a rank that fails fails the phase, and
     the launch's whole log goes to stderr."""
 
-    def __init__(self, root: str, tag: str, nproc: int, runs: list, port: int, card_gb: float):
+    def __init__(self, root: str, tag: str, nproc: int, runs: list, port: int, card_gb: float,
+                 entry: str = "--rank", **spec_extra):
         self.tag, self.nproc, self.runs = tag, nproc, runs
         self.out = os.path.join(root, f"out_{tag}")
         os.makedirs(self.out)
         spec = os.path.join(root, f"spec_{tag}.json")
         with open(spec, "w") as f:
-            json.dump({"runs": runs, "out": self.out, "card_gb": card_gb}, f)
+            json.dump({"runs": runs, "out": self.out, "card_gb": card_gb, **spec_extra}, f)
         self.log = open(os.path.join(root, f"launch_{tag}.log"), "w")
         # two intra-op threads a rank: several launches share the host's
         # cores; expandable segments keep a rank's reserved memory near what
@@ -7907,7 +7983,7 @@ class RankLaunch:
                "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "antmmf_torch.utils.launch", "--nproc_per_node", str(nproc),
-             "--master_port", str(port), os.path.abspath(__file__), "--rank", spec],
+             "--master_port", str(port), os.path.abspath(__file__), entry, spec],
             stdout=self.log, stderr=subprocess.STDOUT, start_new_session=True, env=env,
             cwd=os.path.dirname(os.path.abspath(__file__)))
 
@@ -8179,6 +8255,510 @@ def phase_ranks(gpu: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------- phase 22
+SP_CONFIG = "projects/m2_omni/configs/m2_omni_longvideo.yml"
+LONG_VIDEO_CONFIG = "projects/base_vtp/configs/long_video.yml"
+# one long-video stream (B=1) as m2_omni_longvideo.yml trains it: 80 frames
+# of 14 x 14 patches (ViT-B/16 at 224²) spliced at the video id, 15,680
+# vision tokens between a prompt and the supervised answer
+SP_FRAMES, SP_PROMPT, SP_ANSWER = 80, 16, 40
+# decoder layers (of omni_1b's 22; (a) cut to 8 to hold the phase's budget)
+SP_LAYERS, SP_ULYSSES_LAYERS, SP_UPDATES = 8, 2, 2
+SP_VIT_LAYERS = 12  # the frozen tower's K1 launches an update (forward only)
+# (c): long_video.yml's 64 frames a clip (8 clips of 8), the batch cut from
+# 32 to 2, over 4 clips of 64 frames at 128x160 (resized to 256, cropped to 224)
+SP_LV_BATCH, SP_LV_CLIPS, SP_LV_FRAMES, SP_LV_HW = 2, 4, 64, (128, 160)
+# GB of the card each rank and this process's references may hold
+SP_CARD_GB = {"ranks": 20.0, "references": 26.0}
+SP_WAIT_S = 900  # the longest the ranks started beside phase 21 wait for phase 22
+# two ranks' bf16 update against one process's on the whole stream: each
+# update's loss within SP_LOSS_RTOL, its clip norm within SP_NORM_RTOL, the
+# trainable masters after the updates within SP_UPDATE_RTOL of the length of
+# one process's update from the init (``--calibrate sp``). Sound runs over
+# two seeds at 8 layers read losses within 2.8e-4, norms 7.9e-4, masters
+# 0.108-0.109; the gradients summed over the ranks instead of averaged read
+# norms 1.002 (losses and masters unchanged: AdamW sees no scale); the
+# causal ring attending later shards' blocks reads losses 7.3e-4, norms
+# 0.0104, masters 0.466 (H100 readings). The ring's flash blocks against the
+# plain ring step (fp32 einsum on the same bf16 inputs): every row (a query's
+# output or dQ, a key's dK or dV) within SP_RING_ULPS bf16 roundings of that
+# row's own largest reference magnitude (at least 1/64 of the tensor's,
+# ``row_ulps``). A bound at the tensor's largest
+# magnitude cannot see an earlier block's share: on rank 0 the diagonal
+# block's first keys carry dK/dV many times those of its last keys, to which
+# rank 1's queries add most of theirs (CPU readings at 4,096-token blocks on
+# the kernels' plain versions: sound rows ≤ 1.7 roundings, every planted
+# fault ≥ 85; at the tensor's largest magnitude the dK/dV halved read only
+# 3.3 and 1.5)
+SP_LOSS_RTOL, SP_NORM_RTOL, SP_UPDATE_RTOL = 2e-3, 5e-3, 0.2
+SP_RING_ULPS = {"out": 4, "dq": 8, "dk": 8, "dv": 8}
+
+
+def sp_preset(layers: int) -> str:
+    """omni_1b's name, or of a copy at ``layers`` decoder layers (registered)."""
+    if layers == LM_PRESETS["omni_1b"]["num_layers"]:
+        return "omni_1b"
+    name = f"omni_1b_{layers}_layers"
+    LM_PRESETS[name] = {**LM_PRESETS["omni_1b"], "num_layers": layers}
+    return name
+
+
+def sp_stream(seed: int = SEED) -> dict:
+    """The long-video stream: prompt ids, SP_FRAMES x 196 video placeholders,
+    the answer's ids (the only labels), seeded frames."""
+    rng = np.random.default_rng(seed)
+    model = build_config(SP_CONFIG)["model_attributes"]["m2_omni"]
+    vocab = LM_PRESETS[model["lm_preset"]]["vocab_size"]
+    n_video = SP_FRAMES * (model["image_size"] // 16) ** 2
+    ids = np.concatenate([rng.integers(10, vocab - 10, SP_PROMPT),
+                          np.full(n_video, int(model["video_token_id"])),
+                          rng.integers(10, vocab - 10, SP_ANSWER)])[None]
+    labels = np.full_like(ids, -100)
+    labels[:, -SP_ANSWER:] = ids[:, -SP_ANSWER:]
+    size = model["image_size"]
+    return {"input_ids": ids, "input_mask": np.ones_like(ids), "labels": labels,
+            "video_data": rng.standard_normal((1, SP_FRAMES, size, size, 3)).astype(np.float32)}
+
+
+def sp_launches(layers: int, mode: str, rank: int, world: int) -> dict:
+    """An update's launches on rank ``rank`` of ``world`` under remat (the
+    forward runs twice a layer): the causal ring's diagonal block and each
+    block from an earlier shard (flash forward, dQ, dK/dV); Ulysses' local
+    causal attention once a layer; one process's causal attention once a
+    layer; and the frozen ViT's K1 once a layer (forward only)."""
+    blocks = rank + 1 if mode == "ring" else 1
+    return {**NO_LAUNCHES, "small_attention": SP_VIT_LAYERS, "flash_fwd": 2 * blocks * layers,
+            "flash_dq": blocks * layers, "flash_dkv": blocks * layers}
+
+
+SP_FAULTS = ("gradients_summed", "later_blocks_seen")
+
+
+@contextlib.contextmanager
+def sp_fault(name):
+    """A planted fault of sequence parallelism (``--calibrate sp``): the
+    step sums the ranks' gradients instead of averaging them; or the causal
+    ring attends blocks from later shards (the future)."""
+    from antmmf_torch.parallel import collectives as coll
+    from antmmf_torch.parallel import long_context
+
+    if name is None:
+        yield
+        return
+    if name == "gradients_summed":
+        real, where = coll.all_reduce_mean, coll
+        coll.all_reduce_mean = lambda ts: [t * coll.get_world_size() for t in real(ts)]
+        attr = "all_reduce_mean"
+    else:
+        real, where, attr = long_context._RingState.skipped, long_context._RingState, "skipped"
+        long_context._RingState.skipped = lambda self, s: False
+    try:
+        yield
+    finally:
+        setattr(where, attr, real)
+
+
+def sp_updates(layers: int, mode: str, updates: int, seed: int = SEED, fault=None):
+    """``updates`` updates of m2_omni_longvideo.yml's model (LoRA 8 on all
+    seven projections, remat, bf16, its frozen_params) at ``layers`` decoder
+    layers, seeded on the card, on ``sp_stream``, with ``fault`` planted
+    (``sp_fault``): the losses, clip norms, update ms, launches and peak
+    memory, the trainable masters at the init and after the updates (host)."""
+    with sp_fault(fault):
+        return _sp_updates(layers, mode, updates, seed)
+
+
+def _sp_updates(layers: int, mode: str, updates: int, seed: int):
+    m = "model_attributes.m2_omni"
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    shell, state, step = config_model(SP_CONFIG, [f"{m}.lm_preset", sp_preset(layers),
+                                                  f"{m}.sequence_parallel", mode], on_device=True)
+    init = {n: state.params[n].detach().cpu().clone() for n in state.trainable}
+    batch = shell.to_device({k: torch.as_tensor(v) for k, v in sp_stream(seed).items()})
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, update_ms, counts = [], [], [], []
+    for _ in range(updates):
+        zero_counts()
+        t1 = time.perf_counter()
+        state, scalars = step(state, batch)
+        losses.append(float(scalars["total_loss"]))
+        norms.append(float(scalars["grad_norm"]))
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - t1) * 1e3)
+        counts.append(read_counts())
+    out = dict(layers=layers, mode=mode, stream=int(batch["input_ids"].shape[1]),
+               losses=losses, norms=norms, update_ms=update_ms, launches=counts,
+               setup_s=setup_s, peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+               peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+               trainable_tensors=len(state.trainable))
+    masters = {n: state.params[n].detach().cpu().clone() for n in state.trainable}
+    del shell, state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, init, masters
+
+
+def sp_block_qkv(seed: int, rank: int, block: int):
+    """A ring block's bf16 q [1, 16, block, 128], k, v [1, 4, block, 128] (omni_1b's
+    heads), their cotangent and key bias (the last rank's last 8 keys masked)."""
+    p = LM_PRESETS["omni_1b"]
+    H, Hkv, D = p["num_heads"], p["num_kv_heads"], p["hidden"] // p["num_heads"]
+    gen = torch.Generator(device="cuda").manual_seed(seed + rank)
+    q, dout = (torch.randn(1, H, block, D, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(2))
+    k, v = (torch.randn(1, Hkv, block, D, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    kb = torch.zeros(1, block, device="cuda")
+    return q, k, v, dout, kb
+
+
+SP_RING_FAULTS = ("merge_without_l_b", "earlier_block_dropped", "earlier_dkv_halved")
+
+
+@contextlib.contextmanager
+def sp_ring_fault(name):
+    """A fault planted in the ring's flash route: a block from an earlier
+    shard merged with its weight exp(m_b - m) but not its row sum l_b; the
+    blocks from earlier shards dropped (only the diagonal block attended);
+    or their dK/dV halved before they travel home."""
+    from antmmf_torch.parallel import long_context
+
+    fa = long_context.fa
+    if name == "merge_without_l_b":
+        real, where, attr = fa.flash_fwd, fa, "flash_fwd"
+
+        def patched(*a):
+            out, stats = real(*a)
+            return out, stats if a[5] else torch.stack([stats[0], torch.zeros_like(stats[1])])
+        patched.launches = 0  # the kernel's wrapper counts under the module's name
+    elif name == "earlier_block_dropped":
+        real, where, attr = long_context._RingState.skipped, long_context._RingState, "skipped"
+
+        def patched(self, s):
+            return s > 0
+    else:
+        real, where, attr = fa.flash_dkv, fa, "flash_dkv"
+
+        def patched(*a):
+            dk, dv = real(*a)
+            return (dk, dv) if a[8] else (dk * 0.5, dv * 0.5)
+        patched.launches = 0
+    setattr(where, attr, patched)
+    try:
+        yield
+    finally:
+        setattr(where, attr, real)
+
+
+def sp_ring_check(group, block: int, seed: int = SEED) -> dict:
+    """The causal ring at this run's block shape, GQA 16 on 4 heads, forward
+    and backward: the flash route's launches (not path launches) and its
+    output and q/k/v gradients against the plain ring step on the same
+    inputs, every row within ``SP_RING_ULPS`` bf16 roundings of that row's
+    own largest reference magnitude (``row_ulps``); then the flash route
+    with each of SP_RING_FAULTS planted, read against the same bounds."""
+    from antmmf_torch.parallel import collectives as coll
+    from antmmf_torch.parallel.long_context import ring_attention
+
+    rank, world = coll.axis_index(group), coll.axis_size(group)
+    q, k, v, dout, kb = sp_block_qkv(seed, rank, block)
+    if rank == world - 1:
+        kb[:, -8:] = torch.finfo(torch.float32).min  # padding at the stream's end
+    saved = read_counts()
+
+    def ring(route: str) -> dict:
+        zero_counts()
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = ring_attention(*leaves, group, bias=kb, causal=True, blocks=route)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        return dict(out=out.detach(), **{f"d{n}": t.grad for n, t in zip("qkv", leaves)},
+                    launches=read_counts())
+
+    ref = ring("plain")
+    names = ("out", "dq", "dk", "dv")
+
+    def errs(got: dict) -> dict:  # name: (worst row's roundings, bound, largest |Δ|)
+        return {n: (row_ulps(got[n], ref[n]), SP_RING_ULPS[n], max_err(got[n], ref[n]))
+                for n in names}
+
+    got = ring("flash")
+    faults = {}
+    for name in SP_RING_FAULTS:
+        with sp_ring_fault(name):
+            faults[name] = errs(ring("flash"))
+    for fn in KERNELS:  # check launches are not path launches
+        fn.launches = saved[fn.__name__]
+    return dict(shape=list(q.shape), kv_shape=list(k.shape), rank=rank, errs=errs(got),
+                ref_max_abs={n: ref[n].float().abs().max().item() for n in names},
+                faults=faults, launches=got["launches"], plain_launches=ref["launches"])
+
+
+def long_video_argv(root: str, name: str) -> list:
+    """antmmf_torch.run on long_video.yml (Ulysses in ViT-B/32 over 64 frames,
+    remat_policy dots_saveable) over ``root``'s synthetic layout, {data: 1,
+    seq: 2} (one process collapses it), B=SP_LV_BATCH, one step."""
+    data = "task_attributes.univl_task.dataset_attributes.video_text_retrieval"
+    tp = "training_parameters"
+    return ["--config", LONG_VIDEO_CONFIG, f"{data}.data_root_dir", root,
+            f"{data}.video_source", "lmdb", f"{tp}.batch_size", str(SP_LV_BATCH),
+            f"{tp}.test_batch_size", str(SP_LV_BATCH), f"{tp}.mesh.data", "1",
+            f"{tp}.mesh.seq", "2", f"{tp}.max_iterations", "1", f"{tp}.run_type", "train",
+            f"{tp}.log_interval", "100", f"{tp}.snapshot_interval", "100",
+            f"{tp}.max_ckpt_num", "1", f"{tp}.num_workers", "0", f"{tp}.use_warmup", "false",
+            f"{tp}.seed", "1", f"{tp}.save_dir", os.path.join(root, name), *INIT_ON_DEVICE]
+
+
+def sp_long_video(argv: list) -> dict:
+    """run.main on ``argv`` under ``RanksProbe``: the step's loss, clip norm,
+    launches and the run's seconds."""
+    probe = RanksProbe()
+    uninstall = probe.install()
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        run.main(argv)
+    finally:
+        uninstall()
+    return dict(losses=probe.losses, norms=probe.norms, launches=probe.launches,
+                run_s=time.perf_counter() - t0)
+
+
+def sp_rank_main(spec_path: str) -> None:
+    """One rank of phase 22 (``chip_smoke.py --sp-rank <spec>``, started by
+    ``antmmf_torch.utils.launch``): with the spec's ``go`` file named, it
+    joins the process group (gloo: the ranks share one card; the rendezvous
+    holds its port), imports what the step will need
+    (``torch.utils.checkpoint``'s first call imports ``torch._dynamo``,
+    seconds on a fresh host) and waits, allocating nothing on the card, until
+    that file exists; then registers ``{seq: world}`` and runs
+    the spec's parts in turn, each rank writing ``<out>/<name>_rank<r>.json``
+    (and the trainable masters beside it as ``.pt``) as each part ends."""
+    from antmmf_torch.parallel import collectives as coll
+    from antmmf_torch.parallel.mesh import build_mesh, set_active_mesh
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    coll.init_distributed("cuda")  # the rendezvous holds its port from here on
+    if spec.get("go"):
+        import torch._dynamo  # noqa: F401
+
+        t0 = time.perf_counter()
+        while not os.path.exists(spec["go"]):
+            if time.perf_counter() - t0 > SP_WAIT_S:
+                sys.exit(f"sp rank: no go from the phase in {SP_WAIT_S} s")
+            time.sleep(0.2)
+    torch.cuda.set_per_process_memory_fraction(
+        spec["card_gb"] * 1e9 / torch.cuda.get_device_properties(0).total_memory)
+    rank, world = coll.get_rank(), coll.get_world_size()
+    for name, part in spec["runs"]:
+        mesh = build_mesh({"seq": world})
+        set_active_mesh(mesh)
+        path = os.path.join(spec["out"], f"{name}_rank{rank}")
+        if name == "check":
+            out = sp_ring_check(mesh.seq_group(), **part)
+        elif name == "c":
+            out = sp_long_video(part)
+        else:
+            out, init, masters = sp_updates(**part)
+            torch.save({"init": init, "masters": masters}, f"{path}.pt")
+        out.update(backend=coll.backend(), world=world)
+        with open(f"{path}.json.tmp", "w") as f:
+            json.dump(out, f)
+        os.replace(f"{path}.json.tmp", f"{path}.json")  # whole when the phase sees it
+
+
+def sp_compare(name: str, ranks: list, ref: dict, root: str, ref_tensors=None) -> dict:
+    """Rank 0's global losses and clip norms against one process's (the other
+    ranks' must equal rank 0's), and with ``ref_tensors`` (init, masters) the
+    trainable masters' distance over the length of one process's update."""
+    def rel(got, want):
+        return float(np.max(np.abs(np.asarray(got) - np.asarray(want)) / np.abs(np.asarray(want))))
+
+    r0 = ranks[0]
+    out = dict(losses=r0["losses"], one_process_losses=ref["losses"],
+               loss_rel=rel(r0["losses"], ref["losses"]), norms=r0["norms"],
+               one_process_norms=ref["norms"], norm_rel=rel(r0["norms"], ref["norms"]),
+               ranks_agree=all(r["losses"] == r0["losses"] and r["norms"] == r0["norms"]
+                               for r in ranks))
+    if ref_tensors is not None:
+        init, masters = ref_tensors
+        got = torch.load(os.path.join(root, "out_sp", f"{name}_rank0.pt"))["masters"]
+        out["update_rel"] = update_distance(got, masters, init)
+    return out
+
+
+def sp_reading(seed: int, fault=None) -> dict:
+    """(a)'s comparison alone at ``seed`` with ``fault`` planted in the
+    ranks: two ranks of ``sp_rank_main`` beside one process."""
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="sp_calibrate_", dir=build)
+    launch = None
+    try:
+        launch = RankLaunch(root, "sp", 2, [("a", dict(
+            layers=SP_LAYERS, mode="ring", updates=SP_UPDATES, seed=seed, fault=fault))],
+            free_ports(1)[0], SP_CARD_GB["ranks"], entry="--sp-rank")
+        torch.cuda.set_per_process_memory_fraction(
+            SP_CARD_GB["references"] * 1e9 / torch.cuda.get_device_properties(0).total_memory)
+        ref, init, masters = sp_updates(SP_LAYERS, "none", SP_UPDATES, seed)
+        ranks = launch.wait()
+        return sp_compare("a", ranks["a"], ref, root, (init, masters))
+    finally:
+        if launch is not None:
+            launch.stop()
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def calibrate_sp(seeds=2) -> None:
+    """Phase 22 (a)'s readings: sound seeds, then each planted fault."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for seed in range(seeds):
+        emit(phase="calibrate_sp", seed=seed, **sp_reading(seed))
+    for fault in SP_FAULTS:
+        emit(phase="calibrate_sp", seed=SEED, fault=fault, **sp_reading(SEED, fault))
+
+
+def sp_start() -> tuple:
+    """Phase 22's ranks started ahead (``main`` calls this before phase 21):
+    the long-video layout written and a launch of two ``sp_rank_main`` ranks
+    that import and wait for the phase's go file. Returns (root, launch)."""
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="sp_smoke_", dir=build)
+    write_msrvtt_layout(root, SEED, SP_LV_FRAMES, SP_LV_CLIPS, SP_LV_HW)
+    block = -(-sp_stream()["input_ids"].shape[1] // 2)
+    runs = [("a", dict(layers=SP_LAYERS, mode="ring", updates=SP_UPDATES)),
+            ("check", dict(block=block)),
+            ("b", dict(layers=SP_ULYSSES_LAYERS, mode="ulysses", updates=1)),
+            ("c", long_video_argv(root, "c"))]
+    return root, RankLaunch(root, "sp", 2, runs, free_ports(1)[0], SP_CARD_GB["ranks"],
+                            entry="--sp-rank", go=os.path.join(root, "go"))
+
+
+def phase_sp(gpu: str, started=None) -> dict:
+    """Sequence parallelism on the card: two ranks of ``sp_rank_main`` (one
+    launch of ``antmmf_torch.utils.launch``, gloo, each rank held to its
+    share of the card) beside this process's one-process references on the
+    same inputs, each process held to its share:
+    (a) m2_omni_longvideo.yml's LoRA update at full width over {seq: 2} with
+        the causal GQA ring, SP_UPDATES updates through ``make_train_step``
+        on the 15,736-token stream, against one process on the whole stream:
+        losses, clip norms, the trainable masters, each process's peak card
+        memory; the ring's flash launches per update asserted by rank;
+    (check) in the ranks, the ring at the stream's block shape (its flash
+        launches against the plain ring step, forward and backward, and
+        with each of SP_RING_FAULTS planted, outside the bounds);
+    (b) Ulysses-causal on the same decoder at SP_ULYSSES_LAYERS layers, one
+        update;
+    (c) long_video.yml through antmmf_torch.run over {seq: 2} at full width
+        (Ulysses in ViT-B/32's attention, 64 frames), one step of B=2,
+        against one process.
+    The ranks are started ahead (``sp_start``, before phase 21: they import
+    and wait for the phase's go file). While they build their models, the
+    flash kernels are timed at the ring's block shape (the causal diagonal
+    block and an off-diagonal one) beside their bound, plain versions and
+    SDPA. Ranks that share one card measure
+    nothing of speed across cards: their update times are printed as read.
+    Returns the ranks' launches on (a), (b) and (c)."""
+    root, launch = started if started is not None else sp_start()
+    block = -(-sp_stream()["input_ids"].shape[1] // 2)
+    try:
+        t0 = time.perf_counter()
+        with open(os.path.join(root, "go"), "w"):
+            pass
+        # the flash kernels at the ring's block shape, timed while the ranks
+        # build their models: the diagonal block (causal) and a block from an
+        # earlier shard (no mask), k/v expanded as launched
+        q, k, v, _, kb = sp_block_qkv(SEED, 0, block)
+        rep = q.shape[1] // k.shape[1]
+        qkv = (q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1))
+        timing = {case: flash_shape_times(kb[:, None, None, :], gpu, case, qkv=qkv,
+                                          causal=causal, extras=False, plain_iters=2)
+                  for case, causal in (("ring_block_causal", True), ("ring_block", False))}
+        timing_s = time.perf_counter() - t0
+        del q, k, v, kb, qkv
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.set_per_process_memory_fraction(
+            SP_CARD_GB["references"] * 1e9 / torch.cuda.get_device_properties(0).total_memory)
+        ref_a, init_a, masters_a = sp_updates(SP_LAYERS, "none", SP_UPDATES)
+        ref_b, init_b, masters_b = sp_updates(SP_ULYSSES_LAYERS, "none", 1)
+        ref_c = sp_long_video(long_video_argv(root, "c_ref"))
+        references_s = time.perf_counter() - t0
+        ranks = launch.wait()
+        ranks_s = time.perf_counter() - t0
+    finally:
+        launch.stop()
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    readings = {"a_ring": sp_compare("a", ranks["a"], ref_a, root, (init_a, masters_a)),
+                "b_ulysses": sp_compare("b", ranks["b"], ref_b, root, (init_b, masters_b)),
+                "c_long_video": sp_compare("c", ranks["c"], ref_c, root)}
+    shutil.rmtree(root, ignore_errors=True)
+    for name, runs, ref in (("a_ring", ranks["a"], ref_a), ("b_ulysses", ranks["b"], ref_b)):
+        readings[name].update(
+            stream=ref["stream"], layers=ref["layers"],
+            peak_allocated_gb=[r["peak_allocated_gb"] for r in runs],
+            one_process_peak_allocated_gb=ref["peak_allocated_gb"],
+            update_ms=[r["update_ms"] for r in runs], one_process_update_ms=ref["update_ms"],
+            setup_s=[r["setup_s"] for r in runs], launches_per_update=[
+                r["launches"][0] for r in runs])
+    readings["c_long_video"].update(launches_per_step=[r["launches"][0] for r in ranks["c"]],
+                                    run_s=[r["run_s"] for r in ranks["c"]],
+                                    one_process_run_s=ref_c["run_s"])
+    checks = {r["rank"]: r for r in ranks["check"]}
+    caught = {f: any(err > tol for c in checks.values() for err, tol, _ in c["faults"][f].values())
+              for f in SP_RING_FAULTS}
+    launches = {k: sum(r["launches"][i][k] for runs in (ranks["a"], ranks["b"])
+                       for r in runs for i in range(len(r["launches"])))
+                + sum(r["launches"][0][k] for r in ranks["c"]) for k in NO_LAUNCHES}
+    emit(phase="sp", gpu=gpu, ranks_s=ranks_s, references_s=references_s, timing_s=timing_s,
+         block=block, readings=readings, ring_check={str(r): c for r, c in checks.items()},
+         ring_faults_caught=caught,
+         ring_block_times=timing, launches=launches,
+         note="two ranks share one card beside the one-process references: their update "
+              "times say nothing of speed across cards")
+    for name, r in readings.items():
+        check(r["ranks_agree"], f"sp {name}: the ranks read different losses or norms")
+        check(r["loss_rel"] <= SP_LOSS_RTOL and all(np.isfinite(r["losses"])),
+              f"sp {name}: losses {r['losses']} against one process's {r['one_process_losses']}")
+        check(r["norm_rel"] <= SP_NORM_RTOL,
+              f"sp {name}: clip norms {r['norms']} against {r['one_process_norms']}")
+        if "update_rel" in r:
+            check(r["update_rel"] <= SP_UPDATE_RTOL,
+                  f"sp {name}: masters {r['update_rel']:.3g} of the update from one process's")
+    for name, layers, mode in (("a_ring", SP_LAYERS, "ring"),
+                               ("b_ulysses", SP_ULYSSES_LAYERS, "ulysses")):
+        r = readings[name]
+        check(max(r["peak_allocated_gb"]) < r["one_process_peak_allocated_gb"],
+              f"sp {name}: rank peaks {r['peak_allocated_gb']} GB against one process's "
+              f"{r['one_process_peak_allocated_gb']} GB")
+        for rank, got in enumerate(r["launches_per_update"]):
+            want = sp_launches(layers, mode, rank, 2)
+            check(got == want, f"sp {name}: rank {rank} launched {got}; expected {want}")
+    check(all(c["small_attention"] > 0 for c in readings["c_long_video"]["launches_per_step"]),
+          f"sp c: {readings['c_long_video']['launches_per_step']}")
+    for rank, c in checks.items():
+        for n, (err, tol, _) in c["errs"].items():
+            check(err <= tol, f"sp ring check rank {rank}: {n} off by {err:.3g} roundings "
+                              f"of a row's largest magnitude > {tol}")
+        want = {**NO_LAUNCHES, "flash_fwd": rank + 1, "flash_dq": rank + 1,
+                "flash_dkv": rank + 1}
+        check(c["launches"] == want and c["plain_launches"] == NO_LAUNCHES,
+              f"sp ring check rank {rank}: launched {c['launches']} (plain "
+              f"{c['plain_launches']}); expected {want}")
+    check(all(caught.values()), f"sp ring check: a planted fault passed the bounds: {caught}")
+    check(all(launches[k] > 0 for k in ("small_attention", "flash_fwd", "flash_dq",
+                                        "flash_dkv")) and launches["int4_gemv"] == 0,
+          f"sp: the phase launched {launches}")
+    return launches
+
+
 def main() -> None:
     clock = [("start", time.perf_counter())]  # (phase, when it ended)
 
@@ -8247,9 +8827,20 @@ def main() -> None:
                         ("17_pink_train", phase_pink_train), ("18_pink_7b", phase_pink_7b),
                         ("19_m2_omni", phase_m2_omni), ("20_m2_train", phase_m2_train),
                         ("21_ranks", phase_ranks)):
-        for name, n in phase(gpu).items():
+        if part == "21_ranks":  # phase 22's ranks import while phase 21 runs
+            started = sp_start()
+        try:
+            counts = phase(gpu)
+        except BaseException:
+            if part == "21_ranks":
+                started[1].stop()
+            raise
+        for name, n in counts.items():
             launches[name] += n
         done(part)
+    for name, n in phase_sp(gpu, started).items():
+        launches[name] += n
+    done("22_sp")
     emit(phase="timeline", seconds={name: t - clock[i][1] for i, (name, t) in
                                     enumerate(clock[1:])},
          total_s=clock[-1][1] - clock[0][1])
@@ -8269,7 +8860,7 @@ CALIBRATIONS = {"serving": calibrate, "training": calibrate_training, "pink": ca
                 "task_heads": calibrate_task_heads, "roi": calibrate_roi,
                 "pink_train": calibrate_pink_train, "pink_7b": calibrate_pink_7b,
                 "m2_omni": calibrate_m2_omni, "m2_train": calibrate_m2_train,
-                "engine": calibrate_engine, "decoding": calibrate_decoding}
+                "engine": calibrate_engine, "decoding": calibrate_decoding, "sp": calibrate_sp}
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--calibrate"] and set(sys.argv[2:]) <= set(CALIBRATIONS):
@@ -8277,6 +8868,8 @@ if __name__ == "__main__":
             CALIBRATIONS[part]()
     elif sys.argv[1:2] == ["--rank"] and len(sys.argv) == 3:
         rank_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--sp-rank"] and len(sys.argv) == 3:
+        sp_rank_main(sys.argv[2])
     elif sys.argv[1:]:
         sys.exit(f"usage: python3 chip_smoke.py [--calibrate [{'|'.join(CALIBRATIONS)} ...]]")
     else:

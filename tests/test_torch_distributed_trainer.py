@@ -1,9 +1,9 @@
 """The port's trainer over ranks against JAX's one-device step, on the CPU.
 
-Two spawns share the module: 2 gloo ranks (``antmmf_torch.utils.launch``
-running ``torch_ranks_worker.py``) with ``mesh {data: 2}`` and with
-``{fsdp: 2}``, and 4 ranks with ``{data: 2, fsdp: 2}``; every scenario runs
-inside them and comes back to this process. The reference is the JAX
+One spawn serves the module: 4 gloo ranks (``antmmf_torch.utils.launch``
+running ``torch_ranks_worker.py``) with ``mesh {data: 2, fsdp: 2}``, which
+then part into two worlds of 2 ranks for ``{data: 2}`` and ``{fsdp: 2}``;
+every scenario runs inside them and comes back to this process. The reference is the JAX
 trainer's own jitted ``train_step`` (``compile_steps``, one compile a
 configuration) on the whole global batch, started from the port's seeded
 init (``export_flax_variables``), as the JAX trainer computes it under SPMD
@@ -42,7 +42,7 @@ import torch
 
 from antmmf_torch.common.build import build_config as t_build_config
 from antmmf_torch.trainers.build import build_trainer as t_build_trainer
-from antmmf_torch.utils.launch import launch
+from antmmf_torch.utils.launch import free_port, launch
 from antmmf_torch.utils.weights import (export_flax_variables, flatten_flax, flax_paths,
                                         flax_to_masters)
 from antmmf_tpu.common.build import build_config as j_build_config
@@ -95,14 +95,17 @@ def global_batches(seed=0, n=2, B=4, L=30, F=2, S=64):
 
 
 BATCHES = global_batches()
-POOL = concurrent.futures.ThreadPoolExecutor(2)
+POOL = concurrent.futures.ThreadPoolExecutor(1)
 
 
-def spawn(tmp, nproc, scenarios):
-    """Start ``nproc`` ranks on the scenarios; a future of every rank's results."""
+def spawn(tmp, nproc, scenarios, pairs=()):
+    """Start ``nproc`` ranks on the scenarios, then (with ``pairs``) each
+    pair of ranks as a world of 2 on its own scenarios; a future of every
+    rank's results."""
     spec, out = os.path.join(tmp, "spec.pt"), os.path.join(tmp, "out")
     os.makedirs(out)
-    torch.save({"scenarios": scenarios}, spec)
+    torch.save({"scenarios": scenarios, "pairs": list(pairs),
+                "pair_ports": [free_port() for _ in pairs]}, spec)
 
     def run():
         code = launch([os.path.join(HERE, "torch_ranks_worker.py"), spec, out], nproc=nproc,
@@ -128,34 +131,41 @@ def trainer_spec(tmp, name, *opts):
 
 @pytest.fixture(scope="module")
 def spawned(tmp_path_factory):
-    """Both spawns start at once and run while this process compiles the
-    JAX references."""
-    t2, t4 = (str(tmp_path_factory.mktemp(n)) for n in ("ranks2", "ranks4"))
-    two = spawn(t2, 2, [
-        ("ddp", "steps", steps_spec(CFG, t2, "ddp", *MINING, *mesh(2, 1))),
-        ("fsdp", "steps", steps_spec(CFG, t2, "fsdp", *MINING, *mesh(1, 2))),
-        ("moco", "steps", steps_spec(MOCO, t2, "moco", *mesh(2, 1))),
-        ("trainer", "trainer", trainer_spec(t2, "trainer", *mesh(2, 1))),
-        ("dropout", "dropout", trainer_spec(t2, "dropout", *mesh(2, 1),
-                                            "model_attributes.univl_retrieval.dropout", "0.1")),
-        ("shards", "shards", {}),
-    ])
-    four = spawn(t4, 4, [
+    """One spawn of 4 ranks, started before this process compiles the JAX
+    references: the 4-rank scenarios, then two worlds of 2 (ranks 0, 1 and
+    2, 3) share the 2-rank scenarios."""
+    tmp = str(tmp_path_factory.mktemp("ranks"))
+    t2, t4 = os.path.join(tmp, "two"), os.path.join(tmp, "four")
+    future = spawn(tmp, 4, [
         ("ddp_fsdp", "steps", steps_spec(CFG, t4, "ddp_fsdp", *MINING, *mesh(2, 2))),
         ("trainer", "trainer", trainer_spec(t4, "trainer", *mesh(2, 2),
                                             "training_parameters.test_batch_size", "8")),
-    ])
-    return {2: (t2, two), 4: (t4, four)}
+    ], pairs=[[
+        ("ddp", "steps", steps_spec(CFG, t2, "ddp", *MINING, *mesh(2, 1))),
+        ("fsdp", "steps", steps_spec(CFG, t2, "fsdp", *MINING, *mesh(1, 2))),
+        ("dropout", "dropout", trainer_spec(t2, "dropout", *mesh(2, 1),
+                                            "model_attributes.univl_retrieval.dropout", "0.1")),
+    ], [
+        ("moco", "steps", steps_spec(MOCO, t2, "moco", *mesh(2, 1))),
+        ("trainer", "trainer", trainer_spec(t2, "trainer", *mesh(2, 1))),
+        ("shards", "shards", {}),
+    ]])
+    return t2, t4, future
 
 
 @pytest.fixture(scope="module")
 def ranks2(spawned, jax_mining, jax_moco):
-    return spawned[2][0], spawned[2][1].result()
+    """The 2-rank scenarios: rank r's results of both pairs."""
+    results = spawned[2].result()
+    assert all(r["pair_world"] == 2 for r in results)
+    return spawned[0], [{**results[r]["pair"], **results[2 + r]["pair"]} for r in range(2)]
 
 
 @pytest.fixture(scope="module")
 def ranks4(spawned, jax_mining):
-    return spawned[4][0], spawned[4][1].result()
+    results = spawned[2].result()
+    assert all(r["world"] == 4 for r in results)
+    return spawned[1], results
 
 
 def one_process(config, tmp, *opts):
@@ -165,10 +175,10 @@ def one_process(config, tmp, *opts):
     return t
 
 
-def jax_steps(config, port, *opts):
-    """The JAX trainer's jitted step on the global batches, from the port's
-    init: (host scalars a step, the mined columns a step, final state). The
-    columns ride out of the step with its scalars."""
+def jax_steps(config, port, *opts, batches=BATCHES):
+    """The JAX trainer's jitted step on the global ``batches``, from the
+    port's init: (host scalars a step, the mined columns a step, final
+    state). The columns ride out of the step with its scalars."""
     jt = JBaseTrainer(j_build_config(config, opts=[*COMMON[:2], *COMMON[4:8], *opts]))
     jt._init_device_and_seed()
     # one device: the global batch whole, and no SPMD partitioning to compile
@@ -196,10 +206,13 @@ def jax_steps(config, port, *opts):
     jt.state = JTrainState.create(variables, jt.tx, jax.random.PRNGKey(0))
     jt.compile_steps()
     scalars, cols = [], []
-    for batch in BATCHES:
+    # the state placed as the step leaves it (committed, replicated): every
+    # step then reuses the first step's compile
+    replicated = jax.sharding.NamedSharding(jt.mesh, jax.sharding.PartitionSpec())
+    for batch in batches:
         sharded = jax.device_put({k: jnp.asarray(v) for k, v in batch.items()},
                                  jt.batch_sharding_)
-        jt.state, s = jt._train_step(jt.state, sharded)
+        jt.state, s = jt._train_step(jax.device_put(jt.state, replicated), sharded)
         s = jax.device_get(s)
         if "l2_pair_cols" in s:
             cols.append(np.asarray(s.pop("l2_pair_cols")))

@@ -347,9 +347,22 @@ def test_builds_from_the_fixture_config():
 
 
 def test_unported_options_raise_by_key():
-    for kv_int8 in (False, True):  # the int8 cache is ported; sequence parallelism is not
-        with pytest.raises(NotImplementedError, match="sequence_parallel"):
-            TM(**TINY, **VIT, sequence_parallel="ring", kv_int8=kv_int8, device="cpu")
+    # the int8 cache and sequence parallelism are ported: outside a registered
+    # mesh with a seq axis above 1 the knob changes nothing, as JAX's
+    # _sp_mesh() leaves it (over ranks: tests/test_torch_sequence_parallel.py)
+    ids = torch.tensor([[5, 3, 3, 3, 3, 6, 7], [8, 3, 3, 3, 3, 9, 0]])
+    batch = {"input_ids": ids, "input_mask": (ids > 0).long(), "labels": ids.where(ids > 0, -1),
+             "image_data": torch.as_tensor(np.random.default_rng(4).standard_normal(
+                 (2, 1, 32, 32, 3)), dtype=torch.float32)}
+    for kv_int8 in (False, True):
+        sp = TM(**TINY, **VIT, image_token_id=3, sequence_parallel="ring", kv_int8=kv_int8,
+                device="cpu")
+        plain = TM(**TINY, **VIT, image_token_id=3, kv_int8=kv_int8, device="cpu")
+        plain.load_state_dict(sp.state_dict())
+        with torch.no_grad():
+            got, want = sp(batch), plain(batch)
+        assert torch.equal(got["logits"], want["logits"])
+        assert torch.equal(got["losses"]["lm_loss"], want["losses"]["lm_loss"])
     assert TM(**TINY, **VIT, kv_int8=True, device="cpu").decoder.make_cache(
         1, 4, quantized=True)[0]["k"].dtype == torch.int8
     # beams, sampling and speculation decode (held to JAX in

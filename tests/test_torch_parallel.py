@@ -4,8 +4,9 @@ process group.
 * ``build_mesh``: the rank layout against JAX's ``build_mesh(...).devices``
   ids over the 8 CPU devices for ``{data: -1}``, ``{data: 2, fsdp: 4}``,
   ``{dcn: {data: 2}, fsdp: -1}`` and a ``dcn`` on ``fsdp``; the same
-  errors; ``model`` over ranks raising with "A7b"; a declared mesh
-  collapsing at world size 1;
+  errors (and ``{data: 2, seq: 4}``, ``{fsdp: 2, seq: -1}``); ``model``
+  over ranks raising with "A7b"; a declared mesh collapsing at world size
+  1; the ranks of a ``seq`` line sharing their batch slice;
 * ``spec_for``, ``infer_param_specs``, ``validate_specs`` and
   ``relax_to_divisible`` against JAX's on the tiny retrieval model's flax
   paths and shapes, under the default rules and a config's;
@@ -25,10 +26,12 @@ process group.
   (masters at atol 2e-6, the loss at rtol 1e-5; AdamW's eps 1e-6 keeps it
   from scaling the fp32 noise of gradients that are zero in exact
   arithmetic, such as the key projections' biases, up to the learning
-  rate);
+  rate), the JAX window compiled in a thread while the port's trainers
+  run;
 * the launcher: a rank that fails ends the job with its code.
 """
 
+import concurrent.futures
 import os
 
 import jax
@@ -63,7 +66,8 @@ CFG = os.path.join(REPO, "projects", "base_vtp", "configs", "video_retrieval.loc
 
 @pytest.mark.parametrize("cfg", [{"data": -1}, {"data": 2, "fsdp": 4},
                                  {"dcn": {"data": 2}, "fsdp": -1},
-                                 {"dcn": {"fsdp": 2}, "data": 2, "fsdp": 2}])
+                                 {"dcn": {"fsdp": 2}, "data": 2, "fsdp": 2},
+                                 {"data": 2, "seq": 4}, {"fsdp": 2, "seq": -1}])
 def test_mesh_layout_matches_jax(cfg):
     j = np.vectorize(lambda d: d.id)(j_mesh(dict(cfg)).devices)
     t = t_mesh(dict(cfg), 8)
@@ -88,6 +92,20 @@ def test_mesh_later_axes_and_world_one():
     assert local_batch_size(32, t_mesh({"data": 2, "fsdp": 4}, 8)) == 4
     with pytest.raises(ValueError):
         local_batch_size(30, t_mesh({"data": -1}, 8))
+
+
+def test_seq_ranks_share_their_batch_slice():
+    """Under {data: 2, fsdp: 2, seq: 2} the ranks of a seq line load the
+    slice of their (data, fsdp) coordinate, the same one; a rule may name
+    seq (it shards nothing: a seq line holds the whole state)."""
+    mesh = t_mesh({"data": 2, "fsdp": 2, "seq": 2}, 8)
+    index = {r: mesh.batch_index(r) for r in range(8)}
+    lines = mesh.devices.reshape(-1, 2)
+    assert [[index[r] for r in line] for line in lines.tolist()] == [[i, i] for i in range(4)]
+    assert all(mesh.coords(r)["seq"] == i for line in lines.tolist()
+               for i, r in enumerate(line))
+    assert TP.shard_dims({"w": "a/kernel"}, {"w": (4, 6)}, 2, [(r".*", ["seq", "fsdp"])]) == \
+        {"w": 0}
 
 
 @pytest.fixture(scope="module")
@@ -222,9 +240,43 @@ def test_remat_step_equals_no_remat(remat_runs, policy):
     assert torch.equal(gen, ref_gen)
 
 
+WINDOW_OPTS = ["training_parameters.steps_per_dispatch", "3",
+               "optimizer_attributes.params.eps", "1e-6"]
+
+
+def jax_window_trainer(init_variables):
+    """The JAX trainer on one device whose jitted window (``lax.scan`` of 3
+    steps) starts from ``init_variables``."""
+    jt = JBaseTrainer(j_build_config(CFG, opts=["training_parameters.seed", "11",
+                                                *WINDOW_OPTS]))
+    jt._init_device_and_seed()
+    jt.mesh = j_mesh({"data": 1}, devices=jax.devices()[:1])
+    jt.window_sharding_ = jax.sharding.NamedSharding(
+        jt.mesh, jax.sharding.PartitionSpec(None, *j_batch_spec()))
+    jt.shell = j_build_model(jt.config, None)
+    jt._init_variables = init_variables
+    jt.load_optimizer()
+    jt._moco_m = 0.0
+    jt.compile_steps()
+    return jt
+
+
+def jax_window(jt, state, batches):
+    """One window of ``batches`` from ``state``, placed as the window leaves
+    it (committed and replicated), so every window reuses one compile."""
+    stacked = {f: np.stack([np.asarray(b[f]) for b in batches]) for f in batches[0]}
+    state = jax.device_put(state, jax.sharding.NamedSharding(
+        jt.mesh, jax.sharding.PartitionSpec()))
+    return jt._train_window(state, jax.device_put(stacked, jt.window_sharding_))
+
+
 @pytest.fixture(scope="module")
 def window_runs(tmp_path_factory):
-    runs = {}
+    """K = 1 and K = 3 through the trainer; meanwhile a thread compiles the
+    JAX window from the same init (warmed on zero batches of the loader's
+    shapes), so the JAX test only runs it."""
+    runs, warm = {}, None
+    pool = concurrent.futures.ThreadPoolExecutor(1)
     for k in (1, 3):
         t = _trainer(tmp_path_factory.mktemp(f"w{k}"),
                      "training_parameters.steps_per_dispatch", str(k),
@@ -232,6 +284,19 @@ def window_runs(tmp_path_factory):
                      "training_parameters.run_type", "train",
                      "optimizer_attributes.params.eps", "1e-6")
         init = {n: p.detach().clone() for n, p in t.shell.module.named_parameters()}
+        if warm is None:
+            variables = jax.tree_util.tree_map(jnp.asarray,
+                                               export_flax_variables(t.shell.module))
+            zeros = [{f: np.zeros_like(v.numpy()) for f, v in
+                      t._to_device(t._cached_first_batch).items()}] * 3
+
+            def compile_window(variables=variables, zeros=zeros):
+                jt = jax_window_trainer(variables)
+                jax.block_until_ready(jax_window(jt, JTrainState.create(
+                    variables, jt.tx, jax.random.PRNGKey(0)), zeros))
+                return jt
+
+            warm = pool.submit(compile_window)
         batches, losses, after6, real = [], [], {}, t._train_step
 
         def record(state, batch, real=real, batches=batches, losses=losses, t=t,
@@ -246,6 +311,7 @@ def window_runs(tmp_path_factory):
         t._train_step = record
         t.train()
         runs[k] = (t, batches, init, losses, after6)
+    runs["jax"] = warm.result()
     return runs
 
 
@@ -262,31 +328,19 @@ def test_windows_equal_jax_window(window_runs):
     """6 steps as two windows of 3 against the JAX trainer's ``lax.scan``
     window on the same stacked batches, from the port's init."""
     t, batches, init, losses, after6 = window_runs[3]
-    jt = JBaseTrainer(j_build_config(CFG, opts=["training_parameters.seed", "11",
-                                                "training_parameters.steps_per_dispatch", "3",
-                                                "optimizer_attributes.params.eps", "1e-6"]))
-    jt._init_device_and_seed()
-    jt.mesh = j_mesh({"data": 1}, devices=jax.devices()[:1])
-    jt.window_sharding_ = jax.sharding.NamedSharding(
-        jt.mesh, jax.sharding.PartitionSpec(None, *j_batch_spec()))
-    jt.shell = j_build_model(jt.config, None)
+    jt = window_runs["jax"]
     module = t.shell.module
     with torch.no_grad():
         final = {n: p.detach().clone() for n, p in module.named_parameters()}
         for n, p in module.named_parameters():
             p.copy_(init[n])
-        jt._init_variables = jax.tree_util.tree_map(jnp.asarray, export_flax_variables(module))
+        variables = jax.tree_util.tree_map(jnp.asarray, export_flax_variables(module))
         for n, p in module.named_parameters():
             p.copy_(final[n])
-    jt.load_optimizer()
-    jt._moco_m = 0.0
-    jt.state = JTrainState.create(jt._init_variables, jt.tx, jax.random.PRNGKey(0))
-    jt.compile_steps()
-    state = jt.state
+    state = JTrainState.create(variables, jt.tx, jax.random.PRNGKey(0))
     for w in range(2):
-        stacked = {f: np.stack([b[f].numpy() for b in batches[3 * w:3 * w + 3]])
-                   for f in batches[0]}
-        state, scalars = jt._train_window(state, jax.device_put(stacked, jt.window_sharding_))
+        state, scalars = jax_window(jt, state, [{f: v.numpy() for f, v in b.items()}
+                                                for b in batches[3 * w:3 * w + 3]])
     params = flatten_flax(jax.tree_util.tree_map(np.asarray, state.variables["params"]))
     paths = flax_paths(module)
     for n, ref in after6.items():

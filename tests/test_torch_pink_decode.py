@@ -23,6 +23,8 @@ from antmmf_torch.modules import llm as t_llm
 from antmmf_torch.modules import lora as t_lora
 from antmmf_torch.modules.vision.vit import VisionTransformer as TViT
 from antmmf_torch.ops import int4_matmul as t_int4
+from antmmf_torch.parallel.mesh import build_mesh as t_build_mesh, \
+    set_active_mesh as t_set_active_mesh
 from antmmf_torch.predictors import cli as t_cli
 from antmmf_torch.predictors import quantization as t_quant
 from antmmf_torch.utils.conversation import build_prompt as t_build_prompt
@@ -402,16 +404,37 @@ def test_generate_refuses_what_is_not_ported(pink_tiny, kw):
 EVA_TINY = dict(visual_tower="eva", eva_preset="eva_tiny_test", image_size=28)
 
 
-# sequence parallelism stays refused, on the EVA tower, the serial adapters
-# and the stacked layout too, and beside the (ported) int8 cache
+# sequence parallelism is ported: outside a registered mesh whose seq axis
+# is above 1 (none, then a {seq: 2} mesh collapsed in one process) the knob
+# gives what sequence_parallel none gives, as JAX's _sp_mesh() leaves it, on
+# the EVA tower, the serial adapters and the stacked layout too, and beside
+# the int8 cache (greedy decode included); its work over ranks is held in
+# tests/test_torch_sequence_parallel.py
 @pytest.mark.parametrize("kw", [dict(sequence_parallel="ulysses", kv_int8=True, **EVA_TINY),
                                 dict(sequence_parallel="ulysses", adapter_style="pink"),
                                 dict(sequence_parallel="ring", kv_int8=True),
                                 dict(sequence_parallel="ring", scan_layers=True),
                                 dict(sequence_parallel="ring")])
 def test_pink_refuses_what_is_not_ported(kw):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TPink(**{**TINY, **kw})
+    sp = TPink(**{**TINY, **kw})
+    plain = TPink(**{**TINY, **kw, "sequence_parallel": "none"})
+    plain.load_state_dict(sp.state_dict())
+    size = kw.get("image_size", TINY["image_size"])
+    ids = torch.tensor([[5, 6, 7, 8, 0], [9, 10, 11, 12, 13]])
+    batch = {"input_ids": ids, "input_mask": (ids > 0).long(), "labels": ids.where(ids > 0, -100),
+             "image_data": torch.as_tensor(np.random.default_rng(3).standard_normal(
+                 (2, size, size, 3)), dtype=torch.float32)}
+    for mesh in (None, t_build_mesh({"seq": 2}, 1)):
+        t_set_active_mesh(mesh)
+        try:
+            with torch.no_grad():
+                got, want = sp(batch), plain(batch)
+            tokens = sp.generate(batch, eos_id=1, max_length=3)[0]
+        finally:
+            t_set_active_mesh(None)
+        assert torch.equal(got["logits"], want["logits"])
+        assert torch.equal(got["losses"]["lm_loss"], want["losses"]["lm_loss"])
+        assert torch.equal(tokens, plain.generate(batch, eos_id=1, max_length=3)[0])
 
 
 # ----------------------------------------------------------------- predictor

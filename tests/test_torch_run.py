@@ -73,15 +73,19 @@ def test_default_device_is_the_card(tmp_path, device):
 @pytest.mark.parametrize("config,extra,key", [
     (CFG, ("training_parameters.steps_per_dispatch", "2"), None),
     (CFG, ("training_parameters.remat_policy", "dots_saveable"), None),
+    # sequence parallelism is ported: in one process its knob trains
+    # (over ranks: tests/test_torch_sequence_parallel.py)
     (CFG, ("model_attributes.univl_retrieval.dropout", "0.1",
-           "model_attributes.univl_retrieval.sequence_parallel", "ulysses"),
-     "sequence parallelism"),
+           "model_attributes.univl_retrieval.sequence_parallel", "ulysses"), None),
     (CFG, ("training_parameters.num_nodes", "2"), None),
     (PINK, ("model_attributes.pink.scan_layers", "true",
-            "model_attributes.pink.sequence_parallel", "ring"), "sequence_parallel"),
+            "model_attributes.pink.sequence_parallel", "ring"), None),
     (PINK, ("model_attributes.pink.visual_tower", "eva",
+            "model_attributes.pink.eva_preset", "eva_tiny_test",
+            "model_attributes.pink.image_size", "28",
+            "task_attributes.pink_task.dataset_attributes.pink_instruct.image.size", "28",
             "model_attributes.pink.kv_int8", "true",
-            "model_attributes.pink.sequence_parallel", "ulysses"), "sequence_parallel"),
+            "model_attributes.pink.sequence_parallel", "ulysses"), None),
 ], ids=["steps_per_dispatch", "remat_policy", "dropout", "num_nodes", "pink_scan_layers",
         "pink_eva"])
 def test_unported_knobs_raise(tmp_path, config, extra, key):

@@ -237,13 +237,15 @@ def test_weight_decay_mask_and_multipliers_follow_flax_paths():
 
 def test_unported_training_options_raise():
     """What the port still refuses (``loss_type`` mil_nce/neg_nce and the
-    MoCo queue are ported: ``tests/test_torch_moco.py``; so is ``dropout``,
-    which builds and leaves the refusal beside it standing); an unknown
+    MoCo queue are ported: ``tests/test_torch_moco.py``; so are ``dropout``
+    and ``sequence_parallel``, which build: the knob reaches every attention
+    of the ViT, and the cross-encoder when there is one); an unknown
     ``loss_type`` is an error."""
     t_build(_config({**MODELS["flagship"][0], "dropout": 0.1}), device="cpu")
     for extra in ({"dropout": 0.1, "sequence_parallel": "ring"}, {"sequence_parallel": "ring"}):
-        with pytest.raises(NotImplementedError):
-            t_build(_config({**MODELS["flagship"][0], **extra}), device="cpu")
+        module = t_build(_config({**MODELS["flagship"][0], **extra}), device="cpu").module
+        assert {m.sequence_parallel for m in module.base.img_encoder.modules()
+                if hasattr(m, "sequence_parallel")} == {"ring"}
     with pytest.raises(ValueError, match="loss_type"):
         t_build(_config({**MODELS["flagship"][0], "loss_type": "triplet"}), device="cpu")
     with pytest.raises(NotImplementedError):

@@ -2,8 +2,11 @@
 
 Started by ``antmmf_torch.utils.launch`` as ``python torch_ranks_worker.py
 <spec> <out_dir>``, it joins the gloo process group on the CPU and runs the
-spec's scenarios in order, each rank writing what it saw to
-``<out_dir>/rank<r>.pt``:
+spec's scenarios in order; with the spec's ``pairs``, the world's ranks
+then leave its group and join worlds of 2 (ranks 2p and 2p + 1 form pair
+p, on the spec's ``pair_ports[p]``) and each pair runs its own scenarios.
+Each rank writes what it saw to ``<out_dir>/rank<r>.pt`` (its world rank;
+a pair's results under ``pair``):
 
 * ``steps``: a ``BaseTrainer`` loaded from a config (its mesh, shards,
   seeds and state), then its train step on this rank's rows of the given
@@ -34,6 +37,7 @@ from antmmf_torch.common.build import build_config  # noqa: E402
 from antmmf_torch.modules.layers import Dropout, draws  # noqa: E402
 from antmmf_torch.modules.moco import queue_buffers  # noqa: E402
 from antmmf_torch.parallel import collectives as coll  # noqa: E402
+from antmmf_torch.parallel.mesh import set_active_mesh  # noqa: E402
 from antmmf_torch.trainers.build import build_trainer  # noqa: E402
 
 
@@ -98,15 +102,37 @@ def shards(spec):
     return {"whole": whole, "into": into, "host": sh.gather_to_host(local, 0)}
 
 
+def run_scenarios(scenarios):
+    return {name: {"steps": steps, "trainer": trainer_run, "dropout": dropout,
+                   "shards": shards}[kind](s) for name, kind, s in scenarios}
+
+
+def join_pair(ports):
+    """Leave the world's group and join a world of 2: ranks 2p and 2p + 1
+    of the world become ranks 0 and 1 of pair p, on ``ports[p]``."""
+    rank = coll.get_rank()
+    coll.synchronize()
+    torch.distributed.destroy_process_group()
+    coll._STATE.update(backend=None, host_group=None, batch_group=None, batch_index=0)
+    set_active_mesh(None)
+    os.environ.update(WORLD_SIZE="2", RANK=str(rank % 2), LOCAL_RANK=str(rank % 2),
+                      LOCAL_WORLD_SIZE="2", MASTER_PORT=str(ports[rank // 2]))
+    assert coll.init_distributed("cpu") == "gloo"
+    return rank // 2
+
+
 def main(spec_path, out_dir):
     torch.set_num_threads(1)
     assert coll.init_distributed("cpu") == "gloo"
     spec = torch.load(spec_path, weights_only=False)
-    results = {name: {"steps": steps, "trainer": trainer_run, "dropout": dropout,
-                      "shards": shards}[kind](s)
-               for name, kind, s in spec["scenarios"]}
+    rank = coll.get_rank()
+    results = run_scenarios(spec["scenarios"])
     results["world"] = coll.get_world_size()
-    torch.save(results, os.path.join(out_dir, f"rank{coll.get_rank()}.pt"))
+    if spec.get("pairs"):
+        pair = join_pair(spec["pair_ports"])
+        results["pair"] = run_scenarios(spec["pairs"][pair])
+        results["pair_world"] = coll.get_world_size()
+    torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
     coll.synchronize()
 
 
